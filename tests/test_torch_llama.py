@@ -1,0 +1,133 @@
+"""Parity of the PyTorch port's Llama (ray_tpu_torch.models.llama) with the
+JAX package's on shared weights, on the CPU in f32."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu.models import llama as jl
+from ray_tpu_torch.models import llama as tl
+from ray_tpu_torch.ops.attention import attention_reference
+
+CONFIGS = {
+    # tiny(): 4 heads over 2 kv heads
+    "tiny": dict(),
+    # plain multi-head attention
+    "mha": dict(n_kv_heads=4),
+    # groups of 4, as Llama-3-8B has
+    "gqa4": dict(d_model=64, n_heads=8, n_kv_heads=2, n_layers=3),
+}
+
+
+def _pair(name):
+    kw = CONFIGS[name]
+    return jl.LlamaConfig.tiny(**kw), tl.LlamaConfig.tiny(**kw)
+
+
+def _jax_params(jcfg, seed=0):
+    return jl.init_params(jcfg, jax.random.PRNGKey(seed))
+
+
+def _numpy_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_params_from_jax_is_bit_exact(name):
+    jcfg, _ = _pair(name)
+    jp = _numpy_tree(_jax_params(jcfg))
+    tp = tl.params_from_jax(jp, device="cpu")
+    jf, tf = _flat(jp), _flat(tp)
+    assert jf.keys() == tf.keys()
+    for key in jf:
+        assert tf[key].dtype == torch.float32
+        np.testing.assert_array_equal(tf[key].numpy(), jf[key])
+
+
+def test_params_from_jax_takes_bf16_leaves():
+    x = np.asarray(jnp.arange(6, dtype=jnp.bfloat16).reshape(2, 3) / 3)
+    t = tl.params_from_jax({"w": x}, device="cpu")["w"]
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.float().numpy(), x.astype(np.float32))
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_init_params_layout_matches_jax(name):
+    jcfg, tcfg = _pair(name)
+    jf = _flat(_numpy_tree(_jax_params(jcfg)))
+    tf = _flat(tl.init_params(tcfg, 0, device="cpu"))
+    assert jf.keys() == tf.keys()
+    for key in jf:
+        assert tuple(tf[key].shape) == jf[key].shape, key
+        assert tf[key].dtype == torch.float32
+    assert tl.logical_axes(tcfg) == jl.logical_axes(jcfg)
+
+
+def test_init_params_is_seeded():
+    cfg = tl.LlamaConfig.tiny()
+    a = tl.init_params(cfg, 3, device="cpu")
+    b = tl.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    c = tl.init_params(cfg, 4, device="cpu")
+    assert torch.equal(a["layers"]["wq"], b["layers"]["wq"])
+    assert not torch.equal(a["layers"]["wq"], c["layers"]["wq"])
+
+
+@pytest.mark.parametrize("preset", ["llama2_7b", "llama3_8b", "tiny"])
+def test_param_count_and_presets_match_jax(preset):
+    jcfg = getattr(jl.LlamaConfig, preset)()
+    tcfg = getattr(tl.LlamaConfig, preset)()
+    assert tl.param_count(tcfg) == jl.param_count(jcfg)
+    for f in dataclasses.fields(tcfg):
+        if f.name not in ("dtype", "param_dtype"):
+            assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+    assert tcfg.head_dim == jcfg.head_dim
+    if preset == "llama3_8b":
+        assert tl.param_count(tcfg) == 8_030_261_248
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_forward_matches_jax(name):
+    jcfg, tcfg = _pair(name)
+    jp = _jax_params(jcfg)
+    tp = tl.params_from_jax(_numpy_tree(jp), device="cpu")
+    tokens = np.random.default_rng(1).integers(
+        0, jcfg.vocab_size, (2, 24)).astype(np.int32)
+    want = jl.forward(jp, jnp.asarray(tokens), jcfg)
+    got = tl.forward(tp, torch.from_numpy(tokens).long(), tcfg)
+    assert got.dtype == torch.float32 and got.shape == (2, 24, 256)
+    # f32 through a few layers; only summation order differs
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=0)
+    # the plain reference attention gives the same logits
+    plain = tl.forward(tp, torch.from_numpy(tokens).long(), tcfg,
+                       attn_fn=lambda q, k, v, causal: attention_reference(
+                           q, k.repeat_interleave(q.shape[1] // k.shape[1], 1),
+                           v.repeat_interleave(q.shape[1] // k.shape[1], 1),
+                           causal=causal))
+    np.testing.assert_allclose(plain.numpy(), got.numpy(), atol=1e-4, rtol=0)
+
+
+def test_forward_with_aux_and_unported_paths():
+    cfg = tl.LlamaConfig.tiny()
+    p = tl.init_params(cfg, 0, device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    logits, aux = tl.forward_with_aux(p, tokens, cfg)
+    assert logits.shape == (1, 4, 256) and float(aux) == 0.0
+    with pytest.raises(NotImplementedError):
+        tl.forward(p, tokens, cfg, ctx=object())
+    with pytest.raises(NotImplementedError):
+        tl.init_params(tl.LlamaConfig.tiny(n_experts=4), 0, device="cpu")

@@ -1,0 +1,214 @@
+"""Parity of the PyTorch port's ops (ray_tpu_torch.ops) with the JAX
+package's, on the CPU, with inputs made from a numpy seed.
+
+The port's flash forward on a CPU tensor runs its plain version
+(``flash_fwd_plain``, the CUDA kernel's arithmetic); here it is held
+against the real Pallas TPU kernel run in interpret mode, and against the
+JAX reference at the small bucket widths the TPU kernel never took.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from ray_tpu.ops import attention as jatt
+from ray_tpu.ops import norms as jnorms
+from ray_tpu_torch.ops import attention as tatt
+from ray_tpu_torch.ops import norms as tnorms
+
+ATOL = 1e-5  # f32 on both sides; only summation order differs
+
+
+def _rand(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _qkv(b, h, s, d, kvh=None, seed=0):
+    kvh = h if kvh is None else kvh
+    return (_rand((b, h, s, d), seed), _rand((b, kvh, s, d), seed + 1),
+            _rand((b, kvh, s, d), seed + 2))
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _j(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+def _close(got, want, atol=ATOL):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    np.testing.assert_allclose(got, np.asarray(want), atol=atol, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def test_rms_norm_matches_jax():
+    x, w = _rand((4, 8, 64), 0), _rand((64,), 1)
+    _close(tnorms.rms_norm(*_t(x, w)), jnorms.rms_norm(*_j(x, w)))
+
+
+def test_rms_norm_casts_back_to_input_dtype():
+    x = torch.from_numpy(_rand((3, 16), 2)).to(torch.bfloat16)
+    out = tnorms.rms_norm(x, torch.ones(16))
+    assert out.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("theta", [10000.0, 500000.0])
+def test_rope_frequencies_match_jax(theta):
+    cos, sin = tnorms.rope_frequencies(64, 256, theta)
+    jcos, jsin = jnorms.rope_frequencies(64, 256, theta)
+    _close(cos, jcos)
+    _close(sin, jsin)
+
+
+@pytest.mark.parametrize("offset", [None, 8])
+def test_apply_rope_matches_jax(offset):
+    x = _rand((2, 3, 16, 32), 3)
+    cos, sin = tnorms.rope_frequencies(32, 64)
+    jcos, jsin = jnorms.rope_frequencies(32, 64)
+    pos = None if offset is None else np.arange(offset, offset + 16)
+    got = tnorms.apply_rope(torch.from_numpy(x), cos, sin,
+                            None if pos is None else torch.from_numpy(pos))
+    want = jnorms.apply_rope(jnp.asarray(x), jcos, jsin,
+                             None if pos is None else jnp.asarray(pos))
+    _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# attention: references
+# ---------------------------------------------------------------------------
+
+def test_repeat_kv_matches_jax():
+    x = _rand((2, 2, 5, 8), 4)
+    _close(tatt.repeat_kv(torch.from_numpy(x), 3), jatt.repeat_kv(
+        jnp.asarray(x), 3), atol=0)
+    assert tatt.repeat_kv(torch.from_numpy(x), 1).shape == (2, 2, 5, 8)
+
+
+def test_default_mask_value_matches_jax():
+    assert tatt.DEFAULT_MASK_VALUE == jatt.DEFAULT_MASK_VALUE
+
+
+@pytest.mark.parametrize("causal,q_offset,kv_offset", [
+    (True, 0, 0), (False, 0, 0), (True, 16, 0), (True, 16, 8)])
+def test_attention_reference_matches_jax(causal, q_offset, kv_offset):
+    q, k, v = _qkv(2, 3, 16, 32, seed=5)
+    got = tatt.attention_reference(*_t(q, k, v), causal=causal,
+                                   q_offset=q_offset, kv_offset=kv_offset)
+    want = jatt.attention_reference(*_j(q, k, v), causal=causal,
+                                    q_offset=q_offset, kv_offset=kv_offset)
+    _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# flash forward: the plain version against the Pallas kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_plain_matches_pallas_kernel_interpret(causal):
+    """B1 H2 S256 D128 through the real TPU kernel body
+    (`_flash_fwd_pallas`, 128x128 blocks) in Pallas interpret mode."""
+    q, k, v = _qkv(1, 2, 256, 128, seed=6)
+    scale = 128 ** -0.5
+    with pltpu.force_tpu_interpret_mode():
+        want_o, want_lse = jatt._flash_fwd_pallas(
+            *_j(q, k, v), causal=causal, sm_scale=scale, block_q=128,
+            block_k=128)
+    o, lse = tatt.flash_fwd(*_t(q, k, v), causal)
+    assert o.dtype == torch.float32 and lse.shape == (1, 2, 256)
+    _close(o, want_o)
+    _close(lse, want_lse)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("seq", [32, 64])
+def test_flash_fwd_plain_small_buckets_match_reference(seq, causal):
+    """Bucket widths 32 and 64, which the TPU kernel's 128-multiple gate
+    sent to the JAX reference (and which the CUDA kernel takes)."""
+    q, k, v = _qkv(1, 4, seq, 128, seed=7)
+    scale = 128 ** -0.5
+    want_o, want_lse = jatt._fwd_with_lse_reference(
+        *_j(q, k, v), causal=causal, sm_scale=scale)
+    o, lse = tatt.flash_fwd(*_t(q, k, v), causal)
+    _close(o, want_o)
+    _close(lse, want_lse)
+    o2, lse2 = tatt._fwd_with_lse_reference(*_t(q, k, v), causal=causal,
+                                            sm_scale=scale)
+    _close(o2, want_o)
+    _close(lse2, want_lse)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_gqa_matches_repeated_kv(causal):
+    """KVH < H: q head h reads kv head h // (H // KVH), i.e. what the JAX
+    path computes with repeat_kv."""
+    q, k, v = _qkv(2, 8, 48, 128, kvh=2, seed=8)
+    scale = 128 ** -0.5
+    jq, jk, jv = _j(q, k, v)
+    want_o, want_lse = jatt._fwd_with_lse_reference(
+        jq, jatt.repeat_kv(jk, 4), jatt.repeat_kv(jv, 4), causal=causal,
+        sm_scale=scale)
+    o, lse = tatt.flash_fwd(*_t(q, k, v), causal)
+    _close(o, want_o)
+    _close(lse, want_lse)
+    _close(tatt.flash_attention(*_t(q, k, v), causal), want_o)
+
+
+def test_flash_fwd_bf16_plain_rounds_p_like_the_kernel():
+    """bf16 inputs: O in bf16 within bf16 rounding of the f32 result, LSE
+    in f32."""
+    q, k, v = _qkv(1, 2, 64, 128, seed=9)
+    o32, lse32 = tatt.flash_fwd(*_t(q, k, v), True)
+    o16, lse16 = tatt.flash_fwd(*[t.to(torch.bfloat16) for t in _t(q, k, v)],
+                                True)
+    assert o16.dtype == torch.bfloat16 and lse16.dtype == torch.float32
+    # inputs rounded to bf16 (8 bits of mantissa) move scores by ~1e-2
+    np.testing.assert_allclose(o16.float().numpy(), o32.numpy(), atol=5e-2)
+    np.testing.assert_allclose(lse16.numpy(), lse32.numpy(), atol=5e-2)
+
+
+def test_flash_fwd_rejects_bad_inputs():
+    q, k, v = _t(*_qkv(1, 3, 8, 128, kvh=2, seed=10))
+    with pytest.raises(ValueError):
+        tatt.flash_fwd(q, k, v)  # 3 q heads over 2 kv heads
+    q, k, v = _t(*_qkv(1, 2, 8, 128, seed=10))
+    with pytest.raises(TypeError):
+        tatt.flash_fwd(q, k.double(), v)
+    with pytest.raises(ValueError):  # neither cuda nor cpu: no fallback
+        tatt.flash_fwd(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+def test_flash_fwd_cpu_does_not_count_kernel_launches():
+    before = tatt.flash_fwd.launches
+    tatt.flash_fwd(*_t(*_qkv(1, 2, 16, 128, seed=11)))
+    assert tatt.flash_fwd.launches == before
+
+
+# ---------------------------------------------------------------------------
+# flash_attention gradients (plain backward, CPU)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_grads_match_jax(causal):
+    q, k, v = _qkv(1, 4, 32, 16, kvh=2, seed=12)
+    g = _rand((1, 4, 32, 16), 13)
+    tq, tk, tv = [t.requires_grad_() for t in _t(q, k, v)]
+    (tatt.flash_attention(tq, tk, tv, causal) * torch.from_numpy(g)).sum() \
+        .backward()
+
+    def loss(q, k, v):
+        out = jatt.attention_reference(q, jatt.repeat_kv(k, 2),
+                                       jatt.repeat_kv(v, 2), causal=causal)
+        return jnp.sum(out * jnp.asarray(g))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*_j(q, k, v))
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        _close(got, w, atol=1e-4)
