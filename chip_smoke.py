@@ -20,6 +20,22 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    attention; measure TTFT, decode tokens/s at 1 and 8 streams, the host
    cost of a decode chunk, and peak memory.
 4. Answer one completion through ``LLMServer`` at a small size.
+5. Hold the two backward kernels (dK/dV and dQ) against their plain
+   versions on the card at the training shapes (B1 H32 KVH8 D128 bf16,
+   causal at S 64..8192, a ragged S 100, once non-causal; B8 H16 KVH16 S2048
+   as the bench configuration has it), and time kernel, plain version, the
+   SDPA backward (the library yardstick, never called by the port) and the
+   bound.
+6. Train parity: one loss-and-gradient pass of Llama-3-8B at full width
+   with 2 layers at S 2048, through the kernels and through the plain
+   attention forward and backward, on the same weights and tokens.
+7. The training main path: ``make_train_fns`` on ``llama3_8b(n_layers=8)``
+   (random f32 master weights from a seed), B1 x S8192, 2 warm-up and 5
+   timed steps on one batch; the loss falls, each kernel is launched the
+   expected number of times per step; step time, tokens/s, MFU, peak
+   memory and a profiled step.
+8. ``bench.py``'s training configuration (d_model 2048, 8 layers, H 16,
+   ``dots_nobatch``) at B8 x S2048 for a few steps.
 
 Any mismatch raises and the script exits non-zero. The line before the last
 is the kernels' JSON; the last is ``{"ok": true, "device": {...}}``.
@@ -40,11 +56,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ray_tpu_torch.models.llama import LlamaConfig, forward, init_params
+from ray_tpu_torch.models.llama import (LlamaConfig, flops_per_token,
+                                        forward, init_params, loss_fn)
 from ray_tpu_torch.ops import _build
-from ray_tpu_torch.ops.attention import flash_fwd, flash_fwd_plain
+from ray_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
+                                         flash_bwd_plain, flash_bwd_plain_dkv,
+                                         flash_bwd_plain_dq, flash_fwd,
+                                         flash_fwd_plain)
 from ray_tpu_torch.serve.engine import Engine
 from ray_tpu_torch.serve.llm import LLMConfig, LLMServer
+from ray_tpu_torch.train import make_train_fns
 
 SEED = 0
 # H100 SXM published dense peaks (NVIDIA data sheet, at 700 W).
@@ -73,6 +94,32 @@ MAX_TOKENS = 32
 # position or mask) ranks about 64k on average.
 GREEDY_MAX_RANK = 8
 GREEDY_ARGMAX_SHARE = 0.75
+# Backward kernels vs their plain versions, max |kernel - plain| over max
+# |plain| per output. Both round P and dS to bf16 at the same places; they
+# differ where an f32 sum taken in another order (and the kernel's fast
+# exp) flips a bf16 rounding, which moves an output by a few bf16 steps
+# (2**-8 relative) at most. A wrong mask, tile or head mapping moves it by
+# the order of the output itself.
+REL_TOL_BWD = 2e-2
+# (B, H, KVH, S, causal) for the backward check; the main path's shape is
+# B1 H32 KVH8 S8192 causal.
+BWD_CASES = [(1, 32, 8, S, True) for S in (64, 512, 2048, 8192)] + [
+    (1, 32, 8, 100, True), (1, 32, 8, 2048, False), (8, 16, 16, 2048, True)]
+# Train parity, kernels vs the plain attention on the same weights and
+# tokens, bf16 compute: the two attentions round to bf16 in other orders,
+# and each layer's matmuls carry the difference on (a few bf16 steps,
+# 2**-8 relative each). A wrong gradient kernel gives a relative error of
+# order 1 in the attention weights' gradients.
+PARITY_LOSS_RTOL = 1e-3
+PARITY_GRAD_REL_L2 = 5e-2
+TRAIN_SEQ = 8192
+TRAIN_LAYERS = 8
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+# bench.py:34-37, the repo's training benchmark configuration
+BENCH_MODEL = dict(vocab_size=32000, d_model=2048, n_layers=8, n_heads=16,
+                   n_kv_heads=16, d_ff=5504, max_seq=2048,
+                   remat_policy="dots_nobatch")
+BENCH_BATCH, BENCH_SEQ, BENCH_STEPS = 8, 2048, 3
 OUT_DIR = "chiprun_out"
 
 
@@ -315,27 +362,10 @@ def phase_engine(card: str):
     return out
 
 
-def _profile_chunk(eng) -> dict:
-    """One decode chunk with all 8 slots active, run directly on the
-    stopped engine: wall time, host (enqueue) time, device kernel time and
-    launch count."""
-    ns = eng.n_slots
-    dev = eng.device
-    bt = torch.zeros((ns, eng.maxp), dtype=torch.int64, device=dev)
-    bt[:, :4] = torch.arange(1, 4 * ns + 1, device=dev).view(ns, 4)
-    state = dict(
-        bt=bt, active=torch.ones(ns, dtype=torch.bool, device=dev),
-        temp=torch.zeros(ns, device=dev),
-        topk=torch.zeros(ns, dtype=torch.int64, device=dev),
-        seeds=torch.zeros(ns, dtype=torch.int64, device=dev))
-    last = torch.ones(ns, dtype=torch.int64, device=dev)
-    pos = torch.full((ns,), 100, dtype=torch.int64, device=dev)
-
-    def run():
-        return eng._decode(eng.params, eng._kc, eng._vc, state["bt"], last,
-                           pos, state["active"], state["temp"],
-                           state["topk"], state["seeds"])
-
+def _device_profile(run) -> dict:
+    """Wall and host (enqueue) time of one ``run()`` after a warm call,
+    then the same call under the profiler: device kernel time, op count,
+    the device's idle share of the wall time, and the top 6 kernels."""
     run()
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -363,6 +393,30 @@ def _profile_chunk(eng) -> dict:
                 top_kernels_ms={name: us / 1e3 for name, us in top})
 
 
+def _profile_chunk(eng) -> dict:
+    """One decode chunk with all 8 slots active, run directly on the
+    stopped engine: wall time, host (enqueue) time, device kernel time and
+    launch count."""
+    ns = eng.n_slots
+    dev = eng.device
+    bt = torch.zeros((ns, eng.maxp), dtype=torch.int64, device=dev)
+    bt[:, :4] = torch.arange(1, 4 * ns + 1, device=dev).view(ns, 4)
+    state = dict(
+        bt=bt, active=torch.ones(ns, dtype=torch.bool, device=dev),
+        temp=torch.zeros(ns, device=dev),
+        topk=torch.zeros(ns, dtype=torch.int64, device=dev),
+        seeds=torch.zeros(ns, dtype=torch.int64, device=dev))
+    last = torch.ones(ns, dtype=torch.int64, device=dev)
+    pos = torch.full((ns,), 100, dtype=torch.int64, device=dev)
+
+    def run():
+        return eng._decode(eng.params, eng._kc, eng._vc, state["bt"], last,
+                           pos, state["active"], state["temp"],
+                           state["topk"], state["seeds"])
+
+    return _device_profile(run)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the in-process LLM server
 # ---------------------------------------------------------------------------
@@ -382,6 +436,245 @@ def phase_llm_server():
           "flash_fwd kernel")
     log(f"LLMSERVER {json.dumps(resp)}")
     return resp
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the backward kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def bwd_bounds(B, H, KVH, S, causal):
+    """{kernel: (bound ms, bound by, FLOP, operations ms, bytes ms)} from
+    each kernel's own work: dK/dV does 4 products (8 B H D pairs FLOP), dQ
+    3 (6 B H D pairs); bytes are each input read once and each output
+    written once."""
+    D = 128
+    pairs = S * (S + 1) // 2 if causal else S * S
+    q_bytes, kv_bytes, row_bytes = B * H * S * D * 2, B * KVH * S * D * 2, \
+        B * H * S * 4
+    inputs = 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes  # q dO k v lse delta
+    out = {}
+    for name, flops, nbytes in (
+            ("flash_bwd_dkv", 8.0 * B * H * D * pairs, inputs + 2 * kv_bytes),
+            ("flash_bwd_dq", 6.0 * B * H * D * pairs, inputs + q_bytes)):
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes", flops,
+                     t_ops * 1e3, t_bytes * 1e3)
+    return out
+
+
+def _rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def phase_bwd_kernels(card: str):
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    rows = []
+    for B, H, KVH, S, causal in BWD_CASES:
+        D = 128
+
+        def rnd(h):
+            return torch.randn(B, h, S, D, generator=gen,
+                               device="cuda").bfloat16()
+
+        q, k, v, do = rnd(H), rnd(KVH), rnd(KVH), rnd(H)
+        scale = D ** -0.5
+        o, lse = flash_fwd(q, k, v, causal)
+        delta = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, causal, scale)
+        dk, dv = flash_bwd_dkv(*args)
+        dq = flash_bwd_dq(*args)
+        torch.cuda.synchronize()
+        pk, pv = flash_bwd_plain_dkv(*args)
+        err = dict(dk=_rel_err(dk, pk), dv=_rel_err(dv, pv))
+        abs_dkv = max((dk.float() - pk.float()).abs().max().item(),
+                      (dv.float() - pv.float()).abs().max().item())
+        del pk, pv
+        pq = flash_bwd_plain_dq(*args)
+        err["dq"] = _rel_err(dq, pq)
+        abs_dq = (dq.float() - pq.float()).abs().max().item()
+        del pq
+        finite = all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
+        check(finite and max(err.values()) <= REL_TOL_BWD,
+              f"flash backward B{B} H{H} KVH{KVH} S{S} causal={causal}: "
+              f"relative max errors {err} (bound {REL_TOL_BWD})")
+        torch.cuda.empty_cache()
+        iters = 20 if S <= 2048 else 5
+        ms = dict(flash_bwd_dkv=gpu_ms(lambda: flash_bwd_dkv(*args), iters),
+                  flash_bwd_dq=gpu_ms(lambda: flash_bwd_dq(*args), iters))
+        plain_ms = dict(
+            flash_bwd_dkv=gpu_ms(lambda: flash_bwd_plain_dkv(*args), 2),
+            flash_bwd_dq=gpu_ms(lambda: flash_bwd_plain_dq(*args), 2))
+        torch.cuda.empty_cache()
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
+                                            enable_gqa=True)
+        lib_ms = gpu_ms(lambda: torch.autograd.grad(
+            ol, (ql, kl, vl), do, retain_graph=True), iters)
+        del ql, kl, vl, ol
+        bounds = bwd_bounds(B, H, KVH, S, causal)
+        row = dict(shape=f"B{B} H{H} KVH{KVH} S{S} D{D}", causal=causal,
+                   rel_err=err, abs_err=dict(flash_bwd_dkv=abs_dkv,
+                                             flash_bwd_dq=abs_dq),
+                   ms=ms, plain_ms=plain_ms, sdpa_bwd_ms=lib_ms,
+                   bound_ms={n: b[0] for n, b in bounds.items()},
+                   bound_by={n: b[1] for n, b in bounds.items()},
+                   ops_bound_ms={n: b[3] for n, b in bounds.items()},
+                   bytes_bound_ms={n: b[4] for n, b in bounds.items()},
+                   tflops={n: bounds[n][2] / ms[n] / 1e9 for n in ms},
+                   card=card)
+        rows.append(row)
+        log("BWD", json.dumps(row))
+        del q, k, v, do, o, lse, delta, dq, dk, dv, args
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 6-8: training
+# ---------------------------------------------------------------------------
+
+class _PlainAttention(torch.autograd.Function):
+    """The flash forward and backward through their plain versions only:
+    the reference of the train-parity check."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        scale = q.shape[-1] ** -0.5
+        out, lse = flash_fwd_plain(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd_plain(q, k, v, out, lse, dout, ctx.causal,
+                                     ctx.scale)
+        return dq, dk, dv, None
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for key in sorted(tree):
+        val = tree[key]
+        if isinstance(val, dict):
+            out.update(_flat(val, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = val
+    return out
+
+
+def _tokens(cfg, batch, seq, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq))
+                            ).to("cuda")
+
+
+def phase_train_parity(card: str):
+    """One loss-and-gradient pass through the kernels and through the plain
+    attention, same weights and tokens; the kernels' launch counts."""
+    cfg = LlamaConfig.llama3_8b(n_layers=2)
+    params = init_params(cfg, SEED, device="cuda")
+    leaves = _flat(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    tokens = _tokens(cfg, 1, 2048, SEED)
+    results = {}
+    for name, attn in (("kernels", None), ("plain", _PlainAttention.apply)):
+        kw = {} if attn is None else dict(attn_fn=attn)
+        counts0 = (flash_fwd.launches, flash_bwd_dkv.launches,
+                   flash_bwd_dq.launches)
+        loss, _ = loss_fn(params, tokens, cfg, **kw)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        torch.cuda.synchronize()
+        counts = (flash_fwd.launches - counts0[0],
+                  flash_bwd_dkv.launches - counts0[1],
+                  flash_bwd_dq.launches - counts0[2])
+        results[name] = (loss.detach(), grads, counts)
+        del loss
+    lk, gk, ck = results["kernels"]
+    lp, gp, cp = results["plain"]
+    L = cfg.n_layers
+    check(ck == (2 * L, L, L) and cp == (0, 0, 0),
+          f"parity launch counts: kernels {ck}, plain {cp}")
+    loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    grad_rel = {key: (torch.linalg.vector_norm(a - b)
+                      / torch.linalg.vector_norm(b)).item()
+                for key, a, b in zip(leaves, gk, gp)}
+    out = dict(shape="llama3_8b n_layers=2 B1 S2048", loss_kernels=lk.item(),
+               loss_plain=lp.item(), loss_rel=loss_rel, grad_rel_l2=grad_rel,
+               card=card)
+    log("TRAIN_PARITY", json.dumps(out))
+    check(np.isfinite(lk.item()) and loss_rel <= PARITY_LOSS_RTOL
+          and max(grad_rel.values()) <= PARITY_GRAD_REL_L2,
+          f"train parity: loss rel {loss_rel} (bound {PARITY_LOSS_RTOL}), "
+          f"grad rel L2 {grad_rel} (bound {PARITY_GRAD_REL_L2})")
+    del params, leaves, results, gk, gp
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_run(cfg, batch, seq, warmup, steps, card, label, profile):
+    """make_train_fns on ``cfg``: warm-up and timed steps on one batch with
+    the launch counters read around them; the loss must fall."""
+    torch.cuda.reset_peak_memory_stats()
+    init_fn, step_fn = make_train_fns(cfg)
+    state = init_fn(SEED)
+    tokens = _tokens(cfg, batch, seq, SEED + 2)
+    losses = []
+    flash_fwd.launches = flash_bwd_dkv.launches = flash_bwd_dq.launches = 0
+    for _ in range(warmup):
+        state, m = step_fn(state, tokens)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        state, m = step_fn(state, tokens)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t) / steps
+    n = warmup + steps
+    launches = dict(flash_fwd=flash_fwd.launches,
+                    flash_bwd_dkv=flash_bwd_dkv.launches,
+                    flash_bwd_dq=flash_bwd_dq.launches)
+    L = cfg.n_layers
+    want = dict(flash_fwd=2 * L * n, flash_bwd_dkv=L * n, flash_bwd_dq=L * n)
+    losses = [x.item() for x in losses]
+    check(launches == want, f"{label}: launches {launches} in {n} steps, "
+          f"expected {want}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{label}: loss did not fall: {losses}")
+    tok_s = batch * seq / step_s
+    mfu = flops_per_token(cfg, seq) * tok_s / PEAK_BF16_FLOPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    free_gb, total_gb = (x / 1e9 for x in torch.cuda.mem_get_info())
+    out = dict(config=label, batch=batch, seq=seq, layers=L,
+               remat_policy=cfg.remat_policy, losses=losses,
+               grad_norm=m["grad_norm"].item(), step_s=step_s,
+               tokens_per_s=tok_s, mfu=mfu, peak_mem_gb=peak_gb,
+               card_total_gb=total_gb, free_after_gb=free_gb,
+               launches=launches, launches_per_step={
+                   k: v / n for k, v in launches.items()}, card=card)
+    if profile:
+        out["profile"] = _device_profile(lambda: step_fn(state, tokens))
+    log("TRAIN", json.dumps(out))
+    del state, tokens, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_main(card: str):
+    return _train_run(LlamaConfig.llama3_8b(n_layers=TRAIN_LAYERS), 1,
+                      TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS, card,
+                      f"llama3_8b n_layers={TRAIN_LAYERS}", profile=True)
+
+
+def phase_train_bench(card: str):
+    return _train_run(LlamaConfig(**BENCH_MODEL), BENCH_BATCH, BENCH_SEQ, 1,
+                      BENCH_STEPS, card, "bench.py d2048 L8 H16",
+                      profile=False)
 
 
 def main() -> int:
@@ -406,6 +699,10 @@ def main() -> int:
     rows = phase_kernels(card)
     engine = phase_engine(card)
     phase_llm_server()
+    bwd_rows = phase_bwd_kernels(card)
+    parity = phase_train_parity(card)
+    train = phase_train_main(card)
+    bench = phase_train_bench(card)
 
     main_row = next(r for r in rows if r["shape"].endswith("S8192 D128")
                     and r["causal"])
@@ -416,11 +713,28 @@ def main() -> int:
         max_abs_err=max(r["max_abs_err"] for r in rows), ms=main_row["ms"],
         plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
         bound_by=main_row["bound_by"], library_ms=main_row["library_ms"],
-        shape=main_row["shape"] + " causal bf16")]
+        shape=main_row["shape"] + " causal bf16",
+        launches_train=train["launches"]["flash_fwd"])]
+    bwd_main = next(r for r in bwd_rows
+                    if r["shape"] == "B1 H32 KVH8 S8192 D128" and r["causal"])
+    for name, src, line in (("flash_bwd_dkv", "flash_bwd_dkv.cu", 326),
+                            ("flash_bwd_dq", "flash_bwd_dq.cu", 356)):
+        kernels.append(dict(
+            name=name, route="cuda", source=f"ray_tpu_torch/ops/csrc/{src}",
+            replaces=f"ray_tpu/ops/attention.py:{line}",
+            launches=train["launches"][name],
+            max_abs_err=max(r["abs_err"][name] for r in bwd_rows),
+            ms=bwd_main["ms"][name], plain_ms=bwd_main["plain_ms"][name],
+            bound_ms=bwd_main["bound_ms"][name],
+            bound_by=bwd_main["bound_by"][name],
+            library_ms=bwd_main["sdpa_bwd_ms"],
+            shape=bwd_main["shape"] + " causal bf16"))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, build_s=build_s, kernel_rows=rows,
-                       engine=engine, kernels=kernels), f, indent=1)
+                       engine=engine, bwd_rows=bwd_rows, train_parity=parity,
+                       train=train, train_bench=bench, kernels=kernels), f,
+                  indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

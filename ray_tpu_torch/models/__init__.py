@@ -1,6 +1,6 @@
-from ray_tpu_torch.models.llama import (LlamaConfig, forward, init_params,
-                                        logical_axes, param_count,
-                                        params_from_jax)
+from ray_tpu_torch.models.llama import (LlamaConfig, flops_per_token, forward,
+                                        init_params, logical_axes, loss_fn,
+                                        param_count, params_from_jax)
 
-__all__ = ["LlamaConfig", "forward", "init_params", "logical_axes",
-           "param_count", "params_from_jax"]
+__all__ = ["LlamaConfig", "flops_per_token", "forward", "init_params",
+           "logical_axes", "loss_fn", "param_count", "params_from_jax"]

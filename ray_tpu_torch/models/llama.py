@@ -4,18 +4,22 @@
 Parameters are a plain dict with the JAX package's keys and stacked
 ``[L, ...]`` layouts, so weights carry across one-to-one
 (``params_from_jax``). The ``scan`` over layers becomes a Python loop over
-the stacked tensors. MoE, sequence and pipeline parallelism, remat and the
-loss wait for later slices of the port.
+the stacked tensors, and ``jax.checkpoint`` with its policies becomes
+``torch.utils.checkpoint`` per layer. MoE, sequence and pipeline
+parallelism wait for later slices of the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ray_tpu_torch import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import flash_attention
@@ -39,6 +43,14 @@ class LlamaConfig:
     moe_aux_weight: float = 0.01
     dtype: torch.dtype = torch.bfloat16        # activation/compute dtype
     param_dtype: torch.dtype = torch.float32   # master parameter dtype
+    remat: bool = True
+    # Rematerialization policy when remat=True (torch.utils.checkpoint per
+    # layer, see ``_REMAT_SAVE``): "none" (save everything), "full"
+    # (recompute the whole layer in the backward), "dots" (save every
+    # matmul output), "dots_nobatch" (save the weight-matmul outputs,
+    # recompute attention, norms and elementwise work).
+    remat_policy: str = "full"
+    num_microbatches: int = 0          # pipeline microbatches; pp not ported
 
     @property
     def head_dim(self) -> int:
@@ -208,13 +220,60 @@ def _layer_fwd(lp: Dict[str, torch.Tensor], x: torch.Tensor, cos, sin,
     return x + (F.silu(gate) * up) @ lp["w_down"].to(dt)
 
 
+# Matmul ops whose outputs the "dots" policies save (as
+# jax.checkpoint_policies.dots_saveable and
+# dots_with_no_batch_dims_saveable do); everything else is recomputed.
+# "none" saves everything, so it runs without checkpointing.
+_REMAT_SAVE = {
+    "full": frozenset(),
+    "none": None,
+    "dots": frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                       torch.ops.aten.bmm.default,
+                       torch.ops.aten.baddbmm.default}),
+    "dots_nobatch": frozenset({torch.ops.aten.mm.default,
+                               torch.ops.aten.addmm.default}),
+}
+
+
+def _save_policy(ops, ctx, op, *args, **kwargs):
+    # Ops inside a custom autograd.Function's forward (flash attention's
+    # plain version, which scales its scores in place) run with grad mode
+    # off and keep their own saved tensors: recompute them.
+    if op in ops and torch.is_grad_enabled():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_layer(cfg: LlamaConfig) -> Callable:
+    """``_layer_fwd`` wrapped for ``cfg``'s remat policy."""
+    if cfg.remat_policy not in _REMAT_SAVE:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
+                         f"one of {sorted(_REMAT_SAVE)}")
+    ops = _REMAT_SAVE[cfg.remat_policy]
+    if not cfg.remat or ops is None:
+        return _layer_fwd
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if ops:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts,
+            functools.partial(_save_policy, ops))
+    return functools.partial(checkpoint, _layer_fwd, **kw)
+
+
 def _stack_fwd(layers_p: Dict[str, torch.Tensor], x: torch.Tensor, cos, sin,
                cfg: LlamaConfig, attn_fn: AttnFn) -> torch.Tensor:
-    """Loop over a stack of layers (leading 'layers' axis on every leaf)."""
+    """Loop over a stack of layers (leading 'layers' axis on every leaf).
+
+    ``unbind`` slices every stacked leaf once, so the backward stacks each
+    leaf's per-layer gradients in one pass."""
     positions = torch.arange(x.shape[1], device=x.device)
+    layer = _remat_layer(cfg)
+    if not torch.is_grad_enabled():  # nothing to save for a backward
+        layer = _layer_fwd
+    per_layer = {name: w.unbind(0) for name, w in layers_p.items()}
     for i in range(next(iter(layers_p.values())).shape[0]):
-        lp = {name: w[i] for name, w in layers_p.items()}
-        x = _layer_fwd(lp, x, cos, sin, positions, cfg, attn_fn)
+        lp = {name: ws[i] for name, ws in per_layer.items()}
+        x = layer(lp, x, cos, sin, positions, cfg, attn_fn)
     return x
 
 
@@ -230,6 +289,10 @@ def forward_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
         raise NotImplementedError("parallel contexts wait for a later "
                                   "slice of the port")
     _check_dense(cfg)
+    if cfg.num_microbatches:
+        raise NotImplementedError("num_microbatches needs pipeline "
+                                  "parallelism, which waits for a later "
+                                  "slice of the port")
     dt = cfg.dtype
     x = params["embed"][tokens].to(dt)
     cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
@@ -246,3 +309,29 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
             attn_fn: AttnFn = flash_attention) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, V] (float32)."""
     return forward_with_aux(params, tokens, cfg, ctx, attn_fn=attn_fn)[0]
+
+
+def loss_fn(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
+            ctx: Optional[Any] = None, *, attn_fn: AttnFn = flash_attention
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy; targets = tokens shifted left, last
+    position masked -> (loss, {"loss", "tokens"}), all on the device."""
+    logits, _ = forward_with_aux(params, tokens, cfg, ctx, attn_fn=attn_fn)
+    targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    mask = torch.ones(tokens.shape, dtype=torch.float32,
+                      device=logits.device)
+    mask[:, -1] = 0.0
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets[..., None].long())[..., 0]
+    ce = (logz - gold) * mask
+    n_tok = mask.sum()
+    loss = ce.sum() / n_tok.clamp_min(1.0)
+    return loss, {"loss": loss.detach(), "tokens": n_tok}
+
+
+def flops_per_token(cfg: LlamaConfig, seq: int) -> float:
+    """Approximate training FLOPs/token (6N + attention term) for MFU, the
+    JAX package's formula."""
+    n = param_count(cfg) - cfg.vocab_size * cfg.d_model  # exclude embed lookup
+    attn = 12 * cfg.n_layers * cfg.d_model * seq  # 2*2*3 * L * D * S (fwd+bwd qk+av)
+    return 6.0 * n + attn

@@ -2,8 +2,9 @@
 shared library with a plain C interface, loaded with ``ctypes``).
 
 Each ``csrc/<name>.cu`` becomes ``ray_tpu_torch/_build/<name>-<hash>.so``
-on first use; the hash is of the source, so an edited kernel is rebuilt
-and a stale library is never loaded. ``build_all()`` starts one ``nvcc``
+on first use; the hash is of the source and the shared ``csrc/*.cuh``
+headers, so an edited kernel is rebuilt and a stale library is never
+loaded. ``build_all()`` starts one ``nvcc``
 per source, all at once. Nothing here runs at import time: the CPU tests
 import every module of the port on a host with no ``nvcc``.
 """
@@ -43,9 +44,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # shared device helpers
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def sources() -> List[str]:

@@ -1,5 +1,5 @@
-"""Attention ops: reference softmax attention and the flash-attention
-forward (counterpart of ``ray_tpu/ops/attention.py``).
+"""Attention ops: reference softmax attention and flash attention, forward
+and backward (counterpart of ``ray_tpu/ops/attention.py``).
 
   * ``attention_reference`` / ``_fwd_with_lse_reference`` — plain PyTorch,
     f32 softmax; ground truth for the tests.
@@ -8,10 +8,14 @@ forward (counterpart of ``ray_tpu/ops/attention.py``).
     ``_flash_fwd_kernel``). On a CUDA tensor it launches the kernel or
     raises; on a CPU tensor it runs ``flash_fwd_plain``, the kernel's
     arithmetic in plain PyTorch. There is no fallback between the two.
-  * ``flash_attention`` — ``torch.autograd.Function`` around ``flash_fwd``.
-    The backward computes the plain math for CPU tensors and raises
-    ``NotImplementedError`` for CUDA tensors until the two backward kernels
-    (``_flash_bwd_dkv_kernel``, ``_flash_bwd_dq_kernel``) are ported.
+  * ``flash_bwd`` — the backward: delta = rowsum(dO·O), then the wrappers
+    ``flash_bwd_dkv`` and ``flash_bwd_dq`` of the hand-written CUDA kernels
+    ``csrc/flash_bwd_dkv.cu`` and ``csrc/flash_bwd_dq.cu`` (which replace
+    the Pallas kernels ``_flash_bwd_dkv_kernel`` and
+    ``_flash_bwd_dq_kernel``). CPU tensors run ``flash_bwd_plain``, the
+    kernels' arithmetic in plain PyTorch, rounded where they round.
+  * ``flash_attention`` — ``torch.autograd.Function`` over ``flash_fwd``
+    and ``flash_bwd``.
 
 Layout: [batch, num_heads, seq, head_dim] (BHSD). k and v may carry fewer
 heads than q (grouped-query attention): q head h reads kv head
@@ -155,6 +159,19 @@ def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
     return o, lse
 
 
+def _check_qkv(fn: str, q, k, v, *rest) -> None:
+    """q [b, h, sq, d], k/v [b, kvh, skv, d] with kvh dividing h; one dtype
+    for q, k, v and one device for all."""
+    if q.shape[0] != k.shape[0] or k.shape != v.shape \
+            or q.shape[-1] != k.shape[-1] or q.shape[1] % k.shape[1]:
+        raise ValueError(f"{fn}: incompatible shapes q={tuple(q.shape)}"
+                         f" k={tuple(k.shape)} v={tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"{fn}: q, k and v must share a dtype")
+    if any(t.device != q.device for t in (k, v, *rest)):
+        raise ValueError(f"{fn}: all tensors must share a device")
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, sm_scale: Optional[float] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -162,14 +179,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [b, h, sq] f32). CUDA tensors launch ``csrc/flash_fwd.cu`` (counted in
     ``flash_fwd.launches``); CPU tensors run ``flash_fwd_plain``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
-    if q.shape[0] != k.shape[0] or k.shape != v.shape \
-            or q.shape[-1] != k.shape[-1] or q.shape[1] % k.shape[1]:
-        raise ValueError(f"flash_fwd: incompatible shapes q={tuple(q.shape)}"
-                         f" k={tuple(k.shape)} v={tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype):
-        raise TypeError("flash_fwd: q, k and v must share a dtype")
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_fwd: q, k and v must share a device")
+    _check_qkv("flash_fwd", q, k, v)
     if q.device.type == "cuda":
         return _flash_fwd_cuda(q, k, v, causal, scale)
     if q.device.type == "cpu":
@@ -180,29 +190,188 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_fwd.launches = 0
 
 
-def _flash_bwd_plain(q, k, v, out, lse, dout, causal, scale):
-    """Plain flash backward (the math of the two Pallas backward kernels):
-    P = exp(S - LSE), dV = Pᵀ dO, dS = P (dO Vᵀ - delta) scale, dQ = dS K,
-    dK = dSᵀ Q; grouped kv heads sum their query heads' gradients."""
+# ---------------------------------------------------------------------------
+# Flash backward: plain versions + CUDA kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _bwd_p_ds(q, k, v, dout, lse, delta, causal, sm_scale):
+    """(P f32, dS in q's dtype, dO in q's dtype, k and v repeated to H
+    heads): what both Pallas backward kernels recompute per block pair."""
     n_rep = q.shape[1] // k.shape[1]
-    kf = repeat_kv(k, n_rep).float()
-    vf = repeat_kv(v, n_rep).float()
-    qf, dof = q.float(), dout.float()
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    kr, vr = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
+    do = dout.to(q.dtype)
+    s = torch.matmul(q.float(), kr.float().transpose(-1, -2)).mul_(sm_scale)
     if causal:
         mask = _causal_mask(q.shape[2], k.shape[2], 0, 0, q.device)
-        s = s.masked_fill(~mask, DEFAULT_MASK_VALUE)
-    p = torch.exp(s - lse[..., None])
-    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
-    dv = torch.matmul(p.transpose(-1, -2), dof)
-    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta) * scale
-    dq = torch.matmul(ds, kf)
-    dk = torch.matmul(ds.transpose(-1, -2), qf)
-    if n_rep > 1:
-        b, kvh, skv, d = k.shape
-        dk = dk.view(b, kvh, n_rep, skv, d).sum(dim=2)
-        dv = dv.view(b, kvh, n_rep, skv, d).sum(dim=2)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+        s.masked_fill_(~mask, DEFAULT_MASK_VALUE)
+    p = s.sub_(lse[..., None]).exp_()
+    dp = torch.matmul(do.float(), vr.float().transpose(-1, -2))
+    ds = dp.sub_(delta[..., None]).mul_(p).mul_(sm_scale).to(q.dtype)
+    return p, ds, do, kr
+
+
+def _sum_groups(x: torch.Tensor, kvh: int) -> torch.Tensor:
+    """[b, h, s, d] -> [b, kvh, s, d]: the VJP of ``repeat_kv``."""
+    b, h, s, d = x.shape
+    return x if h == kvh else x.view(b, kvh, h // kvh, s, d).sum(dim=2)
+
+
+def flash_bwd_plain_dkv(q, k, v, dout, lse, delta, causal: bool,
+                        sm_scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_flash_bwd_dkv_kernel``'s arithmetic in plain PyTorch: dV = Pᵀ·dO
+    with P rounded to v's dtype, dK = dSᵀ·Q with dS rounded to q's dtype,
+    f32 accumulation; grouped kv heads sum their query heads in f32."""
+    p, ds, do, _ = _bwd_p_ds(q, k, v, dout, lse, delta, causal, sm_scale)
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), do.float())
+    del p
+    dk = torch.matmul(ds.float().transpose(-1, -2), q.float())
+    kvh = k.shape[1]
+    return _sum_groups(dk, kvh).to(k.dtype), _sum_groups(dv, kvh).to(v.dtype)
+
+
+def flash_bwd_plain_dq(q, k, v, dout, lse, delta, causal: bool,
+                       sm_scale: float) -> torch.Tensor:
+    """``_flash_bwd_dq_kernel``'s arithmetic in plain PyTorch: dQ = dS·K
+    with dS rounded to q's dtype, f32 accumulation."""
+    _, ds, _, kr = _bwd_p_ds(q, k, v, dout, lse, delta, causal, sm_scale)
+    return torch.matmul(ds.float(), kr.float()).to(q.dtype)
+
+
+def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO · O) in f32 [b, h, sq], computed outside the
+    kernels as ``_flash_bwd_pallas`` does."""
+    return (dout.float() * out.float()).sum(dim=-1)
+
+
+def flash_bwd_plain(q, k, v, out, lse, dout, causal: bool, sm_scale: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The two Pallas backward kernels' arithmetic in plain PyTorch ->
+    (dQ, dK, dV): P = exp(S·scale − LSE) in f32, dV = Pᵀ·dO with P rounded
+    to v's dtype, dS = P·(dP − delta)·scale rounded to q's dtype, dQ = dS·K,
+    dK = dSᵀ·Q, accumulation in f32; with KVH < H, dK and dV are summed
+    over each kv head's query heads."""
+    delta = _delta(out, dout)
+    dk, dv = flash_bwd_plain_dkv(q, k, v, dout, lse, delta, causal, sm_scale)
+    dq = flash_bwd_plain_dq(q, k, v, dout, lse, delta, causal, sm_scale)
+    return dq, dk, dv
+
+
+def _bwd_kernel_fn(name: str):
+    from ray_tpu_torch.ops._build import load
+
+    fn = getattr(load(name), f"ray_{name}")
+    if fn.argtypes is None:
+        n_out = 2 if name == "flash_bwd_dkv" else 1
+        fn.argtypes = ([ctypes.c_void_p] * (6 + n_out)
+                       + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_check(q, k, v, dout, lse, delta):
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the flash backward kernels take bfloat16, not "
+                        f"{q.dtype}")
+    if q.shape[-1] != 128:
+        raise ValueError(f"the flash backward kernels take head_dim 128, "
+                         f"not {q.shape[-1]}")
+    if dout.dtype != q.dtype or dout.shape != q.shape:
+        raise ValueError(f"dout must match q: {tuple(dout.shape)} "
+                         f"{dout.dtype} vs {tuple(q.shape)} {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"the flash backward kernels need {name} with "
+                             f"a dense last dim and 16-byte aligned rows, "
+                             f"got strides {t.stride()}")
+    rows = q.shape[:3]
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or t.shape != rows \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be dense f32 {tuple(rows)}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+
+
+def _bwd_launch(name, outs, q, k, v, dout, lse, delta, causal, scale):
+    B, H, Sq, D = q.shape
+    _, KVH, Skv, _ = k.shape
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _bwd_kernel_fn(name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), *[o.data_ptr() for o in outs],
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *dout.stride()[:3], B, H, KVH, Sq, Skv, D, float(scale), int(causal),
+        stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
+                           f"(shape q={tuple(q.shape)} k={tuple(k.shape)})")
+
+
+def _bwd_device(fn_name: str, q, k, v, *rest) -> str:
+    _check_qkv(fn_name, q, k, v, *rest)
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{fn_name} runs on cuda or cpu, not {q.device}")
+    return q.device.type
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
+                  sm_scale: Optional[float] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) [b, kvh, skv, d] in k's dtype. CUDA tensors launch
+    ``csrc/flash_bwd_dkv.cu`` (counted in ``flash_bwd_dkv.launches``); CPU
+    tensors run ``flash_bwd_plain_dkv``."""
+    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    if _bwd_device("flash_bwd_dkv", q, k, v, dout, lse, delta) == "cpu":
+        return flash_bwd_plain_dkv(q, k, v, dout, lse, delta, causal, scale)
+    _bwd_check(q, k, v, dout, lse, delta)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _bwd_launch("flash_bwd_dkv", (dk, dv), q, k, v, dout, lse, delta, causal,
+                scale)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
+                 sm_scale: Optional[float] = None) -> torch.Tensor:
+    """dQ [b, h, sq, d] in q's dtype. CUDA tensors launch
+    ``csrc/flash_bwd_dq.cu`` (counted in ``flash_bwd_dq.launches``); CPU
+    tensors run ``flash_bwd_plain_dq``."""
+    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    if _bwd_device("flash_bwd_dq", q, k, v, dout, lse, delta) == "cpu":
+        return flash_bwd_plain_dq(q, k, v, dout, lse, delta, causal, scale)
+    _bwd_check(q, k, v, dout, lse, delta)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _bwd_launch("flash_bwd_dq", (dq,), q, k, v, dout, lse, delta, causal,
+                scale)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dkv.launches = 0
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+              causal: bool = True, sm_scale: Optional[float] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash-attention backward -> (dQ, dK, dV), dK/dV with k's KVH heads.
+    CUDA tensors compute delta = rowsum(dO·O) and launch the dK/dV kernel
+    and the dQ kernel; CPU tensors run ``flash_bwd_plain``."""
+    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    if _bwd_device("flash_bwd", q, k, v, out, lse, dout) == "cpu":
+        return flash_bwd_plain(q, k, v, out, lse, dout, causal, scale)
+    delta = _delta(out, dout)
+    dout = dout.to(q.dtype)
+    if dout.stride(-1) != 1 or any(s % 8 for s in dout.stride()[:3]) \
+            or dout.data_ptr() % 16:  # e.g. the expanded grad of a sum
+        dout = dout.contiguous()
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale)
+    dq = flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale)
+    return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -217,13 +386,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if q.device.type != "cpu":
-            raise NotImplementedError(
-                "flash_attention backward on CUDA needs the backward "
-                "kernels (_flash_bwd_dkv_kernel, _flash_bwd_dq_kernel), "
-                "which are not ported yet")
-        dq, dk, dv = _flash_bwd_plain(q, k, v, out, lse, dout, ctx.causal,
-                                      ctx.scale)
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, dout, ctx.causal,
+                               ctx.scale)
         return dq, dk, dv, None, None
 
 

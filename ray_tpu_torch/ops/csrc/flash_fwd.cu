@@ -29,15 +29,21 @@
 // A plain scalar-FMA f32 variant serves f32 inputs (D = 128 as well).
 // Later work: TMA + wgmma + a producer warp, double-buffered KV tiles.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kMaskValue = -0.7f * 3.402823466e38f;  // DEFAULT_MASK_VALUE
-constexpr int kD = 128;
+using flash::cp_async_commit;
+using flash::cp_async_wait;
+using flash::kD;
+using flash::kLds;
+using flash::kMaskValue;
+using flash::ldmatrix_x4_trans;
+using flash::load_tile;
+using flash::mma_bf16;
+using flash::pack_bf16;
 
 struct Params {
   const void* q;
@@ -67,65 +73,7 @@ __device__ __forceinline__ int kv_tiles(const Params& p, int q0, int bm,
 // ---------------------------------------------------------------------------
 
 constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kLds = kD + 8;  // padded smem row (bf16): conflict-free reads
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* smem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
-// Copy rows [r0, r0 + kBN) of a [S, D] bf16 matrix (row stride `ss`) into
-// a padded smem tile; rows past `S` are zero-filled.
-__device__ __forceinline__ void load_tile(__nv_bfloat16 (*dst)[kLds],
-                                          const __nv_bfloat16* src,
-                                          long long ss, int r0, int S,
-                                          int tid) {
-#pragma unroll
-  for (int i = 0; i < (kBN * kD / 8) / 128; ++i) {
-    int c = tid + i * 128;
-    int row = c / (kD / 8);
-    int col = (c % (kD / 8)) * 8;
-    bool ok = r0 + row < S;
-    const __nv_bfloat16* g = ok ? src + (r0 + row) * ss + col : src;
-    cp_async16(&dst[row][col], g, ok);
-  }
-}
+constexpr int kBN = flash::kTile;
 
 __global__ void __launch_bounds__(128)
 flash_fwd_bf16_kernel(Params p) {

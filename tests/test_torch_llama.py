@@ -131,3 +131,109 @@ def test_forward_with_aux_and_unported_paths():
         tl.forward(p, tokens, cfg, ctx=object())
     with pytest.raises(NotImplementedError):
         tl.init_params(tl.LlamaConfig.tiny(n_experts=4), 0, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# loss, gradients, remat
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_loss_and_every_grad_leaf_match_jax(name):
+    jcfg, tcfg = _pair(name)
+    jp = _jax_params(jcfg)
+    tp = tl.params_from_jax(_numpy_tree(jp), device="cpu")
+    tokens = np.random.default_rng(2).integers(
+        0, jcfg.vocab_size, (2, 24)).astype(np.int32)
+    (jloss, jm), jgrads = jax.value_and_grad(jl.loss_fn, has_aux=True)(
+        jp, jnp.asarray(tokens), jcfg)
+    leaves = list(_flat(tp).values())
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, m = tl.loss_fn(tp, torch.from_numpy(tokens), tcfg)
+    grads = torch.autograd.grad(loss, leaves)
+    # f32 through a few layers and a log-sum-exp; only summation order
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    assert float(m["tokens"]) == float(jm["tokens"]) == 2 * 23
+    jf = _flat(_numpy_tree(jgrads))
+    for key, g in zip(_flat(tp), grads):
+        np.testing.assert_allclose(g.numpy(), jf[key], atol=2e-5, rtol=0,
+                                   err_msg=key)
+
+
+@pytest.mark.parametrize("policy", ["full", "none", "dots", "dots_nobatch"])
+def test_every_remat_policy_gives_the_same_loss_and_grads(policy):
+    cfg = tl.LlamaConfig.tiny(n_layers=3)
+    tp = tl.init_params(cfg, 0, device="cpu")
+    leaves = list(_flat(tp).values())
+    for t in leaves:
+        t.requires_grad_(True)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 16)))
+    ref_loss, _ = tl.loss_fn(tp, tokens, dataclasses.replace(cfg, remat=False))
+    ref = torch.autograd.grad(ref_loss, leaves)
+
+    calls = []
+
+    def attn(q, k, v, causal):  # counts forward runs of the attention
+        calls.append(torch.is_grad_enabled())
+        return tl.flash_attention(q, k, v, causal)
+
+    pcfg = dataclasses.replace(cfg, remat_policy=policy)
+    loss, _ = tl.loss_fn(tp, tokens, pcfg, attn_fn=attn)
+    grads = torch.autograd.grad(loss, leaves)
+    assert float(loss.detach()) == float(ref_loss.detach())
+    for g, r in zip(grads, ref):
+        assert torch.equal(g, r)
+    # "none" saves everything; the others recompute the attention (it is no
+    # weight matmul) once per layer in the backward
+    assert len(calls) == cfg.n_layers * (1 if policy == "none" else 2)
+
+
+def test_dots_nobatch_saves_the_weight_matmuls():
+    """Under "full" the backward recomputes each layer's weight matmuls up
+    to the last one it needs, w_up (w_down's output feeds only the residual
+    add, whose gradient needs no saved value, and non-reentrant checkpoint
+    stops there): 6 per layer. Under "dots_nobatch" it reads them back."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountMM(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten.mm.default:
+                CountMM.n += 1
+            return func(*args, **(kwargs or {}))
+
+    cfg = tl.LlamaConfig.tiny(n_layers=2)
+    tp = tl.init_params(cfg, 0, device="cpu")
+    leaves = list(_flat(tp).values())
+    for t in leaves:
+        t.requires_grad_(True)
+    tokens = torch.zeros((1, 8), dtype=torch.long)
+    counts = {}
+    for policy in ("full", "dots_nobatch"):
+        CountMM.n = 0
+        with CountMM():
+            loss, _ = tl.loss_fn(tp, tokens, dataclasses.replace(
+                cfg, remat_policy=policy))
+            torch.autograd.grad(loss, leaves)
+        counts[policy] = CountMM.n
+    assert counts["full"] - counts["dots_nobatch"] == 6 * cfg.n_layers
+
+
+def test_remat_and_pipeline_options_are_checked():
+    p = tl.init_params(tl.LlamaConfig.tiny(), 0, device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    p["embed"].requires_grad_(True)
+    with pytest.raises(ValueError, match="remat_policy"):
+        tl.loss_fn(p, tokens, tl.LlamaConfig.tiny(remat_policy="dots_all"))
+    with pytest.raises(NotImplementedError):
+        tl.forward(p, tokens, tl.LlamaConfig.tiny(num_microbatches=2))
+
+
+@pytest.mark.parametrize("preset,seq", [("tiny", 128), ("llama3_8b", 8192),
+                                        ("llama2_7b", 2048)])
+def test_flops_per_token_matches_jax(preset, seq):
+    jcfg = getattr(jl.LlamaConfig, preset)()
+    tcfg = getattr(tl.LlamaConfig, preset)()
+    assert tl.flops_per_token(tcfg, seq) == jl.flops_per_token(jcfg, seq)

@@ -212,3 +212,106 @@ def test_flash_attention_grads_match_jax(causal):
     want = jax.grad(loss, argnums=(0, 1, 2))(*_j(q, k, v))
     for got, w in zip((tq.grad, tk.grad, tv.grad), want):
         _close(got, w, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# flash backward: the plain versions against the Pallas kernels
+# ---------------------------------------------------------------------------
+
+def _fwd_out(q, k, v, causal):
+    """(O, LSE) of the JAX reference forward, as numpy, for both sides."""
+    o, lse = jatt._fwd_with_lse_reference(*_j(q, k, v), causal=causal,
+                                          sm_scale=128 ** -0.5)
+    return np.array(o), np.array(lse)
+
+
+def _pallas_bwd(q, k, v, o, lse, do, causal):
+    with pltpu.force_tpu_interpret_mode():
+        return jatt._flash_bwd_pallas(*_j(q, k, v, o, lse, do), causal=causal,
+                                      sm_scale=128 ** -0.5, block_q=128,
+                                      block_k=128)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_plain_matches_pallas_kernels_interpret(causal):
+    """B1 H2 S256 D128 through the real TPU kernel bodies
+    (`_flash_bwd_dkv_kernel`, `_flash_bwd_dq_kernel`, 128x128 blocks, two
+    q and two kv blocks, so all three causal block classes) in Pallas
+    interpret mode."""
+    q, k, v = _qkv(1, 2, 256, 128, seed=14)
+    do = _rand((1, 2, 256, 128), 15)
+    o, lse = _fwd_out(q, k, v, causal)
+    want = _pallas_bwd(q, k, v, o, lse, do, causal)
+    got = tatt.flash_bwd(*_t(q, k, v, o, lse, do), causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        _close(g, w)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_gqa_sums_query_heads_like_repeat_kv(causal):
+    """KVH < H: dK/dV come back with KVH heads, equal to the Pallas kernels
+    on repeat_kv'd K/V followed by the VJP of repeat_kv (a sum over each
+    kv head's query heads)."""
+    q, k, v = _qkv(1, 4, 256, 128, kvh=2, seed=16)
+    do = _rand((1, 4, 256, 128), 17)
+    kr, vr = (np.repeat(x, 2, axis=1) for x in (k, v))
+    o, lse = _fwd_out(q, kr, vr, causal)
+    wq, wk, wv = _pallas_bwd(q, kr, vr, o, lse, do, causal)
+    dq, dk, dv = tatt.flash_bwd(*_t(q, k, v, o, lse, do), causal)
+    assert dk.shape == dv.shape == (1, 2, 256, 128)
+    _close(dq, wq)
+    _close(dk, np.asarray(wk).reshape(1, 2, 2, 256, 128).sum(axis=2))
+    _close(dv, np.asarray(wv).reshape(1, 2, 2, 256, 128).sum(axis=2))
+
+
+def test_flash_bwd_plain_bf16_rounds_p_and_ds_like_the_kernels():
+    """bf16 inputs: the Pallas kernels round P to v's dtype before Pᵀ·dO and
+    dS to q's dtype before dSᵀ·Q and dS·K. The plain version rounds at the
+    same places, so it matches them up to f32 summation order: a handful of
+    outputs (under 0.2%) one bf16 step apart. Keeping P and dS in f32
+    instead moves about 40% of the outputs."""
+    q, k, v = _qkv(1, 2, 256, 128, seed=18)
+    do = _rand((1, 2, 256, 128), 19)
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+    o, lse = jatt._fwd_with_lse_reference(jq, jk, jv, causal=True,
+                                          sm_scale=128 ** -0.5)
+    with pltpu.force_tpu_interpret_mode():
+        want = jatt._flash_bwd_pallas(jq, jk, jv, o, lse, jdo, causal=True,
+                                      sm_scale=128 ** -0.5, block_q=128,
+                                      block_k=128)
+
+    def bf16(x):
+        return torch.from_numpy(np.array(x.astype(jnp.float32))).to(
+            torch.bfloat16)
+
+    args = [bf16(x) for x in (jq, jk, jv, o)]
+    tlse, tdo = torch.from_numpy(np.array(lse)), bf16(jdo)
+    got = tatt.flash_bwd_plain(*args, tlse, tdo, True, 128 ** -0.5)
+    unrounded = tatt.flash_bwd_plain(*[x.float() for x in args], tlse,
+                                     tdo.float(), True, 128 ** -0.5)
+    for g, u, w in zip(got, unrounded, want):
+        assert g.dtype == torch.bfloat16
+        w = np.asarray(w.astype(jnp.float32))
+        g, u = g.float().numpy(), u.to(torch.bfloat16).float().numpy()
+        step = 2.0 ** (np.floor(np.log2(np.abs(w).max())) - 7)
+        assert np.abs(g - w).max() <= step
+        assert (g != w).mean() < 2e-3
+        assert (u != w).mean() > 0.2
+
+
+def test_flash_bwd_kernel_wrappers_on_cpu_split_flash_bwd():
+    """flash_bwd_dkv / flash_bwd_dq (the kernels' wrappers) run their plain
+    halves on CPU tensors and count no launches."""
+    q, k, v = _t(*_qkv(1, 4, 40, 128, kvh=2, seed=20))
+    do = torch.from_numpy(_rand((1, 4, 40, 128), 21))
+    o, lse = tatt.flash_fwd(q, k, v, True)
+    before = (tatt.flash_bwd_dkv.launches, tatt.flash_bwd_dq.launches)
+    dq, dk, dv = tatt.flash_bwd(q, k, v, o, lse, do, True)
+    delta = (do * o).sum(-1)
+    wk, wv = tatt.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+    assert torch.equal(dk, wk) and torch.equal(dv, wv)
+    assert torch.equal(dq, tatt.flash_bwd_dq(q, k, v, do, lse, delta, True))
+    assert (tatt.flash_bwd_dkv.launches, tatt.flash_bwd_dq.launches) == before
+    with pytest.raises(ValueError):  # neither cuda nor cpu: no fallback
+        tatt.flash_bwd(*(t.to("meta") for t in (q, k, v, o, lse, do)))
