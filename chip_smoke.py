@@ -11,8 +11,12 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes the serving path gives it (B1 H32 KVH8 D128 bf16, causal at the
    bucket widths 32..8192 and once non-causal; the f32 variant at two
-   shapes), and time kernel, plain version, SDPA (the library yardstick,
-   never called by the port) and the roofline bound.
+   shapes), at the model's layout (q, k, v as transposes of [B, S, heads,
+   D] views, which the TMA maps read through their strides), at the ragged
+   lengths 100 and 8000 (TMA zero-fills past the end), and at the bench
+   configuration's B8 H16 KVH16 S2048; time kernel, plain version, SDPA
+   (the library yardstick, never called by the port) and the roofline
+   bound.
 3. Serve 8 concurrent requests on Llama-3-8B at full width and depth
    (random bf16 weights from a seed) through ``Engine``; check every
    stream, the kernel's launch count (one per layer per prefill) and the
@@ -40,10 +44,18 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
 Any mismatch raises and the script exits non-zero. The line before the last
 is the kernels' JSON; the last is ``{"ok": true, "device": {...}}``.
 Details go to ``chiprun_out/chip_smoke.json``.
+
+    python3 chip_smoke.py --only-kernels
+
+builds the kernels and runs phase 2 alone (a quick check after a kernel
+edit), and ``--only-ttft N`` measures idle TTFT alone (N requests per
+prompt length; run it from another tree's root to compare the two); both
+print no result line.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
@@ -80,10 +92,26 @@ ATOL_O_BF16 = 1.6e-2
 ATOL_LSE = 1e-4
 ATOL_F32 = 1e-5
 ATTN_WIDTHS = (32, 64, 512, 2048, 8192)
+BF16, F32 = torch.bfloat16, torch.float32
+# (B, H, KVH, S, causal, dtype, layout) for the forward check. "dense" is
+# contiguous BHSD; "model" gives q, k and v as the transposes of
+# [B, S, heads, D] views (the layout of (h @ wv).view(B, S, KVH, hd)
+# .transpose(1, 2) in models/llama.py and serve/engine.py).
+FWD_CASES = [(1, 32, 8, S, True, BF16, "dense") for S in ATTN_WIDTHS] + [
+    (1, 32, 8, 2048, False, BF16, "dense"),
+    (1, 32, 8, 512, True, F32, "dense"),
+    (1, 32, 8, 100, False, F32, "dense"),
+    (1, 32, 8, 2048, True, BF16, "model"),
+    (1, 32, 8, 100, True, BF16, "dense"),
+    (1, 32, 8, 8000, True, BF16, "dense"),
+    (8, 16, 16, 2048, True, BF16, "dense")]
 PROMPT_LENS = (17, 100, 300, 700, 1500, 3000, 5000, 8000)
 SAMPLED = {1: dict(temperature=0.8, top_k=40, seed=1234),
            6: dict(temperature=1.0, top_k=0, seed=5678)}
 MAX_TOKENS = 32
+# Idle TTFT is a median over this many requests per prompt length: single
+# 100-token requests spread from about 30 to 90 ms (host-bound).
+TTFT_REPEATS = 7
 # Engine tokens against a teacher-forced recomputation. The engine's decode
 # (8-row matmuls, f32 attention over the bf16 cache) and the recomputation
 # (8k-row matmuls, the plain flash arithmetic) round in bf16 at different
@@ -121,6 +149,10 @@ BENCH_MODEL = dict(vocab_size=32000, d_model=2048, n_layers=8, n_heads=16,
                    remat_policy="dots_nobatch")
 BENCH_BATCH, BENCH_SEQ, BENCH_STEPS = 8, 2048, 3
 OUT_DIR = "chiprun_out"
+# nvcc/ptxas lines worth printing: registers, shared memory, spills, and
+# any warning (setmaxnreg ignored, wgmma serialized).
+BUILD_REPORT = ("registers", "spill", "smem", "arning", "wgmma",
+                "setmaxnreg")
 
 
 def log(*a):
@@ -169,17 +201,21 @@ def check(cond: bool, what: str) -> None:
 # phase 2: kernel against its plain version
 # ---------------------------------------------------------------------------
 
+def _attn_input(B, heads, S, D, gen, dt, layout):
+    if layout == "model":
+        return torch.randn(B, S, heads, D, generator=gen, device="cuda").to(
+            dt).transpose(1, 2)
+    return torch.randn(B, heads, S, D, generator=gen, device="cuda").to(dt)
+
+
 def phase_kernels(card: str):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    cases = [(S, True, torch.bfloat16) for S in ATTN_WIDTHS]
-    cases += [(2048, False, torch.bfloat16), (512, True, torch.float32),
-              (100, False, torch.float32)]
-    for S, causal, dt in cases:
-        B, H, KVH, D = 1, 32, 8, 128
-        q = torch.randn(B, H, S, D, generator=gen, device="cuda").to(dt)
-        k = torch.randn(B, KVH, S, D, generator=gen, device="cuda").to(dt)
-        v = torch.randn(B, KVH, S, D, generator=gen, device="cuda").to(dt)
+    for B, H, KVH, S, causal, dt, layout in FWD_CASES:
+        D = 128
+        q = _attn_input(B, H, S, D, gen, dt, layout)
+        k = _attn_input(B, KVH, S, D, gen, dt, layout)
+        v = _attn_input(B, KVH, S, D, gen, dt, layout)
         scale = D ** -0.5
         o, lse = flash_fwd(q, k, v, causal)
         torch.cuda.synchronize()
@@ -190,7 +226,8 @@ def phase_kernels(card: str):
         atol_o = ATOL_O_BF16 if dt == torch.bfloat16 else ATOL_F32
         atol_lse = ATOL_LSE if dt == torch.bfloat16 else ATOL_F32
         check(finite and err_o <= atol_o and err_lse <= atol_lse,
-              f"flash_fwd S={S} causal={causal} {dt}: |dO|={err_o} "
+              f"flash_fwd B{B} H{H} KVH{KVH} S{S} causal={causal} {dt} "
+              f"{layout}: |dO|={err_o} "
               f"(atol {atol_o}) |dLSE|={err_lse} (atol {atol_lse})")
         del o_ref, lse_ref
         iters = 20 if S <= 2048 else 5
@@ -203,7 +240,8 @@ def phase_kernels(card: str):
         bound_ms, bound_by, flops, nbytes = attn_bound(
             B, H, KVH, S, D, causal, q.element_size(), peak)
         row = dict(shape=f"B{B} H{H} KVH{KVH} S{S} D{D}", causal=causal,
-                   dtype=str(dt).replace("torch.", ""), max_abs_err=err_o,
+                   dtype=str(dt).replace("torch.", ""), layout=layout,
+                   max_abs_err=err_o,
                    lse_abs_err=err_lse, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
                    tflops=flops / ms / 1e9, card=card)
@@ -330,21 +368,17 @@ def phase_engine(card: str):
           f"ranks {ranks}")
 
     # -- TTFT on an idle engine, decode rate at 1 and 8 streams --
-    ttft_idle = {}
-    for n in (100, 2000):
-        vals = []
-        for r in range(3):
-            (t0, times, _), = _run_concurrent(
-                eng, [(rng.integers(0, cfg.vocab_size, n).tolist(), 1, {})])
-            vals.append(times[0][0] - t0)
-        ttft_idle[n] = statistics.median(vals)
+    ttft_idle_all = _ttft_idle(eng, cfg, rng, TTFT_REPEATS)
+    ttft_idle = {n: statistics.median(v) for n, v in ttft_idle_all.items()}
     long_jobs = [(rng.integers(0, cfg.vocab_size, 128).tolist(), 129, {})
                  for _ in range(8)]
     rate1 = _decode_rate(_run_concurrent(eng, long_jobs[:1]))
     rate8 = _decode_rate(_run_concurrent(eng, long_jobs))
-    log(f"ENGINE TTFT idle (s, median of 3): prompt 100 -> "
+    log(f"ENGINE TTFT idle (s, median of {TTFT_REPEATS}): prompt 100 -> "
         f"{ttft_idle[100]:.4f}, prompt 2000 -> {ttft_idle[2000]:.4f}; "
         f"decode tok/s: 1 stream {rate1:.1f}, 8 streams {rate8:.1f}  [{card}]")
+    log("ENGINE TTFT idle, every request (ms): " + json.dumps(
+        {n: [round(x * 1e3, 1) for x in v] for n, v in ttft_idle_all.items()}))
 
     # -- one decode chunk under the profiler: host cost vs device time --
     eng.stop()
@@ -354,12 +388,46 @@ def phase_engine(card: str):
         f"{json.dumps(chunk)}; peak memory {peak_gb:.2f} GB  [{card}]")
     out = dict(setup_s=setup_s, main_s=main_s, launches=launches,
                ttft_concurrent_s=ttft, ttft_idle_s=ttft_idle,
+               ttft_idle_all_s=ttft_idle_all,
                decode_tok_s_1=rate1, decode_tok_s_8=rate8,
                teacher=teacher,
                chunk=chunk, peak_mem_gb=peak_gb, card=card)
     del eng, params
     torch.cuda.empty_cache()
     return out
+
+
+def _ttft_idle(eng, cfg, rng, repeats: int) -> dict:
+    """{prompt length: [TTFT s of each request]}, one request at a time on
+    an idle engine, for prompts of 100 and 2,000 tokens."""
+    out = {}
+    for n in (100, 2000):
+        vals = []
+        for _ in range(repeats):
+            (t0, times, _), = _run_concurrent(
+                eng, [(rng.integers(0, cfg.vocab_size, n).tolist(), 1, {})])
+            vals.append(times[0][0] - t0)
+        out[n] = vals
+    return out
+
+
+def phase_ttft_only(card: str, repeats: int):
+    """Idle TTFT alone on Llama-3-8B, after one warm-up request per
+    length: to compare two trees of the package with this script."""
+    cfg = LlamaConfig.llama3_8b(param_dtype=torch.bfloat16)
+    eng = Engine(init_params(cfg, SEED, device="cuda"), cfg, n_slots=8,
+                 decode_chunk=8, page_size=64)
+    rng = np.random.default_rng(SEED)
+    try:
+        _ttft_idle(eng, cfg, rng, 1)
+        vals = _ttft_idle(eng, cfg, rng, repeats)
+    finally:
+        eng.stop()
+    check(eng.error is None, f"engine error: {eng.error}")
+    log("TTFT idle (ms): " + json.dumps(
+        {n: dict(median=statistics.median(v) * 1e3,
+                 all=[round(x * 1e3, 1) for x in v])
+         for n, v in vals.items()}) + f"  [{card}]")
 
 
 def _device_profile(run) -> dict:
@@ -678,6 +746,13 @@ def phase_train_bench(card: str):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only-kernels", action="store_true",
+                    help="build the kernels and run phase 2 only")
+    ap.add_argument("--only-ttft", type=int, default=0, metavar="N",
+                    help="build the kernels and measure idle TTFT only, N "
+                    "requests per prompt length")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
@@ -693,10 +768,15 @@ def main() -> int:
     log(f"BUILD {_build.sources()} in {build_s:.2f} s")
     for name, text in _build.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in BUILD_REPORT):
                 log(f"BUILD {name}: {line.strip()}")
 
+    if args.only_ttft:
+        phase_ttft_only(card, args.only_ttft)
+        return 0
     rows = phase_kernels(card)
+    if args.only_kernels:
+        return 0
     engine = phase_engine(card)
     phase_llm_server()
     bwd_rows = phase_bwd_kernels(card)
@@ -704,8 +784,8 @@ def main() -> int:
     train = phase_train_main(card)
     bench = phase_train_bench(card)
 
-    main_row = next(r for r in rows if r["shape"].endswith("S8192 D128")
-                    and r["causal"])
+    main_row = next(r for r in rows if r["shape"] == "B1 H32 KVH8 S8192 D128"
+                    and r["causal"] and r["layout"] == "dense")
     kernels = [dict(
         name="flash_fwd", route="cuda",
         source="ray_tpu_torch/ops/csrc/flash_fwd.cu",

@@ -6,7 +6,10 @@ on first use; the hash is of the source and the shared ``csrc/*.cuh``
 headers, so an edited kernel is rebuilt and a stale library is never
 loaded. ``build_all()`` starts one ``nvcc``
 per source, all at once. Nothing here runs at import time: the CPU tests
-import every module of the port on a host with no ``nvcc``.
+import every module of the port on a host with no ``nvcc``. The libraries
+link only the CUDA runtime: the one driver function they call,
+``cuTensorMapEncodeTiled`` (``csrc/hopper.cuh``), is looked up through
+``cudaGetDriverEntryPoint``, so there is no ``-lcuda``.
 """
 
 from __future__ import annotations

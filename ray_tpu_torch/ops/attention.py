@@ -127,6 +127,22 @@ def _kernel_fn():
     return fn
 
 
+def check_kernel_layout(what: str, **tensors: torch.Tensor) -> None:
+    """Raise ValueError unless each [b, h, s, d] tensor has a dense last
+    dim, batch/head/seq strides that are multiples of 16 bytes and a
+    16-byte aligned base address: what the kernels' TMA tensor maps and
+    16-byte loads take. Strided views are fine (v as the transpose of a
+    [b, s, kvh, d] view). Only strides and addresses are read, so it runs
+    on CPU tensors too."""
+    for name, t in tensors.items():
+        align = 16 // t.element_size()
+        if t.stride(-1) != 1 or any(s % align for s in t.stride()[:3]) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{what} needs {name} with a dense last dim "
+                             f"and 16-byte aligned rows, got strides "
+                             f"{t.stride()}")
+
+
 def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_fwd kernel takes float32 or bfloat16, "
@@ -136,13 +152,7 @@ def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
                          f"not {q.shape[-1]}")
     B, H, Sq, D = q.shape
     _, KVH, Skv, _ = k.shape
-    align = 16 // q.element_size()
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1 or any(s % align for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
-            raise ValueError(f"flash_fwd kernel needs {name} with a dense "
-                             f"last dim and 16-byte aligned rows, got "
-                             f"strides {t.stride()}")
+    check_kernel_layout("flash_fwd kernel", q=q, k=k, v=v)
     o = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -280,12 +290,8 @@ def _bwd_check(q, k, v, dout, lse, delta):
     if dout.dtype != q.dtype or dout.shape != q.shape:
         raise ValueError(f"dout must match q: {tuple(dout.shape)} "
                          f"{dout.dtype} vs {tuple(q.shape)} {q.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
-            raise ValueError(f"the flash backward kernels need {name} with "
-                             f"a dense last dim and 16-byte aligned rows, "
-                             f"got strides {t.stride()}")
+    check_kernel_layout("the flash backward kernels", q=q, k=k, v=v,
+                        dout=dout)
     rows = q.shape[:3]
     for name, t in (("lse", lse), ("delta", delta)):
         if t.dtype != torch.float32 or t.shape != rows \

@@ -1,6 +1,7 @@
-// Device helpers shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd_dkv.cu, flash_bwd_dq.cu): cp.async tile loads, bf16
-// mma.sync.m16n8k16 with f32 accumulation, and ldmatrix fragment loads.
+// Device helpers shared by the flash-attention kernels: the constants and
+// bf16 packing (all three kernels); cp.async tile loads, bf16
+// mma.sync.m16n8k16 with f32 accumulation and ldmatrix fragment loads (the
+// two backward kernels). The forward's bf16 kernel is built on hopper.cuh.
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16x16 row-major: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),

@@ -3,46 +3,66 @@
 // Replaces the Pallas TPU kernel `_flash_fwd_kernel`, launched by
 // `_flash_fwd_pallas` (ray_tpu/ops/attention.py:84-179). It computes the
 // same function: O = softmax(q k^T * scale [causal mask]) v with an online
-// softmax, O = acc / max(l, 1e-30) in the input dtype and LSE = m + log(l)
-// in f32, masked scores set to -0.7 * FLT_MAX as the TPU kernel does.
+// softmax, O = acc / max(l, 1e-30) in the input dtype and LSE = m +
+// log(max(l, 1e-30)) in f32, masked scores set to -0.7 * FLT_MAX as the TPU
+// kernel does.
 //
 // What bounds it on the H100, and what the design does about it:
 //   * Long prompts (causal FLOPs 2*S^2*D*H grow as S^2) are bound by the
-//     tensor cores. The bf16 path runs every product on them with
-//     mma.sync.m16n8k16 (f32 accumulation) and skips the KV tiles wholly
-//     above the diagonal, as the TPU kernel does, so causal work is half of
-//     the full square.
-//   * Short prompts (the 32..512 token buckets) are bound by bytes: q, k, v
-//     and o are read and written once. Each block keeps its running max,
-//     sum and output accumulator in registers for the whole KV loop, so
-//     nothing but q, k, v, o and the LSE crosses device memory; K and V
-//     tiles are read once per q tile through shared memory with cp.async.
+//     tensor cores, which reach their full rate only through wgmma fed
+//     without stalls. Each block owns 128 q rows of one (b, h) and has
+//     three warpgroups: a producer, which gives its registers away
+//     (setmaxnreg.dec to 24) and in which one thread issues TMA loads, and
+//     two consumers of 64 q rows each (setmaxnreg.inc to 240). Q (128 x 128
+//     bf16) is loaded once; K and V tiles of 128 rows go through a ring of
+//     2 stages in shared memory. Each stage has `full` mbarriers (TMA
+//     transaction bytes) for K and for V and `empty` mbarriers that the 8
+//     consumer warps arrive at, K's as soon as S = Q K^T is done, V's after
+//     O += P V, so the next tiles are in flight while the current ones are
+//     used. S = Q K^T is 8 wgmma.m64n128k16 with both operands in shared
+//     memory (K-major); O += P V takes P from registers (the S accumulator
+//     re-packed to bf16) and V from shared memory through the transpose bit
+//     (MN-major).
+//   * The softmax (exp2 on the SFU, row max and sum) would leave the tensor
+//     cores idle. Inside each consumer, S of tile kt is issued before
+//     O += P V of tile kt - 1, so that product runs under the softmax of
+//     tile kt; between the consumers, named barriers make them take turns
+//     issuing (ping-pong), so one's softmax runs under the other's wgmmas.
+//     Scores stay raw in the unmasked tiles: P = 2^(s * scale * log2 e - m)
+//     is one FFMA and one MUFU.EX2 per score.
+//   * Causal KV tiles wholly above the diagonal are never loaded, so causal
+//     work is half of the square; only the diagonal tile and a ragged last
+//     tile are masked (the TPU kernel's visible/full classes).
+//   * Short prompts (the 32..512 token buckets) are bound by bytes and by
+//     launch latency: q, k, v and o cross device memory once; m, l and O
+//     stay in registers for the whole KV loop.
 //   * The TPU kernel's sequential "arbitrary" grid axis and its VMEM
-//     scratch become a loop over KV tiles inside one block per (b*h, q
-//     tile): blocks run in parallel and in no order on 132 SMs, so nothing
-//     may carry over between them. Tiles are 64 x 64 x 128 (bf16) instead
-//     of 1024 x 1024: a block has 227 KB of shared memory, not VMEM.
-//   * Grouped-query attention reads KV head h / (H / KVH) directly, so the
+//     scratch become the KV loop inside one block: blocks run in parallel
+//     and in no order on 132 SMs, so nothing may carry over between them.
+//     Blocks are ordered by KV head, then heaviest causal q tile first,
+//     and the H / KVH q heads that share one KV head run next to each
+//     other, so they read its K and V from L2.
+//   * Grouped-query attention reads KV head h / (H / KVH) in place; the
 //     caller never materializes repeat_kv copies.
-//   * No 128-multiple gate: the kernel masks a ragged edge itself, so every
-//     prefill bucket (32, 64, ...) runs through it.
+//   * No 128-multiple gate: TMA zero-fills rows past Sq / Skv, the column
+//     mask covers the ragged KV edge and the stores are guarded by row <
+//     Sq, so every prefill bucket (32, 64, ...) runs through the kernel.
+//   * The tensor maps are 4-D {D, S, heads, batch} built from the element
+//     strides the caller passes, so q/k from apply_rope (dense BHSD) and v
+//     as the transpose of a [B, S, KVH, D] view load without a copy.
 // A plain scalar-FMA f32 variant serves f32 inputs (D = 128 as well).
-// Later work: TMA + wgmma + a producer warp, double-buffered KV tiles.
 
 #include <math.h>
 
+#include <atomic>
+
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using flash::cp_async_commit;
-using flash::cp_async_wait;
 using flash::kD;
-using flash::kLds;
 using flash::kMaskValue;
-using flash::ldmatrix_x4_trans;
-using flash::load_tile;
-using flash::mma_bf16;
 using flash::pack_bf16;
 
 struct Params {
@@ -69,188 +89,400 @@ __device__ __forceinline__ int kv_tiles(const Params& p, int q0, int bm,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: 4 warps, 64 q rows per block (16 per warp), 64-row KV tiles.
+// bf16: a producer warpgroup and two consumer warpgroups of 64 q rows each,
+// 128-row KV tiles in a 2-stage ring (TMA + mbarriers), wgmma.
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 64;
-constexpr int kBN = flash::kTile;
+typedef __nv_bfloat16 bf16;
 
-__global__ void __launch_bounds__(128)
-flash_fwd_bf16_kernel(Params p) {
-  __shared__ __align__(16) __nv_bfloat16 Ks[kBN][kLds];
-  __shared__ __align__(16) __nv_bfloat16 Vs[kBN][kLds];
+constexpr int kConsumers = 2;  // consumer warpgroups, 64 q rows each
+constexpr int kBM = 64 * kConsumers;  // q rows per block
+constexpr int kBN = 128;       // KV rows per tile
+constexpr int kStages = 2;     // K/V ring depth
+constexpr int kHalf = 64;      // columns per 128B-swizzled TMA box
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr uint32_t kTileBytes = kBN * kD * 2;  // one K or V tile, 32 KB
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;    // row group inside an mma fragment
-  const int tig = lane % 4;  // thread in group
-  const int n_qt = gridDim.x;
-  // Causal: the heaviest q tiles (most KV tiles) are launched first.
-  const int qt = p.causal ? (n_qt - 1 - blockIdx.x) : blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / p.H;
-  const int h = bh % p.H;
-  const int kvh = h / (p.H / p.KVH);
-  const int q0 = qt * kBM;
+struct __align__(1024) FwdSmem {
+  bf16 q[2][kBM * kHalf];             // two 64-column halves
+  bf16 k[kStages][2][kBN * kHalf];
+  bf16 v[kStages][2][kBN * kHalf];
+  uint64_t q_full;
+  uint64_t k_full[kStages];   // TMA bytes of K have landed
+  uint64_t v_full[kStages];
+  uint64_t k_empty[kStages];  // every consumer warp is done with K
+  uint64_t v_empty[kStages];
+};
 
-  const __nv_bfloat16* Q = static_cast<const __nv_bfloat16*>(p.q) +
-                           b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* K = static_cast<const __nv_bfloat16*>(p.k) +
-                           b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* V = static_cast<const __nv_bfloat16*>(p.v) +
-                           b * p.v_sb + kvh * p.v_sh;
+// + slack to align the base to 1024 bytes: 165,888 bytes in all.
+constexpr int kSmemBytes = static_cast<int>(sizeof(FwdSmem)) + 1024;
 
-  // This warp's two fragment rows (global q positions).
-  const int r_lo = q0 + warp * 16 + g;
-  const int r_hi = r_lo + 8;
+struct FwdArgs {
+  void* o;
+  float* lse;
+  int H, KVH, Sq, Skv, n_qt;
+  float scale_log2;  // scale * log2(e): scores are kept in log2 units
+  int causal;
+};
 
-  // Q A-fragments for the 8 k-steps of D = 128, held for the whole loop.
-  uint32_t qa[kD / 16][4];
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr uint32_t kKvHalfBytes = kBN * kHalf * 2;
+
+// Issue S = Q K^T for one consumer warpgroup (64 q rows x 128 KV columns,
+// D = 128 in 8 k-steps, both operands K-major in shared memory) as one
+// wgmma group; the caller waits for it.
+__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_base,
+                                         uint32_t q_half_bytes,
+                                         uint32_t k_base) {
+  hopper::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kD / 16; ++kk) {
-    int c = kk * 16 + tig * 2;
-    const uint32_t zero = 0u;
-    qa[kk][0] = r_lo < p.Sq
-        ? *reinterpret_cast<const uint32_t*>(Q + r_lo * p.q_ss + c) : zero;
-    qa[kk][1] = r_hi < p.Sq
-        ? *reinterpret_cast<const uint32_t*>(Q + r_hi * p.q_ss + c) : zero;
-    qa[kk][2] = r_lo < p.Sq
-        ? *reinterpret_cast<const uint32_t*>(Q + r_lo * p.q_ss + c + 8) : zero;
-    qa[kk][3] = r_hi < p.Sq
-        ? *reinterpret_cast<const uint32_t*>(Q + r_hi * p.q_ss + c + 8) : zero;
+    const uint32_t col = (kk % 4) * 32;  // bytes into the 128-byte row
+    const uint64_t da = hopper::desc_sw128(
+        q_base + (kk / 4) * q_half_bytes + col, 16, 1024);
+    const uint64_t db = hopper::desc_sw128(
+        k_base + (kk / 4) * kKvHalfBytes + col, 16, 1024);
+    hopper::wgmma_m64n128k16_ss<0>(sc, da, db, kk > 0 ? 1 : 0);
   }
+  hopper::wgmma_commit();
+}
 
-  float acc[kD / 8][4];
+// Issue O += P V as one wgmma group: P (bf16) is the register A operand, V
+// is [kv][d] in shared memory with d contiguous, i.e. an MN-major B operand
+// (transpose bit 1): the two 64-wide d halves are one LBO apart, a k-step
+// of 16 KV rows is 2048 bytes.
+__device__ __forceinline__ void issue_pv(float (&o)[64],
+                                         const uint32_t (&pa)[kBN / 16][4],
+                                         uint32_t v_base) {
+  hopper::wgmma_fence();
 #pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY;
-  float l_lo = 0.f, l_hi = 0.f;  // this thread's partial row sums
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    const uint64_t db =
+        hopper::desc_sw128(v_base + kk * 16 * 128, kKvHalfBytes, 1024);
+    hopper::wgmma_m64n128k16_rs<1>(o, pa[kk], db, 1);
+  }
+  hopper::wgmma_commit();
+}
 
-  const int n_kt = kv_tiles(p, q0, kBM, kBN);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBN;
-    load_tile(Ks, K, p.k_ss, k0, p.Skv, tid);
-    cp_async_commit();
-    load_tile(Vs, V, p.v_ss, k0, p.Skv, tid);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 KV columns.
-    float s[kBN / 8][4];
+// Online softmax of one S tile in place (scores in log2 units): scale,
+// mask (kMasked: the diagonal tile or a ragged KV edge), new row max, P =
+// 2^(x - m); updates m and this thread's partial row sums l, returns the
+// factors that rescale O. The unmasked instance carries no mask code.
+template <bool kMasked>
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], const FwdArgs& p,
+                                             int k0, int r_lo,
+                                             int lane, float& m_lo,
+                                             float& m_hi, float& l_lo,
+                                             float& l_hi, float& corr_lo,
+                                             float& corr_hi) {
+  const float c = p.scale_log2;
+  float mx_lo = -INFINITY, mx_hi = -INFINITY;
+  if (kMasked) {  // scale, then mask: sc holds log2-unit scores
 #pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        const __nv_bfloat16* kr = &Ks[nt * 8 + g][kk * 16 + tig * 2];
-        uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr);
-        uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + 8);
-        mma_bf16(s[nt], qa[kk], b0, b1);
-      }
-    }
-
-    // Scale, mask (diagonal tile or ragged KV edge), online softmax.
-    const bool masked = (k0 + kBN > p.Skv) ||
-                        (p.causal && k0 + kBN - 1 > q0);
-    float mx_lo = -INFINITY, mx_hi = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
+    for (int j = 0; j < kBN / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * p.scale;
-        if (masked) {
-          int col = k0 + nt * 8 + tig * 2 + (e & 1);
-          int row = e < 2 ? r_lo : r_hi;
-          if (col >= p.Skv || (p.causal && col > row)) x = kMaskValue;
-        }
-        s[nt][e] = x;
+        const int col = k0 + j * 8 + (lane % 4) * 2 + (e & 1);
+        const int row = r_lo + (e < 2 ? 0 : 8);
+        float x = sc[4 * j + e] * c;
+        if (col >= p.Skv || (p.causal && col > row)) x = kMaskValue;
+        sc[4 * j + e] = x;
       }
-      mx_lo = fmaxf(mx_lo, fmaxf(s[nt][0], s[nt][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[nt][2], s[nt][3]));
+      mx_lo = fmaxf(mx_lo, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
+  } else {  // sc stays raw; c > 0, so max(s) * c = max(s * c)
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+    for (int j = 0; j < kBN / 8; ++j) {
+      mx_lo = fmaxf(mx_lo, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
-    const float mn_lo = fmaxf(m_lo, mx_lo);
-    const float mn_hi = fmaxf(m_hi, mx_hi);
-    const float corr_lo = __expf(m_lo - mn_lo);
-    const float corr_hi = __expf(m_hi - mn_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-      s[nt][0] = __expf(s[nt][0] - mn_lo);
-      s[nt][1] = __expf(s[nt][1] - mn_lo);
-      s[nt][2] = __expf(s[nt][2] - mn_hi);
-      s[nt][3] = __expf(s[nt][3] - mn_hi);
-      sum_lo += s[nt][0] + s[nt][1];
-      sum_hi += s[nt][2] + s[nt][3];
-    }
-    l_lo = l_lo * corr_lo + sum_lo;
-    l_hi = l_hi * corr_hi + sum_hi;
-#pragma unroll
-    for (int dt = 0; dt < kD / 8; ++dt) {
-      acc[dt][0] *= corr_lo;
-      acc[dt][1] *= corr_lo;
-      acc[dt][2] *= corr_hi;
-      acc[dt][3] *= corr_hi;
-    }
-
-    cp_async_wait<0>();
-    __syncthreads();
-
-    // acc += P V: P (bf16) is re-packed from the S accumulators as the A
-    // operand; V's B fragments come transposed out of smem by ldmatrix.
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < kD / 16; ++dp) {
-        uint32_t vb[4];
-        const int vrow = kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8;
-        const int vcol = dp * 16 + (lane / 16) * 8;
-        ldmatrix_x4_trans(vb, &Vs[vrow][vcol]);
-        mma_bf16(acc[2 * dp], pa, vb[0], vb[1]);
-        mma_bf16(acc[2 * dp + 1], pa, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with Ks/Vs before the next load
+    mx_lo *= c;
+    mx_hi *= c;
   }
-
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
   }
-  l_lo = fmaxf(l_lo, 1e-30f);
-  l_hi = fmaxf(l_hi, 1e-30f);
-
-  __nv_bfloat16* O = static_cast<__nv_bfloat16*>(p.o) +
-                     (static_cast<long long>(bh) * p.Sq) * kD;
-  float* LSE = p.lse + static_cast<long long>(bh) * p.Sq;
+  const float mn_lo = fmaxf(m_lo, mx_lo);
+  const float mn_hi = fmaxf(m_hi, mx_hi);
+  corr_lo = fast_exp2(m_lo - mn_lo);
+  corr_hi = fast_exp2(m_hi - mn_hi);
+  m_lo = mn_lo;
+  m_hi = mn_hi;
+  // P = 2^(x - m): one FFMA (or FADD) and one MUFU.EX2 per score.
+  const float cs = kMasked ? 1.f : c;
+  float sum_lo = 0.f, sum_hi = 0.f;
 #pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt) {
-    int c = dt * 8 + tig * 2;
-    if (r_lo < p.Sq)
-      *reinterpret_cast<uint32_t*>(O + static_cast<long long>(r_lo) * kD + c) =
-          pack_bf16(acc[dt][0] / l_lo, acc[dt][1] / l_lo);
-    if (r_hi < p.Sq)
-      *reinterpret_cast<uint32_t*>(O + static_cast<long long>(r_hi) * kD + c) =
-          pack_bf16(acc[dt][2] / l_hi, acc[dt][3] / l_hi);
+  for (int j = 0; j < kBN / 8; ++j) {
+    sc[4 * j] = fast_exp2(fmaf(sc[4 * j], cs, -mn_lo));
+    sc[4 * j + 1] = fast_exp2(fmaf(sc[4 * j + 1], cs, -mn_lo));
+    sc[4 * j + 2] = fast_exp2(fmaf(sc[4 * j + 2], cs, -mn_hi));
+    sc[4 * j + 3] = fast_exp2(fmaf(sc[4 * j + 3], cs, -mn_hi));
+    sum_lo += sc[4 * j] + sc[4 * j + 1];
+    sum_hi += sc[4 * j + 2] + sc[4 * j + 3];
   }
-  if (tig == 0) {
-    if (r_lo < p.Sq) LSE[r_lo] = m_lo + logf(l_lo);
-    if (r_hi < p.Sq) LSE[r_hi] = m_hi + logf(l_hi);
+  l_lo = l_lo * corr_lo + sum_lo;
+  l_hi = l_hi * corr_hi + sum_hi;
+}
+
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], const FwdArgs& p,
+                                             bool masked, int k0, int r_lo,
+                                             int lane, float& m_lo,
+                                             float& m_hi, float& l_lo,
+                                             float& l_hi, float& corr_lo,
+                                             float& corr_hi) {
+  if (masked)
+    softmax_tile<true>(sc, p, k0, r_lo, lane, m_lo, m_hi, l_lo, l_hi,
+                       corr_lo, corr_hi);
+  else
+    softmax_tile<false>(sc, p, k0, r_lo, lane, m_lo, m_hi, l_lo, l_hi,
+                        corr_lo, corr_hi);
+  // Keep the softmax ahead of the next wgmma wait: without these ties the
+  // compiler may sink the exponentials below it, and the softmax would no
+  // longer run under the other product.
+#pragma unroll
+  for (int i = 0; i < 64; ++i) hopper::fence_reg(sc[i]);
+  hopper::fence_reg(l_lo);
+  hopper::fence_reg(l_hi);
+  hopper::fence_reg(corr_lo);
+  hopper::fence_reg(corr_hi);
+}
+
+// P as the A operand of the next product: k-step kk covers the KV columns
+// of accumulator blocks j = 2kk and 2kk + 1.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[kBN / 16][4],
+                                       const float (&sc)[64]) {
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+// One arrival per consumer warp on an `empty` barrier.
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) hopper::mbar_arrive(bar);
+}
+
+__global__ void __launch_bounds__(128 * (1 + kConsumers), 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const FwdArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(
+      smem_raw + (((raw + 1023) & ~1023u) - raw));
+
+  // Block -> (b, kv head, q tile, head in the group), the group fastest,
+  // then the q tiles of one KV head, heaviest causal tile first.
+  const int G = p.H / p.KVH;
+  int id = blockIdx.x;
+  const int g = id % G;
+  id /= G;
+  const int rank = id % p.n_qt;
+  id /= p.n_qt;
+  const int kvh = id % p.KVH;
+  const int b = id / p.KVH;
+  const int h = kvh * G + g;
+  const int qt = p.causal ? p.n_qt - 1 - rank : rank;
+  const int q0 = qt * kBM;
+  const int kv_end = p.causal ? min(p.Skv, q0 + kBM) : p.Skv;
+  const int n_kt = (kv_end + kBN - 1) / kBN;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&sm.k_full[s], 1);
+      hopper::mbar_init(&sm.v_full[s], 1);
+      hopper::mbar_init(&sm.k_empty[s], 4 * kConsumers);  // consumer warps
+      hopper::mbar_init(&sm.v_empty[s], 4 * kConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------- producer: one thread issues every TMA load --------
+    // K of a stage is refilled once both consumers have S = Q K^T of it,
+    // V once they have O += P V of it.
+    hopper::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(&sm.q_full, kBM * kD * 2);
+      hopper::tma_load_4d(sm.q[0], &tq, &sm.q_full, 0, q0, h, b);
+      hopper::tma_load_4d(sm.q[1], &tq, &sm.q_full, kHalf, q0, h, b);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % kStages;
+        const uint32_t freed = ((kt / kStages) - 1) & 1;
+        const int k0 = kt * kBN;
+        if (kt >= kStages) hopper::mbar_wait(&sm.k_empty[s], freed);
+        hopper::mbar_expect_tx(&sm.k_full[s], kTileBytes);
+        hopper::tma_load_4d(sm.k[s][0], &tk, &sm.k_full[s], 0, k0, kvh, b);
+        hopper::tma_load_4d(sm.k[s][1], &tk, &sm.k_full[s], kHalf, k0, kvh,
+                            b);
+        if (kt >= kStages) hopper::mbar_wait(&sm.v_empty[s], freed);
+        hopper::mbar_expect_tx(&sm.v_full[s], kTileBytes);
+        hopper::tma_load_4d(sm.v[s][0], &tv, &sm.v_full[s], 0, k0, kvh, b);
+        hopper::tma_load_4d(sm.v[s][1], &tv, &sm.v_full[s], kHalf, k0, kvh,
+                            b);
+      }
+    }
+  } else {
+    // ---------------- consumers: 64 q rows each -------------------------
+    // Software pipeline inside the warpgroup: S of tile kt is issued before
+    // O += P V of tile kt - 1, so the softmax of one tile runs while the
+    // tensor cores work on the other product.
+    hopper::reg_alloc<kConsumerRegs>();
+    const int cw = wg - 1;
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32;
+    const int lane = t % 32;
+    const int row_c = q0 + cw * 64;  // this warpgroup's first q row
+    const int r_lo = row_c + warp * 16 + lane / 4;
+    const int r_hi = r_lo + 8;
+
+    if (row_c >= p.Sq) {  // a short bucket leaves this warpgroup no rows
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % kStages;
+        const uint32_t parity = (kt / kStages) & 1;
+        hopper::mbar_wait(&sm.k_full[s], parity);
+        release(&sm.k_empty[s], lane);
+        hopper::mbar_wait(&sm.v_full[s], parity);
+        release(&sm.v_empty[s], lane);
+      }
+      return;
+    }
+
+    float o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float m_lo = -INFINITY, m_hi = -INFINITY;  // running max, log2 units
+    float l_lo = 0.f, l_hi = 0.f;  // this thread's partial row sums
+    float corr_lo, corr_hi;
+    float sc[64];
+    uint32_t pa[kBN / 16][4];
+
+    constexpr uint32_t q_half_bytes = kBM * kHalf * 2;
+    const uint32_t q_base = hopper::smem_u32(sm.q[0]) + cw * 64 * 128;
+    auto masked = [&](int k0) {
+      return (k0 + kBN > p.Skv) || (p.causal && k0 + kBN - 1 > row_c);
+    };
+    // Ping-pong between the two consumers (named barriers 1 and 2): each
+    // issues its products only after the other has issued its own, so one
+    // warpgroup's softmax runs under the other's wgmmas. Each consumer
+    // issues n_kt + 1 times; consumer 1 lets consumer 0 go first and skips
+    // its last hand-over, so every barrier is balanced at exit.
+    const bool pingpong = q0 + 64 < p.Sq;  // both consumers have rows
+    int turns = n_kt + 1;
+    auto my_turn = [&]() {
+      if (pingpong) hopper::named_bar_sync(1 + cw, 256);
+    };
+    auto pass_turn = [&]() {
+      --turns;
+      if (pingpong && !(cw == 1 && turns == 0))
+        hopper::named_bar_arrive(2 - cw, 256);
+    };
+    if (pingpong && cw == 1) hopper::named_bar_arrive(1, 256);
+
+    hopper::mbar_wait(&sm.q_full, 0);
+    hopper::mbar_wait(&sm.k_full[0], 0);
+    my_turn();
+    issue_qk(sc, q_base, q_half_bytes, hopper::smem_u32(sm.k[0][0]));
+    pass_turn();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 64; ++i) hopper::fence_reg(sc[i]);
+    release(&sm.k_empty[0], lane);
+    softmax_tile(sc, p, masked(0), 0, r_lo, lane, m_lo, m_hi, l_lo, l_hi,
+                 corr_lo, corr_hi);
+    pack_p(pa, sc);
+
+    for (int kt = 1; kt < n_kt; ++kt) {
+      const int s = kt % kStages, sp = (kt - 1) % kStages;
+      const int k0 = kt * kBN;
+      hopper::mbar_wait(&sm.k_full[s], (kt / kStages) & 1);
+      hopper::mbar_wait(&sm.v_full[sp], ((kt - 1) / kStages) & 1);
+      my_turn();
+      issue_qk(sc, q_base, q_half_bytes, hopper::smem_u32(sm.k[s][0]));
+      issue_pv(o, pa, hopper::smem_u32(sm.v[sp][0]));
+      pass_turn();
+      hopper::wgmma_wait<1>();  // S of tile kt is done, P V may still run
+#pragma unroll
+      for (int i = 0; i < 64; ++i) hopper::fence_reg(sc[i]);
+      release(&sm.k_empty[s], lane);
+      softmax_tile(sc, p, masked(k0), k0, r_lo, lane, m_lo, m_hi, l_lo,
+                   l_hi, corr_lo, corr_hi);
+      hopper::wgmma_wait<0>();  // P V of tile kt - 1 is done
+#pragma unroll
+      for (int i = 0; i < 64; ++i) hopper::fence_reg(o[i]);
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) hopper::fence_reg(pa[kk][i]);
+      release(&sm.v_empty[sp], lane);
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) {
+        o[4 * j] *= corr_lo;
+        o[4 * j + 1] *= corr_lo;
+        o[4 * j + 2] *= corr_hi;
+        o[4 * j + 3] *= corr_hi;
+      }
+      pack_p(pa, sc);
+    }
+    const int sl = (n_kt - 1) % kStages;
+    hopper::mbar_wait(&sm.v_full[sl], ((n_kt - 1) / kStages) & 1);
+    my_turn();
+    issue_pv(o, pa, hopper::smem_u32(sm.v[sl][0]));
+    pass_turn();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 64; ++i) hopper::fence_reg(o[i]);
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) hopper::fence_reg(pa[kk][i]);
+    release(&sm.v_empty[sl], lane);
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+    }
+    l_lo = fmaxf(l_lo, 1e-30f);
+    l_hi = fmaxf(l_hi, 1e-30f);
+    const long long bh = static_cast<long long>(b) * p.H + h;
+    bf16* O = static_cast<bf16*>(p.o) + bh * p.Sq * kD;
+    float* LSE = p.lse + bh * p.Sq;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      const int c = j * 8 + (lane % 4) * 2;
+      if (r_lo < p.Sq)
+        *reinterpret_cast<uint32_t*>(O + static_cast<long long>(r_lo) * kD +
+                                     c) =
+            pack_bf16(o[4 * j] / l_lo, o[4 * j + 1] / l_lo);
+      if (r_hi < p.Sq)
+        *reinterpret_cast<uint32_t*>(O + static_cast<long long>(r_hi) * kD +
+                                     c) =
+            pack_bf16(o[4 * j + 2] / l_hi, o[4 * j + 3] / l_hi);
+    }
+    if (lane % 4 == 0) {
+      if (r_lo < p.Sq) LSE[r_lo] = m_lo * kLn2 + logf(l_lo);
+      if (r_hi < p.Sq) LSE[r_hi] = m_hi * kLn2 + logf(l_hi);
+    }
   }
 }
 
@@ -359,10 +591,56 @@ flash_fwd_f32_kernel(Params p) {
 
 }  // namespace
 
+// The bf16 launch: tensor maps over q, k, v (4-D {D, S, heads, batch},
+// 128B swizzle, boxes of 64 columns x kBM or kBN rows), then the kernel.
+static int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                       void* lse, const long long* qs, const long long* ks,
+                       const long long* vs, int B, int H, int KVH, int Sq,
+                       int Skv, float scale, int causal, cudaStream_t st) {
+  const uint64_t qdim[4] = {kD, static_cast<uint64_t>(Sq),
+                            static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(B)};
+  const uint64_t kvdim[4] = {kD, static_cast<uint64_t>(Skv),
+                             static_cast<uint64_t>(KVH),
+                             static_cast<uint64_t>(B)};
+  // element strides (batch, head, seq) -> byte strides (seq, head, batch)
+  const uint64_t qst[3] = {qs[2] * 2ull, qs[1] * 2ull, qs[0] * 2ull};
+  const uint64_t kst[3] = {ks[2] * 2ull, ks[1] * 2ull, ks[0] * 2ull};
+  const uint64_t vst[3] = {vs[2] * 2ull, vs[1] * 2ull, vs[0] * 2ull};
+  const uint32_t qbox[4] = {kHalf, kBM, 1, 1};
+  const uint32_t kvbox[4] = {kHalf, kBN, 1, 1};
+  CUtensorMap tq, tk, tv;
+  if (!hopper::make_map_bf16_sw128(&tq, q, 4, qdim, qst, qbox) ||
+      !hopper::make_map_bf16_sw128(&tk, k, 4, kvdim, kst, kvbox) ||
+      !hopper::make_map_bf16_sw128(&tv, v, 4, kvdim, vst, kvbox))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_qt = (Sq + kBM - 1) / kBM;
+  const FwdArgs a{o,   static_cast<float*>(lse), H, KVH, Sq, Skv, n_qt,
+                  scale * kLog2e, causal};
+  // The shared-memory opt-in is per device; set it on each device once.
+  static std::atomic<uint64_t> opted_in{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
+  if (bit == 0 || !(opted_in.load() & bit)) {
+    err = cudaFuncSetAttribute(flash_fwd_bf16_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in.fetch_or(bit);
+  }
+  flash_fwd_bf16_kernel<<<B * H * n_qt, 128 * (1 + kConsumers), kSmemBytes,
+                          st>>>(tq, tk, tv, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // q [B, H, Sq, D], k/v [B, KVH, Skv, D] given by element strides (batch,
 // head, seq; the last dim dense); o [B, H, Sq, D] and lse [B, H, Sq] dense.
 // dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for a shape the kernel does not take).
+// launch (cudaErrorInvalidValue for a shape or layout the kernel does not
+// take: for bf16 every stride and the base addresses must be multiples of
+// 16 bytes, as TMA requires).
 extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, long long q_sb,
                              long long q_sh, long long q_ss, long long k_sb,
@@ -373,16 +651,18 @@ extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
   if (D != kD || B < 1 || H < 1 || KVH < 1 || H % KVH != 0 || Sq < 1 ||
       Skv < 1 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    const long long qs[3] = {q_sb, q_sh, q_ss};
+    const long long ks[3] = {k_sb, k_sh, k_ss};
+    const long long vs[3] = {v_sb, v_sh, v_ss};
+    return launch_bf16(q, k, v, o, lse, qs, ks, vs, B, H, KVH, Sq, Skv,
+                       scale, causal, st);
+  }
   Params p{q,    k,    v,    o,    static_cast<float*>(lse),
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
            H,    KVH,  Sq,   Skv,  scale, causal};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    dim3 grid((Sq + kBM - 1) / kBM, B * H);
-    flash_fwd_bf16_kernel<<<grid, 128, 0, st>>>(p);
-  } else {
-    dim3 grid((Sq + kBM32 - 1) / kBM32, B * H);
-    flash_fwd_f32_kernel<<<grid, 128, 0, st>>>(p);
-  }
+  dim3 grid((Sq + kBM32 - 1) / kBM32, B * H);
+  flash_fwd_f32_kernel<<<grid, 128, 0, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -193,6 +193,96 @@ def test_flash_fwd_cpu_does_not_count_kernel_launches():
 
 
 # ---------------------------------------------------------------------------
+# the kernels' layout check (strides and alignment; runs on CPU tensors)
+# ---------------------------------------------------------------------------
+
+# Llama-shaped at head_dim 128 (the kernels' width), 2 query heads per KV
+# head, one layer, bf16 compute.
+_LAYOUT_KW = dict(vocab_size=64, d_model=512, n_layers=1, n_heads=4,
+                  n_kv_heads=2, d_ff=64, max_seq=32)
+
+
+def _capture(seen):
+    def attn(q, k, v, causal):
+        seen.append((q, k, v))
+        return tatt.flash_fwd(q, k, v, causal)[0]
+    return attn
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_layout_accepts_the_train_forward_layouts(dtype):
+    """q/k from apply_rope are dense BHSD; v is the transpose of a
+    [B, S, KVH, D] view (seq stride KVH*D, head stride D): the check passes
+    it without a copy, and the strided v gives the dense v's result."""
+    from ray_tpu_torch.models import llama as tl
+
+    cfg = tl.LlamaConfig(dtype=dtype, **_LAYOUT_KW)
+    params = tl.init_params(cfg, 0, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (2, 24)))
+    seen = []
+    tl.forward(params, tokens, cfg, attn_fn=_capture(seen))
+    (q, k, v), = seen
+    assert q.is_contiguous() and k.is_contiguous()
+    assert not v.is_contiguous()
+    assert v.stride() == (24 * 2 * 128, 128, 2 * 128, 1)
+    tatt.check_kernel_layout("flash_fwd kernel", q=q, k=k, v=v)
+    o, lse = tatt.flash_fwd(q, k, v)
+    o2, lse2 = tatt.flash_fwd(q, k, v.contiguous())
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def test_kernel_layout_accepts_the_engine_prefill_layouts(monkeypatch):
+    """The engine's prefill core hands flash_attention the same layouts
+    (B = 1, one prefill bucket)."""
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.serve import engine as teng
+
+    cfg = tl.LlamaConfig(**_LAYOUT_KW)
+    params = tl.init_params(cfg, 1, device="cpu")
+    seen = []
+    capture = _capture(seen)
+    monkeypatch.setattr(teng, "flash_attention",
+                        lambda q, k, v, causal: capture(q, k, v, causal))
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (1, 32)))
+    teng._make_prefill_core(cfg)(params, tokens, 20)
+    (q, k, v), = seen
+    assert q.dtype == torch.bfloat16 and not v.is_contiguous()
+    assert v.stride() == (32 * 2 * 128, 128, 2 * 128, 1)
+    tatt.check_kernel_layout("flash_fwd kernel", q=q, k=k, v=v)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_layout_refuses_misaligned_rows(dtype):
+    """A row stride of 129 elements (258 bytes in bf16) and a base address
+    2 bytes past a 16-byte boundary are not what TMA takes."""
+    q, k, v = _t(*_qkv(1, 2, 8, 128, seed=14))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    tatt.check_kernel_layout("flash_fwd kernel", q=q, k=k, v=v)
+    wide = torch.zeros(1, 2, 8, 129, dtype=dtype)[..., :128]
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        tatt.check_kernel_layout("flash_fwd kernel", q=q, k=wide, v=v)
+    flat = torch.zeros(1 + 2 * 8 * 128, dtype=dtype)
+    shifted = flat[1:].view(1, 2, 8, 128)
+    assert shifted.data_ptr() % 16 == shifted.element_size()
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        tatt.check_kernel_layout("flash_fwd kernel", q=q, k=k, v=shifted)
+
+
+def test_kernel_layout_refuses_a_non_dense_last_dim():
+    q, k, v = _t(*_qkv(1, 2, 8, 128, seed=15))
+    q = q.to(torch.bfloat16)
+    every_other = torch.zeros(1, 2, 8, 256, dtype=torch.bfloat16)[..., ::2]
+    with pytest.raises(ValueError, match="dense last dim"):
+        tatt.check_kernel_layout("flash_fwd kernel", q=every_other, k=k,
+                                 v=v)
+    with pytest.raises(ValueError, match="dense last dim"):
+        tatt.check_kernel_layout("the flash backward kernels", q=q, k=k,
+                                 v=v, dout=q.transpose(2, 3))
+
+
+# ---------------------------------------------------------------------------
 # flash_attention gradients (plain backward, CPU)
 # ---------------------------------------------------------------------------
 
