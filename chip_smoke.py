@@ -26,9 +26,10 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
 4. Answer one completion through ``LLMServer`` at a small size.
 5. Hold the two backward kernels (dK/dV and dQ) against their plain
    versions on the card at the training shapes (B1 H32 KVH8 D128 bf16,
-   causal at S 64..8192, a ragged S 100, once non-causal; B8 H16 KVH16 S2048
-   as the bench configuration has it), and time kernel, plain version, the
-   SDPA backward (the library yardstick, never called by the port) and the
+   causal at S 64..8192, the ragged S 100 and 8000, once non-causal, once
+   at the train step's strided layout; B8 H16 KVH16 S2048 as the bench
+   configuration has it), and time kernel, plain version, the SDPA
+   backward (the library yardstick, never called by the port) and the
    bound.
 6. Train parity: one loss-and-gradient pass of Llama-3-8B at full width
    with 2 layers at S 2048, through the kernels and through the plain
@@ -48,9 +49,10 @@ Details go to ``chiprun_out/chip_smoke.json``.
     python3 chip_smoke.py --only-kernels
 
 builds the kernels and runs phase 2 alone (a quick check after a kernel
-edit), and ``--only-ttft N`` measures idle TTFT alone (N requests per
-prompt length; run it from another tree's root to compare the two); both
-print no result line.
+edit), ``--only-bwd`` runs phase 5 alone in the same way, and
+``--only-ttft N`` measures idle TTFT alone (N requests per prompt length;
+run it from another tree's root to compare the two); none prints a result
+line.
 """
 
 from __future__ import annotations
@@ -129,10 +131,15 @@ GREEDY_ARGMAX_SHARE = 0.75
 # (2**-8 relative) at most. A wrong mask, tile or head mapping moves it by
 # the order of the output itself.
 REL_TOL_BWD = 2e-2
-# (B, H, KVH, S, causal) for the backward check; the main path's shape is
-# B1 H32 KVH8 S8192 causal.
-BWD_CASES = [(1, 32, 8, S, True) for S in (64, 512, 2048, 8192)] + [
-    (1, 32, 8, 100, True), (1, 32, 8, 2048, False), (8, 16, 16, 2048, True)]
+# (B, H, KVH, S, causal, layout) for the backward check; the main path's
+# shape is B1 H32 KVH8 S8192 causal. "model" gives q, k, v and dO as the
+# transposes of [B, S, heads, D] views, as a train step can hand them to
+# the backward (dO is the gradient of attn.transpose(1, 2).reshape(...)
+# in models/llama.py); the TMA maps read them through their strides.
+BWD_CASES = [(1, 32, 8, S, True, "dense") for S in (64, 512, 2048, 8192)] + [
+    (1, 32, 8, 100, True, "dense"), (1, 32, 8, 8000, True, "dense"),
+    (1, 32, 8, 2048, False, "dense"), (1, 32, 8, 2048, True, "model"),
+    (8, 16, 16, 2048, True, "dense")]
 # Train parity, kernels vs the plain attention on the same weights and
 # tokens, bf16 compute: the two attentions round to bf16 in other orders,
 # and each layer's matmuls carry the difference on (a few bf16 steps,
@@ -539,14 +546,10 @@ def _rel_err(got, want) -> float:
 def phase_bwd_kernels(card: str):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows = []
-    for B, H, KVH, S, causal in BWD_CASES:
+    for B, H, KVH, S, causal, layout in BWD_CASES:
         D = 128
-
-        def rnd(h):
-            return torch.randn(B, h, S, D, generator=gen,
-                               device="cuda").bfloat16()
-
-        q, k, v, do = rnd(H), rnd(KVH), rnd(KVH), rnd(H)
+        q, k, v, do = (_attn_input(B, h, S, D, gen, BF16, layout)
+                       for h in (H, KVH, KVH, H))
         scale = D ** -0.5
         o, lse = flash_fwd(q, k, v, causal)
         delta = (do.float() * o.float()).sum(-1)
@@ -565,8 +568,8 @@ def phase_bwd_kernels(card: str):
         del pq
         finite = all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
         check(finite and max(err.values()) <= REL_TOL_BWD,
-              f"flash backward B{B} H{H} KVH{KVH} S{S} causal={causal}: "
-              f"relative max errors {err} (bound {REL_TOL_BWD})")
+              f"flash backward B{B} H{H} KVH{KVH} S{S} causal={causal} "
+              f"{layout}: relative max errors {err} (bound {REL_TOL_BWD})")
         torch.cuda.empty_cache()
         iters = 20 if S <= 2048 else 5
         ms = dict(flash_bwd_dkv=gpu_ms(lambda: flash_bwd_dkv(*args), iters),
@@ -583,6 +586,7 @@ def phase_bwd_kernels(card: str):
         del ql, kl, vl, ol
         bounds = bwd_bounds(B, H, KVH, S, causal)
         row = dict(shape=f"B{B} H{H} KVH{KVH} S{S} D{D}", causal=causal,
+                   layout=layout,
                    rel_err=err, abs_err=dict(flash_bwd_dkv=abs_dkv,
                                              flash_bwd_dq=abs_dq),
                    ms=ms, plain_ms=plain_ms, sdpa_bwd_ms=lib_ms,
@@ -749,6 +753,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only-kernels", action="store_true",
                     help="build the kernels and run phase 2 only")
+    ap.add_argument("--only-bwd", action="store_true",
+                    help="build the kernels and run phase 5 only")
     ap.add_argument("--only-ttft", type=int, default=0, metavar="N",
                     help="build the kernels and measure idle TTFT only, N "
                     "requests per prompt length")
@@ -774,6 +780,9 @@ def main() -> int:
     if args.only_ttft:
         phase_ttft_only(card, args.only_ttft)
         return 0
+    if args.only_bwd:
+        phase_bwd_kernels(card)
+        return 0
     rows = phase_kernels(card)
     if args.only_kernels:
         return 0
@@ -796,7 +805,8 @@ def main() -> int:
         shape=main_row["shape"] + " causal bf16",
         launches_train=train["launches"]["flash_fwd"])]
     bwd_main = next(r for r in bwd_rows
-                    if r["shape"] == "B1 H32 KVH8 S8192 D128" and r["causal"])
+                    if r["shape"] == "B1 H32 KVH8 S8192 D128" and r["causal"]
+                    and r["layout"] == "dense")
     for name, src, line in (("flash_bwd_dkv", "flash_bwd_dkv.cu", 326),
                             ("flash_bwd_dq", "flash_bwd_dq.cu", 356)):
         kernels.append(dict(

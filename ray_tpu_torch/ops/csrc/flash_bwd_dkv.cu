@@ -13,204 +13,325 @@
 //
 // What bounds it on the H100, and what the design does about it:
 //   * At training lengths it is bound by the tensor cores: 4 products of
-//     2 * 64 * 64 * 128 per tile pair (8 * B * H * D * pairs FLOP). Every
-//     product runs on mma.sync.m16n8k16 bf16 with f32 accumulation; q tiles
-//     wholly before the KV tile (causal) are never visited, and only the
-//     diagonal tile is masked.
+//     2 * 64 * 64 * 128 per (64 KV rows, 64 q rows) pair, 8 * B * H * D *
+//     pairs FLOP in all. Each block owns 128 KV rows of one (b, KV head)
+//     and has three warpgroups: a producer, which gives its registers away
+//     (setmaxnreg.dec to 24), and two consumers of 64 KV rows each
+//     (setmaxnreg.inc to 240). K and V (128 x 128 bf16 each) are loaded
+//     once by TMA and stay in shared memory. The producer walks the H / KVH
+//     query heads of the group and their 64-row q tiles: one thread issues
+//     the TMA loads of Q and dO into a ring of 3 stages, and one warp
+//     writes the tile's LSE (times log2 e) and delta rows beside them with
+//     plain loads (+inf and 0 past Sq, so those q rows add nothing). Each
+//     stage has a `full` mbarrier (TMA bytes plus the warp's 32 arrivals)
+//     and an `empty` one that the 8 consumer warps arrive at.
+//   * The products run transposed, so every intermediate stays in
+//     registers: S^T = K Q^T and dP^T = V dO^T are wgmma.m64n64k16 with
+//     both operands K-major in shared memory (64 KV rows x 64 q columns,
+//     32 f32 registers each); P^T and dS^T re-pack from those accumulators
+//     into the register A operand of dV += P^T dO and dK += dS^T Q
+//     (wgmma.m64n128k16, 4 k-steps each), which read the same swizzled dO
+//     and Q tiles MN-major through the transpose bit. dK and dV (64 + 64
+//     registers) stay in f32 registers for the whole loop: 192 f32 values
+//     per thread at the peak, under the 240 of setmaxnreg.
+//   * dP^T is issued right behind S^T, and P is computed (one FFMA and one
+//     MUFU.EX2 per score, raw scores in log2 units) while the tensor cores
+//     work on dP^T; P's results are tied before the wait so the compiler
+//     cannot sink them below it. The two consumers interleave on the
+//     tensor cores by themselves.
 //   * The TPU kernel's sequential q grid axis and its VMEM dK/dV scratch
-//     become a loop inside one block per (b, KV head, 64-row KV tile). The
-//     block walks the H / KVH query heads of its group and their q tiles,
-//     so dK and dV come out with KVH heads, summed once in f32, with no
-//     atomics and no repeat_kv copy.
-//   * Registers: dK and dV (16 x 128 f32 each per warp) stay in registers
-//     for the whole loop, 128 of them. To leave room, K and V A fragments
-//     are read from shared memory with ldmatrix at each use, and each
-//     64-row q tile is taken in two 32-column halves, so S^T and dP^T hold
-//     16 registers each.
-//   * The products run transposed: S^T = K Q^T puts KV rows on the mma rows,
-//     so P^T and dS^T re-pack from the accumulators straight into the A
-//     operands of P^T dO and dS^T Q, whose B operands (dO, Q, row-major in
-//     smem) come through ldmatrix.trans.
-//   * Causal work is uneven: early KV tiles see every later q tile. The
-//     grid's slow axis is the KV tile, so the heaviest tiles of every head
-//     start first.
-// Later work: TMA + wgmma, double-buffered Q/dO tiles, fusing with dQ.
+//     become the loop inside one block, so dK and dV come out with KVH
+//     heads, summed over the group's query heads in f32, with no atomics
+//     and no repeat_kv copy.
+//   * Causal work is uneven: the first KV tiles see every later q tile.
+//     The grid's slow axis is the KV tile, so the heaviest tiles start
+//     first. q tiles wholly before a KV tile are never loaded; a consumer
+//     whose 64 rows see nothing of a tile only releases it; only the
+//     diagonal tiles carry mask code (a template, not a branch per score).
+//     Every block walks its q tiles from the last one down, so the blocks
+//     of one KV head read the same Q and dO tiles at the same time, from
+//     L2.
+//   * The tensor maps are 4-D {D, S, heads, batch} built from the element
+//     strides the caller passes, so q, k, v and dO as transposes of
+//     [B, S, heads, D] views load without a copy; TMA zero-fills rows past
+//     Sq and Skv, and the stores are guarded by row < Skv.
 
 #include <math.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace flash;
+using flash::fast_exp2;
+using flash::kConsumerRegs;
+using flash::kD;
+using flash::kHalf;
+using flash::kLog2e;
+using flash::kProducerRegs;
+using flash::pack_a;
+using flash::pack_bf16;
+using flash::release;
+typedef __nv_bfloat16 bf16;
 
-constexpr int kBKV = kTile;  // KV rows per block, 16 per warp
-constexpr int kBQ = kTile;   // q rows per tile
-constexpr int kHalf = 32;    // q columns of S^T / dP^T in registers at once
-constexpr int kSmem = 4 * kTile * kLds * sizeof(bf16) + 2 * kBQ * sizeof(float);
+constexpr int kConsumers = 2;          // consumer warpgroups, 64 KV rows each
+constexpr int kBKV = 64 * kConsumers;  // KV rows per block
+constexpr int kBQ = 64;                // q rows per tile
+constexpr int kStages = 3;             // Q/dO ring depth
+constexpr uint32_t kKvHalfBytes = kBKV * kHalf * 2;  // 16 KB
+constexpr uint32_t kQHalfBytes = kBQ * kHalf * 2;    // 8 KB
+constexpr uint32_t kQTileBytes = kBQ * kD * 2;       // one Q or dO tile
 
-struct Params {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* dout;
+struct __align__(1024) DkvSmem {
+  bf16 k[2][kBKV * kHalf];  // two 64-column halves
+  bf16 v[2][kBKV * kHalf];
+  bf16 q[kStages][2][kBQ * kHalf];
+  bf16 dout[kStages][2][kBQ * kHalf];
+  float lse[kStages][kBQ];    // LSE * log2(e) of the tile's q rows
+  float delta[kStages][kBQ];
+  uint64_t kv_full;
+  uint64_t full[kStages];   // Q, dO landed; LSE, delta written
+  uint64_t empty[kStages];  // every consumer warp is done with the stage
+};
+
+// + slack to align the base to 1024 bytes.
+constexpr int kSmemBytes = static_cast<int>(sizeof(DkvSmem)) + 1024;
+
+struct DkvArgs {
   const float* lse;    // [B, H, Sq] dense
   const float* delta;  // [B, H, Sq] dense
   bf16* dk;            // [B, KVH, Skv, D] dense
-  bf16* dv;            // [B, KVH, Skv, D] dense
-  long long q_sb, q_sh, q_ss;  // strides in elements; the last dim is dense
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
-  long long o_sb, o_sh, o_ss;  // dO
-  int H, KVH, Sq, Skv;
+  bf16* dv;
+  int H, KVH, Sq, Skv, n_kvt;
+  float scale_log2;  // scale * log2(e)
   float scale;
   int causal;
 };
 
-__global__ void __launch_bounds__(128)
-flash_bwd_dkv_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Tile Ks = reinterpret_cast<Tile>(smem);
-  Tile Vs = Ks + kBKV;
-  Tile Qs = Vs + kBKV;
-  Tile Ds = Qs + kBQ;  // dO
-  float* Ls = reinterpret_cast<float*>(Ds + kBQ);  // LSE of the q tile
-  float* Dl = Ls + kBQ;                            // delta of the q tile
+// Issue acc = A B^T as one wgmma group: A is this warpgroup's 64 rows of K
+// or V, B the q tile's Q or dO (64 rows), both K-major. The caller waits.
+__device__ __forceinline__ void issue_t(float (&acc)[32], uint32_t a_base,
+                                        uint32_t b_base) {
+  flash::issue_abt<kBQ>(acc, a_base, kKvHalfBytes, b_base, kQHalfBytes);
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int tig = lane % 4;
-  const int kt = blockIdx.y;
-  const int b = blockIdx.x / p.KVH;
-  const int kvh = blockIdx.x % p.KVH;
-  const int n_rep = p.H / p.KVH;
-  const int k0 = kt * kBKV;
-
-  load_tile(Ks, p.k + b * p.k_sb + kvh * p.k_sh, p.k_ss, k0, p.Skv, tid);
-  load_tile(Vs, p.v + b * p.v_sb + kvh * p.v_sh, p.v_ss, k0, p.Skv, tid);
-  cp_async_commit();
-
-  // This warp's two fragment rows (global KV positions).
-  const int r_lo = k0 + warp * 16 + g;
-  const int r_hi = r_lo + 8;
-
-  float dk[kD / 8][4], dv[kD / 8][4];
+// P^T in place: st[4j + 2a + b] holds KV row r_lo + 8a (r_lo = this
+// thread's first row), q column q0 + 8j + 2(lane % 4) + b. diag = r_lo -
+// q0: a score is masked (causal) where its q column is below its KV row.
+// The unmasked instance carries no mask code.
+template <bool kMasked>
+__device__ __forceinline__ void probs(float (&st)[32], const float* lse,
+                                      float c, int diag, int lane) {
 #pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt) {
-    dk[dt][0] = dk[dt][1] = dk[dt][2] = dk[dt][3] = 0.f;
-    dv[dt][0] = dv[dt][1] = dv[dt][2] = dv[dt][3] = 0.f;
+  for (int j = 0; j < kBQ / 8; ++j) {
+    const int qc = 8 * j + 2 * (lane % 4);
+    const float2 l = *reinterpret_cast<const float2*>(lse + qc);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = fast_exp2(fmaf(st[4 * j + e], c, (e & 1) ? -l.y : -l.x));
+      if (kMasked && qc + (e & 1) < diag + (e < 2 ? 0 : 8)) x = 0.f;
+      st[4 * j + e] = x;
+    }
   }
+}
 
-  // Causal: q tiles before this KV tile see none of it (kBQ == kBKV).
-  const int qt_begin = p.causal ? kt : 0;
+__device__ __forceinline__ void probs(float (&st)[32], bool masked,
+                                      const float* lse, float c, int diag,
+                                      int lane) {
+  if (masked)
+    probs<true>(st, lse, c, diag, lane);
+  else
+    probs<false>(st, lse, c, diag, lane);
+  // Keep P ahead of the wait for dP^T: without these ties the compiler may
+  // sink the exponentials below it, and nothing would overlap.
+#pragma unroll
+  for (int i = 0; i < 32; ++i) hopper::fence_reg(st[i]);
+}
+
+// dS^T = P^T (dP^T - delta) * scale in place of dP^T (delta by q column).
+__device__ __forceinline__ void dscores(float (&dpt)[32],
+                                        const float (&st)[32],
+                                        const float* delta, float scale,
+                                        int lane) {
+#pragma unroll
+  for (int j = 0; j < kBQ / 8; ++j) {
+    const float2 d =
+        *reinterpret_cast<const float2*>(delta + 8 * j + 2 * (lane % 4));
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dpt[4 * j + e] =
+          st[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? d.y : d.x)) * scale;
+  }
+}
+
+__global__ void __launch_bounds__(128 * (1 + kConsumers), 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const DkvArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  DkvSmem& sm = *reinterpret_cast<DkvSmem*>(
+      smem_raw + (((raw + 1023) & ~1023u) - raw));
+
+  // Block -> (KV tile, b, KV head), the KV tile slowest: causal, the first
+  // KV tiles see the most q tiles, so they start first.
+  const int G = p.H / p.KVH;
+  const int n_bk = gridDim.x / p.n_kvt;  // B * KVH
+  const int bk = blockIdx.x % n_bk;
+  const int kvt = blockIdx.x / n_bk;
+  const int kvh = bk % p.KVH;
+  const int b = bk / p.KVH;
+  const int k0 = kvt * kBKV;
   const int n_qt = (p.Sq + kBQ - 1) / kBQ;
-  for (int rep = 0; rep < n_rep; ++rep) {
-    const int h = kvh * n_rep + rep;
-    const bf16* Q = p.q + b * p.q_sb + h * p.q_sh;
-    const bf16* dO = p.dout + b * p.o_sb + h * p.o_sh;
-    const long long row0 = (static_cast<long long>(b) * p.H + h) * p.Sq;
-    for (int qt = qt_begin; qt < n_qt; ++qt) {
-      const int q0 = qt * kBQ;
-      load_tile(Qs, Q, p.q_ss, q0, p.Sq, tid);
-      load_tile(Ds, dO, p.o_ss, q0, p.Sq, tid);
-      cp_async_commit();
-      // q rows past Sq get LSE = +inf, so P = 0 there and they add nothing.
-      if (tid < kBQ) {
-        Ls[tid] = q0 + tid < p.Sq ? p.lse[row0 + q0 + tid] : INFINITY;
-      } else {
-        const int i = tid - kBQ;
-        Dl[i] = q0 + i < p.Sq ? p.delta[row0 + q0 + i] : 0.f;
-      }
-      cp_async_wait<0>();
-      __syncthreads();
+  // Causal: q tiles before this KV tile see none of it (kBKV % kBQ == 0).
+  const int qt_first = p.causal ? min(k0 / kBQ, n_qt) : 0;
+  const int n_per = n_qt - qt_first;  // q tiles per query head
+  const int n_it = G * n_per;
+  // Iteration it: query head kvh * G + it / n_per, q tile q_start(it).
+  auto q_start = [&](int it) { return (n_qt - 1 - it % n_per) * kBQ; };
 
-      const bool masked = p.causal && q0 < k0 + kBKV - 1;  // diagonal tile
-#pragma unroll
-      for (int half = 0; half < kBQ / kHalf; ++half) {
-        const int c0 = half * kHalf;
-        // S^T = K Q^T and dP^T = V dO^T: 16 KV rows x 32 q columns a warp.
-        float st[kHalf / 8][4], dpt[kHalf / 8][4];
-#pragma unroll
-        for (int nt = 0; nt < kHalf / 8; ++nt) {
-          st[nt][0] = st[nt][1] = st[nt][2] = st[nt][3] = 0.f;
-          dpt[nt][0] = dpt[nt][1] = dpt[nt][2] = dpt[nt][3] = 0.f;
-        }
-#pragma unroll
-        for (int kk = 0; kk < kD / 16; ++kk) {
-          uint32_t ka[4], va[4];
-          ldmatrix_x4(ka, frag_addr(Ks, warp * 16, kk * 16, lane));
-          ldmatrix_x4(va, frag_addr(Vs, warp * 16, kk * 16, lane));
-#pragma unroll
-          for (int nt = 0; nt < kHalf / 8; ++nt) {
-            uint32_t b0, b1;
-            b_frag(b0, b1, Qs, c0 + nt * 8, kk * 16, lane);
-            mma_bf16(st[nt], ka, b0, b1);
-            b_frag(b0, b1, Ds, c0 + nt * 8, kk * 16, lane);
-            mma_bf16(dpt[nt], va, b0, b1);
-          }
-        }
-
-        // P^T into st, dS^T into dpt.
-#pragma unroll
-        for (int nt = 0; nt < kHalf / 8; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qc = c0 + nt * 8 + tig * 2 + (e & 1);  // in the tile
-            float x = st[nt][e] * p.scale;
-            if (masked && q0 + qc < (e < 2 ? r_lo : r_hi)) x = kMaskValue;
-            const float pv = __expf(x - Ls[qc]);
-            st[nt][e] = pv;
-            dpt[nt][e] = pv * (dpt[nt][e] - Dl[qc]) * p.scale;
-          }
-        }
-
-        // dV += P^T dO and dK += dS^T Q over these 32 q rows: P^T and dS^T
-        // (bf16) as A operands, dO's and Q's B fragments transposed out of
-        // smem by ldmatrix.
-#pragma unroll
-        for (int kk = 0; kk < kHalf / 16; ++kk) {
-          uint32_t pa[4], sa[4];
-          pa[0] = pack_bf16(st[2 * kk][0], st[2 * kk][1]);
-          pa[1] = pack_bf16(st[2 * kk][2], st[2 * kk][3]);
-          pa[2] = pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
-          pa[3] = pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
-          sa[0] = pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]);
-          sa[1] = pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]);
-          sa[2] = pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
-          sa[3] = pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
-#pragma unroll
-          for (int dn = 0; dn < kD / 16; ++dn) {
-            uint32_t fb[4];
-            ldmatrix_x4_trans(fb, frag_addr(Ds, c0 + kk * 16, dn * 16, lane));
-            mma_bf16(dv[2 * dn], pa, fb[0], fb[1]);
-            mma_bf16(dv[2 * dn + 1], pa, fb[2], fb[3]);
-            ldmatrix_x4_trans(fb, frag_addr(Qs, c0 + kk * 16, dn * 16, lane));
-            mma_bf16(dk[2 * dn], sa, fb[0], fb[1]);
-            mma_bf16(dk[2 * dn + 1], sa, fb[2], fb[3]);
-          }
-        }
-      }
-      __syncthreads();  // every warp is done with Qs/Ds/Ls/Dl before reload
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&sm.kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&sm.full[s], 1 + 32);  // TMA thread + LSE warp
+      hopper::mbar_init(&sm.empty[s], 4 * kConsumers);  // consumer warps
     }
+    hopper::fence_barrier_init();
   }
+  __syncthreads();
 
-  const long long out0 = (static_cast<long long>(b) * p.KVH + kvh) * p.Skv;
-  bf16* dK = p.dk + out0 * kD;
-  bf16* dV = p.dv + out0 * kD;
-#pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt) {
-    const int c = dt * 8 + tig * 2;
-    if (r_lo < p.Skv) {
-      const long long o = static_cast<long long>(r_lo) * kD + c;
-      *reinterpret_cast<uint32_t*>(dK + o) = pack_bf16(dk[dt][0], dk[dt][1]);
-      *reinterpret_cast<uint32_t*>(dV + o) = pack_bf16(dv[dt][0], dv[dt][1]);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------- producer ------------------------------------------
+    // Thread 0 issues every TMA load; warp 1 writes LSE and delta. A stage
+    // is refilled once both consumers are done with it.
+    hopper::reg_dealloc<kProducerRegs>();
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(&sm.kv_full, 2 * kBKV * kD * 2);
+      hopper::tma_load_4d(sm.k[0], &tk, &sm.kv_full, 0, k0, kvh, b);
+      hopper::tma_load_4d(sm.k[1], &tk, &sm.kv_full, kHalf, k0, kvh, b);
+      hopper::tma_load_4d(sm.v[0], &tv, &sm.kv_full, 0, k0, kvh, b);
+      hopper::tma_load_4d(sm.v[1], &tv, &sm.kv_full, kHalf, k0, kvh, b);
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages)
+          hopper::mbar_wait(&sm.empty[s], ((it / kStages) - 1) & 1);
+        const int h = kvh * G + it / n_per;
+        const int q0 = q_start(it);
+        hopper::mbar_expect_tx(&sm.full[s], 2 * kQTileBytes);
+        hopper::tma_load_4d(sm.q[s][0], &tq, &sm.full[s], 0, q0, h, b);
+        hopper::tma_load_4d(sm.q[s][1], &tq, &sm.full[s], kHalf, q0, h, b);
+        hopper::tma_load_4d(sm.dout[s][0], &tdo, &sm.full[s], 0, q0, h, b);
+        hopper::tma_load_4d(sm.dout[s][1], &tdo, &sm.full[s], kHalf, q0, h,
+                            b);
+      }
+    } else if (warp == 1) {
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages)
+          hopper::mbar_wait(&sm.empty[s], ((it / kStages) - 1) & 1);
+        const int h = kvh * G + it / n_per;
+        const int q0 = q_start(it);
+        const long long row0 = (static_cast<long long>(b) * p.H + h) * p.Sq;
+        for (int i = lane; i < kBQ; i += 32) {
+          const int r = q0 + i;
+          sm.lse[s][i] = r < p.Sq ? p.lse[row0 + r] * kLog2e : INFINITY;
+          sm.delta[s][i] = r < p.Sq ? p.delta[row0 + r] : 0.f;
+        }
+        hopper::mbar_arrive(&sm.full[s]);
+      }
     }
-    if (r_hi < p.Skv) {
-      const long long o = static_cast<long long>(r_hi) * kD + c;
-      *reinterpret_cast<uint32_t*>(dK + o) = pack_bf16(dk[dt][2], dk[dt][3]);
-      *reinterpret_cast<uint32_t*>(dV + o) = pack_bf16(dv[dt][2], dv[dt][3]);
+  } else {
+    // ---------------- consumers: 64 KV rows each ------------------------
+    hopper::reg_alloc<kConsumerRegs>();
+    const int cw = wg - 1;
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32;
+    const int lane = t % 32;
+    const int kr0 = k0 + cw * 64;  // this warpgroup's first KV row
+    const int r_lo = kr0 + warp * 16 + lane / 4;
+    const int r_hi = r_lo + 8;
+
+    float dk[64], dv[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+    float st[32], dpt[32];
+    uint32_t pa[kBQ / 16][4], sa[kBQ / 16][4];
+    const uint32_t k_base = hopper::smem_u32(sm.k[0]) + cw * 64 * 128;
+    const uint32_t v_base = hopper::smem_u32(sm.v[0]) + cw * 64 * 128;
+
+    hopper::mbar_wait(&sm.kv_full, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % kStages;
+      const int q0 = q_start(it);
+      hopper::mbar_wait(&sm.full[s], (it / kStages) & 1);
+      // Causal: every q row of the tile is before every KV row of this
+      // warpgroup; or the warpgroup has no rows (Skv <= 64).
+      if (kr0 >= p.Skv || (p.causal && q0 + kBQ - 1 < kr0)) {
+        release(&sm.empty[s], lane);
+        continue;
+      }
+      const bool masked = p.causal && q0 < kr0 + 63;  // the diagonal
+      const uint32_t q_base = hopper::smem_u32(sm.q[s][0]);
+      const uint32_t do_base = hopper::smem_u32(sm.dout[s][0]);
+      issue_t(st, k_base, q_base);    // S^T = K Q^T
+      issue_t(dpt, v_base, do_base);  // dP^T = V dO^T
+      hopper::wgmma_wait<1>();        // S^T is done, dP^T may still run
+#pragma unroll
+      for (int i = 0; i < 32; ++i) hopper::fence_reg(st[i]);
+      probs(st, masked, sm.lse[s], p.scale_log2, r_lo - q0, lane);
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) hopper::fence_reg(dpt[i]);
+      dscores(dpt, st, sm.delta[s], p.scale, lane);
+      pack_a(pa, st);
+      pack_a(sa, dpt);
+      hopper::wgmma_fence();
+      // dV += P^T dO and dK += dS^T Q read the same swizzled dO and Q
+      // tiles MN-major: their two 64-wide d halves are one 8 KB LBO apart.
+      flash::mma_rs(dv, pa, do_base, kQHalfBytes);
+      flash::mma_rs(dk, sa, q_base, kQHalfBytes);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        hopper::fence_reg(dv[i]);
+        hopper::fence_reg(dk[i]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          hopper::fence_reg(pa[kk][i]);
+          hopper::fence_reg(sa[kk][i]);
+        }
+      release(&sm.empty[s], lane);
+    }
+
+    const long long out0 = (static_cast<long long>(b) * p.KVH + kvh) * p.Skv;
+    bf16* dK = p.dk + out0 * kD;
+    bf16* dV = p.dv + out0 * kD;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      const int c = j * 8 + (lane % 4) * 2;
+      if (r_lo < p.Skv) {
+        const long long o = static_cast<long long>(r_lo) * kD + c;
+        *reinterpret_cast<uint32_t*>(dK + o) =
+            pack_bf16(dk[4 * j], dk[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(dV + o) =
+            pack_bf16(dv[4 * j], dv[4 * j + 1]);
+      }
+      if (r_hi < p.Skv) {
+        const long long o = static_cast<long long>(r_hi) * kD + c;
+        *reinterpret_cast<uint32_t*>(dK + o) =
+            pack_bf16(dk[4 * j + 2], dk[4 * j + 3]);
+        *reinterpret_cast<uint32_t*>(dV + o) =
+            pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);
+      }
     }
   }
 }
@@ -218,9 +339,11 @@ flash_bwd_dkv_kernel(Params p) {
 }  // namespace
 
 // q/dO [B, H, Sq, D] and k/v [B, KVH, Skv, D] bf16 given by element strides
-// (batch, head, seq; the last dim dense); lse and delta [B, H, Sq] f32 and
+// (batch, head, seq; the last dim dense, every stride and base address a
+// multiple of 16 bytes, as TMA requires); lse and delta [B, H, Sq] f32 and
 // dk/dv [B, KVH, Skv, D] bf16 dense. Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for a shape the kernel does not take).
+// launch (cudaErrorInvalidValue for a shape or layout the kernel does not
+// take).
 extern "C" int ray_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, long long q_sb,
@@ -231,19 +354,24 @@ extern "C" int ray_flash_bwd_dkv(
   if (D != kD || B < 1 || H < 1 || KVH < 1 || H % KVH != 0 || Sq < 1 ||
       Skv < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  // Above 48 KB of shared memory only as dynamic memory, once allowed.
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
+  CUtensorMap tq, tk, tv, tdo;
+  if (!flash::make_bhsd_map(&tq, q, B, H, Sq, q_sb, q_sh, q_ss, kBQ) ||
+      !flash::make_bhsd_map(&tk, k, B, KVH, Skv, k_sb, k_sh, k_ss, kBKV) ||
+      !flash::make_bhsd_map(&tv, v, B, KVH, Skv, v_sb, v_sh, v_ss, kBKV) ||
+      !flash::make_bhsd_map(&tdo, dout, B, H, Sq, o_sb, o_sh, o_ss, kBQ))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_kvt = (Skv + kBKV - 1) / kBKV;
+  const DkvArgs a{static_cast<const float*>(lse),
+                  static_cast<const float*>(delta),
+                  static_cast<bf16*>(dk),
+                  static_cast<bf16*>(dv),
+                  H, KVH, Sq, Skv, n_kvt,
+                  scale * kLog2e, scale, causal};
+  const cudaError_t err =
+      hopper::opt_in_smem(flash_bwd_dkv_kernel, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  Params p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-           static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-           static_cast<const float*>(lse), static_cast<const float*>(delta),
-           static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-           q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-           o_sb, o_sh, o_ss, H, KVH, Sq, Skv, scale, causal};
-  dim3 grid(B * KVH, (Skv + kBKV - 1) / kBKV);
-  flash_bwd_dkv_kernel<<<grid, 128, kSmem,
-                         static_cast<cudaStream_t>(stream)>>>(p);
+  flash_bwd_dkv_kernel<<<B * KVH * n_kvt, 128 * (1 + kConsumers), kSmemBytes,
+                         static_cast<cudaStream_t>(stream)>>>(tq, tk, tv,
+                                                              tdo, a);
   return static_cast<int>(cudaGetLastError());
 }

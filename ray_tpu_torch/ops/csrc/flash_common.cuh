@@ -1,14 +1,11 @@
-// Device helpers shared by the flash-attention kernels: the constants and
-// bf16 packing (all three kernels); cp.async tile loads, bf16
-// mma.sync.m16n8k16 with f32 accumulation and ldmatrix fragment loads (the
-// two backward kernels). The forward's bf16 kernel is built on hopper.cuh.
-//
-// Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
-//   A 16x16 row-major: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
-//                      a3 (g+8, 2t+8..)
-//   B 16x8 col-major:  b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g)
-//   C 16x8:            c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1)
-// So a C tile re-packed to bf16 pairs is an A fragment of the next product.
+// What the three flash-attention kernels share besides hopper.cuh: the
+// mask value and head width of the TPU kernels, the constants of their
+// common layout (a producer warpgroup and two consumer warpgroups, tiles
+// stored as two 128B-swizzled 64-column halves), exp2 on the MUFU, bf16
+// packing of accumulators (for stores, or as a wgmma register A operand),
+// the release of a ring stage, and the two wgmma products they are built
+// from: A B^T with both operands K-major in shared memory, and A B with A
+// from registers and B MN-major.
 
 #pragma once
 
@@ -16,75 +13,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace flash {
 
 constexpr float kMaskValue = -0.7f * 3.402823466e38f;  // DEFAULT_MASK_VALUE
-constexpr int kD = 128;          // head_dim
-constexpr int kTile = 64;        // rows of every smem tile
-constexpr int kLds = kD + 8;     // padded smem row (bf16): conflict-free reads
+constexpr int kD = 128;             // head_dim
+constexpr int kHalf = 64;           // columns per 128B-swizzled TMA box
+constexpr int kProducerRegs = 24;   // setmaxnreg of the producer warpgroup
+constexpr int kConsumerRegs = 240;  // and of each consumer warpgroup
+constexpr float kLog2e = 1.4426950408889634f;
 
-typedef __nv_bfloat16 bf16;
-typedef bf16 (*Tile)[kLds];
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* smem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* smem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-// The 16x16 block of `t` at (r0, c0) as an A fragment (ldmatrix_x4), or,
-// through ldmatrix_x4_trans, as the B fragments of two 8-wide n tiles:
-// r[0], r[1] for columns c0..c0+7 and r[2], r[3] for c0+8..c0+15, with the
-// rows of `t` as the k dimension.
-__device__ __forceinline__ const bf16* frag_addr(Tile t, int r0, int c0,
-                                                 int lane) {
-  return &t[r0 + (lane % 8) + ((lane / 8) % 2) * 8][c0 + (lane / 16) * 8];
-}
-
-// B fragment of an n tile whose rows of `t` are the n dimension and whose
-// columns are k (t = K for S = Q K^T): b0, b1 of rows n0 + g.
-__device__ __forceinline__ void b_frag(uint32_t& b0, uint32_t& b1, Tile t,
-                                       int n0, int k0, int lane) {
-  const bf16* r = &t[n0 + lane / 4][k0 + (lane % 4) * 2];
-  b0 = *reinterpret_cast<const uint32_t*>(r);
-  b1 = *reinterpret_cast<const uint32_t*>(r + 8);
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -92,21 +35,81 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&t);
 }
 
-// Copy rows [r0, r0 + kTile) of an [S, kD] bf16 matrix (row stride `ss`
-// elements) into a padded smem tile with 128 threads; rows past `S` are
-// zero-filled.
-__device__ __forceinline__ void load_tile(Tile dst, const bf16* src,
-                                          long long ss, int r0, int S,
-                                          int tid) {
+// An m64nN accumulator (N / 2 values a thread) as the register A operand of
+// N / 16 k-steps: k-step kk covers the columns of accumulator blocks j = 2kk
+// and 2kk + 1.
+template <int kSteps>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[kSteps][4],
+                                       const float (&x)[8 * kSteps]) {
 #pragma unroll
-  for (int i = 0; i < (kTile * kD / 8) / 128; ++i) {
-    int c = tid + i * 128;
-    int row = c / (kD / 8);
-    int col = (c % (kD / 8)) * 8;
-    bool ok = r0 + row < S;
-    const bf16* g = ok ? src + (r0 + row) * ss + col : src;
-    cp_async16(&dst[row][col], g, ok);
+  for (int kk = 0; kk < kSteps; ++kk) {
+    a[kk][0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
+    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
   }
+}
+
+// One arrival per consumer warp on an `empty` barrier.
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) hopper::mbar_arrive(bar);
+}
+
+// Issue acc = A B^T as one wgmma group; the caller waits for it. A is 64
+// rows and B is N rows (64 or 128) of [row][d] tiles with d contiguous
+// (K-major), each stored as two 64-column halves a_half / b_half bytes
+// apart; D = 128 in 8 k-steps.
+template <int N>
+__device__ __forceinline__ void issue_abt(float (&acc)[N / 2],
+                                          uint32_t a_base, uint32_t a_half,
+                                          uint32_t b_base, uint32_t b_half) {
+  static_assert(N == 64 || N == 128, "wgmma shapes in hopper.cuh");
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;  // bytes into the 128-byte row
+    const uint64_t da =
+        hopper::desc_sw128(a_base + (kk / 4) * a_half + col, 16, 1024);
+    const uint64_t db =
+        hopper::desc_sw128(b_base + (kk / 4) * b_half + col, 16, 1024);
+    if constexpr (N == 128)
+      hopper::wgmma_m64n128k16_ss<0>(acc, da, db, kk > 0 ? 1 : 0);
+    else
+      hopper::wgmma_m64n64k16_ss(acc, da, db, kk > 0 ? 1 : 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// acc (64 x 128) += A B, inside a wgmma group the caller fences and
+// commits: A from registers (kSteps k-steps), B [k][n] in shared memory
+// with n contiguous, an MN-major operand (transpose bit 1) whose two
+// 64-wide n halves are b_half bytes apart; a k-step of 16 rows is 2048
+// bytes.
+template <int kSteps>
+__device__ __forceinline__ void mma_rs(float (&acc)[64],
+                                       const uint32_t (&a)[kSteps][4],
+                                       uint32_t b_base, uint32_t b_half) {
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk)
+    hopper::wgmma_m64n128k16_rs<1>(
+        acc, a[kk], hopper::desc_sw128(b_base + kk * 16 * 128, b_half, 1024),
+        1);
+}
+
+// Host: the 4-D tensor map {D, S, heads, batch} over a [B, heads, S, D]
+// bf16 tensor given by element strides (batch, head, seq; the last dim
+// dense), boxes of 64 columns x `rows` rows, 128B-swizzled. False when the
+// driver refuses it (a stride or base address not a multiple of 16 bytes).
+inline bool make_bhsd_map(CUtensorMap* map, const void* base, int B,
+                          int heads, int S, long long sb, long long sh,
+                          long long ss, uint32_t rows) {
+  const uint64_t dims[4] = {kD, static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(heads),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {ss * 2ull, sh * 2ull, sb * 2ull};  // bytes
+  const uint32_t box[4] = {kHalf, rows, 1, 1};
+  return hopper::make_map_bf16_sw128(map, base, 4, dims, strides, box);
 }
 
 }  // namespace flash

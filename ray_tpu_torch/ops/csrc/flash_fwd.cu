@@ -54,16 +54,20 @@
 
 #include <math.h>
 
-#include <atomic>
-
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
+using flash::fast_exp2;
+using flash::kConsumerRegs;
 using flash::kD;
+using flash::kHalf;
+using flash::kLog2e;
 using flash::kMaskValue;
+using flash::kProducerRegs;
 using flash::pack_bf16;
+using flash::release;
 
 struct Params {
   const void* q;
@@ -99,10 +103,6 @@ constexpr int kConsumers = 2;  // consumer warpgroups, 64 q rows each
 constexpr int kBM = 64 * kConsumers;  // q rows per block
 constexpr int kBN = 128;       // KV rows per tile
 constexpr int kStages = 2;     // K/V ring depth
-constexpr int kHalf = 64;      // columns per 128B-swizzled TMA box
-constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = 240;
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr uint32_t kTileBytes = kBN * kD * 2;  // one K or V tile, 32 KB
 
@@ -128,47 +128,15 @@ struct FwdArgs {
   int causal;
 };
 
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 constexpr uint32_t kKvHalfBytes = kBN * kHalf * 2;
 
-// Issue S = Q K^T for one consumer warpgroup (64 q rows x 128 KV columns,
-// D = 128 in 8 k-steps, both operands K-major in shared memory) as one
-// wgmma group; the caller waits for it.
-__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_base,
-                                         uint32_t q_half_bytes,
-                                         uint32_t k_base) {
-  hopper::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    const uint32_t col = (kk % 4) * 32;  // bytes into the 128-byte row
-    const uint64_t da = hopper::desc_sw128(
-        q_base + (kk / 4) * q_half_bytes + col, 16, 1024);
-    const uint64_t db = hopper::desc_sw128(
-        k_base + (kk / 4) * kKvHalfBytes + col, 16, 1024);
-    hopper::wgmma_m64n128k16_ss<0>(sc, da, db, kk > 0 ? 1 : 0);
-  }
-  hopper::wgmma_commit();
-}
-
 // Issue O += P V as one wgmma group: P (bf16) is the register A operand, V
-// is [kv][d] in shared memory with d contiguous, i.e. an MN-major B operand
-// (transpose bit 1): the two 64-wide d halves are one LBO apart, a k-step
-// of 16 KV rows is 2048 bytes.
+// is [kv][d] in shared memory with d contiguous (MN-major).
 __device__ __forceinline__ void issue_pv(float (&o)[64],
                                          const uint32_t (&pa)[kBN / 16][4],
                                          uint32_t v_base) {
   hopper::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk) {
-    const uint64_t db =
-        hopper::desc_sw128(v_base + kk * 16 * 128, kKvHalfBytes, 1024);
-    hopper::wgmma_m64n128k16_rs<1>(o, pa[kk], db, 1);
-  }
+  flash::mma_rs(o, pa, v_base, kKvHalfBytes);
   hopper::wgmma_commit();
 }
 
@@ -256,25 +224,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], const FwdArgs& p,
   hopper::fence_reg(l_hi);
   hopper::fence_reg(corr_lo);
   hopper::fence_reg(corr_hi);
-}
-
-// P as the A operand of the next product: k-step kk covers the KV columns
-// of accumulator blocks j = 2kk and 2kk + 1.
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[kBN / 16][4],
-                                       const float (&sc)[64]) {
-#pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk) {
-    pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
-    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-  }
-}
-
-// One arrival per consumer warp on an `empty` barrier.
-__device__ __forceinline__ void release(uint64_t* bar, int lane) {
-  __syncwarp();
-  if (lane == 0) hopper::mbar_arrive(bar);
 }
 
 __global__ void __launch_bounds__(128 * (1 + kConsumers), 1)
@@ -401,7 +350,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     hopper::mbar_wait(&sm.q_full, 0);
     hopper::mbar_wait(&sm.k_full[0], 0);
     my_turn();
-    issue_qk(sc, q_base, q_half_bytes, hopper::smem_u32(sm.k[0][0]));
+    flash::issue_abt<kBN>(sc, q_base, q_half_bytes,  // S = Q K^T
+                          hopper::smem_u32(sm.k[0][0]), kKvHalfBytes);
     pass_turn();
     hopper::wgmma_wait<0>();
 #pragma unroll
@@ -409,7 +359,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     release(&sm.k_empty[0], lane);
     softmax_tile(sc, p, masked(0), 0, r_lo, lane, m_lo, m_hi, l_lo, l_hi,
                  corr_lo, corr_hi);
-    pack_p(pa, sc);
+    flash::pack_a(pa, sc);  // P as the next A operand
 
     for (int kt = 1; kt < n_kt; ++kt) {
       const int s = kt % kStages, sp = (kt - 1) % kStages;
@@ -417,7 +367,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       hopper::mbar_wait(&sm.k_full[s], (kt / kStages) & 1);
       hopper::mbar_wait(&sm.v_full[sp], ((kt - 1) / kStages) & 1);
       my_turn();
-      issue_qk(sc, q_base, q_half_bytes, hopper::smem_u32(sm.k[s][0]));
+      flash::issue_abt<kBN>(sc, q_base, q_half_bytes,
+                            hopper::smem_u32(sm.k[s][0]), kKvHalfBytes);
       issue_pv(o, pa, hopper::smem_u32(sm.v[sp][0]));
       pass_turn();
       hopper::wgmma_wait<1>();  // S of tile kt is done, P V may still run
@@ -441,7 +392,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         o[4 * j + 2] *= corr_hi;
         o[4 * j + 3] *= corr_hi;
       }
-      pack_p(pa, sc);
+      flash::pack_a(pa, sc);
     }
     const int sl = (n_kt - 1) % kStages;
     hopper::mbar_wait(&sm.v_full[sl], ((n_kt - 1) / kStages) & 1);
@@ -597,39 +548,17 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* o,
                        void* lse, const long long* qs, const long long* ks,
                        const long long* vs, int B, int H, int KVH, int Sq,
                        int Skv, float scale, int causal, cudaStream_t st) {
-  const uint64_t qdim[4] = {kD, static_cast<uint64_t>(Sq),
-                            static_cast<uint64_t>(H),
-                            static_cast<uint64_t>(B)};
-  const uint64_t kvdim[4] = {kD, static_cast<uint64_t>(Skv),
-                             static_cast<uint64_t>(KVH),
-                             static_cast<uint64_t>(B)};
-  // element strides (batch, head, seq) -> byte strides (seq, head, batch)
-  const uint64_t qst[3] = {qs[2] * 2ull, qs[1] * 2ull, qs[0] * 2ull};
-  const uint64_t kst[3] = {ks[2] * 2ull, ks[1] * 2ull, ks[0] * 2ull};
-  const uint64_t vst[3] = {vs[2] * 2ull, vs[1] * 2ull, vs[0] * 2ull};
-  const uint32_t qbox[4] = {kHalf, kBM, 1, 1};
-  const uint32_t kvbox[4] = {kHalf, kBN, 1, 1};
   CUtensorMap tq, tk, tv;
-  if (!hopper::make_map_bf16_sw128(&tq, q, 4, qdim, qst, qbox) ||
-      !hopper::make_map_bf16_sw128(&tk, k, 4, kvdim, kst, kvbox) ||
-      !hopper::make_map_bf16_sw128(&tv, v, 4, kvdim, vst, kvbox))
+  if (!flash::make_bhsd_map(&tq, q, B, H, Sq, qs[0], qs[1], qs[2], kBM) ||
+      !flash::make_bhsd_map(&tk, k, B, KVH, Skv, ks[0], ks[1], ks[2], kBN) ||
+      !flash::make_bhsd_map(&tv, v, B, KVH, Skv, vs[0], vs[1], vs[2], kBN))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_qt = (Sq + kBM - 1) / kBM;
   const FwdArgs a{o,   static_cast<float*>(lse), H, KVH, Sq, Skv, n_qt,
                   scale * kLog2e, causal};
-  // The shared-memory opt-in is per device; set it on each device once.
-  static std::atomic<uint64_t> opted_in{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err =
+      hopper::opt_in_smem(flash_fwd_bf16_kernel, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
-  if (bit == 0 || !(opted_in.load() & bit)) {
-    err = cudaFuncSetAttribute(flash_fwd_bf16_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in.fetch_or(bit);
-  }
   flash_fwd_bf16_kernel<<<B * H * n_qt, 128 * (1 + kConsumers), kSmemBytes,
                           st>>>(tq, tk, tv, a);
   return static_cast<int>(cudaGetLastError());

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks for the port's kernels: mbarriers with
 // phase parity, TMA tile loads and the host-side tensor maps they read,
 // wgmma descriptors for 128-byte-swizzled tiles, wgmma.m64n128k16 (bf16 in,
-// f32 accumulate) with A from shared memory or from registers, the fences
-// around them, named barriers and setmaxnreg.
+// f32 accumulate) with A from shared memory or from registers,
+// wgmma.m64n64k16 with both operands in shared memory, the fences around
+// them, named barriers, setmaxnreg and the once-per-device shared-memory
+// opt-in.
 //
 // Shared-memory tiles are written by TMA with CU_TENSOR_MAP_SWIZZLE_128B: a
 // box is at most 64 bf16 (128 bytes) wide, so a 128-column tile is stored as
@@ -13,18 +15,24 @@
 //   K-major (the reduction dim contiguous, e.g. Q and K of S = Q K^T):
 //     desc_sw128(half + k_elem * 2, 16, 1024): a k-step of 16 elements
 //     moves the start address by 32 bytes inside the 128-byte row; LBO is
-//     unused, SBO is the 1024-byte stride of 8-row groups.
+//     unused, SBO is the 1024-byte stride of 8-row groups. The same
+//     descriptor serves an M of 64 rows (A) and an N of 64 or 128 rows (B):
+//     the unit reads N / 8 groups at SBO strides, so rows r0.. of a taller
+//     tile start at half + r0 * 128 (r0 a multiple of 8).
 //   MN-major (the output dim contiguous, e.g. V of O += P V, trans-b = 1):
 //     desc_sw128(half0 + k_row * 128, half_bytes, 1024): LBO is the stride
 //     from one 64-wide MN block to the next (the other half), SBO the
 //     stride of 8-row k groups; a k-step of 16 rows moves 2048 bytes.
+//     half_bytes is rows * 128 of the tile the box wrote (8 KB for a
+//     64-row tile, 16 KB for 128 rows).
 //
 // Accumulator layout of m64nNk16 (f32), thread t of the warpgroup, warp
 // w = t / 32, lane l: d[4j + 2a + b] holds row 16w + l/4 + 8a, column
-// 8j + 2(l%4) + b. The register A operand of one k-step has the layout of
-// mma.m16n8k16's A fragment per warp (rows 16w..16w+15), so a pair of 8-col
-// accumulator blocks j = 2kk, 2kk+1 packed to bf16 is the A operand of k-step
-// kk of the next product.
+// 8j + 2(l%4) + b (j < N / 8). The register A operand of one k-step has the
+// layout of mma.m16n8k16's A fragment per warp (rows 16w..16w+15), so a pair
+// of 8-col accumulator blocks j = 2kk, 2kk+1 packed to bf16 is the A operand
+// of k-step kk of the next product: an m64n64 accumulator gives 4 k-steps,
+// an m64n128 one 8.
 
 #pragma once
 
@@ -33,6 +41,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <atomic>
 
 namespace hopper {
 
@@ -100,16 +110,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // Coordinates are in elements, innermost dimension first; rows outside the
 // tensor are zero-filled and still count toward the transaction bytes.
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
 
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
@@ -222,8 +222,41 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "r"(scale_d), "n"(TransB));
 }
 
+#define HOPPER_D32                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+#define HOPPER_D32_OPERANDS(d)                                             \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),         \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),     \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),     \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),     \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),     \
+      "+f"(d[31])
+
+// d[32] (+)= A (64 x 16, shared memory) * B (16 x 64, shared memory), both
+// K-major.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_D32_OPERANDS(d)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 #undef HOPPER_D64
 #undef HOPPER_D64_OPERANDS
+#undef HOPPER_D32
+#undef HOPPER_D32_OPERANDS
 
 // ---------------------------------------------------------------------------
 // Named barriers (ids 1..15; __syncthreads() owns 0) over `n` threads, a
@@ -252,6 +285,28 @@ __device__ __forceinline__ void reg_alloc() {
 template <int R>
 __device__ __forceinline__ void reg_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// ---------------------------------------------------------------------------
+// Host: above 48 KB a block gets shared memory only as dynamic memory, after
+// an opt-in that is per kernel and per device. Made once per device (one
+// bit each; every instantiation is one kernel), so a launch pays no
+// attribute call.
+// ---------------------------------------------------------------------------
+
+template <typename Kernel>
+inline cudaError_t opt_in_smem(Kernel kernel, int bytes) {
+  static std::atomic<uint64_t> opted_in{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
+  if (bit != 0 && (opted_in.load() & bit)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) opted_in.fetch_or(bit);
+  return err;
 }
 
 // ---------------------------------------------------------------------------

@@ -253,6 +253,48 @@ def test_kernel_layout_accepts_the_engine_prefill_layouts(monkeypatch):
     tatt.check_kernel_layout("flash_fwd kernel", q=q, k=k, v=v)
 
 
+@pytest.mark.parametrize("remat_policy", ["full", "dots_nobatch"])
+def test_kernel_layout_accepts_what_the_train_backward_receives(
+        monkeypatch, remat_policy):
+    """A train step's backward gets q and k dense from apply_rope, v as the
+    transpose of a [B, S, KVH, D] view, and dO as the gradient of
+    attn.transpose(1, 2).reshape(B, S, H * D): a dense [B, S, H, D] buffer
+    seen as [B, H, S, D]. All four pass the kernels' layout check as they
+    are (flash_bwd copies none of them), and the plain backward on those
+    views equals it on dense copies."""
+    from ray_tpu_torch.models import llama as tl
+
+    cfg = tl.LlamaConfig(remat_policy=remat_policy, **_LAYOUT_KW)
+    params = tl.init_params(cfg, 2, device="cpu")
+    params["embed"].requires_grad_(True)
+    tokens = torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (2, 24)))
+    seen = []
+    flash_bwd = tatt.flash_bwd
+
+    def capture(*args):
+        seen.append(args)
+        return flash_bwd(*args)
+
+    monkeypatch.setattr(tatt, "flash_bwd", capture)
+    loss, _ = tl.loss_fn(params, tokens, cfg)
+    loss.backward()
+    (q, k, v, out, lse, dout, causal, scale), = seen
+    B, S, H, KVH, D = 2, 24, 4, 2, 128
+    assert q.dtype == dout.dtype == torch.bfloat16 and causal
+    assert q.is_contiguous() and k.is_contiguous()
+    assert v.stride() == (S * KVH * D, D, KVH * D, 1)
+    assert dout.shape == (B, H, S, D)
+    assert dout.stride() == (S * H * D, D, H * D, 1)
+    tatt.check_kernel_layout("the flash backward kernels", q=q, k=k, v=v,
+                             dout=dout)
+    got = flash_bwd(q, k, v, out, lse, dout, causal, scale)
+    want = flash_bwd(*(t.contiguous() for t in (q, k, v, out, lse, dout)),
+                     causal, scale)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_kernel_layout_refuses_misaligned_rows(dtype):
     """A row stride of 129 elements (258 bytes in bf16) and a base address
