@@ -13,8 +13,9 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    bucket widths 32..8192 and once non-causal; the f32 variant at two
    shapes), at the model's layout (q, k, v as transposes of [B, S, heads,
    D] views, which the TMA maps read through their strides), at the ragged
-   lengths 100 and 8000 (TMA zero-fills past the end), and at the bench
-   configuration's B8 H16 KVH16 S2048; time kernel, plain version, SDPA
+   lengths 100 and 8000 (TMA zero-fills past the end), at the MoE step's
+   S4096 (both layouts), and at the bench configuration's B8 H16 KVH16
+   S2048; time kernel, plain version, SDPA
    (the library yardstick, never called by the port) and the roofline
    bound.
 3. Serve 8 concurrent requests on Llama-3-8B at full width and depth
@@ -26,9 +27,10 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
 4. Answer one completion through ``LLMServer`` at a small size.
 5. Hold the two backward kernels (dK/dV and dQ) against their plain
    versions on the card at the training shapes (B1 H32 KVH8 D128 bf16,
-   causal at S 64..8192, the ragged S 100 and 8000, once non-causal, once
-   at the train step's strided layout; B8 H16 KVH16 S2048 as the bench
-   configuration has it), and time kernel, plain version, the SDPA
+   causal at S 64..8192, the ragged S 100 and 8000, once non-causal, at
+   the train step's strided layout at S 2048 and at the MoE step's S 4096
+   in both layouts; B8 H16 KVH16 S2048 as the bench configuration has
+   it), and time kernel, plain version, the SDPA
    backward (the library yardstick, never called by the port) and the
    bound.
 6. Train parity: one loss-and-gradient pass of Llama-3-8B at full width
@@ -40,7 +42,22 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    expected number of times per step; step time, tokens/s, MFU, peak
    memory and a profiled step.
 8. ``bench.py``'s training configuration (d_model 2048, 8 layers, H 16,
-   ``dots_nobatch``) at B8 x S2048 for a few steps.
+   ``dots_nobatch``) at B8 x S2048 for a few steps, built as ``bench.py``
+   builds it: ``make_train_fns(cfg, ParallelContext.create(MeshConfig()))``
+   (a world-1 NCCL group on the card), then the same steps with
+   ``ctx=None``: the losses agree and the two rates give the context's
+   cost.
+9. The MoE train step: ``llama3_8b(n_experts=8, top_k_experts=2,
+   n_layers=2)`` (Mixtral-8x7B's expert layer on the Llama-3-8B preset;
+   depth cut 32 -> 2 to fit 16 bytes of state per parameter on one card)
+   at B1 x S4096 through ``ParallelContext.create(MeshConfig())``: one
+   full-width MoE layer through the kernels against the plain attention
+   at S4096, the kernel run routed as the plain run chose (the tokens it
+   would have routed otherwise are counted), the same loss and gradients
+   with ``ctx=None`` and with the context, then 2 warm-up and 5 timed
+   steps: exact launch counts 4/2/2 per step, a falling loss, a finite aux
+   loss, the share of dropped assignments, step time, tokens/s, MFU (all
+   experts and active experts), peak memory and a profiled step.
 
 Any mismatch raises and the script exits non-zero. The line before the last
 is the kernels' JSON; the last is ``{"ok": true, "device": {...}}``.
@@ -49,16 +66,19 @@ Details go to ``chiprun_out/chip_smoke.json``.
     python3 chip_smoke.py --only-kernels
 
 builds the kernels and runs phase 2 alone (a quick check after a kernel
-edit), ``--only-bwd`` runs phase 5 alone in the same way, and
-``--only-ttft N`` measures idle TTFT alone (N requests per prompt length;
-run it from another tree's root to compare the two); none prints a result
-line.
+edit), ``--only-bwd`` runs phase 5 alone in the same way, ``--only-moe``
+phase 9, and ``--only-ttft N`` measures idle TTFT alone (N requests per
+prompt length; run it from another tree's root to compare the two); none
+prints a result line.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import inspect
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -68,15 +88,20 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ray_tpu_torch.models.llama import (LlamaConfig, flops_per_token,
-                                        forward, init_params, loss_fn)
+                                        forward, forward_with_aux,
+                                        init_params, loss_fn, param_count)
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
                                          flash_bwd_plain, flash_bwd_plain_dkv,
                                          flash_bwd_plain_dq, flash_fwd,
                                          flash_fwd_plain)
+from ray_tpu_torch.ops import moe as moe_module
+from ray_tpu_torch.ops.moe import moe_ffn
+from ray_tpu_torch.parallel import MeshConfig, ParallelContext
 from ray_tpu_torch.serve.engine import Engine
 from ray_tpu_torch.serve.llm import LLMConfig, LLMServer
 from ray_tpu_torch.train import make_train_fns
@@ -104,6 +129,8 @@ FWD_CASES = [(1, 32, 8, S, True, BF16, "dense") for S in ATTN_WIDTHS] + [
     (1, 32, 8, 512, True, F32, "dense"),
     (1, 32, 8, 100, False, F32, "dense"),
     (1, 32, 8, 2048, True, BF16, "model"),
+    (1, 32, 8, 4096, True, BF16, "dense"),
+    (1, 32, 8, 4096, True, BF16, "model"),
     (1, 32, 8, 100, True, BF16, "dense"),
     (1, 32, 8, 8000, True, BF16, "dense"),
     (8, 16, 16, 2048, True, BF16, "dense")]
@@ -132,13 +159,15 @@ GREEDY_ARGMAX_SHARE = 0.75
 # the order of the output itself.
 REL_TOL_BWD = 2e-2
 # (B, H, KVH, S, causal, layout) for the backward check; the main path's
-# shape is B1 H32 KVH8 S8192 causal. "model" gives q, k, v and dO as the
+# shape is B1 H32 KVH8 S8192 causal, the MoE step's S4096 in the model's
+# layout. "model" gives q, k, v and dO as the
 # transposes of [B, S, heads, D] views, as a train step can hand them to
 # the backward (dO is the gradient of attn.transpose(1, 2).reshape(...)
 # in models/llama.py); the TMA maps read them through their strides.
 BWD_CASES = [(1, 32, 8, S, True, "dense") for S in (64, 512, 2048, 8192)] + [
     (1, 32, 8, 100, True, "dense"), (1, 32, 8, 8000, True, "dense"),
     (1, 32, 8, 2048, False, "dense"), (1, 32, 8, 2048, True, "model"),
+    (1, 32, 8, 4096, True, "dense"), (1, 32, 8, 4096, True, "model"),
     (8, 16, 16, 2048, True, "dense")]
 # Train parity, kernels vs the plain attention on the same weights and
 # tokens, bf16 compute: the two attentions round to bf16 in other orders,
@@ -155,6 +184,28 @@ BENCH_MODEL = dict(vocab_size=32000, d_model=2048, n_layers=8, n_heads=16,
                    n_kv_heads=16, d_ff=5504, max_seq=2048,
                    remat_policy="dots_nobatch")
 BENCH_BATCH, BENCH_SEQ, BENCH_STEPS = 8, 2048, 3
+# Phase 9: Mixtral-8x7B's expert layer (mistralai/Mixtral-8x7B-v0.1: 8
+# experts of width 14336 at d_model 4096, top-2) on the Llama-3-8B preset,
+# depth cut from 32 to 2 layers.
+MOE_MODEL = dict(n_experts=8, top_k_experts=2, n_layers=2)
+MOE_SEQ = 4096
+MOE_WARMUP, MOE_STEPS = 2, 5
+# moe_ffn's capacity factor, which the model's MoE layers take as it is
+MOE_CAPACITY_FACTOR = inspect.signature(moe_ffn).parameters[
+    "capacity_factor"].default
+# The MoE layer parity: routing is discontinuous, so where the kernels and
+# the plain attention round the layer's input differently a token can pick
+# other experts, and its share of a gradient then moves by its own size.
+# So the kernel run takes the experts the plain run chose (``_routing``):
+# the two then differ by the attention's rounding alone, and phase 6's
+# bounds hold. The tokens the kernel run would have routed otherwise are
+# counted; a forward kernel that moved the layer's input by more than
+# rounding would reroute most of them (more than MOE_FLIPS_MAX).
+MOE_FLIPS_MAX = 0.01
+# ctx=None and MeshConfig() run the same arithmetic; a sum in another order
+# (an atomic add) would show as a few f32 ulps, far below these.
+CTX_PARITY_LOSS_RTOL = 1e-6
+CTX_PARITY_GRAD_REL_L2 = 1e-5
 OUT_DIR = "chiprun_out"
 # nvcc/ptxas lines worth printing: registers, shared memory, spills, and
 # any warning (setmaxnreg ignored, wgmma serialized).
@@ -688,13 +739,67 @@ def phase_train_parity(card: str):
     return out
 
 
-def _train_run(cfg, batch, seq, warmup, steps, card, label, profile):
-    """make_train_fns on ``cfg``: warm-up and timed steps on one batch with
-    the launch counters read around them; the loss must fall."""
+def _active_flops_per_token(cfg, seq) -> float:
+    """``flops_per_token`` with only the top-k experts of each MoE layer
+    counted (the parameters a token passes through)."""
+    idle = cfg.n_experts - cfg.top_k_experts
+    n = (param_count(cfg) - cfg.vocab_size * cfg.d_model
+         - cfg.n_layers * idle * 3 * cfg.d_model * cfg.d_ff)
+    return 6.0 * n + 12 * cfg.n_layers * cfg.d_model * seq
+
+
+@contextlib.contextmanager
+def _routing(force=None):
+    """Yields the experts every ``moe_ffn`` call inside the block chose, in
+    call order (idx [tokens, k] each). With ``force`` (the idx of one
+    layer's tokens) each call takes those experts instead of its own
+    top-k, their weights still softmaxed from its own logits, so that two
+    runs whose layer inputs round differently route alike; what a call
+    would have chosen is still what is yielded."""
+    seen = []
+    top_k = moe_module.top_k_routing
+
+    def route(logits, k):
+        weights, idx = top_k(logits, k)
+        seen.append(idx)
+        if force is None:
+            return weights, idx
+        return torch.softmax(logits.gather(-1, force).float(), -1), force
+
+    moe_module.top_k_routing = route
+    try:
+        yield seen
+    finally:
+        moe_module.top_k_routing = top_k
+
+
+def _moe_probe(params, tokens, cfg, ctx) -> dict:
+    """One forward without gradients: the aux loss and the share of
+    dropped expert assignments, from the experts each layer chose (an
+    expert keeps the first ``capacity`` of its assignments, token by
+    token, over the whole batch on one card)."""
+    with torch.no_grad(), _routing() as seen:
+        _, aux = forward_with_aux(params, tokens, cfg, ctx)
+    check(len(seen) == cfg.n_layers, f"{len(seen)} MoE layers ran")
+    n = tokens.numel() * cfg.top_k_experts
+    capacity = max(1, math.ceil(n * MOE_CAPACITY_FACTOR / cfg.n_experts))
+    dropped = [(torch.bincount(idx.reshape(-1), minlength=cfg.n_experts)
+                - capacity).clamp(min=0).sum().item() / n for idx in seen]
+    return dict(aux=aux.item(), dropped_share=sum(dropped) / len(dropped),
+                dropped_per_layer=dropped)
+
+
+def _train_run(cfg, batch, seq, warmup, steps, card, label, profile,
+               ctx=None):
+    """make_train_fns on ``cfg`` (under ``ctx`` when given): warm-up and
+    timed steps on one batch with the launch counters read around them;
+    the loss must fall."""
     torch.cuda.reset_peak_memory_stats()
-    init_fn, step_fn = make_train_fns(cfg)
+    init_fn, step_fn = make_train_fns(cfg, ctx)
     state = init_fn(SEED)
     tokens = _tokens(cfg, batch, seq, SEED + 2)
+    if cfg.n_experts:
+        at_init = _moe_probe(state["params"], tokens, cfg, ctx)
     losses = []
     flash_fwd.launches = flash_bwd_dkv.launches = flash_bwd_dq.launches = 0
     for _ in range(warmup):
@@ -723,12 +828,21 @@ def _train_run(cfg, batch, seq, warmup, steps, card, label, profile):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     free_gb, total_gb = (x / 1e9 for x in torch.cuda.mem_get_info())
     out = dict(config=label, batch=batch, seq=seq, layers=L,
-               remat_policy=cfg.remat_policy, losses=losses,
+               remat_policy=cfg.remat_policy,
+               parallel_context=None if ctx is None else str(ctx.config),
+               losses=losses,
                grad_norm=m["grad_norm"].item(), step_s=step_s,
                tokens_per_s=tok_s, mfu=mfu, peak_mem_gb=peak_gb,
                card_total_gb=total_gb, free_after_gb=free_gb,
                launches=launches, launches_per_step={
                    k: v / n for k, v in launches.items()}, card=card)
+    if cfg.n_experts:
+        out["mfu_active"] = (_active_flops_per_token(cfg, seq) * tok_s
+                             / PEAK_BF16_FLOPS)
+        out["at_init"] = at_init
+        out.update(_moe_probe(state["params"], tokens, cfg, ctx))
+        check(np.isfinite(out["aux"]) and np.isfinite(at_init["aux"]),
+              f"{label}: aux loss {at_init['aux']} -> {out['aux']}")
     if profile:
         out["profile"] = _device_profile(lambda: step_fn(state, tokens))
     log("TRAIN", json.dumps(out))
@@ -744,9 +858,109 @@ def phase_train_main(card: str):
 
 
 def phase_train_bench(card: str):
-    return _train_run(LlamaConfig(**BENCH_MODEL), BENCH_BATCH, BENCH_SEQ, 1,
-                      BENCH_STEPS, card, "bench.py d2048 L8 H16",
-                      profile=False)
+    """bench.py's configuration as bench.py builds it, through the
+    context; then the same steps without it, whose losses must agree."""
+    cfg = LlamaConfig(**BENCH_MODEL)
+    out = _train_run(cfg, BENCH_BATCH, BENCH_SEQ, 1, BENCH_STEPS, card,
+                     "bench.py d2048 L8 H16", profile=False,
+                     ctx=ParallelContext.create(MeshConfig()))
+    plain = _train_run(cfg, BENCH_BATCH, BENCH_SEQ, 1, BENCH_STEPS, card,
+                       "bench.py d2048 L8 H16, ctx=None", profile=False)
+    out["no_ctx"] = {k: plain[k] for k in ("step_s", "tokens_per_s",
+                                           "losses")}
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(out["losses"], plain["losses"]))
+    log(f"TRAIN bench.py configuration: {out['tokens_per_s']:.0f} tok/s "
+        f"through ParallelContext(MeshConfig()), {plain['tokens_per_s']:.0f}"
+        f" tok/s with ctx=None (ratio "
+        f"{out['tokens_per_s'] / plain['tokens_per_s']:.4f}); losses' "
+        f"largest relative difference {loss_rel}  [{card}]")
+    check(loss_rel <= CTX_PARITY_LOSS_RTOL,
+          f"bench.py configuration: losses {out['losses']} through the "
+          f"context, {plain['losses']} without")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the MoE family
+# ---------------------------------------------------------------------------
+
+def _loss_and_grads(params, tokens, cfg, ctx=None, attn_fn=None):
+    leaves = _flat(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    kw = {} if attn_fn is None else dict(attn_fn=attn_fn)
+    loss, _ = loss_fn(params, tokens, cfg, ctx, **kw)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def _grad_rel(a: dict, b: dict) -> dict:
+    return {k: (torch.linalg.vector_norm(a[k].float() - b[k].float())
+                / torch.linalg.vector_norm(b[k].float())).item() for k in b}
+
+
+def phase_moe(card: str):
+    # -- one full-width MoE layer: kernels against the plain attention --
+    cfg1 = LlamaConfig.llama3_8b(**dict(MOE_MODEL, n_layers=1))
+    params = init_params(cfg1, SEED, device="cuda")
+    tokens = _tokens(cfg1, 1, MOE_SEQ, SEED)
+    with _routing() as seen:
+        lp, gp = _loss_and_grads(params, tokens, cfg1,
+                                 attn_fn=_PlainAttention.apply)
+    chosen = seen[0]
+    counts0 = (flash_fwd.launches, flash_bwd_dkv.launches,
+               flash_bwd_dq.launches)
+    with _routing(force=chosen) as seen:
+        lk, gk = _loss_and_grads(params, tokens, cfg1)
+    torch.cuda.synchronize()
+    counts = (flash_fwd.launches - counts0[0],
+              flash_bwd_dkv.launches - counts0[1],
+              flash_bwd_dq.launches - counts0[2])
+    flips = (seen[0].sort(-1).values != chosen.sort(-1).values).any(
+        -1).sum().item()
+    n = chosen.shape[0]
+    layer = dict(shape=f"llama3_8b moe8 top2 n_layers=1 B1 S{MOE_SEQ}",
+                 loss_kernels=lk.item(), loss_plain=lp.item(),
+                 loss_rel=abs(lk.item() - lp.item()) / abs(lp.item()),
+                 grad_rel_l2=_grad_rel(gk, gp),
+                 tokens_routed_differently=flips, tokens=n,
+                 launches=counts, card=card)
+    log("MOE_LAYER_PARITY", json.dumps(layer))
+    check(counts == (2, 1, 1), f"MoE layer parity launch counts {counts}")
+    check(np.isfinite(layer["loss_kernels"])
+          and layer["loss_rel"] <= PARITY_LOSS_RTOL
+          and flips <= MOE_FLIPS_MAX * n
+          and max(layer["grad_rel_l2"].values()) <= PARITY_GRAD_REL_L2,
+          f"MoE layer parity: {layer} (bounds: loss {PARITY_LOSS_RTOL}, "
+          f"grad {PARITY_GRAD_REL_L2}, rerouted {MOE_FLIPS_MAX * n})")
+    del params, gk, gp, seen, chosen
+    torch.cuda.empty_cache()
+
+    # -- the same loss and gradients with ctx=None and MeshConfig() --
+    cfg = LlamaConfig.llama3_8b(**MOE_MODEL)
+    ctx = ParallelContext.create(MeshConfig())
+    params = init_params(cfg, SEED, device="cuda")
+    tokens = _tokens(cfg, 1, MOE_SEQ, SEED + 2)
+    l0, g0 = _loss_and_grads(params, tokens, cfg)
+    l1, g1 = _loss_and_grads(params, tokens, cfg, ctx)
+    ctx_parity = dict(loss_none=l0.item(), loss_ctx=l1.item(),
+                      loss_rel=abs(l0.item() - l1.item()) / abs(l0.item()),
+                      grad_rel_l2=_grad_rel(g1, g0),
+                      bitwise=bool(torch.equal(l0, l1)) and all(
+                          torch.equal(g0[k], g1[k]) for k in g0))
+    log("MOE_CTX_PARITY", json.dumps(ctx_parity))
+    check(ctx_parity["loss_rel"] <= CTX_PARITY_LOSS_RTOL
+          and max(ctx_parity["grad_rel_l2"].values())
+          <= CTX_PARITY_GRAD_REL_L2, f"ctx=None vs MeshConfig(): {ctx_parity}")
+    del params, g0, g1
+    torch.cuda.empty_cache()
+
+    # -- the main path: make_train_fns through the context --
+    train = _train_run(cfg, 1, MOE_SEQ, MOE_WARMUP, MOE_STEPS, card,
+                       "llama3_8b moe8 top2 n_layers=2", profile=True,
+                       ctx=ctx)
+    return dict(layer_parity=layer, ctx_parity=ctx_parity, train=train)
 
 
 def main() -> int:
@@ -758,6 +972,8 @@ def main() -> int:
     ap.add_argument("--only-ttft", type=int, default=0, metavar="N",
                     help="build the kernels and measure idle TTFT only, N "
                     "requests per prompt length")
+    ap.add_argument("--only-moe", action="store_true",
+                    help="build the kernels and run phase 9 only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -783,6 +999,9 @@ def main() -> int:
     if args.only_bwd:
         phase_bwd_kernels(card)
         return 0
+    if args.only_moe:
+        phase_moe(card)
+        return 0
     rows = phase_kernels(card)
     if args.only_kernels:
         return 0
@@ -792,6 +1011,7 @@ def main() -> int:
     parity = phase_train_parity(card)
     train = phase_train_main(card)
     bench = phase_train_bench(card)
+    moe = phase_moe(card)
 
     main_row = next(r for r in rows if r["shape"] == "B1 H32 KVH8 S8192 D128"
                     and r["causal"] and r["layout"] == "dense")
@@ -803,7 +1023,8 @@ def main() -> int:
         plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
         bound_by=main_row["bound_by"], library_ms=main_row["library_ms"],
         shape=main_row["shape"] + " causal bf16",
-        launches_train=train["launches"]["flash_fwd"])]
+        launches_train=train["launches"]["flash_fwd"],
+        launches_moe_train=moe["train"]["launches"]["flash_fwd"])]
     bwd_main = next(r for r in bwd_rows
                     if r["shape"] == "B1 H32 KVH8 S8192 D128" and r["causal"]
                     and r["layout"] == "dense")
@@ -818,12 +1039,14 @@ def main() -> int:
             bound_ms=bwd_main["bound_ms"][name],
             bound_by=bwd_main["bound_by"][name],
             library_ms=bwd_main["sdpa_bwd_ms"],
-            shape=bwd_main["shape"] + " causal bf16"))
+            shape=bwd_main["shape"] + " causal bf16",
+            launches_moe_train=moe["train"]["launches"][name]))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, build_s=build_s, kernel_rows=rows,
                        engine=engine, bwd_rows=bwd_rows, train_parity=parity,
-                       train=train, train_bench=bench, kernels=kernels), f,
+                       train=train, train_bench=bench, moe=moe,
+                       kernels=kernels), f,
                   indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -834,4 +1057,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        if dist.is_initialized():  # the world-1 group of phases 8 and 9
+            dist.destroy_process_group()
+    sys.exit(rc)

@@ -1,4 +1,4 @@
-"""Single-device training step (counterpart of ``ray_tpu/train/spmd.py``).
+"""The training step (counterpart of ``ray_tpu/train/spmd.py``).
 
 ``make_train_fns`` returns ``init_fn`` and ``step_fn`` as the JAX package
 does: the state is ``{"params", "opt_state", "step"}`` and the metrics are
@@ -8,8 +8,11 @@ place (parameters and both AdamW moments) and returns the same dict: that
 keeps one copy of 16 bytes per parameter on the card. Nothing in the step
 reads a value back to the host, so steps queue up on the device.
 
-The parallel axes (``ctx``), ``state_shardings``, the trainer and data
-ingest wait for later slices of the port.
+Under a ``ParallelContext`` every rank keeps its block of the state under
+the sharding rules (``state_shardings``) and takes the global batch, as
+the JAX step does; the gradients come out of the model's backward already
+summed over the ranks that share each block. The trainer and data ingest
+wait for later slices of the port.
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ from torch.optim.adamw import adamw
 
 from ray_tpu_torch import DeviceLike, resolve_device
 from ray_tpu_torch.models import llama
+from ray_tpu_torch.parallel.comm import all_reduce_nograd
+from ray_tpu_torch.parallel.context import ParallelContext
+from ray_tpu_torch.parallel.sharding import axes_of, tree_shard
 
 TrainState = Dict[str, Any]  # {"params", "opt_state", "step"}
 
@@ -68,14 +74,19 @@ class ClipAdamW:
 
     @torch.no_grad()
     def update(self, grads: Dict[str, Any], opt_state: Dict[str, Any],
-               params: Dict[str, Any]) -> torch.Tensor:
+               params: Dict[str, Any], specs: Optional[Dict[str, Any]] = None,
+               ctx: Optional[ParallelContext] = None) -> torch.Tensor:
         """Clip ``grads`` and apply one AdamW step to ``params`` and
         ``opt_state``, all in place. Returns the global norm of the
-        gradients before clipping."""
+        gradients before clipping. Under ``ctx`` the leaves are this
+        rank's blocks under ``specs``: the norm counts each element once,
+        summing a block's squares over the axes that split it."""
         ps, gs = _leaves(params), _leaves(grads)
         mus, nus = _leaves(opt_state["mu"]), _leaves(opt_state["nu"])
-        norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g) for g in gs]))
+        norms = [torch.linalg.vector_norm(g) for g in gs]
+        if ctx is not None:
+            norms = _sharded_norms(norms, _leaves(specs), ctx)
+        norm = torch.linalg.vector_norm(torch.stack(norms))
         keep = norm < self.grad_clip
         one = torch.ones((), dtype=norm.dtype, device=norm.device)
         denom = torch.where(keep, one, norm)
@@ -93,6 +104,25 @@ class ClipAdamW:
         return norm
 
 
+def _sharded_norms(norms: List[torch.Tensor], specs: List[Any],
+                   ctx: ParallelContext) -> List[torch.Tensor]:
+    """Each leaf's norm over its whole global tensor: the squares of the
+    blocks summed over the axes that split the leaf, one all-reduce per
+    axis for all leaves together."""
+    out = list(norms)
+    for axis in ("pp", "dp", "fsdp", "ep", "sp", "tp"):
+        group = ctx.group(axis)
+        split = [i for i, spec in enumerate(specs)
+                 if any(axis in axes_of(e) for e in spec)]
+        if group is None or not split:
+            continue
+        sq = all_reduce_nograd(torch.stack([out[i] ** 2 for i in split]),
+                               group)
+        for j, i in enumerate(split):
+            out[i] = sq[j].sqrt()
+    return out
+
+
 def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
                       grad_clip: float = 1.0) -> ClipAdamW:
     return ClipAdamW(lr=lr, weight_decay=weight_decay, grad_clip=grad_clip)
@@ -106,7 +136,30 @@ def _to_device(tree: Dict[str, Any], dev: torch.device) -> Dict[str, Any]:
     return llama.params_from_jax(tree, dev)
 
 
-def make_train_fns(cfg: llama.LlamaConfig, ctx: Optional[Any] = None,
+def state_shardings(cfg: llama.LlamaConfig, ctx: ParallelContext,
+                    opt: Optional[ClipAdamW] = None) -> Dict[str, Any]:
+    """The spec of every leaf of the train state: the parameters' under
+    the rules, the same for AdamW's ``mu`` and ``nu``; ``count`` and
+    ``step`` replicated."""
+    param_sh = llama.param_specs(cfg, ctx)
+    return {"params": param_sh,
+            "opt_state": {"count": (), "mu": param_sh, "nu": param_sh},
+            "step": ()}
+
+
+def _shard_params(params: Dict[str, Any], cfg: llama.LlamaConfig,
+                  ctx: Optional[ParallelContext]) -> Dict[str, Any]:
+    """Global parameters -> this rank's blocks, each its own storage."""
+    if ctx is None:
+        return params
+    # a split leaf is a view of the global tensor: give it its own storage
+    # so the global one can go
+    return _map(lambda t: t if t._base is None else t.clone(),
+                tree_shard(params, llama.param_specs(cfg, ctx), ctx))
+
+
+def make_train_fns(cfg: llama.LlamaConfig,
+                   ctx: Optional[ParallelContext] = None,
                    opt: Optional[ClipAdamW] = None,
                    loss_fn: Optional[Callable] = None,
                    device: DeviceLike = None
@@ -119,13 +172,17 @@ def make_train_fns(cfg: llama.LlamaConfig, ctx: Optional[Any] = None,
 
     ``loss_fn(params, tokens) -> (loss, metrics)`` defaults to the model's
     next-token loss. Pass tokens already on the device to keep the step
-    free of host syncs; the metrics stay tensors on the device."""
-    if ctx is not None:
-        raise NotImplementedError("parallel contexts wait for a later "
-                                  "slice of the port")
-    dev = resolve_device(device)
+    free of host syncs; the metrics stay tensors on the device.
+
+    Under ``ctx`` (whose device replaces ``device``) ``init_fn`` draws or
+    takes the global parameters, the same on every mesh, and keeps this
+    rank's blocks; ``step_fn`` takes the global batch."""
+    if ctx is not None and not isinstance(ctx, ParallelContext):
+        raise TypeError(f"ctx must be a ParallelContext, not {type(ctx)}")
+    dev = ctx.device if ctx is not None else resolve_device(device)
     opt = opt or default_optimizer()
-    loss = loss_fn or (lambda p, toks: llama.loss_fn(p, toks, cfg))
+    loss = loss_fn or (lambda p, toks: llama.loss_fn(p, toks, cfg, ctx))
+    specs = llama.param_specs(cfg, ctx) if ctx is not None else None
 
     def init_fn(seed_or_params: Union[int, torch.Generator, Dict[str, Any]]
                 ) -> TrainState:
@@ -133,6 +190,7 @@ def make_train_fns(cfg: llama.LlamaConfig, ctx: Optional[Any] = None,
             params = _to_device(seed_or_params, dev)
         else:
             params = llama.init_params(cfg, seed_or_params, device=dev)
+        params = _shard_params(params, cfg, ctx)
         for p in _leaves(params):
             p.requires_grad_(True)
         return {"params": params, "opt_state": opt.init(params),
@@ -148,7 +206,7 @@ def make_train_fns(cfg: llama.LlamaConfig, ctx: Optional[Any] = None,
         grads = torch.autograd.grad(l, _leaves(params))
         del l
         gnorm = opt.update(_unflatten(params, grads), state["opt_state"],
-                           params)
+                           params, specs, ctx)
         state["step"] = state["step"] + 1
         return state, dict(metrics, grad_norm=gnorm)
 
@@ -178,25 +236,31 @@ def _find_adam_state(node: Any) -> Optional[Any]:
     return None
 
 
-def state_from_jax(jax_state: Dict[str, Any],
-                   device: DeviceLike = None) -> TrainState:
-    """A JAX ``TrainState`` of ``default_optimizer()`` with numpy leaves
-    (``jax.tree.map(np.asarray, state)``) -> the port's state on
-    ``device``: params through ``params_from_jax``, optax's Adam
+def state_from_jax(jax_state: Dict[str, Any], cfg: llama.LlamaConfig,
+                   device: DeviceLike = None,
+                   ctx: Optional[ParallelContext] = None) -> TrainState:
+    """A JAX ``TrainState`` of ``default_optimizer()`` for ``cfg``, with
+    numpy leaves (``jax.tree.map(np.asarray, state)``) -> the port's state
+    on ``device``: params through ``params_from_jax``, optax's Adam
     ``count``/``mu``/``nu`` as the optimizer state, so a run can go on in
-    this package where it stopped in the other."""
-    dev = resolve_device(device)
+    this package where it stopped in the other. Under ``ctx`` (whose
+    device replaces ``device``) each rank keeps its blocks."""
+    dev = ctx.device if ctx is not None else resolve_device(device)
     adam = _find_adam_state(jax_state["opt_state"])
     if adam is None:
         raise ValueError("no Adam state (count, mu, nu) in opt_state")
-    params = llama.params_from_jax(jax_state["params"], dev)
+
+    def convert(tree):
+        return _shard_params(llama.params_from_jax(tree, dev), cfg, ctx)
+
+    params = convert(jax_state["params"])
     for p in _leaves(params):
         p.requires_grad_(True)
     opt_state = {
         "count": torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32,
                               device=dev),
-        "mu": llama.params_from_jax(adam.mu, dev),
-        "nu": llama.params_from_jax(adam.nu, dev)}
+        "mu": convert(adam.mu),
+        "nu": convert(adam.nu)}
     step = torch.tensor(int(np.asarray(jax_state["step"])),
                         dtype=torch.int32, device=dev)
     return {"params": params, "opt_state": opt_state, "step": step}

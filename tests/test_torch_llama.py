@@ -8,10 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from ray_tpu.models import llama as jl
 from ray_tpu_torch.models import llama as tl
 from ray_tpu_torch.ops.attention import attention_reference
+from ray_tpu_torch.parallel import MeshConfig, ParallelContext
 
 CONFIGS = {
     # tiny(): 4 heads over 2 kv heads
@@ -121,16 +123,33 @@ def test_forward_matches_jax(name):
     np.testing.assert_allclose(plain.numpy(), got.numpy(), atol=1e-4, rtol=0)
 
 
-def test_forward_with_aux_and_unported_paths():
+def test_forward_with_aux_and_unported_paths(monkeypatch):
     cfg = tl.LlamaConfig.tiny()
     p = tl.init_params(cfg, 0, device="cpu")
     tokens = torch.zeros((1, 4), dtype=torch.long)
     logits, aux = tl.forward_with_aux(p, tokens, cfg)
     assert logits.shape == (1, 4, 256) and float(aux) == 0.0
-    with pytest.raises(NotImplementedError):
-        tl.forward(p, tokens, cfg, ctx=object())
-    with pytest.raises(NotImplementedError):
-        tl.init_params(tl.LlamaConfig.tiny(n_experts=4), 0, device="cpu")
+    # a one-device context runs the same arithmetic, over a world-1 gloo
+    # group it creates; a group whose backend does not serve the device is
+    # refused
+    ctx = ParallelContext.create(MeshConfig(), device="cpu")
+    try:
+        assert torch.equal(tl.forward(p, tokens, cfg, ctx=ctx), logits)
+        monkeypatch.setattr(dist, "get_backend", lambda *a: "nccl")
+        with pytest.raises(RuntimeError, match="needs gloo"):
+            ParallelContext.create(MeshConfig(), device="cpu")
+    finally:
+        monkeypatch.undo()
+        dist.destroy_process_group()
+    # the MoE family has the JAX package's parameter layout
+    jcfg, mcfg = jl.LlamaConfig.tiny(n_experts=4), tl.LlamaConfig.tiny(
+        n_experts=4)
+    jf = _flat(_numpy_tree(_jax_params(jcfg)))
+    tf = _flat(tl.init_params(mcfg, 0, device="cpu"))
+    assert {k: v.shape for k, v in jf.items()} == {
+        k: tuple(v.shape) for k, v in tf.items()}
+    assert tl.logical_axes(mcfg) == jl.logical_axes(jcfg)
+    assert tl.param_count(mcfg) == jl.param_count(jcfg)
 
 
 # ---------------------------------------------------------------------------
@@ -227,8 +246,16 @@ def test_remat_and_pipeline_options_are_checked():
     p["embed"].requires_grad_(True)
     with pytest.raises(ValueError, match="remat_policy"):
         tl.loss_fn(p, tokens, tl.LlamaConfig.tiny(remat_policy="dots_all"))
-    with pytest.raises(NotImplementedError):
-        tl.forward(p, tokens, tl.LlamaConfig.tiny(num_microbatches=2))
+    # without pipeline parallelism num_microbatches is ignored, as in JAX
+    jcfg = jl.LlamaConfig.tiny(num_microbatches=2)
+    jp = _jax_params(jcfg)
+    toks = np.random.default_rng(4).integers(0, 256, (2, 12)).astype(np.int32)
+    want = jl.forward(jp, jnp.asarray(toks), jcfg)
+    got = tl.forward(tl.params_from_jax(_numpy_tree(jp), device="cpu"),
+                     torch.from_numpy(toks),
+                     tl.LlamaConfig.tiny(num_microbatches=2))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=0)
 
 
 @pytest.mark.parametrize("preset,seq", [("tiny", 128), ("llama3_8b", 8192),

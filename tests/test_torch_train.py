@@ -130,7 +130,8 @@ def test_state_from_jax_continues_a_jax_run():
     jstate = jinit(jax.random.PRNGKey(1))
     toks = _tokens(tcfg, seed=2)
     jstate, _ = jstep(jstate, jnp.asarray(toks))
-    tstate = tspmd.state_from_jax(_numpy_tree(jstate), device="cpu")
+    tstate = tspmd.state_from_jax(_numpy_tree(jstate), tcfg,
+                                   device="cpu")
     assert int(tstate["step"]) == 1 and int(tstate["opt_state"]["count"]) == 1
     _assert_params_close(tstate["opt_state"]["nu"], jstate["opt_state"][1][0].nu,
                          atol=0)
@@ -173,6 +174,6 @@ def test_make_train_fns_needs_a_card_or_a_cpu_device():
         pytest.skip("a CUDA card is visible: device=None resolves to it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tspmd.make_train_fns(tl.LlamaConfig.tiny())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="ParallelContext"):
         tspmd.make_train_fns(tl.LlamaConfig.tiny(), ctx=object(),
                              device="cpu")
