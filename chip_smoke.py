@@ -15,9 +15,12 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    D] views, which the TMA maps read through their strides), at the ragged
    lengths 100 and 8000 (TMA zero-fills past the end), at the MoE step's
    S4096 (both layouts), and at the bench configuration's B8 H16 KVH16
-   S2048; time kernel, plain version, SDPA
+   S2048; the generic variants (f32 at head_dim 128 and 256, bf16 at 256)
+   at B1 H8 KVH2 S2048 and the ragged S1000, causal and not, and at the
+   shapes of their train-parity runs; time kernel, plain version, SDPA
    (the library yardstick, never called by the port) and the roofline
-   bound.
+   bound. Then head_dim 64 on the card: ``flash_fwd`` and ``flash_bwd``
+   route to the JAX package's jnp branch and launch no kernel.
 3. Serve 8 concurrent requests on Llama-3-8B at full width and depth
    (random bf16 weights from a seed) through ``Engine``; check every
    stream, the kernel's launch count (one per layer per prefill) and the
@@ -30,12 +33,14 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    causal at S 64..8192, the ragged S 100 and 8000, once non-causal, at
    the train step's strided layout at S 2048 and at the MoE step's S 4096
    in both layouts; B8 H16 KVH16 S2048 as the bench configuration has
-   it), and time kernel, plain version, the SDPA
-   backward (the library yardstick, never called by the port) and the
-   bound.
+   it), and the generic variants as in phase 2, and time kernel, plain
+   version, the SDPA backward (the library yardstick, never called by the
+   port) and the bound.
 6. Train parity: one loss-and-gradient pass of Llama-3-8B at full width
    with 2 layers at S 2048, through the kernels and through the plain
-   attention forward and backward, on the same weights and tokens.
+   attention forward and backward, on the same weights and tokens; in
+   bf16 and in f32 compute, with 32 heads of 128 and with 16 heads of
+   256 (8 KV heads), so that each kernel variant runs inside a model.
 7. The training main path: ``make_train_fns`` on ``llama3_8b(n_layers=8)``
    (random f32 master weights from a seed), B1 x S8192, 2 warm-up and 5
    timed steps on one batch; the loss falls, each kernel is launched the
@@ -58,6 +63,15 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    steps: exact launch counts 4/2/2 per step, a falling loss, a finite aux
    loss, the share of dropped assignments, step time, tokens/s, MFU (all
    experts and active experts), peak memory and a profiled step.
+10. Checkpoints: ``bench.py``'s configuration through ``make_train_fns``,
+   2 steps, an ``AsyncCheckpointer.save`` into a temporary directory, step
+   3 while the write runs, then step 3 again from the state restored into
+   a fresh ``init_fn`` state: the loss must be bitwise the same. The
+   snapshot pause, write time, GB written, GB/s and the disk are printed,
+   and the directory is deleted. Then ``LLMServer`` at phase 4's size
+   from a checkpoint of parameters drawn from another seed than its own
+   (``params_path``) must answer, through the flash kernel, as an engine
+   on those parameters does, and not as phase 4 did.
 
 Any mismatch raises and the script exits non-zero. The line before the last
 is the kernels' JSON; the last is ``{"ok": true, "device": {...}}``.
@@ -67,9 +81,9 @@ Details go to ``chiprun_out/chip_smoke.json``.
 
 builds the kernels and runs phase 2 alone (a quick check after a kernel
 edit), ``--only-bwd`` runs phase 5 alone in the same way, ``--only-moe``
-phase 9, and ``--only-ttft N`` measures idle TTFT alone (N requests per
-prompt length; run it from another tree's root to compare the two); none
-prints a result line.
+phase 9, ``--only-ckpt`` phases 4 and 10, and ``--only-ttft N``
+measures idle TTFT alone (N requests per prompt length; run it from
+another tree's root to compare the two); none prints a result line.
 """
 
 from __future__ import annotations
@@ -80,9 +94,11 @@ import inspect
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -95,16 +111,20 @@ from ray_tpu_torch.models.llama import (LlamaConfig, flops_per_token,
                                         forward, forward_with_aux,
                                         init_params, loss_fn, param_count)
 from ray_tpu_torch.ops import _build
-from ray_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
+from ray_tpu_torch.ops.attention import (attention_route, flash_bwd,
+                                         flash_bwd_dkv, flash_bwd_dq,
                                          flash_bwd_plain, flash_bwd_plain_dkv,
-                                         flash_bwd_plain_dq, flash_fwd,
-                                         flash_fwd_plain)
+                                         flash_bwd_plain_dq,
+                                         flash_bwd_reference, flash_fwd,
+                                         flash_fwd_plain, flash_fwd_reference,
+                                         kernel_variant)
 from ray_tpu_torch.ops import moe as moe_module
 from ray_tpu_torch.ops.moe import moe_ffn
 from ray_tpu_torch.parallel import MeshConfig, ParallelContext
 from ray_tpu_torch.serve.engine import Engine
-from ray_tpu_torch.serve.llm import LLMConfig, LLMServer
-from ray_tpu_torch.train import make_train_fns
+from ray_tpu_torch.serve.llm import LLMConfig, LLMServer, _model_from_cfg
+from ray_tpu_torch.train import (AsyncCheckpointer, make_train_fns,
+                                 restore_checkpoint, save_checkpoint)
 
 SEED = 0
 # H100 SXM published dense peaks (NVIDIA data sheet, at 700 W).
@@ -134,6 +154,17 @@ FWD_CASES = [(1, 32, 8, S, True, BF16, "dense") for S in ATTN_WIDTHS] + [
     (1, 32, 8, 100, True, BF16, "dense"),
     (1, 32, 8, 8000, True, BF16, "dense"),
     (8, 16, 16, 2048, True, BF16, "dense")]
+# The generic kernel variants (every dtype and head_dim but bf16 D128), in
+# phases 2 and 5: at B1 H8 KVH2, S2048 and the ragged S1000, causal and not,
+# and at the shape the train-parity path of their dtype and head_dim gives
+# them (``PARITY_RUNS``: B1 H32 KVH8 D128, B1 H16 KVH8 D256, S2048 causal).
+VARIANTS = (("f32_d128", 128, F32), ("f32_d256", 256, F32),
+            ("bf16_d256", 256, BF16))
+VARIANT_MAIN = {128: (1, 32, 8), 256: (1, 16, 8)}  # B, H, KVH
+VARIANT_CASES = [(name, D, dt, 1, 8, 2, S, causal)
+                 for name, D, dt in VARIANTS for S in (2048, 1000)
+                 for causal in (True, False)] + [
+    (name, D, dt, *VARIANT_MAIN[D], 2048, True) for name, D, dt in VARIANTS]
 PROMPT_LENS = (17, 100, 300, 700, 1500, 3000, 5000, 8000)
 SAMPLED = {1: dict(temperature=0.8, top_k=40, seed=1234),
            6: dict(temperature=1.0, top_k=0, seed=5678)}
@@ -158,6 +189,10 @@ GREEDY_ARGMAX_SHARE = 0.75
 # (2**-8 relative) at most. A wrong mask, tile or head mapping moves it by
 # the order of the output itself.
 REL_TOL_BWD = 2e-2
+# The f32 variants round nothing: kernel and plain version differ by f32
+# summation order and expf alone, about 1e-6 of the largest output at
+# S2048; a wrong mask, tile or head mapping moves it by order 1.
+REL_TOL_BWD_F32 = 1e-4
 # (B, H, KVH, S, causal, layout) for the backward check; the main path's
 # shape is B1 H32 KVH8 S8192 causal, the MoE step's S4096 in the model's
 # layout. "model" gives q, k, v and dO as the
@@ -176,6 +211,20 @@ BWD_CASES = [(1, 32, 8, S, True, "dense") for S in (64, 512, 2048, 8192)] + [
 # order 1 in the attention weights' gradients.
 PARITY_LOSS_RTOL = 1e-3
 PARITY_GRAD_REL_L2 = 5e-2
+# In f32 nothing rounds to bf16: the two attentions differ by f32
+# summation order and expf (about 1e-6 relative), which the layers carry
+# on at that size.
+PARITY_F32_LOSS_RTOL = 1e-5
+PARITY_F32_GRAD_REL_L2 = 1e-4
+# The train-parity runs, one per kernel variant that a model at full width
+# reaches (phase 6; label, llama3_8b overrides): bf16 at head_dim 128 (the
+# main path's variant), Llama-3-8B's width with 16 heads of 256 (8 KV heads,
+# groups of 2) in bf16 and in f32 compute, and the preset in f32 compute.
+PARITY_RUNS = (("bf16_d128", dict(n_layers=2)),
+               ("bf16_d256", dict(n_layers=2, n_heads=16)),
+               ("f32_d128", dict(n_layers=2, dtype=F32)),
+               ("f32_d256", dict(n_layers=2, n_heads=16, dtype=F32)))
+PARITY_SEQ = 2048
 TRAIN_SEQ = 8192
 TRAIN_LAYERS = 8
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
@@ -266,48 +315,94 @@ def _attn_input(B, heads, S, D, gen, dt, layout):
     return torch.randn(B, heads, S, D, generator=gen, device="cuda").to(dt)
 
 
+def _fwd_case(gen, card, B, H, KVH, S, causal, dt, layout, D=128):
+    q = _attn_input(B, H, S, D, gen, dt, layout)
+    k = _attn_input(B, KVH, S, D, gen, dt, layout)
+    v = _attn_input(B, KVH, S, D, gen, dt, layout)
+    scale = D ** -0.5
+    o, lse = flash_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash_fwd_plain(q, k, v, causal, scale)
+    err_o = (o.float() - o_ref.float()).abs().max().item()
+    err_lse = (lse - lse_ref).abs().max().item()
+    finite = bool(torch.isfinite(o).all() and torch.isfinite(lse).all())
+    atol_o = ATOL_O_BF16 if dt == torch.bfloat16 else ATOL_F32
+    atol_lse = ATOL_LSE if dt == torch.bfloat16 else ATOL_F32
+    check(finite and err_o <= atol_o and err_lse <= atol_lse,
+          f"flash_fwd B{B} H{H} KVH{KVH} S{S} D{D} causal={causal} {dt} "
+          f"{layout}: |dO|={err_o} "
+          f"(atol {atol_o}) |dLSE|={err_lse} (atol {atol_lse})")
+    del o_ref, lse_ref
+    iters = 20 if S <= 2048 else 5
+    ms = gpu_ms(lambda: flash_fwd(q, k, v, causal), iters)
+    plain_ms = gpu_ms(lambda: flash_fwd_plain(q, k, v, causal, scale),
+                      max(2, iters // 4))
+    lib_ms = gpu_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True), iters)
+    peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
+    bound_ms, bound_by, flops, nbytes = attn_bound(
+        B, H, KVH, S, D, causal, q.element_size(), peak)
+    row = dict(shape=f"B{B} H{H} KVH{KVH} S{S} D{D}", causal=causal,
+               dtype=str(dt).replace("torch.", ""), layout=layout,
+               variant=kernel_variant(q), max_abs_err=err_o,
+               lse_abs_err=err_lse, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+               tflops=flops / ms / 1e9, card=card)
+    log("KERNEL", json.dumps(row))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_kernels(card: str):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows = []
-    for B, H, KVH, S, causal, dt, layout in FWD_CASES:
-        D = 128
-        q = _attn_input(B, H, S, D, gen, dt, layout)
-        k = _attn_input(B, KVH, S, D, gen, dt, layout)
-        v = _attn_input(B, KVH, S, D, gen, dt, layout)
-        scale = D ** -0.5
-        o, lse = flash_fwd(q, k, v, causal)
-        torch.cuda.synchronize()
-        o_ref, lse_ref = flash_fwd_plain(q, k, v, causal, scale)
-        err_o = (o.float() - o_ref.float()).abs().max().item()
-        err_lse = (lse - lse_ref).abs().max().item()
-        finite = bool(torch.isfinite(o).all() and torch.isfinite(lse).all())
-        atol_o = ATOL_O_BF16 if dt == torch.bfloat16 else ATOL_F32
-        atol_lse = ATOL_LSE if dt == torch.bfloat16 else ATOL_F32
-        check(finite and err_o <= atol_o and err_lse <= atol_lse,
-              f"flash_fwd B{B} H{H} KVH{KVH} S{S} causal={causal} {dt} "
-              f"{layout}: |dO|={err_o} "
-              f"(atol {atol_o}) |dLSE|={err_lse} (atol {atol_lse})")
-        del o_ref, lse_ref
-        iters = 20 if S <= 2048 else 5
-        ms = gpu_ms(lambda: flash_fwd(q, k, v, causal), iters)
-        plain_ms = gpu_ms(lambda: flash_fwd_plain(q, k, v, causal, scale),
-                          max(2, iters // 4))
-        lib_ms = gpu_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=True), iters)
-        peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
-        bound_ms, bound_by, flops, nbytes = attn_bound(
-            B, H, KVH, S, D, causal, q.element_size(), peak)
-        row = dict(shape=f"B{B} H{H} KVH{KVH} S{S} D{D}", causal=causal,
-                   dtype=str(dt).replace("torch.", ""), layout=layout,
-                   max_abs_err=err_o,
-                   lse_abs_err=err_lse, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   tflops=flops / ms / 1e9, card=card)
-        rows.append(row)
-        log("KERNEL", json.dumps(row))
-        del q, k, v
-        torch.cuda.empty_cache()
+    rows = [_fwd_case(gen, card, B, H, KVH, S, causal, dt, layout)
+            for B, H, KVH, S, causal, dt, layout in FWD_CASES]
+    rows += [_fwd_case(gen, card, B, H, KVH, S, causal, dt, "dense", D)
+             for _, D, dt, B, H, KVH, S, causal in VARIANT_CASES]
     return rows
+
+
+def _launch_counts() -> tuple:
+    return tuple((w.launches, dict(w.launches_by_variant))
+                 for w in (flash_fwd, flash_bwd_dkv, flash_bwd_dq))
+
+
+def _reset_launch_counts() -> None:
+    for w in (flash_fwd, flash_bwd_dkv, flash_bwd_dq):
+        w.launches = 0
+        w.launches_by_variant.clear()
+
+
+def phase_reference_route(card: str) -> dict:
+    """head_dim 64 on the card: ``flash_fwd`` and ``flash_bwd`` route to the
+    JAX package's jnp branch (``attention_route``), launch no kernel, and
+    give what that branch gives when called itself."""
+    check(attention_route(64) == "reference"
+          and attention_route(256) == "kernel", "attention_route")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    q, k, v, do = (_attn_input(1, h, 1000, 64, gen, BF16, "dense")
+                   for h in (8, 2, 2, 8))
+    counts0 = _launch_counts()
+    calls0 = (flash_fwd_reference.calls, flash_bwd_reference.calls)
+    o, lse = flash_fwd(q, k, v, True)
+    grads = flash_bwd(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    calls = (flash_fwd_reference.calls - calls0[0],
+             flash_bwd_reference.calls - calls0[1])
+    check(_launch_counts() == counts0 and calls == (1, 1),
+          f"head_dim 64: kernel launches {_launch_counts()} (before "
+          f"{counts0}), reference-branch calls {calls}")
+    o2, lse2 = flash_fwd_reference(q, k, v, True, 64 ** -0.5)
+    same = torch.equal(o, o2) and torch.equal(lse, lse2) and all(
+        torch.equal(a, b) for a, b in zip(grads, flash_bwd_reference(
+            q, k, v, o, lse, do, True, 64 ** -0.5)))
+    out = dict(shape="B1 H8 KVH2 S1000 D64 bf16 causal",
+               route=attention_route(64), reference_calls=calls,
+               kernel_launches_added=0, equal_to_branch=same, card=card)
+    log("REFERENCE_ROUTE", json.dumps(out))
+    check(same, "head_dim 64: flash_fwd/flash_bwd differ from the branch")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -378,7 +473,7 @@ def phase_engine(card: str):
     jobs = [(p, MAX_TOKENS, SAMPLED.get(i, {})) for i, p in enumerate(prompts)]
 
     # -- the main path: 8 concurrent requests, counted kernel launches --
-    flash_fwd.launches = 0
+    _reset_launch_counts()
     t = time.perf_counter()
     res = _run_concurrent(eng, jobs)
     main_s = time.perf_counter() - t
@@ -547,12 +642,16 @@ def _profile_chunk(eng) -> dict:
 # phase 4: the in-process LLM server
 # ---------------------------------------------------------------------------
 
-def phase_llm_server():
+LLM_SERVER = dict(vocab_size=32000, d_model=512, n_layers=2, max_seq=512,
+                  max_ongoing_requests=4)
+LLM_BODY = {"prompt": [1, 2, 3, 4, 5], "max_tokens": 8}
+
+
+def phase_llm_server(params_path: str = ""):
     before = flash_fwd.launches
-    server = LLMServer(LLMConfig(vocab_size=32000, d_model=512, n_layers=2,
-                                 max_seq=512, max_ongoing_requests=4))
+    server = LLMServer(LLMConfig(params_path=params_path, **LLM_SERVER))
     try:
-        resp = server.complete({"prompt": [1, 2, 3, 4, 5], "max_tokens": 8})
+        resp = server.complete(dict(LLM_BODY))
     finally:
         server.stop()
     text = resp["choices"][0]["text"]
@@ -568,21 +667,20 @@ def phase_llm_server():
 # phase 5: the backward kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def bwd_bounds(B, H, KVH, S, causal):
+def bwd_bounds(B, H, KVH, S, causal, D=128, elem=2, peak=PEAK_BF16_FLOPS):
     """{kernel: (bound ms, bound by, FLOP, operations ms, bytes ms)} from
     each kernel's own work: dK/dV does 4 products (8 B H D pairs FLOP), dQ
     3 (6 B H D pairs); bytes are each input read once and each output
     written once."""
-    D = 128
     pairs = S * (S + 1) // 2 if causal else S * S
-    q_bytes, kv_bytes, row_bytes = B * H * S * D * 2, B * KVH * S * D * 2, \
-        B * H * S * 4
+    q_bytes, kv_bytes, row_bytes = B * H * S * D * elem, \
+        B * KVH * S * D * elem, B * H * S * 4
     inputs = 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes  # q dO k v lse delta
     out = {}
     for name, flops, nbytes in (
             ("flash_bwd_dkv", 8.0 * B * H * D * pairs, inputs + 2 * kv_bytes),
             ("flash_bwd_dq", 6.0 * B * H * D * pairs, inputs + q_bytes)):
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
         out[name] = (max(t_ops, t_bytes) * 1e3,
                      "operations" if t_ops >= t_bytes else "bytes", flops,
                      t_ops * 1e3, t_bytes * 1e3)
@@ -594,63 +692,70 @@ def _rel_err(got, want) -> float:
             / want.float().abs().max()).item()
 
 
+def _bwd_case(gen, card, B, H, KVH, S, causal, layout, D=128, dt=BF16):
+    q, k, v, do = (_attn_input(B, h, S, D, gen, dt, layout)
+                   for h in (H, KVH, KVH, H))
+    scale = D ** -0.5
+    o, lse = flash_fwd(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, causal, scale)
+    dk, dv = flash_bwd_dkv(*args)
+    dq = flash_bwd_dq(*args)
+    torch.cuda.synchronize()
+    pk, pv = flash_bwd_plain_dkv(*args)
+    err = dict(dk=_rel_err(dk, pk), dv=_rel_err(dv, pv))
+    abs_dkv = max((dk.float() - pk.float()).abs().max().item(),
+                  (dv.float() - pv.float()).abs().max().item())
+    del pk, pv
+    pq = flash_bwd_plain_dq(*args)
+    err["dq"] = _rel_err(dq, pq)
+    abs_dq = (dq.float() - pq.float()).abs().max().item()
+    del pq
+    finite = all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
+    tol = REL_TOL_BWD if dt == BF16 else REL_TOL_BWD_F32
+    check(finite and max(err.values()) <= tol,
+          f"flash backward B{B} H{H} KVH{KVH} S{S} D{D} causal={causal} "
+          f"{dt} {layout}: relative max errors {err} (bound {tol})")
+    torch.cuda.empty_cache()
+    iters = 20 if S <= 2048 else 5
+    ms = dict(flash_bwd_dkv=gpu_ms(lambda: flash_bwd_dkv(*args), iters),
+              flash_bwd_dq=gpu_ms(lambda: flash_bwd_dq(*args), iters))
+    plain_ms = dict(
+        flash_bwd_dkv=gpu_ms(lambda: flash_bwd_plain_dkv(*args), 2),
+        flash_bwd_dq=gpu_ms(lambda: flash_bwd_plain_dq(*args), 2))
+    torch.cuda.empty_cache()
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
+                                        enable_gqa=True)
+    lib_ms = gpu_ms(lambda: torch.autograd.grad(
+        ol, (ql, kl, vl), do, retain_graph=True), iters)
+    del ql, kl, vl, ol
+    bounds = bwd_bounds(B, H, KVH, S, causal, D, q.element_size(),
+                        PEAK_BF16_FLOPS if dt == BF16 else PEAK_F32_FLOPS)
+    row = dict(shape=f"B{B} H{H} KVH{KVH} S{S} D{D}", causal=causal,
+               dtype=str(dt).replace("torch.", ""), layout=layout,
+               variant=kernel_variant(q),
+               rel_err=err, abs_err=dict(flash_bwd_dkv=abs_dkv,
+                                         flash_bwd_dq=abs_dq),
+               ms=ms, plain_ms=plain_ms, sdpa_bwd_ms=lib_ms,
+               bound_ms={n: b[0] for n, b in bounds.items()},
+               bound_by={n: b[1] for n, b in bounds.items()},
+               ops_bound_ms={n: b[3] for n, b in bounds.items()},
+               bytes_bound_ms={n: b[4] for n, b in bounds.items()},
+               tflops={n: bounds[n][2] / ms[n] / 1e9 for n in ms},
+               card=card)
+    log("BWD", json.dumps(row))
+    del q, k, v, do, o, lse, delta, dq, dk, dv, args
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_bwd_kernels(card: str):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    rows = []
-    for B, H, KVH, S, causal, layout in BWD_CASES:
-        D = 128
-        q, k, v, do = (_attn_input(B, h, S, D, gen, BF16, layout)
-                       for h in (H, KVH, KVH, H))
-        scale = D ** -0.5
-        o, lse = flash_fwd(q, k, v, causal)
-        delta = (do.float() * o.float()).sum(-1)
-        args = (q, k, v, do, lse, delta, causal, scale)
-        dk, dv = flash_bwd_dkv(*args)
-        dq = flash_bwd_dq(*args)
-        torch.cuda.synchronize()
-        pk, pv = flash_bwd_plain_dkv(*args)
-        err = dict(dk=_rel_err(dk, pk), dv=_rel_err(dv, pv))
-        abs_dkv = max((dk.float() - pk.float()).abs().max().item(),
-                      (dv.float() - pv.float()).abs().max().item())
-        del pk, pv
-        pq = flash_bwd_plain_dq(*args)
-        err["dq"] = _rel_err(dq, pq)
-        abs_dq = (dq.float() - pq.float()).abs().max().item()
-        del pq
-        finite = all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
-        check(finite and max(err.values()) <= REL_TOL_BWD,
-              f"flash backward B{B} H{H} KVH{KVH} S{S} causal={causal} "
-              f"{layout}: relative max errors {err} (bound {REL_TOL_BWD})")
-        torch.cuda.empty_cache()
-        iters = 20 if S <= 2048 else 5
-        ms = dict(flash_bwd_dkv=gpu_ms(lambda: flash_bwd_dkv(*args), iters),
-                  flash_bwd_dq=gpu_ms(lambda: flash_bwd_dq(*args), iters))
-        plain_ms = dict(
-            flash_bwd_dkv=gpu_ms(lambda: flash_bwd_plain_dkv(*args), 2),
-            flash_bwd_dq=gpu_ms(lambda: flash_bwd_plain_dq(*args), 2))
-        torch.cuda.empty_cache()
-        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
-        ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
-                                            enable_gqa=True)
-        lib_ms = gpu_ms(lambda: torch.autograd.grad(
-            ol, (ql, kl, vl), do, retain_graph=True), iters)
-        del ql, kl, vl, ol
-        bounds = bwd_bounds(B, H, KVH, S, causal)
-        row = dict(shape=f"B{B} H{H} KVH{KVH} S{S} D{D}", causal=causal,
-                   layout=layout,
-                   rel_err=err, abs_err=dict(flash_bwd_dkv=abs_dkv,
-                                             flash_bwd_dq=abs_dq),
-                   ms=ms, plain_ms=plain_ms, sdpa_bwd_ms=lib_ms,
-                   bound_ms={n: b[0] for n, b in bounds.items()},
-                   bound_by={n: b[1] for n, b in bounds.items()},
-                   ops_bound_ms={n: b[3] for n, b in bounds.items()},
-                   bytes_bound_ms={n: b[4] for n, b in bounds.items()},
-                   tflops={n: bounds[n][2] / ms[n] / 1e9 for n in ms},
-                   card=card)
-        rows.append(row)
-        log("BWD", json.dumps(row))
-        del q, k, v, do, o, lse, delta, dq, dk, dv, args
-        torch.cuda.empty_cache()
+    rows = [_bwd_case(gen, card, B, H, KVH, S, causal, layout)
+            for B, H, KVH, S, causal, layout in BWD_CASES]
+    rows += [_bwd_case(gen, card, B, H, KVH, S, causal, "dense", D, dt)
+             for _, D, dt, B, H, KVH, S, causal in VARIANT_CASES]
     return rows
 
 
@@ -695,48 +800,60 @@ def _tokens(cfg, batch, seq, seed):
                             ).to("cuda")
 
 
-def phase_train_parity(card: str):
+def _train_parity(card: str, variant: str, overrides: dict) -> dict:
     """One loss-and-gradient pass through the kernels and through the plain
-    attention, same weights and tokens; the kernels' launch counts."""
-    cfg = LlamaConfig.llama3_8b(n_layers=2)
+    attention, same weights and tokens; every launch of the kernel run is
+    of ``variant``, one forward per layer (and one in the recompute), one
+    dK/dV and one dQ per layer."""
+    cfg = LlamaConfig.llama3_8b(**overrides)
     params = init_params(cfg, SEED, device="cuda")
     leaves = _flat(params)
     for t in leaves.values():
         t.requires_grad_(True)
-    tokens = _tokens(cfg, 1, 2048, SEED)
+    tokens = _tokens(cfg, 1, PARITY_SEQ, SEED)
     results = {}
     for name, attn in (("kernels", None), ("plain", _PlainAttention.apply)):
         kw = {} if attn is None else dict(attn_fn=attn)
-        counts0 = (flash_fwd.launches, flash_bwd_dkv.launches,
-                   flash_bwd_dq.launches)
+        _reset_launch_counts()
         loss, _ = loss_fn(params, tokens, cfg, **kw)
         grads = torch.autograd.grad(loss, list(leaves.values()))
         torch.cuda.synchronize()
-        counts = (flash_fwd.launches - counts0[0],
-                  flash_bwd_dkv.launches - counts0[1],
-                  flash_bwd_dq.launches - counts0[2])
-        results[name] = (loss.detach(), grads, counts)
+        results[name] = (loss.detach(), grads, _launch_counts())
         del loss
     lk, gk, ck = results["kernels"]
     lp, gp, cp = results["plain"]
     L = cfg.n_layers
-    check(ck == (2 * L, L, L) and cp == (0, 0, 0),
-          f"parity launch counts: kernels {ck}, plain {cp}")
+    want = tuple((n, {variant: n}) for n in (2 * L, L, L))
+    check(ck == want and cp == ((0, {}),) * 3,
+          f"parity {variant} launch counts: kernels {ck} (expected {want}), "
+          f"plain {cp}")
     loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
-    grad_rel = {key: (torch.linalg.vector_norm(a - b)
-                      / torch.linalg.vector_norm(b)).item()
+    grad_rel = {key: (torch.linalg.vector_norm(a.float() - b.float())
+                      / torch.linalg.vector_norm(b.float())).item()
                 for key, a, b in zip(leaves, gk, gp)}
-    out = dict(shape="llama3_8b n_layers=2 B1 S2048", loss_kernels=lk.item(),
-               loss_plain=lp.item(), loss_rel=loss_rel, grad_rel_l2=grad_rel,
+    bf16 = cfg.dtype == BF16
+    loss_tol = PARITY_LOSS_RTOL if bf16 else PARITY_F32_LOSS_RTOL
+    grad_tol = PARITY_GRAD_REL_L2 if bf16 else PARITY_F32_GRAD_REL_L2
+    out = dict(shape=f"llama3_8b {overrides} B1 S{PARITY_SEQ} "
+               f"(H{cfg.n_heads} KVH{cfg.n_kv_heads} D{cfg.head_dim})",
+               variant=variant, loss_kernels=lk.item(), loss_plain=lp.item(),
+               loss_rel=loss_rel, grad_rel_l2=grad_rel,
+               launches={n: c[0] for n, c in zip(
+                   ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"), ck)},
                card=card)
     log("TRAIN_PARITY", json.dumps(out))
-    check(np.isfinite(lk.item()) and loss_rel <= PARITY_LOSS_RTOL
-          and max(grad_rel.values()) <= PARITY_GRAD_REL_L2,
-          f"train parity: loss rel {loss_rel} (bound {PARITY_LOSS_RTOL}), "
-          f"grad rel L2 {grad_rel} (bound {PARITY_GRAD_REL_L2})")
+    check(np.isfinite(lk.item()) and loss_rel <= loss_tol
+          and max(grad_rel.values()) <= grad_tol,
+          f"train parity {variant}: loss rel {loss_rel} (bound {loss_tol}), "
+          f"grad rel L2 {grad_rel} (bound {grad_tol})")
     del params, leaves, results, gk, gp
     torch.cuda.empty_cache()
     return out
+
+
+def phase_train_parity(card: str) -> dict:
+    return {variant: _train_parity(card, variant, overrides)
+            for variant, overrides in PARITY_RUNS}
 
 
 def _active_flops_per_token(cfg, seq) -> float:
@@ -801,7 +918,7 @@ def _train_run(cfg, batch, seq, warmup, steps, card, label, profile,
     if cfg.n_experts:
         at_init = _moe_probe(state["params"], tokens, cfg, ctx)
     losses = []
-    flash_fwd.launches = flash_bwd_dkv.launches = flash_bwd_dq.launches = 0
+    _reset_launch_counts()
     for _ in range(warmup):
         state, m = step_fn(state, tokens)
         losses.append(m["loss"])
@@ -963,6 +1080,154 @@ def phase_moe(card: str):
     return dict(layer_parity=layer, ctx_parity=ctx_parity, train=train)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: checkpoints
+# ---------------------------------------------------------------------------
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def _greedy_tokens(params, mcfg: LlamaConfig, scfg: LLMConfig) -> list:
+    """LLM_BODY's greedy completion from an ``Engine`` built on ``params``
+    as ``LLMServer`` builds its own."""
+    eng = Engine(params, mcfg, n_slots=scfg.max_ongoing_requests,
+                 decode_chunk=scfg.decode_chunk, page_size=scfg.page_size,
+                 n_pages=scfg.kv_pages, device=scfg.device)
+    try:
+        stream = eng.submit(LLM_BODY["prompt"], LLM_BODY["max_tokens"],
+                            temperature=0.0, top_k=0, seed=0)
+        toks = []
+        while (chunk := stream.get()) is not None:
+            toks += [int(t) for t in chunk]
+        return toks
+    finally:
+        eng.stop()
+
+
+def phase_checkpoint(card: str, server_resp: dict) -> dict:
+    """bench.py's configuration through ``make_train_fns``: 2 steps, an
+    ``AsyncCheckpointer.save`` (the pause is the device->host snapshot),
+    step 3 while the write runs, then the state restored into a fresh
+    ``init_fn`` state takes step 3 again: its loss must be bitwise the
+    uninterrupted step 3's (step 3 updates the state in place, so this also
+    shows the snapshot is a copy). Then ``LLMServer`` at phase 4's size
+    from a checkpoint of parameters drawn from another seed than its own
+    (``params_path``) must give, through the flash kernel, the completion of
+    an engine on those parameters, and not phase 4's."""
+    cfg = LlamaConfig(**BENCH_MODEL)
+    init_fn, step_fn = make_train_fns(cfg)
+    tokens = _tokens(cfg, BENCH_BATCH, BENCH_SEQ, SEED + 4)
+    state = init_fn(SEED)
+    for _ in range(2):
+        state, _ = step_fn(state, tokens)
+    torch.cuda.synchronize()
+    directory = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    ckptr = AsyncCheckpointer()
+    try:
+        t0 = time.perf_counter()
+        fut = ckptr.save(directory, state, step=2)
+        t1 = time.perf_counter()
+        done = []
+        fut.add_done_callback(lambda _: done.append(time.perf_counter()))
+        state, m3 = step_fn(state, tokens)
+        _, m4 = step_fn(state, tokens)
+        loss3, loss4 = m3["loss"].clone(), m4["loss"].clone()
+        torch.cuda.synchronize()
+        ckpt = ckptr.wait()
+        write_s = done[0] - t1
+        nbytes = _dir_bytes(ckpt.path)
+        disk = shutil.disk_usage(directory)
+        del state, m3, m4
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        fresh = init_fn(SEED + 7)
+        restored = restore_checkpoint(ckpt, fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        del fresh
+        restored, r3 = step_fn(restored, tokens)
+        _, r4 = step_fn(restored, tokens)
+        torch.cuda.synchronize()
+        out = dict(config="bench.py d2048 L8 H16 B8 S2048",
+                   params=param_count(cfg),
+                   snapshot_pause_ms=(t1 - t0) * 1e3, write_s=write_s,
+                   gb_written=nbytes / 1e9, write_gb_s=nbytes / 1e9 / write_s,
+                   restore_s=restore_s, files=len(os.listdir(ckpt.path)),
+                   disk_total_gb=disk.total / 1e9,
+                   disk_free_gb=disk.free / 1e9,
+                   loss3=loss3.item(), loss3_resumed=r3["loss"].item(),
+                   loss3_bitwise=bool(torch.equal(loss3, r3["loss"])),
+                   loss4=loss4.item(), loss4_resumed=r4["loss"].item(),
+                   loss4_bitwise=bool(torch.equal(loss4, r4["loss"])),
+                   card=card)
+        del restored, r3, r4
+        torch.cuda.empty_cache()
+        log("CHECKPOINT", json.dumps(out))
+        check(out["loss3_bitwise"], f"resumed step 3 loss {out['loss3_resumed']}"
+              f" differs from the uninterrupted {out['loss3']}")
+
+        # -- the server from a checkpoint of parameters of another seed --
+        scfg = LLMConfig(device="cuda", **LLM_SERVER)
+        mcfg, params = _model_from_cfg(scfg)
+        params = init_params(mcfg, SEED + 9, device="cuda")
+        served = save_checkpoint(os.path.join(directory, "server"), params,
+                                 step=0)
+        want = _greedy_tokens(params, mcfg, scfg)
+        del params
+        resp = phase_llm_server(served.path)
+        got = [int(t) for t in resp["choices"][0]["text"].split()]
+        check(got == want, f"LLMServer from params_path gave {got}; an "
+              f"engine on the saved parameters {want}")
+        check(resp != server_resp, f"LLMServer from params_path answered as "
+              f"phase 4's seed-0 server: {resp}")
+        out["server_from_params_path"] = resp
+        return out
+    finally:
+        ckptr.close()
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def _variant_entries(rows, bwd_rows, parity) -> list:
+    """The kernels line's entries of the generic variants: launches from
+    their train-parity run (the path that reaches them), times at that
+    run's shape (``VARIANT_MAIN``, S2048 causal), errors over every case."""
+    out = []
+    for variant, D, dt in VARIANTS:
+        B, H, KVH = VARIANT_MAIN[D]
+        shape = f"B{B} H{H} KVH{KVH} S2048 D{D}"
+        fwd = next(r for r in rows if r["shape"] == shape and r["causal"]
+                   and r["variant"] == variant)
+        bwd = next(r for r in bwd_rows if r["shape"] == shape
+                   and r["causal"] and r["variant"] == variant)
+        label = f"{shape} causal {variant.split('_')[0]}"
+        out.append(dict(
+            name=f"flash_fwd.{variant}", route="cuda",
+            source="ray_tpu_torch/ops/csrc/flash_fwd.cu",
+            replaces="ray_tpu/ops/attention.py:140",
+            launches=parity[variant]["launches"]["flash_fwd"],
+            max_abs_err=max(r["max_abs_err"] for r in rows
+                            if r["variant"] == variant),
+            ms=fwd["ms"], plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
+            bound_by=fwd["bound_by"], library_ms=fwd["library_ms"],
+            shape=label))
+        for name, src, line in (("flash_bwd_dkv", "flash_bwd_dkv.cu", 326),
+                                ("flash_bwd_dq", "flash_bwd_dq.cu", 356)):
+            out.append(dict(
+                name=f"{name}.{variant}", route="cuda",
+                source=f"ray_tpu_torch/ops/csrc/{src}",
+                replaces=f"ray_tpu/ops/attention.py:{line}",
+                launches=parity[variant]["launches"][name],
+                max_abs_err=max(r["abs_err"][name] for r in bwd_rows
+                                if r["variant"] == variant),
+                ms=bwd["ms"][name], plain_ms=bwd["plain_ms"][name],
+                bound_ms=bwd["bound_ms"][name],
+                bound_by=bwd["bound_by"][name],
+                library_ms=bwd["sdpa_bwd_ms"], shape=label))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only-kernels", action="store_true",
@@ -974,6 +1239,8 @@ def main() -> int:
                     "requests per prompt length")
     ap.add_argument("--only-moe", action="store_true",
                     help="build the kernels and run phase 9 only")
+    ap.add_argument("--only-ckpt", action="store_true",
+                    help="build the kernels and run phases 4 and 10 only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1002,16 +1269,21 @@ def main() -> int:
     if args.only_moe:
         phase_moe(card)
         return 0
+    if args.only_ckpt:
+        phase_checkpoint(card, phase_llm_server())
+        return 0
     rows = phase_kernels(card)
+    route = phase_reference_route(card)
     if args.only_kernels:
         return 0
     engine = phase_engine(card)
-    phase_llm_server()
+    server = phase_llm_server()
     bwd_rows = phase_bwd_kernels(card)
     parity = phase_train_parity(card)
     train = phase_train_main(card)
     bench = phase_train_bench(card)
     moe = phase_moe(card)
+    ckpt = phase_checkpoint(card, server)
 
     main_row = next(r for r in rows if r["shape"] == "B1 H32 KVH8 S8192 D128"
                     and r["causal"] and r["layout"] == "dense")
@@ -1041,11 +1313,13 @@ def main() -> int:
             library_ms=bwd_main["sdpa_bwd_ms"],
             shape=bwd_main["shape"] + " causal bf16",
             launches_moe_train=moe["train"]["launches"][name]))
+    kernels += _variant_entries(rows, bwd_rows, parity)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, build_s=build_s, kernel_rows=rows,
                        engine=engine, bwd_rows=bwd_rows, train_parity=parity,
                        train=train, train_bench=bench, moe=moe,
+                       reference_route=route, checkpoint=ckpt,
                        kernels=kernels), f,
                   indent=1)
     print(card)

@@ -3,6 +3,14 @@ and backward (counterpart of ``ray_tpu/ops/attention.py``).
 
   * ``attention_reference`` / ``_fwd_with_lse_reference`` — plain PyTorch,
     f32 softmax; ground truth for the tests.
+  * ``attention_route`` — where a head_dim goes, decided by shape before
+    anything launches, as the JAX package decides (``_flash_fwd`` and
+    ``_flash_vjp_bwd``, ray_tpu/ops/attention.py:394-450): 128 and 256 to
+    the hand-written kernels (their plain versions on CPU tensors); a
+    head_dim that is not a multiple of 128 to the port's copy of the JAX
+    package's jnp branch (``flash_fwd_reference``, ``flash_bwd_reference``,
+    on any device: that branch has no Pallas kernel); any other multiple of
+    128, which the Pallas kernels take and these kernels do not, raises.
   * ``flash_fwd`` — the wrapper of the hand-written CUDA kernel
     ``csrc/flash_fwd.cu`` (which replaces the Pallas TPU kernel
     ``_flash_fwd_kernel``). On a CUDA tensor it launches the kernel or
@@ -16,6 +24,11 @@ and backward (counterpart of ``ray_tpu/ops/attention.py``).
     kernels' arithmetic in plain PyTorch, rounded where they round.
   * ``flash_attention`` — ``torch.autograd.Function`` over ``flash_fwd``
     and ``flash_bwd``.
+
+Each kernel takes f32 and bf16 at head_dim 128 and 256: bf16 at 128 runs
+its wgmma kernel, every other case its generic variant. Sequence lengths
+are not routed: the kernels take any S (TMA zero-fills, the stores are
+guarded), where the JAX package sends S % 128 != 0 to its jnp branch.
 
 Layout: [batch, num_heads, seq, head_dim] (BHSD). k and v may carry fewer
 heads than q (grouped-query attention): q head h reads kv head
@@ -74,7 +87,8 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _fwd_with_lse_reference(q, k, v, *, causal, sm_scale):
-    """(out, lse [b, h, sq] f32), the JAX package's reference forward."""
+    """(out, lse [b, h, sq] f32), the JAX package's reference forward (q,
+    k, v with one head count)."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
     if causal:
         mask = _causal_mask(q.shape[2], k.shape[2], 0, 0, q.device)
@@ -85,6 +99,89 @@ def _fwd_with_lse_reference(q, k, v, *, causal, sm_scale):
     out = torch.matmul((p / l).to(v.dtype), v)
     lse = (m + torch.log(l))[..., 0]
     return out, lse
+
+
+# ---------------------------------------------------------------------------
+# Routing by head_dim, and the JAX package's jnp branch
+# ---------------------------------------------------------------------------
+
+KERNEL_HEAD_DIMS = (128, 256)
+
+
+def attention_route(head_dim: int) -> str:
+    """"kernel" for a head_dim the kernels take (128, 256), "reference" for
+    one that is not a multiple of 128 (the JAX package's jnp branch);
+    ValueError for any other multiple of 128. Decided by shape alone, never
+    because a launch failed."""
+    if head_dim in KERNEL_HEAD_DIMS:
+        return "kernel"
+    if head_dim % 128:
+        return "reference"
+    raise ValueError(f"head_dim {head_dim}: the flash kernels take head_dim "
+                     f"128 and 256, and the jnp branch head_dims that are "
+                     f"not multiples of 128")
+
+
+def flash_fwd_reference(q, k, v, causal: bool, sm_scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's forward for a head_dim that is not a multiple of
+    128: ``_fwd_with_lse_reference`` (ray_tpu/ops/attention.py:182) on K
+    and V repeated to q's heads. Counted in ``flash_fwd_reference.calls``."""
+    flash_fwd_reference.calls += 1
+    n_rep = q.shape[1] // k.shape[1]
+    return _fwd_with_lse_reference(q, repeat_kv(k, n_rep),
+                                   repeat_kv(v, n_rep), causal=causal,
+                                   sm_scale=sm_scale)
+
+
+# KV rows per block of the jnp backward: the default of the JAX package's
+# ``flash_attention(..., block_k_bwd=512)`` (ray_tpu/ops/attention.py:389).
+BLOCK_K_BWD = 512
+
+
+def flash_bwd_reference(q, k, v, out, lse, dout, causal: bool,
+                        sm_scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The JAX package's blockwise backward for a head_dim that is not a
+    multiple of 128 (``_flash_vjp_bwd``, ray_tpu/ops/attention.py:413-450):
+    per block of ``BLOCK_K_BWD`` KV rows (one block when that does not
+    divide Skv), S in f32 from the inputs, P = exp(S − LSE), dV = Pᵀ·dO,
+    dP = dO·Vᵀ, dS = P·(dP − delta)·scale, dK = dSᵀ·Q, and dQ summed over
+    the blocks, all in f32 with no rounding of P or dS; K and V are
+    repeated to q's heads and their gradients summed back over each group
+    in f32. Counted in ``flash_bwd_reference.calls``."""
+    flash_bwd_reference.calls += 1
+    kvh, n_rep = k.shape[1], q.shape[1] // k.shape[1]
+    kr, vr = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
+    skv = k.shape[2]
+    block = min(BLOCK_K_BWD, skv)
+    if skv % block:
+        block = skv
+    delta = _delta(out, dout)[..., None]
+    qf, dof, lse_ = q.float(), dout.float(), lse[..., None]
+    q_pos = torch.arange(q.shape[2], device=q.device)[:, None]
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for start in range(0, skv, block):
+        kb = kr[:, :, start:start + block].float()
+        vb = vr[:, :, start:start + block].float()
+        s = torch.matmul(qf, kb.transpose(-1, -2)) * sm_scale
+        if causal:
+            k_pos = start + torch.arange(block, device=q.device)[None, :]
+            s = s.masked_fill(q_pos < k_pos, DEFAULT_MASK_VALUE)
+        p = torch.exp(s - lse_)
+        dvs.append(torch.matmul(p.transpose(-1, -2), dof))
+        dp = torch.matmul(dof, vb.transpose(-1, -2))
+        ds = p * (dp - delta) * sm_scale
+        dq = dq + torch.matmul(ds, kb)
+        dks.append(torch.matmul(ds.transpose(-1, -2), qf))
+    dk, dv = torch.cat(dks, dim=2), torch.cat(dvs, dim=2)
+    return (dq.to(q.dtype), _sum_groups(dk, kvh).to(k.dtype),
+            _sum_groups(dv, kvh).to(v.dtype))
+
+
+flash_fwd_reference.calls = 0
+flash_bwd_reference.calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +210,21 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def kernel_variant(q: torch.Tensor) -> str:
+    """The name of the kernel variant that q's dtype and head_dim launch:
+    "bf16_d128" (the wgmma kernels), "f32_d128", "f32_d256", "bf16_d256"
+    (the generic ones). The wrappers count launches by it in
+    ``launches_by_variant`` beside ``launches``."""
+    dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    return f"{dt}_d{q.shape[-1]}"
+
+
+def _count(wrapper, q: torch.Tensor) -> None:
+    wrapper.launches += 1
+    v = kernel_variant(q)
+    wrapper.launches_by_variant[v] = wrapper.launches_by_variant.get(v, 0) + 1
 
 
 def _kernel_fn():
@@ -147,9 +259,6 @@ def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_fwd kernel takes float32 or bfloat16, "
                         f"not {q.dtype}")
-    if q.shape[-1] != 128:
-        raise ValueError(f"flash_fwd kernel takes head_dim 128, "
-                         f"not {q.shape[-1]}")
     B, H, Sq, D = q.shape
     _, KVH, Skv, _ = k.shape
     check_kernel_layout("flash_fwd kernel", q=q, k=k, v=v)
@@ -165,7 +274,7 @@ def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error "
                            f"{err} (shape q={tuple(q.shape)} "
                            f"k={tuple(k.shape)} dtype={q.dtype})")
-    flash_fwd.launches += 1
+    _count(flash_fwd, q)
     return o, lse
 
 
@@ -186,10 +295,14 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, sm_scale: Optional[float] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash-attention forward -> (O [b, h, sq, d] in q's dtype, LSE
-    [b, h, sq] f32). CUDA tensors launch ``csrc/flash_fwd.cu`` (counted in
-    ``flash_fwd.launches``); CPU tensors run ``flash_fwd_plain``."""
+    [b, h, sq] f32). Routed by ``attention_route``: at head_dim 128 and 256
+    CUDA tensors launch ``csrc/flash_fwd.cu`` (counted in
+    ``flash_fwd.launches``) and CPU tensors run ``flash_fwd_plain``; a
+    head_dim that is not a multiple of 128 runs ``flash_fwd_reference``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     _check_qkv("flash_fwd", q, k, v)
+    if attention_route(q.shape[-1]) == "reference":
+        return flash_fwd_reference(q, k, v, causal, scale)
     if q.device.type == "cuda":
         return _flash_fwd_cuda(q, k, v, causal, scale)
     if q.device.type == "cpu":
@@ -198,6 +311,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_fwd.launches = 0
+flash_fwd.launches_by_variant = {}
 
 
 # ---------------------------------------------------------------------------
@@ -275,18 +389,19 @@ def _bwd_kernel_fn(name: str):
         n_out = 2 if name == "flash_bwd_dkv" else 1
         fn.argtypes = ([ctypes.c_void_p] * (6 + n_out)
                        + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def _bwd_check(q, k, v, dout, lse, delta):
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"the flash backward kernels take bfloat16, not "
-                        f"{q.dtype}")
-    if q.shape[-1] != 128:
-        raise ValueError(f"the flash backward kernels take head_dim 128, "
-                         f"not {q.shape[-1]}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"the flash backward kernels take float32 or "
+                        f"bfloat16, not {q.dtype}")
+    if q.shape[-1] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the flash backward kernels take head_dim "
+                         f"{KERNEL_HEAD_DIMS}, not {q.shape[-1]}")
     if dout.dtype != q.dtype or dout.shape != q.shape:
         raise ValueError(f"dout must match q: {tuple(dout.shape)} "
                          f"{dout.dtype} vs {tuple(q.shape)} {q.dtype}")
@@ -309,7 +424,7 @@ def _bwd_launch(name, outs, q, k, v, dout, lse, delta, causal, scale):
         lse.data_ptr(), delta.data_ptr(), *[o.data_ptr() for o in outs],
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *dout.stride()[:3], B, H, KVH, Sq, Skv, D, float(scale), int(causal),
-        stream)
+        _DTYPE_CODE[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
                            f"(shape q={tuple(q.shape)} k={tuple(k.shape)})")
@@ -336,7 +451,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _bwd_launch("flash_bwd_dkv", (dk, dv), q, k, v, dout, lse, delta, causal,
                 scale)
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv, q)
     return dk, dv
 
 
@@ -352,12 +467,14 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _bwd_launch("flash_bwd_dq", (dq,), q, k, v, dout, lse, delta, causal,
                 scale)
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq, q)
     return dq
 
 
 flash_bwd_dkv.launches = 0
 flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches_by_variant = {}
+flash_bwd_dq.launches_by_variant = {}
 
 
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -365,14 +482,20 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, sm_scale: Optional[float] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flash-attention backward -> (dQ, dK, dV), dK/dV with k's KVH heads.
-    CUDA tensors compute delta = rowsum(dO·O) and launch the dK/dV kernel
-    and the dQ kernel; CPU tensors run ``flash_bwd_plain``."""
+    Routed by ``attention_route``: at head_dim 128 and 256 CUDA tensors
+    compute delta = rowsum(dO·O) and launch the dK/dV kernel and the dQ
+    kernel, CPU tensors run ``flash_bwd_plain``; a head_dim that is not a
+    multiple of 128 runs ``flash_bwd_reference``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
-    if _bwd_device("flash_bwd", q, k, v, out, lse, dout) == "cpu":
+    device = _bwd_device("flash_bwd", q, k, v, out, lse, dout)
+    if attention_route(q.shape[-1]) == "reference":
+        return flash_bwd_reference(q, k, v, out, lse, dout, causal, scale)
+    if device == "cpu":
         return flash_bwd_plain(q, k, v, out, lse, dout, causal, scale)
     delta = _delta(out, dout)
     dout = dout.to(q.dtype)
-    if dout.stride(-1) != 1 or any(s % 8 for s in dout.stride()[:3]) \
+    align = 16 // dout.element_size()
+    if dout.stride(-1) != 1 or any(s % align for s in dout.stride()[:3]) \
             or dout.data_ptr() % 16:  # e.g. the expanded grad of a sum
         dout = dout.contiguous()
     dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale)
@@ -400,6 +523,7 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Softmax attention through the flash forward; k/v may have fewer
-    heads than q (grouped-query attention)."""
+    """Softmax attention through the flash forward and backward, routed by
+    head_dim (``attention_route``); k/v may have fewer heads than q
+    (grouped-query attention)."""
     return _FlashAttention.apply(q, k, v, causal, sm_scale)

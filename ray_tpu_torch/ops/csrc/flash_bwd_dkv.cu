@@ -55,6 +55,9 @@
 //     strides the caller passes, so q, k, v and dO as transposes of
 //     [B, S, heads, D] views load without a copy; TMA zero-fills rows past
 //     Sq and Skv, and the stores are guarded by row < Skv.
+// That kernel serves bf16 at head_dim 128. A generic variant (at the end of
+// this file) serves f32 at head_dim 128 and 256 and bf16 at 256, with P
+// and dS rounded to the input dtype as the Pallas kernel rounds them.
 
 #include <math.h>
 
@@ -336,24 +339,202 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Generic variant: f32 at D = 128 and 256, bf16 at D = 256 (everything but
+// bf16 D = 128, which the wgmma kernel above serves). The same function on
+// the CUDA cores: one block of 128 threads per (b, KV head, 16 KV rows),
+// walking the group's query heads and their 32-row q tiles as the kernel
+// above does, with K, V, Q, dO as f32 tiles in dynamic shared memory (104 KB
+// at D = 256). Each thread holds 4 entries of P^T and dS^T (KV row tid / 8,
+// q columns tid % 8 + 8i; P rounded to v's dtype, dS to q's) and an eighth
+// of its KV row's dK and dV columns as interleaved float4s, in f32 registers
+// for the whole loop, so the group's query heads are summed in f32 with no
+// atomics. Bound by shared-memory reads, not by the FMA rate; simple first.
+// ---------------------------------------------------------------------------
+
+constexpr int kGBKV = 16;  // KV rows per block, 8 threads per row
+constexpr int kGBQ = 32;   // q rows per tile
+
+template <int D>
+constexpr int gen_smem_bytes() {
+  return ((2 * kGBKV + 2 * kGBQ) * (D + 4) + 2 * kGBKV * (kGBQ + 1) +
+          2 * kGBQ) * 4;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(128)
+flash_bwd_dkv_generic_kernel(const flash::BwdParams p) {
+  extern __shared__ float4 gen_smem[];
+  constexpr int kP = D + 4;       // row pitch of the f32 tiles
+  constexpr int kPT = kGBQ + 1;   // row pitch of P^T and dS^T
+  float* Ks = reinterpret_cast<float*>(gen_smem);
+  float* Vs = Ks + kGBKV * kP;
+  float* Qs = Vs + kGBKV * kP;
+  float* Os = Qs + kGBQ * kP;  // dO
+  float* Pt = Os + kGBQ * kP;
+  float* St = Pt + kGBKV * kPT;
+  float* Ls = St + kGBKV * kPT;
+  float* Ds = Ls + kGBQ;
+
+  const int tid = threadIdx.x;
+  const int kr = tid / 8;  // KV row of the tile
+  const int cc = tid % 8;
+  // Block -> (KV tile, b, KV head), the KV tile slowest: causal, the first
+  // KV tiles see the most q tiles, so they start first.
+  const int n_kvt = (p.Skv + kGBKV - 1) / kGBKV;
+  const int n_bk = gridDim.x / n_kvt;  // B * KVH
+  const int bk = blockIdx.x % n_bk;
+  const int kvt = blockIdx.x / n_bk;
+  const int kvh = bk % p.KVH;
+  const int b = bk / p.KVH;
+  const int G = p.H / p.KVH;
+  const int k0 = kvt * kGBKV;
+  const int krow = k0 + kr;
+  const int n_qt = (p.Sq + kGBQ - 1) / kGBQ;
+  // Causal: q tiles wholly before this KV tile see none of it.
+  const int qt_first = p.causal ? min(k0 / kGBQ, n_qt) : 0;
+
+  flash::load_tile<T, D>(
+      Ks, static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh, p.k_ss, k0,
+      kGBKV, p.Skv, tid, 128);
+  flash::load_tile<T, D>(
+      Vs, static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh, p.v_ss, k0,
+      kGBKV, p.Skv, tid, 128);
+
+  float dk[D / 8], dv[D / 8];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) dk[i] = dv[i] = 0.f;
+
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const T* dO = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
+    const long long row0 = (static_cast<long long>(b) * p.H + h) * p.Sq;
+    for (int qt = qt_first; qt < n_qt; ++qt) {
+      const int q0 = qt * kGBQ;
+      __syncthreads();  // K, V stored / the last tile's readers are done
+      flash::load_tile<T, D>(Qs, Q, p.q_ss, q0, kGBQ, p.Sq, tid, 128);
+      flash::load_tile<T, D>(Os, dO, p.o_ss, q0, kGBQ, p.Sq, tid, 128);
+      for (int i = tid; i < kGBQ; i += 128) {  // +inf / 0 past Sq: P = 0
+        const int r = q0 + i;
+        Ls[i] = r < p.Sq ? p.lse[row0 + r] : INFINITY;
+        Ds[i] = r < p.Sq ? p.delta[row0 + r] : 0.f;
+      }
+      __syncthreads();
+
+      // S^T and dP^T entries (krow, q0 + cc + 8i)
+      float4 s4[kGBQ / 8], p4[kGBQ / 8];
+#pragma unroll
+      for (int i = 0; i < kGBQ / 8; ++i)
+        s4[i] = p4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 2
+      for (int d = 0; d < D; d += 4) {
+        const float4 k4 = flash::ld4(Ks + kr * kP + d);
+        const float4 v4 = flash::ld4(Vs + kr * kP + d);
+#pragma unroll
+        for (int i = 0; i < kGBQ / 8; ++i) {
+          const int j = cc + 8 * i;
+          flash::fma4(s4[i], k4, flash::ld4(Qs + j * kP + d));
+          flash::fma4(p4[i], v4, flash::ld4(Os + j * kP + d));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kGBQ / 8; ++i) {
+        const int j = cc + 8 * i;
+        float x = flash::hsum(s4[i]) * p.scale;
+        if (krow >= p.Skv || (p.causal && q0 + j < krow))
+          x = flash::kMaskValue;
+        const float pr = expf(x - Ls[j]);
+        const float ds = (flash::hsum(p4[i]) - Ds[j]) * pr * p.scale;
+        Pt[kr * kPT + j] = flash::Elem<T>::round(pr);
+        St[kr * kPT + j] = flash::Elem<T>::round(ds);
+      }
+      __syncthreads();
+
+      // dV += P^T dO, dK += dS^T Q over the tile's q rows
+#pragma unroll 4
+      for (int j = 0; j < kGBQ; ++j) {
+        const float pj = Pt[kr * kPT + j];
+        const float sj = St[kr * kPT + j];
+#pragma unroll
+        for (int q = 0; q < D / 32; ++q) {
+          const int col = 4 * (cc + 8 * q);
+          const float4 o4 = flash::ld4(Os + j * kP + col);
+          const float4 q4 = flash::ld4(Qs + j * kP + col);
+          dv[4 * q] = fmaf(pj, o4.x, dv[4 * q]);
+          dv[4 * q + 1] = fmaf(pj, o4.y, dv[4 * q + 1]);
+          dv[4 * q + 2] = fmaf(pj, o4.z, dv[4 * q + 2]);
+          dv[4 * q + 3] = fmaf(pj, o4.w, dv[4 * q + 3]);
+          dk[4 * q] = fmaf(sj, q4.x, dk[4 * q]);
+          dk[4 * q + 1] = fmaf(sj, q4.y, dk[4 * q + 1]);
+          dk[4 * q + 2] = fmaf(sj, q4.z, dk[4 * q + 2]);
+          dk[4 * q + 3] = fmaf(sj, q4.w, dk[4 * q + 3]);
+        }
+      }
+    }
+  }
+
+  if (krow < p.Skv) {
+    const long long o =
+        ((static_cast<long long>(b) * p.KVH + kvh) * p.Skv + krow) * D;
+    T* dK = static_cast<T*>(p.out0) + o;
+    T* dV = static_cast<T*>(p.out1) + o;
+#pragma unroll
+    for (int q = 0; q < D / 32; ++q) {
+      const int col = 4 * (cc + 8 * q);
+      flash::Elem<T>::store4(dK + col, make_float4(dk[4 * q], dk[4 * q + 1],
+                                                   dk[4 * q + 2],
+                                                   dk[4 * q + 3]));
+      flash::Elem<T>::store4(dV + col, make_float4(dv[4 * q], dv[4 * q + 1],
+                                                   dv[4 * q + 2],
+                                                   dv[4 * q + 3]));
+    }
+  }
+}
+
+template <typename T, int D>
+int launch_generic(const flash::BwdParams& p, int B, cudaStream_t st) {
+  constexpr int smem = gen_smem_bytes<D>();
+  const cudaError_t err =
+      flash::allow_smem(flash_bwd_dkv_generic_kernel<T, D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_kvt = (p.Skv + kGBKV - 1) / kGBKV;
+  flash_bwd_dkv_generic_kernel<T, D><<<B * p.KVH * n_kvt, 128, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// q/dO [B, H, Sq, D] and k/v [B, KVH, Skv, D] bf16 given by element strides
+// q/dO [B, H, Sq, D] and k/v [B, KVH, Skv, D] given by element strides
 // (batch, head, seq; the last dim dense, every stride and base address a
-// multiple of 16 bytes, as TMA requires); lse and delta [B, H, Sq] f32 and
-// dk/dv [B, KVH, Skv, D] bf16 dense. Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for a shape or layout the kernel does not
-// take).
+// multiple of 16 bytes, as TMA and the 16-byte loads require); lse and delta
+// [B, H, Sq] f32 and dk/dv [B, KVH, Skv, D] dense, in the inputs' dtype. D
+// is 128 or 256; dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 runs the
+// wgmma kernel, every other case the generic variant. Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape or
+// layout the kernels do not take).
 extern "C" int ray_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss, int B, int H, int KVH,
-    int Sq, int Skv, int D, float scale, int causal, void* stream) {
-  if (D != kD || B < 1 || H < 1 || KVH < 1 || H % KVH != 0 || Sq < 1 ||
-      Skv < 1)
+    int Sq, int Skv, int D, float scale, int causal, int dtype,
+    void* stream) {
+  if ((D != kD && D != 2 * kD) || B < 1 || H < 1 || KVH < 1 ||
+      H % KVH != 0 || Sq < 1 || Skv < 1 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 || D != kD) {
+    const flash::BwdParams p{
+        q,    k,    v,    dout, static_cast<const float*>(lse),
+        static_cast<const float*>(delta), dk, dv,
+        q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+        o_sb, o_sh, o_ss, H,    KVH,  Sq,   Skv,  scale, causal};
+    if (dtype == 1) return launch_generic<bf16, 2 * kD>(p, B, st);
+    if (D == kD) return launch_generic<float, kD>(p, B, st);
+    return launch_generic<float, 2 * kD>(p, B, st);
+  }
   CUtensorMap tq, tk, tv, tdo;
   if (!flash::make_bhsd_map(&tq, q, B, H, Sq, q_sb, q_sh, q_ss, kBQ) ||
       !flash::make_bhsd_map(&tk, k, B, KVH, Skv, k_sb, k_sh, k_ss, kBKV) ||
@@ -371,7 +552,6 @@ extern "C" int ray_flash_bwd_dkv(
       hopper::opt_in_smem(flash_bwd_dkv_kernel, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_bwd_dkv_kernel<<<B * KVH * n_kvt, 128 * (1 + kConsumers), kSmemBytes,
-                         static_cast<cudaStream_t>(stream)>>>(tq, tk, tv,
-                                                              tdo, a);
+                         st>>>(tq, tk, tv, tdo, a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,6 +43,9 @@
 //     strides the caller passes, so strided q, k, v and dO load without a
 //     copy; TMA zero-fills rows past Sq and Skv, rows past Sq get LSE =
 //     +inf (P = 0), and the stores are guarded by row < Sq.
+// That kernel serves bf16 at head_dim 128. A generic variant (at the end of
+// this file) serves f32 at head_dim 128 and 256 and bf16 at 256, with P
+// and dS rounded to the input dtype as the Pallas kernel rounds them.
 
 #include <math.h>
 
@@ -311,23 +314,171 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Generic variant: f32 at D = 128 and 256, bf16 at D = 256 (everything but
+// bf16 D = 128, which the wgmma kernel above serves). The same function on
+// the CUDA cores: one block of 128 threads per (b, h, 16 q rows), walking
+// the visible 32-row KV tiles, with Q, dO, K, V as f32 tiles in dynamic
+// shared memory (102 KB at D = 256). Each thread computes 4 entries of dS (q
+// row tid / 8, KV columns tid % 8 + 8i; rounded to q's dtype) and holds an
+// eighth of its row's dQ columns as interleaved float4s in f32 registers
+// for the whole KV loop. Bound by shared-memory reads, not by the FMA rate;
+// simple first.
+// ---------------------------------------------------------------------------
+
+constexpr int kGBQ = 16;  // q rows per block, 8 threads per row
+constexpr int kGBN = 32;  // KV rows per tile
+
+template <int D>
+constexpr int gen_smem_bytes() {
+  return ((2 * kGBQ + 2 * kGBN) * (D + 4) + kGBQ * (kGBN + 1)) * 4;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(128)
+flash_bwd_dq_generic_kernel(const flash::BwdParams p) {
+  extern __shared__ float4 gen_smem[];
+  constexpr int kP = D + 4;       // row pitch of the f32 tiles
+  constexpr int kPS = kGBN + 1;   // row pitch of dS
+  float* Qs = reinterpret_cast<float*>(gen_smem);
+  float* Os = Qs + kGBQ * kP;  // dO
+  float* Ks = Os + kGBQ * kP;
+  float* Vs = Ks + kGBN * kP;
+  float* Ss = Vs + kGBN * kP;
+
+  const int tid = threadIdx.x;
+  const int r = tid / 8;  // q row of the tile
+  const int cc = tid % 8;
+  const int n_qt = gridDim.x;
+  const int qt = p.causal ? (n_qt - 1 - blockIdx.x) : blockIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int kvh = h / (p.H / p.KVH);
+  const int q0 = qt * kGBQ;
+  const int row = q0 + r;
+  const long long rowg = static_cast<long long>(bh) * p.Sq + row;
+  const float lse = row < p.Sq ? p.lse[rowg] : INFINITY;  // P = 0 past Sq
+  const float delta = row < p.Sq ? p.delta[rowg] : 0.f;
+
+  const T* K = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const T* V = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  flash::load_tile<T, D>(
+      Qs, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, q0,
+      kGBQ, p.Sq, tid, 128);
+  flash::load_tile<T, D>(
+      Os, static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh, p.o_ss,
+      q0, kGBQ, p.Sq, tid, 128);
+
+  float dq[D / 8];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) dq[i] = 0.f;
+
+  const int kv_end = p.causal ? min(p.Skv, q0 + kGBQ) : p.Skv;
+  const int n_kt = (kv_end + kGBN - 1) / kGBN;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kGBN;
+    __syncthreads();  // Q, dO stored / the last tile's readers are done
+    flash::load_tile<T, D>(Ks, K, p.k_ss, k0, kGBN, p.Skv, tid, 128);
+    flash::load_tile<T, D>(Vs, V, p.v_ss, k0, kGBN, p.Skv, tid, 128);
+    __syncthreads();
+
+    // S and dP entries (row, k0 + cc + 8i)
+    float4 s4[kGBN / 8], p4[kGBN / 8];
+#pragma unroll
+    for (int i = 0; i < kGBN / 8; ++i)
+      s4[i] = p4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      const float4 q4 = flash::ld4(Qs + r * kP + d);
+      const float4 o4 = flash::ld4(Os + r * kP + d);
+#pragma unroll
+      for (int i = 0; i < kGBN / 8; ++i) {
+        const int j = cc + 8 * i;
+        flash::fma4(s4[i], q4, flash::ld4(Ks + j * kP + d));
+        flash::fma4(p4[i], o4, flash::ld4(Vs + j * kP + d));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kGBN / 8; ++i) {
+      const int j = cc + 8 * i;
+      const int col = k0 + j;
+      float x = flash::hsum(s4[i]) * p.scale;
+      if (col >= p.Skv || (p.causal && col > row)) x = flash::kMaskValue;
+      const float pr = expf(x - lse);
+      Ss[r * kPS + j] =
+          flash::Elem<T>::round((flash::hsum(p4[i]) - delta) * pr * p.scale);
+    }
+    __syncthreads();
+
+    // dQ += dS K over the tile's KV rows
+#pragma unroll 4
+    for (int j = 0; j < kGBN; ++j) {
+      const float sj = Ss[r * kPS + j];
+#pragma unroll
+      for (int q = 0; q < D / 32; ++q) {
+        const float4 k4 = flash::ld4(Ks + j * kP + 4 * (cc + 8 * q));
+        dq[4 * q] = fmaf(sj, k4.x, dq[4 * q]);
+        dq[4 * q + 1] = fmaf(sj, k4.y, dq[4 * q + 1]);
+        dq[4 * q + 2] = fmaf(sj, k4.z, dq[4 * q + 2]);
+        dq[4 * q + 3] = fmaf(sj, k4.w, dq[4 * q + 3]);
+      }
+    }
+  }
+
+  if (row < p.Sq) {
+    T* dQ = static_cast<T*>(p.out0) + rowg * D;
+#pragma unroll
+    for (int q = 0; q < D / 32; ++q)
+      flash::Elem<T>::store4(dQ + 4 * (cc + 8 * q),
+                             make_float4(dq[4 * q], dq[4 * q + 1],
+                                         dq[4 * q + 2], dq[4 * q + 3]));
+  }
+}
+
+template <typename T, int D>
+int launch_generic(const flash::BwdParams& p, int B, cudaStream_t st) {
+  constexpr int smem = gen_smem_bytes<D>();
+  const cudaError_t err =
+      flash::allow_smem(flash_bwd_dq_generic_kernel<T, D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((p.Sq + kGBQ - 1) / kGBQ, B * p.H);
+  flash_bwd_dq_generic_kernel<T, D><<<grid, 128, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// q/dO [B, H, Sq, D] and k/v [B, KVH, Skv, D] bf16 given by element strides
+// q/dO [B, H, Sq, D] and k/v [B, KVH, Skv, D] given by element strides
 // (batch, head, seq; the last dim dense, every stride and base address a
-// multiple of 16 bytes, as TMA requires); lse and delta [B, H, Sq] f32 and
-// dq [B, H, Sq, D] bf16 dense. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a shape or layout the kernel does not take).
+// multiple of 16 bytes, as TMA and the 16-byte loads require); lse and delta
+// [B, H, Sq] f32 and dq [B, H, Sq, D] dense, in the inputs' dtype. D is 128
+// or 256; dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 runs the wgmma
+// kernel, every other case the generic variant. Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for a shape or layout the kernels
+// do not take).
 extern "C" int ray_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss, int B, int H, int KVH,
-    int Sq, int Skv, int D, float scale, int causal, void* stream) {
-  if (D != kD || B < 1 || H < 1 || KVH < 1 || H % KVH != 0 || Sq < 1 ||
-      Skv < 1)
+    int Sq, int Skv, int D, float scale, int causal, int dtype,
+    void* stream) {
+  if ((D != kD && D != 2 * kD) || B < 1 || H < 1 || KVH < 1 ||
+      H % KVH != 0 || Sq < 1 || Skv < 1 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 || D != kD) {
+    const flash::BwdParams p{
+        q,    k,    v,    dout, static_cast<const float*>(lse),
+        static_cast<const float*>(delta), dq, nullptr,
+        q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+        o_sb, o_sh, o_ss, H,    KVH,  Sq,   Skv,  scale, causal};
+    if (dtype == 1) return launch_generic<bf16, 2 * kD>(p, B, st);
+    if (D == kD) return launch_generic<float, kD>(p, B, st);
+    return launch_generic<float, 2 * kD>(p, B, st);
+  }
   CUtensorMap tq, tk, tv, tdo;
   if (!flash::make_bhsd_map(&tq, q, B, H, Sq, q_sb, q_sh, q_ss, kBM) ||
       !flash::make_bhsd_map(&tk, k, B, KVH, Skv, k_sb, k_sh, k_ss, kBN) ||
@@ -343,7 +494,6 @@ extern "C" int ray_flash_bwd_dq(
   const cudaError_t err = hopper::opt_in_smem(flash_bwd_dq_kernel, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_bwd_dq_kernel<<<B * H * n_qt, 128 * (1 + kConsumers), kSmemBytes,
-                        static_cast<cudaStream_t>(stream)>>>(tq, tk, tv, tdo,
-                                                             a);
+                        st>>>(tq, tk, tv, tdo, a);
   return static_cast<int>(cudaGetLastError());
 }

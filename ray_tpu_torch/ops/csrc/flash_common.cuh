@@ -5,7 +5,9 @@
 // packing of accumulators (for stores, or as a wgmma register A operand),
 // the release of a ring stage, and the two wgmma products they are built
 // from: A B^T with both operands K-major in shared memory, and A B with A
-// from registers and B MN-major.
+// from registers and B MN-major. Then what the generic variants (f32, and
+// bf16 at head_dim 256) share: loads and stores by element type, rounding
+// to it, f32 tiles in shared memory, the backward's parameters.
 
 #pragma once
 
@@ -95,6 +97,110 @@ __device__ __forceinline__ void mma_rs(float (&acc)[64],
     hopper::wgmma_m64n128k16_rs<1>(
         acc, a[kk], hopper::desc_sw128(b_base + kk * 16 * 128, b_half, 1024),
         1);
+}
+
+// ---------------------------------------------------------------------------
+// The generic variants (f32 at D = 128 and 256, bf16 at D = 256): scalar
+// FMAs on the CUDA cores over f32 tiles in dynamic shared memory. Inputs are
+// read 4 elements at a time (16 bytes of f32, 8 of bf16: the wrappers'
+// layout check keeps rows 16-byte aligned) and widened to f32; P and dS are
+// rounded to the input dtype where the Pallas kernels round them.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static __device__ __forceinline__ float4 load4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+  static __device__ __forceinline__ void store4(float* p, float4 v) {
+    *reinterpret_cast<float4*>(p) = v;
+  }
+  static __device__ __forceinline__ float round(float x) { return x; }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const float2 lo =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 hi =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  static __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+  }
+  static __device__ __forceinline__ float round(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// a += b * c, elementwise
+__device__ __forceinline__ void fma4(float4& a, float4 b, float4 c) {
+  a.x = fmaf(b.x, c.x, a.x);
+  a.y = fmaf(b.y, c.y, a.y);
+  a.z = fmaf(b.z, c.z, a.z);
+  a.w = fmaf(b.w, c.w, a.w);
+}
+
+__device__ __forceinline__ float hsum(float4 a) {
+  return (a.x + a.y) + (a.z + a.w);
+}
+
+// Rows [r0, r0 + rows) of an [S, D] matrix (row stride `ss` elements, the
+// last dim dense) into f32 shared memory with a row pitch of D + 4 floats
+// (16-byte aligned rows whose float4s fall in distinct banks from one row to
+// the next); rows past S are zero.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
+                                          long long ss, int r0, int rows,
+                                          int S, int tid, int nthreads) {
+  for (int i = tid; i < rows * (D / 4); i += nthreads) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < S)
+      v = Elem<T>::load4(src + static_cast<long long>(r0 + r) * ss + c);
+    *reinterpret_cast<float4*>(dst + r * (D + 4) + c) = v;
+  }
+}
+
+// What the two backward entry points hand their generic variants: inputs
+// by element strides (batch, head, seq), lse and delta [B, H, Sq] f32, the
+// outputs dense (out0 = dK and out1 = dV, or out0 = dQ).
+struct BwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;
+  const float* delta;
+  void* out0;
+  void* out1;
+  long long q_sb, q_sh, q_ss;
+  long long k_sb, k_sh, k_ss;
+  long long v_sb, v_sh, v_ss;
+  long long o_sb, o_sh, o_ss;
+  int H, KVH, Sq, Skv;
+  float scale;
+  int causal;
+};
+
+// Host: dynamic shared memory above 48 KB for one kernel. Set at every
+// launch of a generic variant (a host call of about a microsecond), since
+// their instances share one function type.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 // Host: the 4-D tensor map {D, S, heads, batch} over a [B, heads, S, D]

@@ -50,7 +50,8 @@
 //   * The tensor maps are 4-D {D, S, heads, batch} built from the element
 //     strides the caller passes, so q/k from apply_rope (dense BHSD) and v
 //     as the transpose of a [B, S, KVH, D] view load without a copy.
-// A plain scalar-FMA f32 variant serves f32 inputs (D = 128 as well).
+// A generic scalar-FMA variant serves f32 (D = 128 and 256) and bf16 at
+// D = 256.
 
 #include <math.h>
 
@@ -438,69 +439,84 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// f32: scalar FMAs, 32 q rows per block (4 threads per row), 16-row KV
-// tiles. Off the serving path (the engine runs bf16); kept so f32 callers
-// never fall back to the plain version on the card.
+// Generic variant: f32 at D = 128 and 256, bf16 at D = 256 (everything but
+// bf16 D = 128, which the wgmma kernel above serves). Scalar FMAs on the
+// CUDA cores over f32 tiles in dynamic shared memory (D = 256 needs 69 KB,
+// above the 48 KB of static memory): 32 q rows per block, 4 threads per row,
+// 16-row KV tiles, the same online softmax with P rounded to the input dtype
+// before P V. Each thread takes 4 scores of its row (columns c, c + 4, ...)
+// and a quarter of O's columns as interleaved float4s, so a warp's shared
+// loads fall in distinct banks. It is bound by shared-memory reads (5 float4
+// loads per 16 FMAs of the scores, 1 per 4 of P V), well below the 67
+// TFLOP/s of the f32 FMA units; simple first, as the serving and training
+// paths run bf16 D = 128.
 // ---------------------------------------------------------------------------
 
-constexpr int kBM32 = 32;
-constexpr int kBN32 = 16;
+constexpr int kGBM = 32;  // q rows per block, 4 threads per row
+constexpr int kGBN = 16;  // KV rows per tile
 
+template <int D>
+constexpr int gen_smem_bytes() {
+  return ((kGBM + 2 * kGBN) * (D + 4) + kGBM * (kGBN + 1)) * 4;
+}
+
+template <typename T, int D>
 __global__ void __launch_bounds__(128)
-flash_fwd_f32_kernel(Params p) {
-  __shared__ float Qs[kBM32][kD + 1];
-  __shared__ float Ks[kBN32][kD + 1];
-  __shared__ float Vs[kBN32][kD];
-  __shared__ float Ps[kBM32][kBN32 + 1];
+flash_fwd_generic_kernel(const Params p) {
+  extern __shared__ float4 gen_smem[];
+  constexpr int kP = D + 4;         // row pitch of the f32 tiles
+  constexpr int kPP = kGBN + 1;     // row pitch of P
+  float* Qs = reinterpret_cast<float*>(gen_smem);
+  float* Ks = Qs + kGBM * kP;
+  float* Vs = Ks + kGBN * kP;
+  float* Ps = Vs + kGBN * kP;
 
   const int tid = threadIdx.x;
   const int r = tid / 4;  // row of the q tile
-  const int c = tid % 4;  // this thread's share of columns
+  const int c = tid % 4;  // this thread's share of the columns
   const int n_qt = gridDim.x;
   const int qt = p.causal ? (n_qt - 1 - blockIdx.x) : blockIdx.x;
   const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int kvh = h / (p.H / p.KVH);
-  const int q0 = qt * kBM32;
+  const int q0 = qt * kGBM;
   const int row = q0 + r;
 
-  const float* Q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* K = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const float* V = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* K = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const T* V = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  flash::load_tile<T, D>(Qs, Q, p.q_ss, q0, kGBM, p.Sq, tid, 128);
 
-  for (int i = tid; i < kBM32 * kD; i += 128) {
-    int rr = i / kD, cc = i % kD;
-    Qs[rr][cc] = q0 + rr < p.Sq ? Q[(q0 + rr) * p.q_ss + cc] : 0.f;
-  }
-
-  float acc[kD / 4];
+  float acc[D / 4];
 #pragma unroll
-  for (int i = 0; i < kD / 4; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 4; ++i) acc[i] = 0.f;
   float m = -INFINITY, l = 0.f;
 
-  const int n_kt = kv_tiles(p, q0, kBM32, kBN32);
+  const int n_kt = kv_tiles(p, q0, kGBM, kGBN);
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBN32;
+    const int k0 = kt * kGBN;
     __syncthreads();  // Q is stored / the last tile's readers are done
-    for (int i = tid; i < kBN32 * kD; i += 128) {
-      int rr = i / kD, cc = i % kD;
-      bool ok = k0 + rr < p.Skv;
-      Ks[rr][cc] = ok ? K[(k0 + rr) * p.k_ss + cc] : 0.f;
-      Vs[rr][cc] = ok ? V[(k0 + rr) * p.v_ss + cc] : 0.f;
-    }
+    flash::load_tile<T, D>(Ks, K, p.k_ss, k0, kGBN, p.Skv, tid, 128);
+    flash::load_tile<T, D>(Vs, V, p.v_ss, k0, kGBN, p.Skv, tid, 128);
     __syncthreads();
 
-    float sv[kBN32 / 4];
+    float4 dot[kGBN / 4];
+#pragma unroll
+    for (int i = 0; i < kGBN / 4; ++i) dot[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      const float4 q4 = flash::ld4(Qs + r * kP + d);
+#pragma unroll
+      for (int i = 0; i < kGBN / 4; ++i)
+        flash::fma4(dot[i], q4, flash::ld4(Ks + (c + 4 * i) * kP + d));
+    }
+    float sv[kGBN / 4];
     float mx = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < kBN32 / 4; ++i) {
-      int j = c + 4 * i;
-      float dot = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < kD; ++d) dot = fmaf(Qs[r][d], Ks[j][d], dot);
-      float x = dot * p.scale;
-      int col = k0 + j;
+    for (int i = 0; i < kGBN / 4; ++i) {
+      const int col = k0 + c + 4 * i;
+      float x = flash::hsum(dot[i]) * p.scale;
       if (col >= p.Skv || (p.causal && col > row)) x = kMaskValue;
       sv[i] = x;
       mx = fmaxf(mx, x);
@@ -512,9 +528,9 @@ flash_fwd_f32_kernel(Params p) {
     m = mn;
     float sum = 0.f;
 #pragma unroll
-    for (int i = 0; i < kBN32 / 4; ++i) {
-      float e = expf(sv[i] - mn);
-      Ps[r][c + 4 * i] = e;
+    for (int i = 0; i < kGBN / 4; ++i) {
+      const float e = expf(sv[i] - mn);
+      Ps[r * kPP + c + 4 * i] = flash::Elem<T>::round(e);  // P as V's dtype
       sum += e;
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -522,22 +538,44 @@ flash_fwd_f32_kernel(Params p) {
     l = l * corr + sum;
     __syncwarp();  // the 4 threads of row r share Ps[r]
 #pragma unroll
-    for (int i = 0; i < kD / 4; ++i) {
-      float a = acc[i] * corr;
+    for (int i = 0; i < D / 4; ++i) acc[i] *= corr;
+#pragma unroll 4
+    for (int j = 0; j < kGBN; ++j) {
+      const float pj = Ps[r * kPP + j];
 #pragma unroll
-      for (int j = 0; j < kBN32; ++j) a = fmaf(Ps[r][j], Vs[j][c + 4 * i], a);
-      acc[i] = a;
+      for (int q = 0; q < D / 16; ++q) {
+        const float4 v4 = flash::ld4(Vs + j * kP + 4 * (c + 4 * q));
+        acc[4 * q] = fmaf(pj, v4.x, acc[4 * q]);
+        acc[4 * q + 1] = fmaf(pj, v4.y, acc[4 * q + 1]);
+        acc[4 * q + 2] = fmaf(pj, v4.z, acc[4 * q + 2]);
+        acc[4 * q + 3] = fmaf(pj, v4.w, acc[4 * q + 3]);
+      }
     }
   }
 
   if (row < p.Sq) {
     l = fmaxf(l, 1e-30f);
-    float* O = static_cast<float*>(p.o) +
-               (static_cast<long long>(bh) * p.Sq + row) * kD;
+    T* O = static_cast<T*>(p.o) +
+           (static_cast<long long>(bh) * p.Sq + row) * D;
 #pragma unroll
-    for (int i = 0; i < kD / 4; ++i) O[c + 4 * i] = acc[i] / l;
+    for (int q = 0; q < D / 16; ++q)
+      flash::Elem<T>::store4(
+          O + 4 * (c + 4 * q),
+          make_float4(acc[4 * q] / l, acc[4 * q + 1] / l, acc[4 * q + 2] / l,
+                      acc[4 * q + 3] / l));
     if (c == 0) p.lse[static_cast<long long>(bh) * p.Sq + row] = m + logf(l);
   }
+}
+
+template <typename T, int D>
+int launch_generic(const Params& p, int B, cudaStream_t st) {
+  constexpr int smem = gen_smem_bytes<D>();
+  const cudaError_t err =
+      flash::allow_smem(flash_fwd_generic_kernel<T, D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((p.Sq + kGBM - 1) / kGBM, B * p.H);
+  flash_fwd_generic_kernel<T, D><<<grid, 128, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -566,10 +604,11 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 // q [B, H, Sq, D], k/v [B, KVH, Skv, D] given by element strides (batch,
 // head, seq; the last dim dense); o [B, H, Sq, D] and lse [B, H, Sq] dense.
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for a shape or layout the kernel does not
-// take: for bf16 every stride and the base addresses must be multiples of
-// 16 bytes, as TMA requires).
+// D is 128 or 256; dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 runs
+// the wgmma kernel, every other case the generic variant. Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape or
+// layout the kernels do not take: every stride and the base addresses must
+// be multiples of 16 bytes, as TMA and the 16-byte loads require).
 extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, long long q_sb,
                              long long q_sh, long long q_ss, long long k_sb,
@@ -577,21 +616,21 @@ extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
                              long long v_sh, long long v_ss, int B, int H,
                              int KVH, int Sq, int Skv, int D, float scale,
                              int causal, int dtype, void* stream) {
-  if (D != kD || B < 1 || H < 1 || KVH < 1 || H % KVH != 0 || Sq < 1 ||
-      Skv < 1 || (dtype != 0 && dtype != 1))
+  if ((D != kD && D != 2 * kD) || B < 1 || H < 1 || KVH < 1 ||
+      H % KVH != 0 || Sq < 1 || Skv < 1 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (dtype == 1 && D == kD) {
     const long long qs[3] = {q_sb, q_sh, q_ss};
     const long long ks[3] = {k_sb, k_sh, k_ss};
     const long long vs[3] = {v_sb, v_sh, v_ss};
     return launch_bf16(q, k, v, o, lse, qs, ks, vs, B, H, KVH, Sq, Skv,
                        scale, causal, st);
   }
-  Params p{q,    k,    v,    o,    static_cast<float*>(lse),
-           q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-           H,    KVH,  Sq,   Skv,  scale, causal};
-  dim3 grid((Sq + kBM32 - 1) / kBM32, B * H);
-  flash_fwd_f32_kernel<<<grid, 128, 0, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const Params p{q,    k,    v,    o,    static_cast<float*>(lse),
+                 q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+                 H,    KVH,  Sq,   Skv,  scale, causal};
+  if (dtype == 1) return launch_generic<bf16, 2 * kD>(p, B, st);
+  if (D == kD) return launch_generic<float, kD>(p, B, st);
+  return launch_generic<float, 2 * kD>(p, B, st);
 }

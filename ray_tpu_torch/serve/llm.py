@@ -4,10 +4,11 @@ engine, answering OpenAI-style completion bodies.
 
 Tokenization is bring-your-own (``LLMConfig.tokenizer`` /
 ``detokenizer``); the default passes token-id lists through untouched.
-Weights are random (seed 0). The serve deployment, HTTP and
-prefill/decode-disaggregated half (``build_llm_app``, ``PrefillServer``,
-``DecodeServer``, ``PDIngress``, ``run_pd_llm_app``) needs the runtime and
-waits for a later slice; ``params_path`` waits for the checkpoint loader.
+Weights are random (seed 0), or read from a checkpoint of a params tree
+(``params_path``, written by either package's ``save_checkpoint``). The
+serve deployment, HTTP and prefill/decode-disaggregated half
+(``build_llm_app``, ``PrefillServer``, ``DecodeServer``, ``PDIngress``,
+``run_pd_llm_app``) needs the runtime and waits for a later slice.
 
     from ray_tpu_torch.serve.llm import LLMConfig, LLMServer
 
@@ -21,9 +22,12 @@ import random
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
-from ray_tpu_torch import DeviceLike
+import torch
+
+from ray_tpu_torch import DeviceLike, resolve_device
 from ray_tpu_torch.models.llama import LlamaConfig, init_params
 from ray_tpu_torch.serve.engine import Engine
+from ray_tpu_torch.train.checkpointing import load_checkpoint_host
 
 
 @dataclass
@@ -36,7 +40,7 @@ class LLMConfig:
     decode_chunk: int = 8          # tokens per decode dispatch
     page_size: int = 64            # KV page width (tokens)
     kv_pages: Optional[int] = None  # physical pages (None: engine default)
-    params_path: str = ""          # checkpoint dir (not ported yet)
+    params_path: str = ""          # committed checkpoint dir (step-N)
     tokenizer: Optional[Callable[[str], List[int]]] = None
     detokenizer: Optional[Callable[[List[int]], str]] = None
     device: DeviceLike = None      # None: the CUDA card
@@ -105,10 +109,24 @@ def _model_from_cfg(cfg: LLMConfig):
         n_kv_heads=max(1, cfg.d_model // 256),
         d_ff=int(cfg.d_model * 2.75), max_seq=cfg.max_seq)
     if cfg.params_path:
-        raise NotImplementedError(
-            "params_path needs the checkpoint loader "
-            "(train/checkpointing.py), which is not ported yet")
+        dev = resolve_device(cfg.device)
+        host = load_checkpoint_host(cfg.params_path)
+        params = _unflatten({k: torch.as_tensor(v).to(dev, mcfg.param_dtype)
+                             for k, v in host.items()})
+        return mcfg, params
     return mcfg, init_params(mcfg, 0, cfg.device)
+
+
+def _unflatten(host: Dict[str, Any]) -> Dict[str, Any]:
+    """'a.b.c' host-checkpoint keys -> nested dict."""
+    out: Dict[str, Any] = {}
+    for key, value in host.items():
+        parts = key.split(".")
+        d = out
+        for p in parts[:-1]:
+            d = d.setdefault(p, {})
+        d[parts[-1]] = value
+    return out
 
 
 def _encode_prompt(cfg: LLMConfig, prompt) -> List[int]:

@@ -447,3 +447,102 @@ def test_flash_bwd_kernel_wrappers_on_cpu_split_flash_bwd():
     assert (tatt.flash_bwd_dkv.launches, tatt.flash_bwd_dq.launches) == before
     with pytest.raises(ValueError):  # neither cuda nor cpu: no fallback
         tatt.flash_bwd(*(t.to("meta") for t in (q, k, v, o, lse, do)))
+
+
+# ---------------------------------------------------------------------------
+# routing by head_dim, as the JAX package routes
+# ---------------------------------------------------------------------------
+
+def test_attention_route_follows_the_reference_dispatch():
+    """head_dim 128 and 256 go to the kernels (the Pallas kernels' widths
+    the port's kernels take), head_dims that are not multiples of 128 to
+    the jnp branch; other multiples of 128, which the Pallas kernels take
+    and the port's kernels do not, raise before anything runs."""
+    assert [tatt.attention_route(d) for d in (128, 256)] == ["kernel"] * 2
+    assert [tatt.attention_route(d) for d in (16, 64, 96)] == \
+        ["reference"] * 3
+    for d in (384, 512):
+        with pytest.raises(ValueError, match="128 and 256"):
+            tatt.attention_route(d)
+    q, k, v = _t(*_qkv(1, 2, 8, 384, seed=30))
+    with pytest.raises(ValueError, match="128 and 256"):
+        tatt.flash_attention(q, k, v)
+
+
+# Relative to the largest element, by dtype and head_dim; for bf16 as (out
+# and dq, dk and dv). f32 parts by summation order alone. bf16 at 256: the
+# kernel route rounds P and dS to bf16 where the JAX branch keeps them in
+# f32, so outputs part by a few bf16 steps. bf16 at 64 and 96 (the same f32
+# arithmetic on both sides): out and dq part by summation order, so 1e-3
+# catches P or dS rounded to bf16 (dq then parts by 4e-3 to 7e-3); dk and
+# dv part by one bf16 step, 2**-7 of the largest element at most, because
+# the JAX side rounds each repeated head's gradient to bf16 before it sums
+# the group and the port sums in f32.
+def _route_tol(dtype, d):
+    if dtype == torch.float32:
+        return 1e-5, 1e-5
+    return (2e-2, 2e-2) if d == 256 else (1e-3, 2 ** -7)
+
+
+def _rel(got, want):
+    got = got.detach().float().numpy()
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 96, 256])
+def test_flash_attention_routes_match_jax_value_and_grad(d, dtype, causal):
+    """Forward and backward at head_dim 64, 96 (the port's copy of the jnp
+    branch) and 256 (the kernels' plain versions on the CPU) against the
+    JAX package's flash_attention and jax.grad on the CPU (its jnp
+    branch), grouped-query heads on the JAX side through repeat_kv."""
+    q, k, v = _qkv(1, 4, 48, d, kvh=2, seed=31 + d)
+    g = _rand((1, 4, 48, d), 32)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+
+    def loss(q, k, v):
+        out = jatt.flash_attention(q, jatt.repeat_kv(k, 2),
+                                   jatt.repeat_kv(v, 2), causal)
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(g)), out
+
+    (_, want_o), want = jax.value_and_grad(loss, argnums=(0, 1, 2),
+                                           has_aux=True)(
+        *[jnp.asarray(x, jdt) for x in (q, k, v)])
+    calls = (tatt.flash_fwd_reference.calls, tatt.flash_bwd_reference.calls)
+    tq, tk, tv = [torch.from_numpy(x).to(dtype).requires_grad_()
+                  for x in (q, k, v)]
+    out = tatt.flash_attention(tq, tk, tv, causal)
+    (out.float() * torch.from_numpy(g)).sum().backward()
+    ran = (tatt.flash_fwd_reference.calls - calls[0],
+           tatt.flash_bwd_reference.calls - calls[1])
+    assert ran == ((0, 0) if d == 256 else (1, 1))
+    assert out.dtype == dtype and tk.grad.shape == (1, 2, 48, d)
+    tol_q, tol_kv = _route_tol(dtype, d)
+    assert _rel(out, want_o) <= tol_q
+    for got, w, tol in zip((tq.grad, tk.grad, tv.grad), want,
+                           (tol_q, tol_kv, tol_kv)):
+        assert got.dtype == dtype
+        assert _rel(got, w) <= tol
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_bwd_f32_on_cpu_matches_the_jax_reference(d, causal):
+    """flash_bwd on f32 CPU tensors (the jnp branch's copy at 64, the
+    kernels' plain versions at 128 and 256) against the JAX package's
+    blockwise jnp backward, to 1e-5; Skv 1024 is two of its 512-row
+    blocks."""
+    q, k, v = _qkv(1, 2, 1024, d, seed=40 + d)
+    do = _rand((1, 2, 1024, d), 41)
+    scale = d ** -0.5
+    o, lse = jatt._fwd_with_lse_reference(*_j(q, k, v), causal=causal,
+                                          sm_scale=scale)
+    o, lse = np.array(o), np.array(lse)
+    want = jatt._flash_vjp_bwd(causal, None, 512, tuple(_j(q, k, v, o, lse)),
+                               jnp.asarray(do))
+    got = tatt.flash_bwd(*_t(q, k, v, o, lse, do), causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        _close(g, w)

@@ -6,12 +6,17 @@ directly. Then 4 gloo processes on the CPU run every mesh configuration
 below, each from the same global parameters and batch, and their loss,
 every gradient leaf (reassembled from the ranks' blocks) and one
 ``make_train_fns`` step are held against the JAX package under the same
-``MeshConfig`` on 4 of conftest's virtual CPU devices."""
+``MeshConfig`` on 4 of conftest's virtual CPU devices. Under two of
+those meshes (fsdp 4, fsdp 2 x tp 2) the ranks also save and restore a
+sharded checkpoint, held against what the JAX package writes and reads
+under the same ``MeshConfig``."""
 
 import concurrent.futures
+import filecmp
 import multiprocessing
 import os
 import queue
+import shutil
 import tempfile
 
 import jax
@@ -27,12 +32,15 @@ from ray_tpu.parallel import build_mesh as jbuild_mesh
 from ray_tpu.parallel import mesh as jmesh
 from ray_tpu.parallel import spec_for as jspec_for
 from ray_tpu.parallel.sharding import DEFAULT_RULES as JAX_RULES
+from ray_tpu.train import checkpointing as jckpt
 from ray_tpu.train import spmd as jspmd
 from ray_tpu_torch.models import llama as tl
 from ray_tpu_torch.parallel import (AXIS_NAMES, DEFAULT_RULES, MeshConfig,
                                     shard_batch, spec_for, tree_specs)
 from ray_tpu_torch.parallel import mesh as tmesh
 from ray_tpu_torch.parallel.sharding import shard_index
+from ray_tpu_torch.train import checkpointing as tckpt
+from ray_tpu_torch.train import spmd as tspmd
 
 import torch_parallel_worker
 
@@ -62,6 +70,13 @@ CONFIGS = {
     "pp2_fsdp2": (dict(pp=2, fsdp=2), dict(n_layers=4, max_seq=32), 4, 32),
     "ep2_dp2_moe": (dict(ep=2, dp=2), dict(n_experts=4, max_seq=32), 4, 32),
     "sp2_ep2_moe": (dict(sp=2, ep=2), dict(n_experts=4, max_seq=32), 2, 32),
+}
+# Checkpoint jobs of the same fixture: one step, then save_checkpoint and
+# restore_checkpoint under the mesh (the second also restores each
+# checkpoint under the other mesh, which must be refused).
+CKPT_CONFIGS = {
+    "ckpt_fsdp4": (dict(fsdp=4), dict(max_seq=32), 4, 32),
+    "ckpt_fsdp2_tp2": (dict(fsdp=2, tp=2), dict(max_seq=32), 4, 32),
 }
 
 
@@ -249,7 +264,7 @@ def _jax_reference(name, devices):
 
 
 def _tokens(name):
-    _, model_kw, batch, seq = CONFIGS[name]
+    _, model_kw, batch, seq = {**CONFIGS, **CKPT_CONFIGS}[name]
     vocab = jl.LlamaConfig.tiny(**model_kw).vocab_size
     return np.random.default_rng(len(name)).integers(
         0, vocab, (batch, seq)).astype(np.int32)
@@ -257,20 +272,29 @@ def _tokens(name):
 
 @pytest.fixture(scope="module")
 def runs(devices8):
-    return _run_all(list(CONFIGS), devices8[:WORLD])
+    ckpt_dir = tempfile.mkdtemp()
+    try:
+        yield _run_all(list(CONFIGS), devices8[:WORLD], ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
-def _run_all(names, devices):
-    """{config: (the 4 ranks' results, the JAX reference)}. The ranks run
-    while the parent computes the JAX side."""
+def _run_all(names, devices, ckpt_dir):
+    """{config: (the 4 ranks' results, the JAX reference)}, and
+    {checkpoint job: (the 4 ranks' results, None)}. The ranks run while
+    the parent computes the JAX side."""
     jobs = []
-    for name in names:
-        mesh_kw, model_kw, _, _ = CONFIGS[name]
+    for name in names + list(CKPT_CONFIGS):
+        mesh_kw, model_kw, _, _ = {**CONFIGS, **CKPT_CONFIGS}[name]
         params = jl.init_params(jl.LlamaConfig.tiny(**model_kw),
                                 jax.random.PRNGKey(0))
         jobs.append(dict(name=name, mesh=mesh_kw, model=model_kw,
                          tokens=_tokens(name),
                          params=jax.tree.map(np.asarray, params)))
+        if name in CKPT_CONFIGS:
+            jobs[-1].update(kind="ckpt", dir=os.path.join(ckpt_dir, name))
+    first, second = (j for j in jobs if j.get("kind") == "ckpt")
+    second["cross"] = (first["mesh"], first["dir"])
     mp = multiprocessing.get_context("spawn")
     results = mp.Queue()
     store = os.path.join(tempfile.mkdtemp(), "gloo_store")
@@ -285,8 +309,8 @@ def _run_all(names, devices):
         with concurrent.futures.ThreadPoolExecutor(4) as pool:
             ref = dict(zip(names, pool.map(
                 lambda name: _jax_reference(name, devices), names)))
-        got = {name: [] for name in names}
-        for _ in range(WORLD * len(names)):
+        got = {job["name"]: [] for job in jobs}
+        for _ in range(WORLD * len(jobs)):
             try:
                 rank, name, payload = results.get(timeout=WORKER_TIMEOUT_S)
             except queue.Empty:
@@ -303,7 +327,8 @@ def _run_all(names, devices):
             os.remove(store)
         os.rmdir(os.path.dirname(store))
     assert not any(p.is_alive() for p in procs)
-    return {name: (got[name], ref[name]) for name in names}
+    return {job["name"]: (got[job["name"]], ref.get(job["name"]))
+            for job in jobs}
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -369,3 +394,82 @@ def test_fsdp2_tp2_local_shapes_follow_the_rules(runs):
         assert shapes["embed"] == (V // 2, D // 2)
         assert shapes["lm_head"] == (D // 2, V // 2)
         assert shapes["final_norm"] == (D // 2,)
+
+
+# ---------------------------------------------------------------------------
+# sharded checkpoints on 4 ranks against the JAX package
+# ---------------------------------------------------------------------------
+
+def _nest(flat):
+    out = {}
+    for key, value in flat.items():
+        node = out
+        *head, last = key.split(".")
+        for part in head:
+            node = node.setdefault(part, {})
+        node[last] = value
+    return out
+
+
+def _jax_checkpoint(name, port_path, devices, directory):
+    """The JAX package's checkpoint of the port's saved state under the
+    same MeshConfig: each global leaf (assembled by the port's
+    load_checkpoint_host) put on the sharding of the JAX train state."""
+    mesh_kw, model_kw, _, _ = CKPT_CONFIGS[name]
+    ctx = JContext.create(JMeshConfig(**mesh_kw), devices=devices)
+    init, _ = jspmd.make_train_fns(jl.LlamaConfig.tiny(**model_kw), ctx)
+    target = init(jax.random.PRNGKey(1))
+    host = tckpt.load_checkpoint_host(port_path)
+    leaves = [jax.device_put(host[tckpt._port_name(n)].numpy(), leaf.sharding)
+              for n, leaf in jckpt._leaf_paths(target)]
+    state = jax.tree_util.tree_unflatten(
+        jax.tree_util.tree_structure(target), leaves)
+    return jckpt.save_checkpoint(directory, state, step=1), target
+
+
+@pytest.mark.parametrize("name", list(CKPT_CONFIGS))
+def test_checkpoint_matches_jax_on_4_ranks(runs, devices8, name, tmp_path):
+    """The ranks' union of files is, byte for byte, what the JAX package
+    writes under the same MeshConfig on 4 virtual devices; each rank
+    restores its own blocks, from its own checkpoint and from JAX's; JAX
+    restores the port's checkpoint to the same bits."""
+    ranks, _ = runs[name]
+    mesh_kw, model_kw, _, _ = CKPT_CONFIGS[name]
+    port_path = ranks[0]["path"]
+    assert all(r["path"] == port_path and r["restored_equal"] for r in ranks)
+    jax_ckpt, target = _jax_checkpoint(name, port_path, devices8[:WORLD],
+                                       str(tmp_path))
+    names = sorted(os.listdir(port_path))
+    assert names == sorted(os.listdir(jax_ckpt.path))
+    _, mismatch, errors = filecmp.cmpfiles(port_path, jax_ckpt.path, names,
+                                           shallow=False)
+    assert not mismatch and not errors
+    # every rank's blocks from the JAX-written checkpoint
+    cfg = tl.LlamaConfig.tiny(**model_kw)
+    for r in ranks:
+        coords = _Coords(mesh_kw, r["coord"])
+        like = _nest({tckpt._port_name(n): torch.zeros(b.shape,
+                                                       dtype=torch.float32
+                                                       if b.dtype == np.float32
+                                                       else torch.int32)
+                      for n, b in r["blocks"].items()})
+        got = tckpt.restore_checkpoint(jax_ckpt.path, like, ctx=coords,
+                                       specs=tspmd.state_shardings(cfg,
+                                                                   coords))
+        for n, leaf in tckpt._leaf_paths(got):
+            np.testing.assert_array_equal(leaf.numpy(), r["blocks"][n],
+                                          err_msg=n)
+    # and the JAX package restores the port's checkpoint
+    restored = jckpt.restore_checkpoint(port_path, target)
+    host = jckpt.load_checkpoint_host(jax_ckpt.path)
+    for n, leaf in jckpt._leaf_paths(restored):
+        np.testing.assert_array_equal(np.asarray(leaf), host[n], err_msg=n)
+        assert leaf.sharding == dict(jckpt._leaf_paths(target))[n].sharding
+
+
+def test_checkpoint_under_the_other_mesh_is_refused_on_4_ranks(runs):
+    """fsdp 4's checkpoint under fsdp 2 x tp 2 and the reverse: the block
+    keys are not in the manifest, and restore raises as the JAX package's
+    does."""
+    ranks, _ = runs["ckpt_fsdp2_tp2"]
+    assert all(r["refused"] == [True, True] for r in ranks)

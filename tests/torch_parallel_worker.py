@@ -4,9 +4,14 @@ Imports torch and the port only (no JAX), so each spawned child starts
 quickly. For every job it builds the job's ``ParallelContext``, takes the
 global parameters, keeps its blocks, and reports the loss, this rank's
 gradient blocks, one ``make_train_fns`` step and whether
-``state_from_jax`` keeps the same blocks back to the parent.
+``state_from_jax`` keeps the same blocks back to the parent. A checkpoint job ("kind": "ckpt") takes one step
+under its mesh, saves the state with ``save_checkpoint`` into the job's
+directory, restores it into a fresh state, and, when the job names
+another mesh's checkpoint ("cross"), checks that restoring either
+checkpoint under the other mesh is refused.
 """
 
+import os
 import traceback
 import types
 
@@ -16,6 +21,7 @@ import torch.distributed as dist
 
 from ray_tpu_torch.models import llama as tl
 from ray_tpu_torch.parallel import MeshConfig, ParallelContext, tree_shard
+from ray_tpu_torch.train import checkpointing as tckpt
 from ray_tpu_torch.train import spmd as tspmd
 
 
@@ -69,6 +75,48 @@ def _run_job(job):
                      for k, v in _flat(state["params"]).items()})
 
 
+def _leaves(tree):
+    return [leaf for _, leaf in tckpt._leaf_paths(tree)]
+
+
+def _refused(path, cfg, ctx):
+    """True when restoring ``path`` under ``ctx`` raises, as the JAX
+    package does, for a block key that its manifest does not list."""
+    init, _ = tspmd.make_train_fns(cfg, ctx)
+    try:
+        tckpt.restore_checkpoint(path, init(2), ctx=ctx,
+                                 specs=tspmd.state_shardings(cfg, ctx))
+    except FileNotFoundError as e:
+        return "has no shard" in str(e)
+    return False
+
+
+def _run_ckpt_job(job):
+    cfg = tl.LlamaConfig.tiny(**job["model"])
+    ctx = ParallelContext.create(MeshConfig(**job["mesh"]), device="cpu")
+    specs = tspmd.state_shardings(cfg, ctx)
+    init, step = tspmd.make_train_fns(cfg, ctx)
+    state, _ = step(init(job["params"]), torch.from_numpy(job["tokens"]))
+    path = tckpt.save_checkpoint(job["dir"], state, 1, ctx=ctx,
+                                 specs=specs).path
+    restored = tckpt.restore_checkpoint(path, init(1), ctx=ctx, specs=specs)
+    restored_equal = all(
+        torch.equal(a, b) and a.requires_grad == b.requires_grad
+        for a, b in zip(_leaves(restored), _leaves(state)))
+    refused = []
+    if job.get("cross"):
+        other_mesh, other_dir = job["cross"]
+        other = ParallelContext.create(MeshConfig(**other_mesh), device="cpu")
+        refused = [_refused(os.path.join(other_dir, "step-1"), cfg, ctx),
+                   _refused(path, cfg, other)]
+    return dict(
+        coord={a: ctx.rank(a) for a in ("pp", "dp", "fsdp", "ep", "sp",
+                                         "tp")},
+        path=path, restored_equal=restored_equal, refused=refused,
+        blocks={name: leaf.detach().numpy()
+                for name, leaf in tckpt._leaf_paths(state)})
+
+
 def run(rank, world, store_file, jobs, results):
     """Entry of one spawned rank: every job in order, results (or the
     traceback of the first failure) into the ``results`` queue."""
@@ -77,7 +125,8 @@ def run(rank, world, store_file, jobs, results):
         dist.init_process_group("gloo", init_method=f"file://{store_file}",
                                 rank=rank, world_size=world)
         for job in jobs:
-            results.put((rank, job["name"], _run_job(job)))
+            fn = _run_ckpt_job if job.get("kind") == "ckpt" else _run_job
+            results.put((rank, job["name"], fn(job)))
         dist.destroy_process_group()
     except Exception:  # report to the parent, which fails the test
         results.put((rank, "error", traceback.format_exc()))
