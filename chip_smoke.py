@@ -7,7 +7,8 @@ NVIDIA H100.
 Run from the root of the repository; it needs one CUDA card and builds the
 kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
 
-1. Build every kernel and print the seconds taken.
+1. Build every kernel (nvcc) and the runtime's host library (g++) side by
+   side, and print the seconds taken.
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes the serving path gives it (B1 H32 KVH8 D128 bf16, causal at the
    bucket widths 32..8192 and once non-causal; the f32 variant at two
@@ -15,9 +16,10 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    D] views, which the TMA maps read through their strides), at the ragged
    lengths 100 and 8000 (TMA zero-fills past the end), at the MoE step's
    S4096 (both layouts), and at the bench configuration's B8 H16 KVH16
-   S2048; the generic variants (f32 at head_dim 128 and 256, bf16 at 256)
-   at B1 H8 KVH2 S2048 and the ragged S1000, causal and not, and at the
-   shapes of their train-parity runs; time kernel, plain version, SDPA
+   S2048; the generic variants (f32 at head_dim 128 to 512, bf16 at 256
+   to 512) at B1 H8 KVH2 S2048 and the ragged S1000, causal and not, and
+   at the shapes of their train-parity runs (no ptxas spill allowed in the
+   384 and 512 instances); time kernel, plain version, SDPA
    (the library yardstick, never called by the port) and the roofline
    bound. Then head_dim 64 on the card: ``flash_fwd`` and ``flash_bwd``
    route to the JAX package's jnp branch and launch no kernel.
@@ -39,8 +41,9 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
 6. Train parity: one loss-and-gradient pass of Llama-3-8B at full width
    with 2 layers at S 2048, through the kernels and through the plain
    attention forward and backward, on the same weights and tokens; in
-   bf16 and in f32 compute, with 32 heads of 128 and with 16 heads of
-   256 (8 KV heads), so that each kernel variant runs inside a model.
+   bf16 and in f32 compute, with 32 heads of 128, 16 of 256, 8 of 512
+   and, at d_model 3072, 8 of 384, so that each kernel variant runs
+   inside a model.
 7. The training main path: ``make_train_fns`` on ``llama3_8b(n_layers=8)``
    (random f32 master weights from a seed), B1 x S8192, 2 warm-up and 5
    timed steps on one batch; the loss falls, each kernel is launched the
@@ -72,6 +75,19 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    from a checkpoint of parameters drawn from another seed than its own
    (``params_path``) must answer, through the flash kernel, as an engine
    on those parameters does, and not as phase 4 did.
+11. The distributed runtime: ``ray_tpu_torch.init()`` starts a controller
+   and a node agent, which advertises ``GPU`` by its own discovery (one,
+   the card count). An actor ``remote(num_gpus=1)``, pinned to the card
+   through ``CUDA_VISIBLE_DEVICES``, builds ``Engine`` on
+   ``llama3_8b(n_layers=4)`` (full width, random bf16 weights drawn on the
+   card from a seed) and serves phase 3's 8 prompts through its streaming
+   methods: 4 flash_fwd launches per prefill in the worker, a second
+   ``num_gpus=1`` actor pending until the first is killed, the 8 greedy
+   streams equal to an in-process engine's on the same seed's weights
+   (both submit all 8 at once), a 256 MB put/get bitwise. Cluster start,
+   actor spawn to ready (process, torch import, CUDA start, weights),
+   TTFT and decode rates through the actor and in process, and the
+   put/get GB/s are printed.
 
 Any mismatch raises and the script exits non-zero. The line before the last
 is the kernels' JSON; the last is ``{"ok": true, "device": {...}}``.
@@ -81,7 +97,8 @@ Details go to ``chiprun_out/chip_smoke.json``.
 
 builds the kernels and runs phase 2 alone (a quick check after a kernel
 edit), ``--only-bwd`` runs phase 5 alone in the same way, ``--only-moe``
-phase 9, ``--only-ckpt`` phases 4 and 10, and ``--only-ttft N``
+phase 9, ``--only-ckpt`` phases 4 and 10, ``--only-runtime`` phase 11,
+and ``--only-ttft N``
 measures idle TTFT alone (N requests per prompt length; run it from
 another tree's root to compare the two); none prints a result line.
 """
@@ -90,10 +107,12 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import glob
 import inspect
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -107,6 +126,10 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+import ray_tpu_torch
+from ray_tpu_torch import accelerators
+from ray_tpu_torch.core import object_store
+from ray_tpu_torch.core._native import graftrpc
 from ray_tpu_torch.models.llama import (LlamaConfig, flops_per_token,
                                         forward, forward_with_aux,
                                         init_params, loss_fn, param_count)
@@ -157,10 +180,14 @@ FWD_CASES = [(1, 32, 8, S, True, BF16, "dense") for S in ATTN_WIDTHS] + [
 # The generic kernel variants (every dtype and head_dim but bf16 D128), in
 # phases 2 and 5: at B1 H8 KVH2, S2048 and the ragged S1000, causal and not,
 # and at the shape the train-parity path of their dtype and head_dim gives
-# them (``PARITY_RUNS``: B1 H32 KVH8 D128, B1 H16 KVH8 D256, S2048 causal).
+# them (``PARITY_RUNS``: B1 H32 KVH8 D128, B1 H16 KVH8 D256, B1 H8 KVH4
+# D384 and D512, S2048 causal).
 VARIANTS = (("f32_d128", 128, F32), ("f32_d256", 256, F32),
-            ("bf16_d256", 256, BF16))
-VARIANT_MAIN = {128: (1, 32, 8), 256: (1, 16, 8)}  # B, H, KVH
+            ("bf16_d256", 256, BF16), ("f32_d384", 384, F32),
+            ("bf16_d384", 384, BF16), ("f32_d512", 512, F32),
+            ("bf16_d512", 512, BF16))
+VARIANT_MAIN = {128: (1, 32, 8), 256: (1, 16, 8), 384: (1, 8, 4),
+                512: (1, 8, 4)}  # B, H, KVH
 VARIANT_CASES = [(name, D, dt, 1, 8, 2, S, causal)
                  for name, D, dt in VARIANTS for S in (2048, 1000)
                  for causal in (True, False)] + [
@@ -216,14 +243,24 @@ PARITY_GRAD_REL_L2 = 5e-2
 # on at that size.
 PARITY_F32_LOSS_RTOL = 1e-5
 PARITY_F32_GRAD_REL_L2 = 1e-4
-# The train-parity runs, one per kernel variant that a model at full width
-# reaches (phase 6; label, llama3_8b overrides): bf16 at head_dim 128 (the
-# main path's variant), Llama-3-8B's width with 16 heads of 256 (8 KV heads,
-# groups of 2) in bf16 and in f32 compute, and the preset in f32 compute.
+# The train-parity runs, one per kernel variant (phase 6; label, llama3_8b
+# overrides): bf16 at head_dim 128 (the main path's variant), Llama-3-8B's
+# width with 16 heads of 256 (8 KV heads, groups of 2) in bf16 and in f32
+# compute, the preset in f32 compute, and 8 heads of 512 (4 KV heads) at
+# its width and of 384 at d_model 3072 (4096 is no multiple of 384), in
+# both: no preset has a head of 256 or more, so these are the only model
+# paths that reach those variants.
 PARITY_RUNS = (("bf16_d128", dict(n_layers=2)),
                ("bf16_d256", dict(n_layers=2, n_heads=16)),
                ("f32_d128", dict(n_layers=2, dtype=F32)),
-               ("f32_d256", dict(n_layers=2, n_heads=16, dtype=F32)))
+               ("f32_d256", dict(n_layers=2, n_heads=16, dtype=F32)),
+               ("bf16_d384", dict(n_layers=2, d_model=3072, n_heads=8,
+                                  n_kv_heads=4)),
+               ("f32_d384", dict(n_layers=2, d_model=3072, n_heads=8,
+                                 n_kv_heads=4, dtype=F32)),
+               ("bf16_d512", dict(n_layers=2, n_heads=8, n_kv_heads=4)),
+               ("f32_d512", dict(n_layers=2, n_heads=8, n_kv_heads=4,
+                                 dtype=F32)))
 PARITY_SEQ = 2048
 TRAIN_SEQ = 8192
 TRAIN_LAYERS = 8
@@ -304,6 +341,25 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def ptxas_spills(text: str) -> dict:
+    """{kernel (mangled name): (spill store bytes, spill load bytes)} from
+    an ``nvcc -Xptxas -v`` report: each "Function properties for <name>"
+    line is followed by its "... bytes spill stores, ... bytes spill
+    loads" line."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name] = (int(m.group(1)), int(m.group(2)))
+            name = None
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -379,7 +435,11 @@ def phase_reference_route(card: str) -> dict:
     JAX package's jnp branch (``attention_route``), launch no kernel, and
     give what that branch gives when called itself."""
     check(attention_route(64) == "reference"
-          and attention_route(256) == "kernel", "attention_route")
+          and all(attention_route(d) == "kernel" for d in (256, 384, 512)),
+          "attention_route")
+    with contextlib.suppress(ValueError):
+        attention_route(640)
+        raise AssertionError("attention_route(640) did not raise")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     q, k, v, do = (_attn_input(1, h, 1000, 64, gen, BF16, "dense")
                    for h in (8, 2, 2, 8))
@@ -1189,6 +1249,290 @@ def phase_checkpoint(card: str, server_resp: dict) -> dict:
         shutil.rmtree(directory, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the distributed runtime on the card, Llama-3-8B from a GPU actor
+# ---------------------------------------------------------------------------
+
+# Full width, depth cut 32 -> 4: phase 3 serves the full depth in process;
+# here the weights (3.9 GB) are made inside a worker process.
+RUNTIME_LAYERS = 4
+RUNTIME_ENGINE = dict(n_slots=8, decode_chunk=8, page_size=64)
+RUNTIME_PUT_BYTES = 256 * 2**20
+
+
+class RuntimeEngineActor:
+    """The port's ``Engine`` on ``llama3_8b(n_layers=RUNTIME_LAYERS)``
+    inside a ``num_gpus=1`` actor, on random bf16 weights drawn on the card
+    by a generator seeded with ``seed``. One async method makes the actor
+    async, so each streaming call gets its own producer thread and the
+    requests share the engine's continuous batching. Imports are local:
+    the class unpickles in the worker without torch, and ``__init__`` times
+    the torch import, CUDA's start and the weights."""
+
+    def __init__(self, seed, n_layers, engine_kw, allow_tf32):
+        t = {"init": time.time()}
+        import torch
+        t["torch_imported"] = time.time()
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        t["cuda_ready"] = time.time()
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+        torch.backends.cudnn.allow_tf32 = allow_tf32
+        from ray_tpu_torch.models.llama import LlamaConfig, init_params
+        from ray_tpu_torch.serve.engine import Engine
+        cfg = LlamaConfig.llama3_8b(n_layers=n_layers,
+                                    param_dtype=torch.bfloat16)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        self.eng = Engine(init_params(cfg, gen, device="cuda"), cfg,
+                          **engine_kw)
+        torch.cuda.synchronize()
+        t["weights_ready"] = time.time()
+        self.times = t
+
+    async def ready(self) -> dict:
+        import os
+        import torch
+        from ray_tpu_torch.core._native import graftrpc
+        return dict(times=self.times, pid=os.getpid(),
+                    cuda_visible_devices=os.environ.get(
+                        "CUDA_VISIBLE_DEVICES"),
+                    device_count=torch.cuda.device_count(),
+                    device_name=torch.cuda.get_device_name(0),
+                    graftrpc=graftrpc.available(),
+                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    def generate(self, ids, max_tokens):
+        """One request, streamed chunk by chunk as the engine emits it."""
+        stream = self.eng.submit(ids, max_tokens)
+        while (item := stream.get(timeout=600)) is not None:
+            yield [int(x) for x in item]
+
+    def launches(self, reset: bool = False) -> tuple:
+        from ray_tpu_torch.ops.attention import flash_fwd
+        out = (flash_fwd.launches, dict(flash_fwd.launches_by_variant))
+        if reset:
+            flash_fwd.launches = 0
+            flash_fwd.launches_by_variant.clear()
+        return out
+
+    def digest(self, arr) -> str:
+        import hashlib
+        return hashlib.sha256(memoryview(arr).cast("B")).hexdigest()
+
+    def stop(self):
+        self.eng.stop()
+        return None if self.eng.error is None else repr(self.eng.error)
+
+
+class RuntimeProbe:
+    """A second ``num_gpus=1`` actor: which device it was given."""
+
+    async def gpus(self):
+        import os
+        return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+
+class _ActorStream:
+    """A streaming actor call read as an ``Engine`` stream: ``get`` gives
+    the next chunk, then None."""
+
+    def __init__(self, gen):
+        self._it = iter(gen)
+
+    def get(self, timeout=None):
+        ref = next(self._it, None)
+        return None if ref is None else ray_tpu_torch.get(ref, timeout=timeout)
+
+
+class _ActorEngine:
+    """The actor behind ``submit``, so the phase-3 drivers
+    (``_run_concurrent``, ``_ttft_idle``) time it as they time an
+    ``Engine``."""
+
+    error = None
+
+    def __init__(self, actor):
+        self.actor = actor
+
+    def submit(self, ids, max_tokens, **kw):
+        check(not kw, f"the actor serves greedy requests only, got {kw}")
+        return _ActorStream(self.actor.generate.options(
+            num_returns="streaming").remote(ids, max_tokens))
+
+
+def _local_launches(reset: bool) -> tuple:
+    out = (flash_fwd.launches, dict(flash_fwd.launches_by_variant))
+    if reset:
+        _reset_launch_counts()
+    return out
+
+
+def _serve_and_time(eng, cfg, label: str, card: str, launches) -> tuple:
+    """The main path: 8 concurrent greedy requests (phase 3's prompts),
+    with the flash_fwd launches of the process that runs the engine zeroed
+    just before and read just after (``launches(reset)``); then idle TTFT
+    and decode rates. On an ``Engine`` or an actor behind
+    ``_ActorEngine``. Returns (numbers, the 8 streams)."""
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+    launches(True)
+    t = time.perf_counter()
+    res = _run_concurrent(eng, [(p, MAX_TOKENS, {}) for p in prompts])
+    burst_s = time.perf_counter() - t
+    n, by_variant = launches(True)
+    check(n == RUNTIME_LAYERS * len(prompts)
+          and by_variant == {"bf16_d128": n},
+          f"{label}: flash_fwd launched {n} times ({by_variant}), expected "
+          f"{RUNTIME_LAYERS} per prefill x {len(prompts)}")
+    streams = [toks for _, _, toks in res]
+    for i, toks in enumerate(streams):
+        check(len(toks) == MAX_TOKENS and all(
+            0 <= x < cfg.vocab_size for x in toks),
+            f"{label}: request {i} streamed {len(toks)} tokens")
+    ttft = [times[0][0] - t0 for t0, times, _ in res]
+    rng = np.random.default_rng(SEED + 11)
+    idle = _ttft_idle(eng, cfg, rng, TTFT_REPEATS)
+    long_jobs = [(rng.integers(0, cfg.vocab_size, 128).tolist(), 129, {})
+                 for _ in range(8)]
+    rate1 = _decode_rate(_run_concurrent(eng, long_jobs[:1]))
+    rate8 = _decode_rate(_run_concurrent(eng, long_jobs))
+    out = dict(launches=n, burst_s=burst_s, ttft_burst_s=ttft,
+               ttft_idle_s={n: statistics.median(v) for n, v in idle.items()},
+               ttft_idle_all_s=idle, decode_tok_s_1=rate1,
+               decode_tok_s_8=rate8)
+    log(f"RUNTIME {label}: flash_fwd launches {n} in the 8-request burst "
+        f"({burst_s:.2f} s), TTFT idle median "
+        f"{out['ttft_idle_s'][100] * 1e3:.1f} ms (prompt 100), "
+        f"{out['ttft_idle_s'][2000] * 1e3:.1f} ms (2000); decode tok/s 1 "
+        f"stream {rate1:.1f}, 8 streams {rate8:.1f}  [{card}]")
+    return out, streams
+
+
+def phase_runtime(card: str) -> dict:
+    """``ray_tpu_torch.init()`` on this host, an engine actor holding the
+    card by ``num_gpus=1``, a second such actor pending until the first is
+    killed, the actor's streams against an in-process engine on the same
+    seed's weights, and a 256 MB put/get."""
+    torch.cuda.empty_cache()
+    check(graftrpc.available(), "graftrpc's native plane is not available "
+          "in this process")
+    t = time.perf_counter()
+    ray_tpu_torch.init()
+    start_s = time.perf_counter() - t
+    try:
+        return _phase_runtime(card, start_s)
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+def _phase_runtime(card: str, start_s: float) -> dict:
+    res = ray_tpu_torch.cluster_resources()
+    seen = {k: os.environ.get(k) for k in ("CUDA_VISIBLE_DEVICES",
+                                            "NVIDIA_VISIBLE_DEVICES")}
+    log(f"RUNTIME cluster up in {start_s:.3f} s, resources {res}, {seen}, "
+        f"device files {sorted(glob.glob('/dev/nvidia[0-9]*'))}  [{card}]")
+    check(res.get("GPU") == torch.cuda.device_count(),
+          f"the agent advertises GPU {res.get('GPU')}, the card count is "
+          f"{torch.cuda.device_count()}")
+    pinned = accelerators.worker_env_for_gpus([0])["CUDA_VISIBLE_DEVICES"]
+    cfg = LlamaConfig.llama3_8b(n_layers=RUNTIME_LAYERS,
+                                param_dtype=torch.bfloat16)
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+
+    # -- the engine actor: spawn to ready --
+    t_spawn = time.time()
+    actor = ray_tpu_torch.remote(num_gpus=1)(RuntimeEngineActor).remote(
+        SEED, RUNTIME_LAYERS, RUNTIME_ENGINE, allow_tf32)
+    info = ray_tpu_torch.get(actor.ready.remote(), timeout=600)
+    t_ready = time.time()
+    tm = info["times"]
+    spawn = dict(total_s=t_ready - t_spawn,
+                 process_and_register_s=tm["init"] - t_spawn,
+                 torch_import_s=tm["torch_imported"] - tm["init"],
+                 cuda_init_s=tm["cuda_ready"] - tm["torch_imported"],
+                 weights_and_engine_s=tm["weights_ready"] - tm["cuda_ready"])
+    log(f"RUNTIME actor spawn to ready: {json.dumps(spawn)}; "
+        f"{json.dumps({k: v for k, v in info.items() if k != 'times'})}  "
+        f"[{card}]")
+    check(info["cuda_visible_devices"] == pinned and info["device_count"] == 1
+          and info["device_name"] == torch.cuda.get_device_name(0),
+          f"the actor sees CUDA_VISIBLE_DEVICES="
+          f"{info['cuda_visible_devices']!r} ({info['device_count']} "
+          f"devices), expected the pinned {pinned!r}")
+    check(info["graftrpc"], "graftrpc's native plane is not available in "
+          "the actor")
+
+    # -- the main path: 8 requests through the actor's methods --
+    timed, streams = _serve_and_time(
+        _ActorEngine(actor), cfg, "through the actor", card,
+        lambda reset: ray_tpu_torch.get(actor.launches.remote(reset)))
+
+    # -- put/get of 256 MB, here and into the actor --
+    arr = np.random.default_rng(SEED + 12).integers(
+        0, 2**63 - 1, RUNTIME_PUT_BYTES // 8, dtype=np.int64)
+    t = time.perf_counter()
+    ref = ray_tpu_torch.put(arr)
+    put_s = time.perf_counter() - t
+    t = time.perf_counter()
+    back = ray_tpu_torch.get(ref)
+    get_s = time.perf_counter() - t
+    bitwise = bool(np.array_equal(back, arr))
+    t = time.perf_counter()
+    digest = ray_tpu_torch.get(actor.digest.remote(ref), timeout=300)
+    actor_get_s = time.perf_counter() - t
+    import hashlib
+    want_digest = hashlib.sha256(memoryview(arr).cast("B")).hexdigest()
+    gb = arr.nbytes / 1e9
+    put_get = dict(bytes=arr.nbytes, put_s=put_s, get_s=get_s,
+                   put_gb_s=gb / put_s, get_gb_s=gb / get_s,
+                   actor_get_and_hash_s=actor_get_s, bitwise=bitwise,
+                   actor_digest_equal=digest == want_digest)
+    log(f"RUNTIME put/get 256 MB: {json.dumps(put_get)}  [{card}]")
+    check(bitwise and digest == want_digest, "256 MB put/get did not "
+          "round-trip bitwise")
+    del arr, back, ref
+
+    # -- a second GPU actor waits while the first holds the card, and is
+    # placed on the freed card once the first dies. The controller keeps
+    # retrying a pending actor for about 12 s (60 tries, 0.2 s apart, as
+    # the JAX package's controller does), then declares it dead, so the
+    # first is killed well inside that. --
+    err = ray_tpu_torch.get(actor.stop.remote(), timeout=120)
+    check(err is None, f"the actor's engine failed: {err}")
+    probe = ray_tpu_torch.remote(num_gpus=1)(RuntimeProbe).remote()
+    probe_ref = probe.gpus.remote()
+    ready, _ = ray_tpu_torch.wait([probe_ref], timeout=3)
+    check(ready == [], "a second num_gpus=1 actor was placed while the "
+          "first held the only GPU")
+    ray_tpu_torch.kill(actor)
+    got = ray_tpu_torch.get(probe_ref, timeout=300)
+    check(got == pinned, f"the second actor got CUDA_VISIBLE_DEVICES="
+          f"{got!r}, expected {pinned!r}")
+    ray_tpu_torch.kill(probe)
+
+    # -- the same requests on an in-process engine, same seed's weights --
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    eng = Engine(init_params(cfg, gen, device="cuda"), cfg, **RUNTIME_ENGINE)
+    try:
+        local, local_streams = _serve_and_time(eng, cfg, "in process", card,
+                                               _local_launches)
+    finally:
+        eng.stop()
+    check(eng.error is None, f"engine error: {eng.error}")
+    same = [a == b for a, b in zip(streams, local_streams)]
+    log(f"RUNTIME actor streams equal to the in-process engine's: {same}")
+    check(all(same), f"the actor's greedy streams differ from the "
+          f"in-process engine's: {same}")
+    del eng
+    torch.cuda.empty_cache()
+    return dict(cluster_start_s=start_s, resources=res, pinned=pinned,
+                actor=info, spawn=spawn, launches=timed["launches"],
+                launches_per_prefill=timed["launches"] / len(PROMPT_LENS),
+                streams_equal=same, through_actor=timed, in_process=local,
+                put_get=put_get, card=card)
+
+
 def _variant_entries(rows, bwd_rows, parity) -> list:
     """The kernels line's entries of the generic variants: launches from
     their train-parity run (the path that reaches them), times at that
@@ -1241,6 +1585,8 @@ def main() -> int:
                     help="build the kernels and run phase 9 only")
     ap.add_argument("--only-ckpt", action="store_true",
                     help="build the kernels and run phases 4 and 10 only")
+    ap.add_argument("--only-runtime", action="store_true",
+                    help="build the kernels and run phase 11 only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1251,14 +1597,42 @@ def main() -> int:
     log(f"CARD {torch.cuda.get_device_name(0)} | {card} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
 
+    # The runtime's host library (g++) builds beside the kernels (nvcc).
+    host = {}
+
+    def build_host():
+        t0 = time.perf_counter()
+        object_store._get_lib()
+        host["s"] = time.perf_counter() - t0
+
+    host_build = threading.Thread(target=build_host)
     t = time.perf_counter()
+    host_build.start()
     _build.build_all()
     build_s = time.perf_counter() - t
-    log(f"BUILD {_build.sources()} in {build_s:.2f} s")
+    host_build.join()
+    check("s" in host, "the runtime's host library did not build")
+    log(f"BUILD {_build.sources()} in {build_s:.2f} s; the runtime's host "
+        f"library {os.path.basename(object_store._LIB_PATH)} in "
+        f"{host['s']:.2f} s, beside them")
     for name, text in _build.build_log.items():
         for line in text.splitlines():
             if any(w in line for w in BUILD_REPORT):
                 log(f"BUILD {name}: {line.strip()}")
+    # The generic variants at head_dim 384 and 512 hold D/4 (forward) or
+    # 2 D/8 (dK/dV) f32 accumulators per thread, near the register limit:
+    # a spill there is a defect, not a slowdown to accept.
+    spills = {k: v for text in _build.build_log.values()
+              for k, v in ptxas_spills(text).items()}
+    wide = {k: v for k, v in spills.items()
+            if "generic" in k and re.search(r"Li(384|512)E", k)}
+    log(f"BUILD spills (store, load bytes) of the D384/D512 variants: "
+        f"{json.dumps(wide)}")
+    check(len(wide) == 12 or len(_build.build_log) < len(_build.sources()),
+          f"expected 12 D384/D512 generic instances in the ptxas report, "
+          f"got {sorted(wide)}")
+    check(all(v == (0, 0) for v in wide.values()),
+          f"ptxas spills in the D384/D512 variants: {wide}")
 
     if args.only_ttft:
         phase_ttft_only(card, args.only_ttft)
@@ -1272,6 +1646,9 @@ def main() -> int:
     if args.only_ckpt:
         phase_checkpoint(card, phase_llm_server())
         return 0
+    if args.only_runtime:
+        phase_runtime(card)
+        return 0
     rows = phase_kernels(card)
     route = phase_reference_route(card)
     if args.only_kernels:
@@ -1284,6 +1661,7 @@ def main() -> int:
     bench = phase_train_bench(card)
     moe = phase_moe(card)
     ckpt = phase_checkpoint(card, server)
+    runtime = phase_runtime(card)
 
     main_row = next(r for r in rows if r["shape"] == "B1 H32 KVH8 S8192 D128"
                     and r["causal"] and r["layout"] == "dense")
@@ -1296,7 +1674,8 @@ def main() -> int:
         bound_by=main_row["bound_by"], library_ms=main_row["library_ms"],
         shape=main_row["shape"] + " causal bf16",
         launches_train=train["launches"]["flash_fwd"],
-        launches_moe_train=moe["train"]["launches"]["flash_fwd"])]
+        launches_moe_train=moe["train"]["launches"]["flash_fwd"],
+        launches_runtime_actor=runtime["launches"])]
     bwd_main = next(r for r in bwd_rows
                     if r["shape"] == "B1 H32 KVH8 S8192 D128" and r["causal"]
                     and r["layout"] == "dense")
@@ -1320,7 +1699,7 @@ def main() -> int:
                        engine=engine, bwd_rows=bwd_rows, train_parity=parity,
                        train=train, train_bench=bench, moe=moe,
                        reference_route=route, checkpoint=ckpt,
-                       kernels=kernels), f,
+                       runtime=runtime, kernels=kernels), f,
                   indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

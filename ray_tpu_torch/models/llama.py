@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ray_tpu_torch import DeviceLike, resolve_device
+from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.moe import moe_ffn
 from ray_tpu_torch.ops.norms import apply_rope, rms_norm, rope_frequencies

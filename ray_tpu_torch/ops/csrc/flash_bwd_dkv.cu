@@ -56,7 +56,7 @@
 //     [B, S, heads, D] views load without a copy; TMA zero-fills rows past
 //     Sq and Skv, and the stores are guarded by row < Skv.
 // That kernel serves bf16 at head_dim 128. A generic variant (at the end of
-// this file) serves f32 at head_dim 128 and 256 and bf16 at 256, with P
+// this file) serves f32 at head_dim 128 to 512 and bf16 at 256 to 512, with P
 // and dS rounded to the input dtype as the Pallas kernel rounds them.
 
 #include <math.h>
@@ -340,16 +340,16 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// Generic variant: f32 at D = 128 and 256, bf16 at D = 256 (everything but
-// bf16 D = 128, which the wgmma kernel above serves). The same function on
-// the CUDA cores: one block of 128 threads per (b, KV head, 16 KV rows),
-// walking the group's query heads and their 32-row q tiles as the kernel
-// above does, with K, V, Q, dO as f32 tiles in dynamic shared memory (104 KB
-// at D = 256). Each thread holds 4 entries of P^T and dS^T (KV row tid / 8,
-// q columns tid % 8 + 8i; P rounded to v's dtype, dS to q's) and an eighth
-// of its KV row's dK and dV columns as interleaved float4s, in f32 registers
-// for the whole loop, so the group's query heads are summed in f32 with no
-// atomics. Bound by shared-memory reads, not by the FMA rate; simple first.
+// Generic variant: f32 at D = 128 to 512, bf16 at D = 256 to 512 (all but bf16
+// D = 128, which the wgmma kernel above serves). The same function on the CUDA
+// cores: one block of 128 threads per (b, KV head, 16 KV rows), walking the
+// group's query heads and their 32-row q tiles as the kernel above does, with
+// K, V, Q, dO as f32 tiles in dynamic shared memory (104 KB at D = 256, 198 KB
+// at 512). Each thread holds 4 entries of P^T and dS^T (KV row tid / 8, q
+// columns tid % 8 + 8i; P rounded to v's dtype, dS to q's) and an eighth of its
+// KV row's dK and dV columns as interleaved float4s, in f32 registers for the
+// whole loop, so the group's query heads are summed in f32 with no atomics.
+// Bound by shared-memory reads, not by the FMA rate; simple first.
 // ---------------------------------------------------------------------------
 
 constexpr int kGBKV = 16;  // KV rows per block, 8 threads per row
@@ -503,16 +503,30 @@ int launch_generic(const flash::BwdParams& p, int B, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Picks the generic instance by D (a multiple of kD up to 4 kD, checked by
+// the caller) and dtype; bf16 at D = kD is the wgmma kernel's.
+int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
+                     cudaStream_t st) {
+  if (dtype == 1) {
+    if (D == 2 * kD) return launch_generic<bf16, 2 * kD>(p, B, st);
+    if (D == 3 * kD) return launch_generic<bf16, 3 * kD>(p, B, st);
+    return launch_generic<bf16, 4 * kD>(p, B, st);
+  }
+  if (D == kD) return launch_generic<float, kD>(p, B, st);
+  if (D == 2 * kD) return launch_generic<float, 2 * kD>(p, B, st);
+  if (D == 3 * kD) return launch_generic<float, 3 * kD>(p, B, st);
+  return launch_generic<float, 4 * kD>(p, B, st);
+}
+
 }  // namespace
 
-// q/dO [B, H, Sq, D] and k/v [B, KVH, Skv, D] given by element strides
-// (batch, head, seq; the last dim dense, every stride and base address a
-// multiple of 16 bytes, as TMA and the 16-byte loads require); lse and delta
-// [B, H, Sq] f32 and dk/dv [B, KVH, Skv, D] dense, in the inputs' dtype. D
-// is 128 or 256; dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 runs the
-// wgmma kernel, every other case the generic variant. Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape or
-// layout the kernels do not take).
+// q/dO [B, H, Sq, D] and k/v [B, KVH, Skv, D] given by element strides (batch,
+// head, seq; the last dim dense, every stride and base address a multiple of 16
+// bytes, as TMA and the 16-byte loads require); lse and delta [B, H, Sq] f32
+// and dk/dv [B, KVH, Skv, D] dense, in the inputs' dtype. D is 128, 256, 384 or
+// 512; dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 runs the wgmma kernel,
+// every other case the generic variant. Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for a shape or layout the kernels do not take).
 extern "C" int ray_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, long long q_sb,
@@ -521,7 +535,7 @@ extern "C" int ray_flash_bwd_dkv(
     long long o_sb, long long o_sh, long long o_ss, int B, int H, int KVH,
     int Sq, int Skv, int D, float scale, int causal, int dtype,
     void* stream) {
-  if ((D != kD && D != 2 * kD) || B < 1 || H < 1 || KVH < 1 ||
+  if (D % kD != 0 || D < kD || D > 4 * kD || B < 1 || H < 1 || KVH < 1 ||
       H % KVH != 0 || Sq < 1 || Skv < 1 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -531,9 +545,7 @@ extern "C" int ray_flash_bwd_dkv(
         static_cast<const float*>(delta), dk, dv,
         q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
         o_sb, o_sh, o_ss, H,    KVH,  Sq,   Skv,  scale, causal};
-    if (dtype == 1) return launch_generic<bf16, 2 * kD>(p, B, st);
-    if (D == kD) return launch_generic<float, kD>(p, B, st);
-    return launch_generic<float, 2 * kD>(p, B, st);
+    return launch_generic_d(p, D, dtype, B, st);
   }
   CUtensorMap tq, tk, tv, tdo;
   if (!flash::make_bhsd_map(&tq, q, B, H, Sq, q_sb, q_sh, q_ss, kBQ) ||

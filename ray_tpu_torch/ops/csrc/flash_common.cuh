@@ -100,7 +100,7 @@ __device__ __forceinline__ void mma_rs(float (&acc)[64],
 }
 
 // ---------------------------------------------------------------------------
-// The generic variants (f32 at D = 128 and 256, bf16 at D = 256): scalar
+// The generic variants (f32 at D = 128 to 512, bf16 at D = 256 to 512): scalar
 // FMAs on the CUDA cores over f32 tiles in dynamic shared memory. Inputs are
 // read 4 elements at a time (16 bytes of f32, 8 of bf16: the wrappers'
 // layout check keeps rows 16-byte aligned) and widened to f32; P and dS are

@@ -50,8 +50,8 @@
 //   * The tensor maps are 4-D {D, S, heads, batch} built from the element
 //     strides the caller passes, so q/k from apply_rope (dense BHSD) and v
 //     as the transpose of a [B, S, KVH, D] view load without a copy.
-// A generic scalar-FMA variant serves f32 (D = 128 and 256) and bf16 at
-// D = 256.
+// A generic scalar-FMA variant serves f32 (D = 128, 256, 384, 512) and
+// bf16 at D = 256, 384 and 512.
 
 #include <math.h>
 
@@ -439,17 +439,17 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// Generic variant: f32 at D = 128 and 256, bf16 at D = 256 (everything but
-// bf16 D = 128, which the wgmma kernel above serves). Scalar FMAs on the
-// CUDA cores over f32 tiles in dynamic shared memory (D = 256 needs 69 KB,
-// above the 48 KB of static memory): 32 q rows per block, 4 threads per row,
-// 16-row KV tiles, the same online softmax with P rounded to the input dtype
-// before P V. Each thread takes 4 scores of its row (columns c, c + 4, ...)
-// and a quarter of O's columns as interleaved float4s, so a warp's shared
+// Generic variant: f32 at D = 128 to 512, bf16 at D = 256 to 512 (all but bf16
+// D = 128, which the wgmma kernel above serves). Scalar FMAs on the CUDA cores
+// over f32 tiles in dynamic shared memory (D = 256 needs 69 KB, above the 48 KB
+// of static memory, and D = 512 131 KB): 32 q rows per block, 4 threads per
+// row, 16-row KV tiles, the same online softmax with P rounded to the input
+// dtype before P V. Each thread takes 4 scores of its row (columns c, c + 4,
+// ...) and a quarter of O's columns as interleaved float4s, so a warp's shared
 // loads fall in distinct banks. It is bound by shared-memory reads (5 float4
-// loads per 16 FMAs of the scores, 1 per 4 of P V), well below the 67
-// TFLOP/s of the f32 FMA units; simple first, as the serving and training
-// paths run bf16 D = 128.
+// loads per 16 FMAs of the scores, 1 per 4 of P V), well below the 67 TFLOP/s
+// of the f32 FMA units; simple first, as the serving and training paths run
+// bf16 D = 128.
 // ---------------------------------------------------------------------------
 
 constexpr int kGBM = 32;  // q rows per block, 4 threads per row
@@ -578,6 +578,21 @@ int launch_generic(const Params& p, int B, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Picks the generic instance by D (a multiple of kD up to 4 kD, checked by
+// the caller) and dtype; bf16 at D = kD is the wgmma kernel's.
+int launch_generic_d(const Params& p, int D, int dtype, int B,
+                     cudaStream_t st) {
+  if (dtype == 1) {
+    if (D == 2 * kD) return launch_generic<bf16, 2 * kD>(p, B, st);
+    if (D == 3 * kD) return launch_generic<bf16, 3 * kD>(p, B, st);
+    return launch_generic<bf16, 4 * kD>(p, B, st);
+  }
+  if (D == kD) return launch_generic<float, kD>(p, B, st);
+  if (D == 2 * kD) return launch_generic<float, 2 * kD>(p, B, st);
+  if (D == 3 * kD) return launch_generic<float, 3 * kD>(p, B, st);
+  return launch_generic<float, 4 * kD>(p, B, st);
+}
+
 }  // namespace
 
 // The bf16 launch: tensor maps over q, k, v (4-D {D, S, heads, batch},
@@ -604,8 +619,8 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 // q [B, H, Sq, D], k/v [B, KVH, Skv, D] given by element strides (batch,
 // head, seq; the last dim dense); o [B, H, Sq, D] and lse [B, H, Sq] dense.
-// D is 128 or 256; dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 runs
-// the wgmma kernel, every other case the generic variant. Returns
+// D is 128, 256, 384 or 512; dtype: 0 = float32, 1 = bfloat16. bf16 at
+// D = 128 runs the wgmma kernel, every other case the generic variant. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape or
 // layout the kernels do not take: every stride and the base addresses must
 // be multiples of 16 bytes, as TMA and the 16-byte loads require).
@@ -616,7 +631,7 @@ extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
                              long long v_sh, long long v_ss, int B, int H,
                              int KVH, int Sq, int Skv, int D, float scale,
                              int causal, int dtype, void* stream) {
-  if ((D != kD && D != 2 * kD) || B < 1 || H < 1 || KVH < 1 ||
+  if (D % kD != 0 || D < kD || D > 4 * kD || B < 1 || H < 1 || KVH < 1 ||
       H % KVH != 0 || Sq < 1 || Skv < 1 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -630,7 +645,5 @@ extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
   const Params p{q,    k,    v,    o,    static_cast<float*>(lse),
                  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                  H,    KVH,  Sq,   Skv,  scale, causal};
-  if (dtype == 1) return launch_generic<bf16, 2 * kD>(p, B, st);
-  if (D == kD) return launch_generic<float, kD>(p, B, st);
-  return launch_generic<float, 2 * kD>(p, B, st);
+  return launch_generic_d(p, D, dtype, B, st);
 }

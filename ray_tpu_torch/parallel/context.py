@@ -11,7 +11,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from ray_tpu_torch import DeviceLike, resolve_device
+from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.parallel.mesh import AXIS_NAMES, MeshConfig, build_mesh
 from ray_tpu_torch.parallel.sharding import DEFAULT_RULES, MeshAxes, batch_spec
 

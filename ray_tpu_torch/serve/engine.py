@@ -48,7 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ray_tpu_torch import DeviceLike, resolve_device
+from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.norms import apply_rope, rms_norm, rope_frequencies
 

@@ -24,7 +24,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from ray_tpu_torch import DeviceLike, resolve_device
+from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.models.llama import LlamaConfig, init_params
 from ray_tpu_torch.serve.engine import Engine
 from ray_tpu_torch.train.checkpointing import load_checkpoint_host

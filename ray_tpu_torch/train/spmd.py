@@ -24,7 +24,7 @@ import numpy as np
 import torch
 from torch.optim.adamw import adamw
 
-from ray_tpu_torch import DeviceLike, resolve_device
+from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.parallel.comm import all_reduce_nograd
 from ray_tpu_torch.parallel.context import ParallelContext

@@ -257,8 +257,8 @@ def test_resolve_device_defaults_to_an_indexed_card(monkeypatch):
 
 
 def test_port_imports_no_jax_and_no_ray_tpu():
-    """Every module of ray_tpu_torch, and chip_smoke.py, import without
-    loading jax or anything of ray_tpu."""
+    """Every module of ray_tpu_torch (the runtime copy included), and
+    chip_smoke.py, import without loading jax or anything of ray_tpu."""
     code = (
         "import importlib, pkgutil, sys, ray_tpu_torch\n"
         "for m in pkgutil.walk_packages(ray_tpu_torch.__path__, "
@@ -275,5 +275,14 @@ def test_port_imports_no_jax_and_no_ray_tpu():
     assert out.returncode == 0, out.stderr
     for mod in ("ray_tpu_torch.ops.attention", "ray_tpu_torch.ops._build",
                 "ray_tpu_torch.models.llama", "ray_tpu_torch.serve.engine",
-                "ray_tpu_torch.serve.llm"):
-        assert mod in out.stdout
+                "ray_tpu_torch.serve.llm", "ray_tpu_torch.api",
+                "ray_tpu_torch.state", "ray_tpu_torch.dag",
+                "ray_tpu_torch.accelerators",
+                "ray_tpu_torch.core.core_worker",
+                "ray_tpu_torch.core.controller",
+                "ray_tpu_torch.core.node_agent",
+                "ray_tpu_torch.core.worker_main",
+                "ray_tpu_torch.core.object_store",
+                "ray_tpu_torch.core._native.graftrpc",
+                "ray_tpu_torch.utils.config"):
+        assert f"'{mod}'" in out.stdout

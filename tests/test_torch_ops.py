@@ -454,19 +454,63 @@ def test_flash_bwd_kernel_wrappers_on_cpu_split_flash_bwd():
 # ---------------------------------------------------------------------------
 
 def test_attention_route_follows_the_reference_dispatch():
-    """head_dim 128 and 256 go to the kernels (the Pallas kernels' widths
-    the port's kernels take), head_dims that are not multiples of 128 to
-    the jnp branch; other multiples of 128, which the Pallas kernels take
-    and the port's kernels do not, raise before anything runs."""
-    assert [tatt.attention_route(d) for d in (128, 256)] == ["kernel"] * 2
+    """head_dim 128, 256, 384 and 512 go to the kernels (the Pallas
+    kernels' widths the port's kernels take), head_dims that are not
+    multiples of 128 to the jnp branch; multiples of 128 from 640 up,
+    which the Pallas kernels take and the port's kernels' tiles do not fit,
+    raise before anything runs."""
+    assert [tatt.attention_route(d) for d in (128, 256, 384, 512)] == \
+        ["kernel"] * 4
     assert [tatt.attention_route(d) for d in (16, 64, 96)] == \
         ["reference"] * 3
-    for d in (384, 512):
-        with pytest.raises(ValueError, match="128 and 256"):
+    for d in (640, 1024):
+        with pytest.raises(ValueError, match="shared memory"):
             tatt.attention_route(d)
-    q, k, v = _t(*_qkv(1, 2, 8, 384, seed=30))
-    with pytest.raises(ValueError, match="128 and 256"):
+    q, k, v = _t(*_qkv(1, 2, 8, 640, seed=30))
+    with pytest.raises(ValueError, match="shared memory"):
         tatt.flash_attention(q, k, v)
+
+
+# head_dim 384 (a generic instance; 512 is the same code at a wider D,
+# checked on the card): the plain versions against the TPU kernel bodies
+# in interpret mode at B1 H2 KVH1 S128 (one 128 block each way). The Pallas kernels take K and V
+# at q's heads, so they get them repeated, and their dK and dV are summed
+# over the group as the port sums its query heads.
+D384 = 384
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_plain_d384_matches_pallas_kernel_interpret(causal):
+    q, k, v = _qkv(1, 2, 128, D384, kvh=1, seed=40)
+    scale = D384 ** -0.5
+    with pltpu.force_tpu_interpret_mode():
+        want_o, want_lse = jatt._flash_fwd_pallas(
+            *_j(q, np.repeat(k, 2, 1), np.repeat(v, 2, 1)), causal=causal,
+            sm_scale=scale, block_q=128, block_k=128)
+    o, lse = tatt.flash_fwd(*_t(q, k, v), causal)
+    assert o.shape == (1, 2, 128, D384) and lse.shape == (1, 2, 128)
+    _close(o, want_o)
+    _close(lse, want_lse)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_plain_d384_matches_pallas_kernels_interpret(causal):
+    q, k, v = _qkv(1, 2, 128, D384, kvh=1, seed=42)
+    do = _rand((1, 2, 128, D384), 45)
+    scale = D384 ** -0.5
+    kr, vr = np.repeat(k, 2, 1), np.repeat(v, 2, 1)
+    o, lse = (np.array(x) for x in jatt._fwd_with_lse_reference(
+        *_j(q, kr, vr), causal=causal, sm_scale=scale))
+    with pltpu.force_tpu_interpret_mode():
+        jdq, jdk, jdv = jatt._flash_bwd_pallas(
+            *_j(q, kr, vr, o, lse, do), causal=causal, sm_scale=scale,
+            block_q=128, block_k=128)
+    want = (jdq, np.asarray(jdk).sum(1, keepdims=True),
+            np.asarray(jdv).sum(1, keepdims=True))
+    got = tatt.flash_bwd(*_t(q, k, v, o, lse, do), causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert _rel(g, w) <= 1e-4
 
 
 # Relative to the largest element, by dtype and head_dim; for bf16 as (out
