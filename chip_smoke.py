@@ -50,9 +50,10 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    expected number of times per step; step time, tokens/s, MFU, peak
    memory and a profiled step.
 8. ``bench.py``'s training configuration (d_model 2048, 8 layers, H 16,
-   ``dots_nobatch``) at B8 x S2048 for a few steps, built as ``bench.py``
-   builds it: ``make_train_fns(cfg, ParallelContext.create(MeshConfig()))``
-   (a world-1 NCCL group on the card), then the same steps with
+   ``dots_nobatch``) at B8 x S2048, 3 warm-up and 10 timed steps on one
+   batch, built as ``bench.py`` builds it: ``make_train_fns(cfg,
+   ParallelContext.create(MeshConfig()))`` (a world-1 NCCL group on the
+   card), then the same steps with
    ``ctx=None``: the losses agree and the two rates give the context's
    cost.
 9. The MoE train step: ``llama3_8b(n_experts=8, top_k_experts=2,
@@ -88,6 +89,22 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    actor spawn to ready (process, torch import, CUDA start, weights),
    TTFT and decode rates through the actor and in process, and the
    put/get GB/s are printed.
+12. The trainer path (``bench.py``'s phase A): ``ray_tpu_torch.init()``,
+   a ``from_items`` dataset of ``bench.py``'s rows (``RandomState(0)``,
+   8 x 13 rows of 2,048 int32 tokens, 13 blocks) and ``TorchTrainer`` with
+   ``ScalingConfig(num_workers=1, use_gpu=True)``: one worker placed and
+   pinned to the card by the scheduler runs ``bench.py``'s loop in torch
+   on its configuration (not cut), fed by ``iter_torch_batches`` over its
+   dataset shard, 3 warm-up and 10 timed steps and the last batch again
+   under ``ray_tpu_torch.train.profile()``. The worker saw one pinned card
+   and an NCCL group; each kernel launched ``bf16_d128`` as often per step
+   as in phase 8; the last batch's loss fell once trained on; and this
+   process, once the worker is gone,
+   runs the first 3 steps again on the same weights and batches, whose
+   losses must agree with the worker's (rel 1e-3; whether bitwise is
+   printed). Tokens/s against phase 8's (``framework_overhead``, bench.py's
+   second metric), cluster start, time to the first step, ingest ms per
+   batch, peak memory and the device's idle share are printed.
 
 Any mismatch raises and the script exits non-zero. The line before the last
 is the kernels' JSON; the last is ``{"ok": true, "device": {...}}``.
@@ -98,7 +115,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 builds the kernels and runs phase 2 alone (a quick check after a kernel
 edit), ``--only-bwd`` runs phase 5 alone in the same way, ``--only-moe``
 phase 9, ``--only-ckpt`` phases 4 and 10, ``--only-runtime`` phase 11,
-and ``--only-ttft N``
+``--only-trainer`` phases 8 and 12, and ``--only-ttft N``
 measures idle TTFT alone (N requests per prompt length; run it from
 another tree's root to compare the two); none prints a result line.
 """
@@ -147,7 +164,8 @@ from ray_tpu_torch.parallel import MeshConfig, ParallelContext
 from ray_tpu_torch.serve.engine import Engine
 from ray_tpu_torch.serve.llm import LLMConfig, LLMServer, _model_from_cfg
 from ray_tpu_torch.train import (AsyncCheckpointer, make_train_fns,
-                                 restore_checkpoint, save_checkpoint)
+                                 restore_checkpoint)
+from ray_tpu_torch.train.checkpointing import save_checkpoint
 
 SEED = 0
 # H100 SXM published dense peaks (NVIDIA data sheet, at 700 W).
@@ -269,7 +287,10 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 BENCH_MODEL = dict(vocab_size=32000, d_model=2048, n_layers=8, n_heads=16,
                    n_kv_heads=16, d_ff=5504, max_seq=2048,
                    remat_policy="dots_nobatch")
-BENCH_BATCH, BENCH_SEQ, BENCH_STEPS = 8, 2048, 3
+BENCH_BATCH, BENCH_SEQ = 8, 2048
+# bench.py:36-37: 3 warm-up and 10 timed steps, in phase 8 (bench_raw's
+# loop) and in phase 12 (the trainer's), whose rates are compared
+BENCH_WARMUP, BENCH_STEPS = 3, 10
 # Phase 9: Mixtral-8x7B's expert layer (mistralai/Mixtral-8x7B-v0.1: 8
 # experts of width 14336 at d_model 4096, top-2) on the Llama-3-8B preset,
 # depth cut from 32 to 2 layers.
@@ -1038,10 +1059,11 @@ def phase_train_bench(card: str):
     """bench.py's configuration as bench.py builds it, through the
     context; then the same steps without it, whose losses must agree."""
     cfg = LlamaConfig(**BENCH_MODEL)
-    out = _train_run(cfg, BENCH_BATCH, BENCH_SEQ, 1, BENCH_STEPS, card,
-                     "bench.py d2048 L8 H16", profile=False,
+    out = _train_run(cfg, BENCH_BATCH, BENCH_SEQ, BENCH_WARMUP, BENCH_STEPS,
+                     card, "bench.py d2048 L8 H16", profile=False,
                      ctx=ParallelContext.create(MeshConfig()))
-    plain = _train_run(cfg, BENCH_BATCH, BENCH_SEQ, 1, BENCH_STEPS, card,
+    plain = _train_run(cfg, BENCH_BATCH, BENCH_SEQ, BENCH_WARMUP,
+                       BENCH_STEPS, card,
                        "bench.py d2048 L8 H16, ctx=None", profile=False)
     out["no_ctx"] = {k: plain[k] for k in ("step_s", "tokens_per_s",
                                            "losses")}
@@ -1533,6 +1555,252 @@ def _phase_runtime(card: str, start_s: float) -> dict:
                 put_get=put_get, card=card)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the trainer path (bench.py's phase A)
+# ---------------------------------------------------------------------------
+
+# bench.py:88-95: rows of 2,048 int32 tokens from RandomState(0), one
+# block per batch (13 blocks)
+TRAINER_BLOCKS = max(4, BENCH_WARMUP + BENCH_STEPS)
+# this process's run of the worker's first steps, on the same weights
+TRAINER_PARITY_STEPS = 3
+# The same step on the same weights and batches on the same card: the
+# kernels and cuBLAS pick the same algorithms in both processes, so the
+# losses should agree to the bit; the bound leaves room for a library
+# that picks another algorithm in another process (a few bf16 roundings,
+# 2**-8 relative, averaged over the loss).
+TRAINER_LOSS_RTOL = 1e-3
+
+
+def _trainer_rows(vocab: int) -> np.ndarray:
+    """bench.py:bench_framework's rows (:89-92), regenerated from the
+    seed: [8 x 13, 2048] int32."""
+    rng = np.random.RandomState(0)
+    return np.stack([rng.randint(0, vocab, (BENCH_SEQ,), dtype=np.int32)
+                     for _ in range(BENCH_BATCH * TRAINER_BLOCKS)])
+
+
+def _trainer_loop(config):
+    """bench.py:_train_loop (:45-76) in torch, in the TorchTrainer's GPU
+    worker: the bench configuration through ``make_train_fns(cfg,
+    ParallelContext.create(MeshConfig()))``, batches from the dataset
+    shard's ``iter_torch_batches``. Reports tokens/s over the timed
+    steps, every loss, each kernel's launches by variant over the timed
+    steps (counts zeroed just before them), the host ms inside the
+    iterator's ``next()`` per step, peak memory, the worker's
+    ``torch_info()``, and the directory of one step profiled under
+    ``ray_tpu_torch.train.profile()``. Self-contained: it is pickled by
+    value into the worker."""
+    import time
+
+    import torch
+
+    import ray_tpu_torch.train as rt
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
+                                             flash_fwd)
+    from ray_tpu_torch.parallel import MeshConfig, ParallelContext
+    from ray_tpu_torch.train.worker import torch_info
+
+    t_loop = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = config["allow_tf32"]
+    torch.backends.cudnn.allow_tf32 = config["allow_tf32"]
+    cfg = LlamaConfig(**config["model"])
+    ctx = ParallelContext.create(MeshConfig())
+    t_ctx = time.time()
+    init, step = rt.make_train_fns(cfg, ctx)
+    state = init(config["seed"])
+    float(state["step"])
+    t_state = time.time()
+    it = iter(rt.get_dataset_shard("train").iter_torch_batches(
+        batch_size=config["batch"], ctx=ctx, drop_last=True))
+    wrappers = {"flash_fwd": flash_fwd, "flash_bwd_dkv": flash_bwd_dkv,
+                "flash_bwd_dq": flash_bwd_dq}
+    losses, next_ms = [], []
+
+    def take():
+        t = time.perf_counter()
+        tokens = next(it)["tokens"]
+        next_ms.append((time.perf_counter() - t) * 1e3)
+        return tokens
+
+    t_first = first_step_s = None
+    for i in range(config["warmup"]):
+        tokens = take()
+        t = time.time()
+        state, m = step(state, tokens)
+        losses.append(m["loss"])
+        if i == 0:  # a cold process: the step's first run
+            float(m["loss"])
+            t_first = time.time()
+            first_step_s = t_first - t
+    float(m["loss"])  # warm-up ends with a host read
+    for w in wrappers.values():
+        w.launches = 0
+        w.launches_by_variant.clear()
+    t0 = time.perf_counter()
+    for _ in range(config["steps"]):
+        tokens = take()
+        state, m = step(state, tokens)
+        losses.append(m["loss"])
+    float(m["loss"])
+    dt = time.perf_counter() - t0
+    launches = {k: dict(w.launches_by_variant) for k, w in wrappers.items()}
+    for leftover in it:  # drop_last: nothing is left
+        raise RuntimeError(f"a batch past the timed steps: {leftover}")
+    # the last batch again, profiled: its loss must have fallen since
+    with rt.profile() as trace_dir:
+        state, m = step(state, tokens)
+        again = float(m["loss"])
+    rt.report({
+        "tokens_per_sec": config["batch"] * config["seq"] * config["steps"]
+        / dt,
+        "step_s": dt / config["steps"], "steps": config["steps"],
+        "losses": [float(x) for x in losses], "launches": launches,
+        "next_ms": next_ms, "trace_dir": trace_dir,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if torch.cuda.is_initialized() else None),
+        "last_batch_again": again, "t_loop": t_loop, "t_ctx": t_ctx,
+        "t_state": t_state, "t_first_step": t_first,
+        "first_step_s": first_step_s, "info": torch_info()})
+
+
+def _trace_device_ms(trace_dir: str) -> tuple:
+    """(device ms, device op count) in the Chrome trace that
+    ``ray_tpu_torch.train.profile()`` wrote: kernels, copies and sets, as
+    ``_device_profile`` counts them."""
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    ops = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return sum(e.get("dur", 0) for e in ops) / 1e3, len(ops)
+
+
+def phase_trainer(card: str, bench: dict) -> dict:
+    """``TorchTrainer`` on ``bench.py``'s configuration in a GPU worker
+    placed and pinned by the scheduler, fed by the streaming ingest; its
+    launches, rate and losses against phase 8 and against an in-process
+    run of the same steps."""
+    from ray_tpu_torch import data as rdata
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    torch.cuda.empty_cache()
+    log(f"TRAINER this process holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB on the card before "
+        f"fit()  [{card}]")
+    t = time.perf_counter()
+    ray_tpu_torch.init()
+    start_s = time.perf_counter() - t
+    trace_base = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        res = ray_tpu_torch.cluster_resources()
+        check(res.get("GPU") == torch.cuda.device_count(),
+              f"the agent advertises GPU {res.get('GPU')}, the card count "
+              f"is {torch.cuda.device_count()}")
+        rows = _trainer_rows(BENCH_MODEL["vocab_size"])
+        ds = rdata.from_items([{"tokens": r} for r in rows],
+                              num_blocks=TRAINER_BLOCKS)
+        trainer = TorchTrainer(
+            _trainer_loop,
+            train_loop_config=dict(
+                model=BENCH_MODEL, batch=BENCH_BATCH, seq=BENCH_SEQ,
+                warmup=BENCH_WARMUP, steps=BENCH_STEPS, seed=SEED,
+                allow_tf32=torch.backends.cuda.matmul.allow_tf32),
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(name="trainer", storage_path=trace_base),
+            datasets={"train": ds})
+        t_fit = time.time()
+        result = trainer.fit()
+        fit_s = time.time() - t_fit
+        out = dict(result.metrics_history[-1])
+        device_ms, device_ops = _trace_device_ms(out.pop("trace_dir"))
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(trace_base, ignore_errors=True)
+    info = out["info"]
+    pinned = accelerators.worker_env_for_gpus([0])["CUDA_VISIBLE_DEVICES"]
+    check(info["cuda_visible_devices"] == pinned
+          and info["cuda_device_count"] == 1 and info["device"] == "cuda:0",
+          f"the worker was not pinned to one card: {info}")
+    check(info["backend"] == "nccl", f"the worker's group: {info}")
+    L = BENCH_MODEL["n_layers"]
+    want = {"flash_fwd": {"bf16_d128": 2 * L * BENCH_STEPS},
+            "flash_bwd_dkv": {"bf16_d128": L * BENCH_STEPS},
+            "flash_bwd_dq": {"bf16_d128": L * BENCH_STEPS}}
+    check(out["launches"] == want,
+          f"launches in the worker's timed steps {out['launches']}, "
+          f"expected {want}")
+    per_step = {k: want[k]["bf16_d128"] / BENCH_STEPS for k in want}
+    check(per_step == bench["launches_per_step"],
+          f"launches per step: {per_step} in the worker, "
+          f"{bench['launches_per_step']} in phase 8")
+    # The batches are uniform random tokens, so a loss from one batch to
+    # the next moves by its noise; the last batch, trained on once,
+    # shows the step's effect.
+    losses = out["losses"]
+    check(all(np.isfinite(losses)) and out["last_batch_again"] < losses[-1],
+          f"trainer: the last batch's loss did not fall once trained on: "
+          f"{losses[-1]} -> {out['last_batch_again']} ({losses})")
+
+    # the first steps again in this process, on the same weights and the
+    # same batches regenerated from the seed
+    cfg = LlamaConfig(**BENCH_MODEL)
+    init_fn, step_fn = make_train_fns(
+        cfg, ParallelContext.create(MeshConfig()))
+    state = init_fn(SEED)
+    mine = []
+    for i in range(TRAINER_PARITY_STEPS):
+        batch = torch.from_numpy(
+            rows[i * BENCH_BATCH:(i + 1) * BENCH_BATCH]).to("cuda")
+        t = time.perf_counter()
+        state, m = step_fn(state, batch)
+        mine.append(m["loss"].item())
+        if i == 0:  # the same first step in a warm process
+            warm_first_step_s = time.perf_counter() - t
+    del state, m
+    torch.cuda.empty_cache()
+    theirs = losses[:TRAINER_PARITY_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(theirs, mine))
+    bitwise = theirs == mine
+    check(rel <= TRAINER_LOSS_RTOL,
+          f"trainer: worker losses {theirs}, in process {mine}")
+
+    raw = bench["tokens_per_s"]
+    overhead = (raw - out["tokens_per_sec"]) / raw * 100
+    ingest = out["next_ms"][BENCH_WARMUP:]
+    out.update(
+        cluster_start_s=start_s, fit_s=fit_s,
+        fit_to_loop_s=out["t_loop"] - t_fit,
+        fit_to_context_s=out["t_ctx"] - t_fit,
+        fit_to_state_s=out["t_state"] - t_fit,
+        fit_to_first_step_s=out["t_first_step"] - t_fit,
+        ingest_ms_per_batch=statistics.mean(ingest),
+        ingest_ms_max=max(ingest),
+        device_ms=device_ms, device_ops=device_ops,
+        device_idle_share=1 - device_ms / (out["step_s"] * 1e3),
+        raw_tokens_per_s=raw, framework_overhead_pct=overhead,
+        in_process_losses=mine, losses_rel=rel, losses_bitwise=bitwise,
+        in_process_first_step_s=warm_first_step_s,
+        launches_per_step=per_step, card=card)
+    log("TRAINER", json.dumps(out))
+    log(f"TRAINER cluster up {start_s:.3f} s; fit() {fit_s:.2f} s, loop "
+        f"entered {out['fit_to_loop_s']:.2f} s and first step done "
+        f"{out['fit_to_first_step_s']:.2f} s after fit(); "
+        f"(context {out['fit_to_context_s']:.2f} s, state "
+        f"{out['fit_to_state_s']:.2f} s, first batch "
+        f"{out['next_ms'][0] / 1e3:.2f} s, first step "
+        f"{out['first_step_s']:.2f} s; in this process "
+        f"{warm_first_step_s:.2f} s); "
+        f"{out['tokens_per_sec']:.0f} tok/s in the worker against "
+        f"{raw:.0f} raw (phase 8): framework_overhead {overhead:.2f}%; "
+        f"ingest {out['ingest_ms_per_batch']:.3f} ms per batch (max "
+        f"{out['ingest_ms_max']:.3f}); device idle "
+        f"{out['device_idle_share'] * 100:.2f}% of a step; peak "
+        f"{out['peak_mem_gb']:.2f} GB; losses vs in process rel {rel:.3g}"
+        f" (bitwise {bitwise})  [{card}]")
+    return out
+
+
 def _variant_entries(rows, bwd_rows, parity) -> list:
     """The kernels line's entries of the generic variants: launches from
     their train-parity run (the path that reaches them), times at that
@@ -1587,6 +1855,8 @@ def main() -> int:
                     help="build the kernels and run phases 4 and 10 only")
     ap.add_argument("--only-runtime", action="store_true",
                     help="build the kernels and run phase 11 only")
+    ap.add_argument("--only-trainer", action="store_true",
+                    help="build the kernels and run phases 8 and 12 only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1649,6 +1919,9 @@ def main() -> int:
     if args.only_runtime:
         phase_runtime(card)
         return 0
+    if args.only_trainer:
+        phase_trainer(card, phase_train_bench(card))
+        return 0
     rows = phase_kernels(card)
     route = phase_reference_route(card)
     if args.only_kernels:
@@ -1662,6 +1935,7 @@ def main() -> int:
     moe = phase_moe(card)
     ckpt = phase_checkpoint(card, server)
     runtime = phase_runtime(card)
+    trainer = phase_trainer(card, bench)
 
     main_row = next(r for r in rows if r["shape"] == "B1 H32 KVH8 S8192 D128"
                     and r["causal"] and r["layout"] == "dense")
@@ -1675,7 +1949,9 @@ def main() -> int:
         shape=main_row["shape"] + " causal bf16",
         launches_train=train["launches"]["flash_fwd"],
         launches_moe_train=moe["train"]["launches"]["flash_fwd"],
-        launches_runtime_actor=runtime["launches"])]
+        launches_runtime_actor=runtime["launches"],
+        launches_trainer_worker=trainer["launches"]["flash_fwd"][
+            "bf16_d128"])]
     bwd_main = next(r for r in bwd_rows
                     if r["shape"] == "B1 H32 KVH8 S8192 D128" and r["causal"]
                     and r["layout"] == "dense")
@@ -1691,7 +1967,8 @@ def main() -> int:
             bound_by=bwd_main["bound_by"][name],
             library_ms=bwd_main["sdpa_bwd_ms"],
             shape=bwd_main["shape"] + " causal bf16",
-            launches_moe_train=moe["train"]["launches"][name]))
+            launches_moe_train=moe["train"]["launches"][name],
+            launches_trainer_worker=trainer["launches"][name]["bf16_d128"]))
     kernels += _variant_entries(rows, bwd_rows, parity)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -1699,7 +1976,7 @@ def main() -> int:
                        engine=engine, bwd_rows=bwd_rows, train_parity=parity,
                        train=train, train_bench=bench, moe=moe,
                        reference_route=route, checkpoint=ckpt,
-                       runtime=runtime, kernels=kernels), f,
+                       runtime=runtime, trainer=trainer, kernels=kernels), f,
                   indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

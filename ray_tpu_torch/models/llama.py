@@ -21,7 +21,10 @@ device):
   * ep      — MoE experts split over ep (``ray_tpu_torch.ops.moe``)
 Under a context, every parameter is this rank's block under the sharding
 rules (``param_specs``), ``tokens`` is the global batch, as the JAX
-step takes it, and each rank slices its own part (``shard_batch``).
+step takes it, and each rank slices its own part (``shard_batch``). A
+batch marked by ``mark_rank_local`` (``iter_torch_batches(ctx=...,
+global_batch=True)``) is this rank's rows of the global batch already, as
+``jax.make_array_from_process_local_data`` assembles the JAX package's.
 """
 
 from __future__ import annotations
@@ -46,7 +49,10 @@ from ray_tpu_torch.parallel.comm import (all_reduce_nograd, copy_to,
 from ray_tpu_torch.parallel.context import (ParallelContext, axis_group,
                                             axis_size)
 from ray_tpu_torch.parallel.pipeline import gpipe_spmd
-from ray_tpu_torch.parallel.sharding import axes_of, shard_batch, tree_specs
+from ray_tpu_torch.parallel.sharding import (axes_of, batch_spec, batch_to,
+                                             is_rank_local, mark_rank_local,
+                                             shard_batch, shard_index,
+                                             tree_specs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -441,8 +447,7 @@ def forward_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
     _check_layout(cfg, ctx)
     dt = cfg.dtype
     p = _enter(params, cfg, ctx)
-    tokens = _local(torch.as_tensor(tokens, device=p["embed"].device),
-                    cfg, ctx)
+    tokens = _local(batch_to(tokens, p["embed"].device), cfg, ctx)
     x = _embed(p["embed"], tokens, ctx).to(dt)
     cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                                 device=x.device)
@@ -484,12 +489,17 @@ def loss_fn(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
     gives each rank's parameters their whole gradient (the sums over
     batch shards happen inside)."""
     logits, aux = forward_with_aux(params, tokens, cfg, ctx, attn_fn=attn_fn)
-    tokens = torch.as_tensor(tokens, device=logits.device)
+    tokens = batch_to(tokens, logits.device)
     targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     mask = torch.ones(tokens.shape, dtype=torch.float32,
                       device=logits.device)
     mask[:, -1] = 0.0
     n_tok = mask.sum()
+    if ctx is not None and is_rank_local(tokens):
+        # this rank's rows: every batch shard holds as many, each masked
+        # alike, so the global count is the local one times the shards
+        targets, mask = mark_rank_local(targets), mark_rank_local(mask)
+        n_tok = n_tok * shard_index(batch_spec()[0], ctx)[1]
     targets, mask = _local((targets, mask), cfg, ctx)
     ce = _cross_entropy(logits, targets, ctx) * mask
     total = ce.sum()

@@ -104,6 +104,33 @@ def tree_shard(tree: Any, specs: Any, ctx) -> Any:
     return shard(tree, specs, ctx)
 
 
+_RANK_LOCAL = "_ray_tpu_torch_rank_local"
+
+
+def mark_rank_local(t: torch.Tensor) -> torch.Tensor:
+    """Mark ``t`` as this rank's rows of the global batch already (what
+    ``iter_torch_batches(ctx=..., global_batch=True)`` yields):
+    ``shard_batch`` then leaves its batch dim alone. The mark lives on
+    this tensor object only; tensors computed from it are unmarked."""
+    setattr(t, _RANK_LOCAL, True)
+    return t
+
+
+def batch_to(batch: Any, device: Any, non_blocking: bool = False
+             ) -> torch.Tensor:
+    """``batch`` (a tensor or an array) as a tensor on ``device``, keeping
+    the mark of ``mark_rank_local``."""
+    out = torch.as_tensor(batch).to(device, non_blocking=non_blocking)
+    if out is not batch and is_rank_local(batch):
+        mark_rank_local(out)
+    return out
+
+
+def is_rank_local(t: Any) -> bool:
+    """Whether ``t`` carries the mark of ``mark_rank_local``."""
+    return getattr(t, _RANK_LOCAL, False)
+
+
 def shard_batch(batch: Any, ctx, num_microbatches: int = 1) -> Any:
     """This rank's part of a global ``[B, S, ...]`` batch (a tensor, or a
     dict or tuple of them): batch over ``(dp, fsdp)``, sequence over
@@ -112,7 +139,10 @@ def shard_batch(batch: Any, ctx, num_microbatches: int = 1) -> Any:
     With ``num_microbatches`` M > 1 the rank's rows are its share of each
     of the M global microbatches (rows ``[i*B/M, (i+1)*B/M)``), so that its
     i-th local microbatch is its part of the global i-th one, as GPipe
-    over a batch-sharded mesh sees it."""
+    over a batch-sharded mesh sees it.
+
+    A tensor marked by ``mark_rank_local`` holds this rank's rows
+    already; only its sequence is split."""
     if isinstance(batch, dict):
         return {k: shard_batch(v, ctx, num_microbatches)
                 for k, v in batch.items()}
@@ -121,6 +151,8 @@ def shard_batch(batch: Any, ctx, num_microbatches: int = 1) -> Any:
                            for v in batch)
     rows, seq = batch_spec()
     index, count = shard_index(rows, ctx)
+    if is_rank_local(batch):
+        index, count = 0, 1
     B, M = batch.shape[0], num_microbatches
     if B % (M * count):
         raise ValueError(f"global batch {B} does not split into {M} "

@@ -28,7 +28,7 @@ from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.parallel.comm import all_reduce_nograd
 from ray_tpu_torch.parallel.context import ParallelContext
-from ray_tpu_torch.parallel.sharding import axes_of, tree_shard
+from ray_tpu_torch.parallel.sharding import axes_of, batch_to, tree_shard
 
 TrainState = Dict[str, Any]  # {"params", "opt_state", "step"}
 
@@ -176,7 +176,8 @@ def make_train_fns(cfg: llama.LlamaConfig,
 
     Under ``ctx`` (whose device replaces ``device``) ``init_fn`` draws or
     takes the global parameters, the same on every mesh, and keeps this
-    rank's blocks; ``step_fn`` takes the global batch."""
+    rank's blocks; ``step_fn`` takes the global batch, or this rank's rows
+    of it marked by ``mark_rank_local``."""
     if ctx is not None and not isinstance(ctx, ParallelContext):
         raise TypeError(f"ctx must be a ParallelContext, not {type(ctx)}")
     dev = ctx.device if ctx is not None else resolve_device(device)
@@ -199,9 +200,7 @@ def make_train_fns(cfg: llama.LlamaConfig,
     def step_fn(state: TrainState, tokens: Any
                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         params = state["params"]
-        if not isinstance(tokens, torch.Tensor):
-            tokens = torch.from_numpy(np.asarray(tokens))
-        tokens = tokens.to(dev, non_blocking=True)
+        tokens = batch_to(tokens, dev, non_blocking=True)
         l, metrics = loss(params, tokens)
         grads = torch.autograd.grad(l, _leaves(params))
         del l
