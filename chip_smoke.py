@@ -16,10 +16,11 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    D] views, which the TMA maps read through their strides), at the ragged
    lengths 100 and 8000 (TMA zero-fills past the end), at the MoE step's
    S4096 (both layouts), and at the bench configuration's B8 H16 KVH16
-   S2048; the generic variants (f32 at head_dim 128 to 512, bf16 at 256
-   to 512) at B1 H8 KVH2 S2048 and the ragged S1000, causal and not, and
-   at the shapes of their train-parity runs (no ptxas spill allowed in the
-   384 and 512 instances); time kernel, plain version, SDPA
+   S2048; the generic variants (f32 at head_dim 128 to 1024, bf16 at 256
+   to 1024; 640 and 1024 tiled over D) at B1 H8 KVH2 S2048 and the ragged
+   S1000, causal and not, and at the shapes of their train-parity runs (no
+   ptxas spill allowed in any generic instance); time kernel, plain
+   version, SDPA
    (the library yardstick, never called by the port) and the roofline
    bound. Then head_dim 64 on the card: ``flash_fwd`` and ``flash_bwd``
    route to the JAX package's jnp branch and launch no kernel.
@@ -106,6 +107,31 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    second metric), cluster start, time to the first step, ingest ms per
    batch, peak memory and the device's idle share are printed.
 
+13. The serve app: ``LLMConfig(vocab_size=128256, d_model=4096,
+   n_layers=32, max_seq=8192, max_ongoing_requests=8, decode_chunk=8,
+   page_size=64)`` (Llama-3-8B's width, depth, vocabulary and context
+   under the serve preset's shape rule; random weights from seed 0). An
+   in-process engine records the greedy streams of phase 3's 8 prompts
+   and bench_serve.py's numbers, and is freed. Then ``init()``,
+   ``serve.start(http=True)`` and ``build_llm_app`` with ``num_gpus=1``:
+   the 8 prompts at once over HTTP give the reference streams, and
+   bench_serve.py's measurements (p50/p95 TTFT of 15 solo 16-token
+   requests, decode tokens/s over 96 tokens, aggregate tokens/s at 8
+   streams of 32), read a byte at a time. The app is deleted, and
+   ``run_pd_llm_app``'s deployments (both pools ``num_gpus=0`` on the one
+   card) take the same traffic: the reference streams, a sampled stream
+   equal to the mono app's, every KV handoff by CUDA IPC (none by the host
+   relay) and the prefill replica holding no device object at the end;
+   KV MB and handoff ms per request are printed. A decode chunk in the
+   mono replica and a small and a large handoff in the decode replica run
+   under the profiler (the device's idle share, the host's longest calls).
+   Last,
+   ``build_llm_processor`` over 16 rows gives the references cut to 16
+   tokens. The replicas are the package's servers with a launch reader
+   added (``CountedLLMServer`` ...): 32 ``bf16_d128`` forwards per
+   prefill in the mono replica and in the prefill pool, none in the
+   decode pool.
+
 Any mismatch raises and the script exits non-zero. The line before the last
 is the kernels' JSON; the last is ``{"ok": true, "device": {...}}``.
 Details go to ``chiprun_out/chip_smoke.json``.
@@ -115,7 +141,8 @@ Details go to ``chiprun_out/chip_smoke.json``.
 builds the kernels and runs phase 2 alone (a quick check after a kernel
 edit), ``--only-bwd`` runs phase 5 alone in the same way, ``--only-moe``
 phase 9, ``--only-ckpt`` phases 4 and 10, ``--only-runtime`` phase 11,
-``--only-trainer`` phases 8 and 12, and ``--only-ttft N``
+``--only-trainer`` phases 8 and 12, ``--only-serve`` phase 13, and
+``--only-ttft N``
 measures idle TTFT alone (N requests per prompt length; run it from
 another tree's root to compare the two); none prints a result line.
 """
@@ -124,6 +151,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import glob
 import inspect
 import json
@@ -137,6 +165,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -144,6 +173,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 import ray_tpu_torch
+import ray_tpu_torch.serve as serve
 from ray_tpu_torch import accelerators
 from ray_tpu_torch.core import object_store
 from ray_tpu_torch.core._native import graftrpc
@@ -162,7 +192,11 @@ from ray_tpu_torch.ops import moe as moe_module
 from ray_tpu_torch.ops.moe import moe_ffn
 from ray_tpu_torch.parallel import MeshConfig, ParallelContext
 from ray_tpu_torch.serve.engine import Engine
-from ray_tpu_torch.serve.llm import LLMConfig, LLMServer, _model_from_cfg
+from ray_tpu_torch.serve.api import Application, Deployment
+from ray_tpu_torch.serve.llm import (DecodeServer, LLMConfig, LLMServer,
+                                     PrefillServer, _deploy_pd, _engine,
+                                     _model_from_cfg, _pd_deployments,
+                                     build_llm_app)
 from ray_tpu_torch.train import (AsyncCheckpointer, make_train_fns,
                                  restore_checkpoint)
 from ray_tpu_torch.train.checkpointing import save_checkpoint
@@ -195,17 +229,26 @@ FWD_CASES = [(1, 32, 8, S, True, BF16, "dense") for S in ATTN_WIDTHS] + [
     (1, 32, 8, 100, True, BF16, "dense"),
     (1, 32, 8, 8000, True, BF16, "dense"),
     (8, 16, 16, 2048, True, BF16, "dense")]
+# Phase 13's serve preset gives the kernel B1 H32 KVH16 (GQA groups of 2)
+# in the model layout at its prefill buckets (32 to 8192); --only-serve
+# checks these too.
+SERVE_FWD_CASES = [(1, 32, 16, S, True, BF16, "model")
+                   for S in (32, 512, 2048, 8192)]
+FWD_CASES += SERVE_FWD_CASES
 # The generic kernel variants (every dtype and head_dim but bf16 D128), in
 # phases 2 and 5: at B1 H8 KVH2, S2048 and the ragged S1000, causal and not,
 # and at the shape the train-parity path of their dtype and head_dim gives
 # them (``PARITY_RUNS``: B1 H32 KVH8 D128, B1 H16 KVH8 D256, B1 H8 KVH4
-# D384 and D512, S2048 causal).
+# D384, D512 and D640, B1 H4 KVH2 D1024, S2048 causal). D640 and D1024 are
+# tiled over D (5 chunks of 128 and 4 of 256).
 VARIANTS = (("f32_d128", 128, F32), ("f32_d256", 256, F32),
             ("bf16_d256", 256, BF16), ("f32_d384", 384, F32),
             ("bf16_d384", 384, BF16), ("f32_d512", 512, F32),
-            ("bf16_d512", 512, BF16))
+            ("bf16_d512", 512, BF16), ("f32_d640", 640, F32),
+            ("bf16_d640", 640, BF16), ("f32_d1024", 1024, F32),
+            ("bf16_d1024", 1024, BF16))
 VARIANT_MAIN = {128: (1, 32, 8), 256: (1, 16, 8), 384: (1, 8, 4),
-                512: (1, 8, 4)}  # B, H, KVH
+                512: (1, 8, 4), 640: (1, 8, 4), 1024: (1, 4, 2)}  # B, H, KVH
 VARIANT_CASES = [(name, D, dt, 1, 8, 2, S, causal)
                  for name, D, dt in VARIANTS for S in (2048, 1000)
                  for causal in (True, False)] + [
@@ -265,9 +308,10 @@ PARITY_F32_GRAD_REL_L2 = 1e-4
 # overrides): bf16 at head_dim 128 (the main path's variant), Llama-3-8B's
 # width with 16 heads of 256 (8 KV heads, groups of 2) in bf16 and in f32
 # compute, the preset in f32 compute, and 8 heads of 512 (4 KV heads) at
-# its width and of 384 at d_model 3072 (4096 is no multiple of 384), in
-# both: no preset has a head of 256 or more, so these are the only model
-# paths that reach those variants.
+# its width and of 384 at d_model 3072 (4096 is no multiple of 384), 8
+# heads of 640 at d_model 5120 and 4 heads of 1024 (2 KV heads) at its
+# width, in both: no preset has a head of 256 or more, so these are the
+# only model paths that reach those variants.
 PARITY_RUNS = (("bf16_d128", dict(n_layers=2)),
                ("bf16_d256", dict(n_layers=2, n_heads=16)),
                ("f32_d128", dict(n_layers=2, dtype=F32)),
@@ -278,7 +322,14 @@ PARITY_RUNS = (("bf16_d128", dict(n_layers=2)),
                                  n_kv_heads=4, dtype=F32)),
                ("bf16_d512", dict(n_layers=2, n_heads=8, n_kv_heads=4)),
                ("f32_d512", dict(n_layers=2, n_heads=8, n_kv_heads=4,
-                                 dtype=F32)))
+                                 dtype=F32)),
+               ("bf16_d640", dict(n_layers=2, d_model=5120, n_heads=8,
+                                  n_kv_heads=4)),
+               ("f32_d640", dict(n_layers=2, d_model=5120, n_heads=8,
+                                 n_kv_heads=4, dtype=F32)),
+               ("bf16_d1024", dict(n_layers=2, n_heads=4, n_kv_heads=2)),
+               ("f32_d1024", dict(n_layers=2, n_heads=4, n_kv_heads=2,
+                                  dtype=F32)))
 PARITY_SEQ = 2048
 TRAIN_SEQ = 8192
 TRAIN_LAYERS = 8
@@ -318,6 +369,9 @@ OUT_DIR = "chiprun_out"
 # any warning (setmaxnreg ignored, wgmma serialized).
 BUILD_REPORT = ("registers", "spill", "smem", "arning", "wgmma",
                 "setmaxnreg")
+# Generic instances: 3 kernels x (7 one-chunk ones: f32 D128-512, bf16
+# D256-512; 4 chunked ones: f32 and bf16, chunks of 128 and 256)
+GENERIC_INSTANCES = 33
 
 
 def log(*a):
@@ -456,11 +510,8 @@ def phase_reference_route(card: str) -> dict:
     JAX package's jnp branch (``attention_route``), launch no kernel, and
     give what that branch gives when called itself."""
     check(attention_route(64) == "reference"
-          and all(attention_route(d) == "kernel" for d in (256, 384, 512)),
-          "attention_route")
-    with contextlib.suppress(ValueError):
-        attention_route(640)
-        raise AssertionError("attention_route(640) did not raise")
+          and all(attention_route(d) == "kernel"
+                  for d in (256, 384, 512, 640, 1024)), "attention_route")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     q, k, v, do = (_attn_input(1, h, 1000, 64, gen, BF16, "dense")
                    for h in (8, 2, 2, 8))
@@ -1801,6 +1852,495 @@ def phase_trainer(card: str, bench: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the serve app on the card — mono, PD and batch inference
+# ---------------------------------------------------------------------------
+
+# Llama-3-8B's width, depth, vocabulary and context through the serve
+# preset, whose model follows the JAX package's rule (heads d_model / 128,
+# KV heads d_model / 256, d_ff 2.75 d_model): 32 heads of 128, 16 KV heads,
+# d_ff 11264, 7.1 B parameters (14.2 GB in bf16), 256 KB of KV per token.
+# Random weights from seed 0; not cut.
+SERVE_CFG = dict(vocab_size=128256, d_model=4096, n_layers=32, max_seq=8192,
+                 max_ongoing_requests=8, decode_chunk=8, page_size=64)
+SERVE_SAMPLED = dict(temperature=0.8, top_k=40, seed=1234)
+# bench_serve.py's measurements: TTFT over 15 solo requests (a 16-token
+# prompt, 8 new), decode over a 96-token stream (twice), aggregate
+# tokens/s at 8 streams of 32 tokens
+SERVE_TTFT_N, SERVE_TTFT_PROMPT, SERVE_TTFT_TOKENS = 15, 16, 8
+SERVE_DECODE_TOKENS, SERVE_DECODE_RUNS = 96, 2
+SERVE_AGG_STREAMS, SERVE_AGG_TOKENS = 8, 32
+# build_llm_processor over 16 rows: phase 3's 8 prompts twice, 16 tokens
+BATCH_ROWS, BATCH_TOKENS = 16, 16
+# A replica's memory is back on the card this long after it is deleted
+SERVE_FREE_TIMEOUT_S = 120
+
+
+def _flash_launches(reset: bool) -> tuple:
+    """(launches, by variant) of flash_fwd in this process; zeroed after
+    the read with ``reset``."""
+    from ray_tpu_torch.ops.attention import flash_fwd as fwd
+    out = (fwd.launches, dict(fwd.launches_by_variant))
+    if reset:
+        fwd.launches = 0
+        fwd.launches_by_variant.clear()
+    return out
+
+
+def _plane_stats():
+    from ray_tpu_torch.experimental.device_plane import DevicePlane
+    plane = DevicePlane.maybe()
+    return plane.stats() if plane else None
+
+
+class CountedLLMServer(LLMServer):
+    """``LLMServer`` with a reader of the replica's kernel launches and a
+    profile of its decode."""
+
+    def launches(self, reset: bool = False) -> tuple:
+        return _flash_launches(reset)
+
+    def profile_decode(self) -> dict:
+        """``_profile_chunk`` in this replica, while it serves nothing."""
+        torch.cuda.set_device(self.engine.device)
+        return _profile_chunk(self.engine)
+
+
+class CountedPrefillServer(PrefillServer):
+    """``PrefillServer`` with readers of the replica's kernel launches, of
+    the device objects it still holds and of its transfer plane."""
+
+    def launches(self, reset: bool = False) -> tuple:
+        return _flash_launches(reset)
+
+    def held(self) -> int:
+        from ray_tpu_torch.core.ref import get_core_worker
+        return len(get_core_worker()._device_objects)
+
+    def plane(self):
+        return _plane_stats()
+
+
+class CountedDecodeServer(DecodeServer):
+    """``DecodeServer`` with readers of the replica's kernel launches and
+    of its transfer plane (how each KV handoff came)."""
+
+    def launches(self, reset: bool = False) -> tuple:
+        return _flash_launches(reset)
+
+    def plane(self):
+        return _plane_stats()
+
+    def profile_handoff(self, meta: dict) -> dict:
+        """One KV handoff (k and v, pulled and freed as ``decode_stream``
+        does) under the profiler: the wall time; the plane's pulls (map,
+        copy, unmap) against the rest (the RPC to the owner, its staging);
+        the device's time and idle share; the host's longest calls."""
+        from ray_tpu_torch.device_objects import device_get, free_ref
+        from ray_tpu_torch.experimental.device_plane import DevicePlane
+
+        dev = self.engine.device
+        torch.cuda.set_device(dev)
+        plane = DevicePlane.get()
+        pull = plane.pull
+        pull_s = []
+
+        def timed_pull(desc, t0):
+            t = time.perf_counter()
+            try:
+                return pull(desc, t0)
+            finally:
+                pull_s.append(time.perf_counter() - t)
+
+        plane.pull = timed_pull
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        try:
+            with torch.profiler.profile(activities=acts) as prof:
+                t = time.perf_counter()
+                ks = device_get(meta["k"], device=dev)
+                vs = device_get(meta["v"], device=dev)
+                torch.cuda.synchronize(dev)
+                wall = time.perf_counter() - t
+        finally:
+            del plane.pull
+            free_ref(meta["k"])
+            free_ref(meta["v"])
+        dev_us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA)
+        host = sorted(((e.key, e.self_cpu_time_total / 1e3)
+                       for e in prof.key_averages()), key=lambda kv: -kv[1])
+        nbytes = sum(x.numel() * x.element_size() for x in (ks, vs))
+        return dict(kv_mb=nbytes / 1e6, wall_ms=wall * 1e3,
+                    pulls_ms=sum(pull_s) * 1e3,
+                    rest_ms=(wall - sum(pull_s)) * 1e3,
+                    device_ms=dev_us / 1e3,
+                    device_idle_share=1 - dev_us / 1e3 / (wall * 1e3),
+                    top_host_self_ms=dict(host[:8]))
+
+
+def _profile_handoffs(pre, dec, prompts: list) -> dict:
+    """A small (16-token) and a large (the 8,000-token prompt, bucket
+    8192) prefill, each handed to ``profile_handoff`` in the decode
+    replica. The prefill's response is held until the pull is done, as
+    ``PDIngress`` holds it."""
+    out = {}
+    for label, prompt in (("16_tokens", list(range(1, 17))),
+                          ("8000_tokens", prompts[-1])):
+        resp = pre.options(method_name="prefill").remote(
+            {"prompt": prompt, "max_tokens": 2})
+        meta = resp.result(timeout=300)
+        out[label] = _call(dec, "profile_handoff", meta)
+        del meta, resp
+    return out
+
+
+def counted_llm_app(cfg: LLMConfig):
+    """``build_llm_app(cfg)`` with ``CountedLLMServer``: every option and
+    argument the same."""
+    app = build_llm_app(cfg)
+    dep = app.deployment
+    return Application(Deployment(CountedLLMServer, dep.name, dep._config),
+                       app.init_args, app.init_kwargs)
+
+
+def counted_pd_deployments(cfg: LLMConfig, name: str, n_prefill: int,
+                           n_decode: int) -> tuple:
+    """``run_pd_llm_app``'s three deployments, the pools' classes swapped
+    for the counted subclasses, every option the same."""
+    pre, dec, ing = _pd_deployments(cfg, name, n_prefill, n_decode)
+    return (Deployment(CountedPrefillServer, pre.name, pre._config),
+            Deployment(CountedDecodeServer, dec.name, dec._config), ing)
+
+
+def run_counted_pd(cfg: LLMConfig, name: str):
+    """``run_pd_llm_app(cfg, name=name)`` on the counted deployments, one
+    replica per pool: (ingress, prefill, decode) handles."""
+    pre, dec, ing = counted_pd_deployments(cfg, name, 1, 1)
+    h_ing = _deploy_pd(cfg, pre, dec, ing)
+    return (h_ing, serve.get_deployment_handle(pre.name),
+            serve.get_deployment_handle(dec.name))
+
+
+def _call(handle, method: str, *args):
+    return handle.options(method_name=method).remote(*args).result(
+        timeout=120)
+
+
+def _http_request(port: int, path: str, body: dict) -> tuple:
+    """One streamed completion through the proxy, read a byte at a time
+    as bench_serve.py reads it (``read(n)`` would wait to gather n bytes
+    across chunks): (TTFT s, total s, token ids)."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"x-serve-stream": "1"})
+    t0 = time.perf_counter()
+    ttft, buf = None, bytearray()
+    with urllib.request.urlopen(req, timeout=900) as resp:
+        while chunk := resp.read(1):
+            if ttft is None:
+                ttft = time.perf_counter() - t0
+            buf += chunk
+    total = time.perf_counter() - t0
+    text = buf.decode()
+    check(bool(text) and all(t.isdigit() for t in text.split()),
+          f"{path}: the stream is not token ids: {text[:200]!r}")
+    return ttft, total, [int(t) for t in text.split()]
+
+
+def _wait_route(port: int, path: str) -> float:
+    """Wait until the proxy's table routes ``path``, as a client of a new
+    deployment does: the proxy refreshes its table on a miss at most once
+    per 2 s (``RouteTable._NEG_CACHE_TTL_S``, as the JAX package's does),
+    so a burst at a route it has not seen would mostly get 404s. Its
+    ``/-/routes`` endpoint refreshes the table; seconds waited."""
+    t0 = time.perf_counter()
+    while True:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/-/routes",
+                                    timeout=30) as resp:
+            if path in json.loads(resp.read()):
+                return time.perf_counter() - t0
+        check(time.perf_counter() - t0 < 60, f"the proxy never routed "
+              f"{path}")
+        time.sleep(0.5)
+
+
+def _http_concurrent(port: int, path: str, bodies: list) -> list:
+    """Every body at once from its own thread: [(TTFT, total, ids)]."""
+    out = [None] * len(bodies)
+    errors = []
+    barrier = threading.Barrier(len(bodies))
+
+    def run(i):
+        barrier.wait()
+        try:
+            out[i] = _http_request(port, path, bodies[i])
+        except Exception as e:  # re-raised below
+            errors.append((i, repr(e)))
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    check(not errors and all(o is not None for o in out),
+          f"{path}: concurrent requests failed: {errors}")
+    return out
+
+
+def _stream_bench(submit) -> dict:
+    """bench_serve.py's numbers over ``submit(body) -> (TTFT, total,
+    ids)``: one warm-up, p50 / p95 TTFT over 15 solo requests of a
+    16-token prompt, decode tokens/s over a 96-token stream (mean of 2),
+    aggregate tokens/s at 8 streams of 32 tokens."""
+    def body(n):
+        return {"prompt": list(range(1, SERVE_TTFT_PROMPT + 1)),
+                "max_tokens": n}
+
+    submit(body(SERVE_TTFT_TOKENS))
+    ttfts = sorted(submit(body(SERVE_TTFT_TOKENS))[0] * 1e3
+                   for _ in range(SERVE_TTFT_N))
+    rates = []
+    for _ in range(SERVE_DECODE_RUNS):
+        ttft, total, ids = submit(body(SERVE_DECODE_TOKENS))
+        check(len(ids) == SERVE_DECODE_TOKENS, f"decode stream gave "
+              f"{len(ids)} tokens")
+        rates.append((len(ids) - 1) / (total - ttft))
+    out = [None] * SERVE_AGG_STREAMS
+
+    def run(i):
+        out[i] = submit(body(SERVE_AGG_TOKENS))
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(SERVE_AGG_STREAMS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    check(all(o is not None and len(o[2]) == SERVE_AGG_TOKENS for o in out),
+          "aggregate streams failed")
+    return dict(ttft_p50_ms=ttfts[len(ttfts) // 2],
+                ttft_p95_ms=ttfts[min(len(ttfts) - 1,
+                                      int(len(ttfts) * 0.95))],
+                ttft_all_ms=ttfts, decode_tok_s=sum(rates) / len(rates),
+                agg_tok_s=SERVE_AGG_STREAMS * SERVE_AGG_TOKENS / wall)
+
+
+def _engine_submit(eng):
+    """``_stream_bench``'s submit on an in-process engine."""
+    def submit(body):
+        t0 = time.perf_counter()
+        times, toks = [], []
+        _drain(eng.submit(body["prompt"], body["max_tokens"]), times, toks)
+        return times[0][0] - t0, times[-1][0] - t0, toks
+    return submit
+
+
+def _wait_for_card(free_before: int, what: str) -> float:
+    """Wait until the card's free memory is back within 2 GB of
+    ``free_before`` (a deleted replica's process has exited); seconds."""
+    t0 = time.perf_counter()
+    deadline = t0 + SERVE_FREE_TIMEOUT_S
+    while torch.cuda.mem_get_info()[0] < free_before - 2e9:
+        check(time.perf_counter() < deadline,
+              f"{what}: the card's memory did not come back "
+              f"({torch.cuda.mem_get_info()[0] / 1e9:.1f} GB free, "
+              f"{free_before / 1e9:.1f} before)")
+        time.sleep(0.5)
+    return time.perf_counter() - t0
+
+
+def _plane_delta(after: dict, before, key: str) -> dict:
+    """A route counter of a replica's plane between two reads (None: the
+    plane was not started yet)."""
+    return {r: v - (before[key][r] if before else 0)
+            for r, v in after[key].items()}
+
+
+def _handoff(after: dict, before, n_req: int) -> dict:
+    """KV handoff cost per request by CUDA IPC between two reads."""
+    nbytes = _plane_delta(after, before, "bytes_by_route")["cuda_ipc"]
+    secs = _plane_delta(after, before, "seconds_by_route")["cuda_ipc"]
+    return dict(requests=n_req, kv_mb_per_request=nbytes / n_req / 1e6,
+                handoff_ms_per_request=secs / n_req * 1e3,
+                ipc_gb_s=nbytes / secs / 1e9 if secs else None)
+
+
+def _mem_line(what: str, card: str) -> int:
+    free, total = torch.cuda.mem_get_info()
+    log(f"SERVE {what}: {free / 1e9:.2f} of {total / 1e9:.2f} GB free on "
+        f"the card; this process holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB  [{card}]")
+    return free
+
+
+def phase_serve(card: str, engine: dict = None) -> dict:
+    """The serve app on Llama-3-8B's width and depth: reference streams
+    from an in-process engine, then the mono app (``build_llm_app``,
+    ``num_gpus=1``) and the PD app (``run_pd_llm_app``, both pools with
+    ``num_gpus=0`` on the one card) through the HTTP proxy, then
+    ``build_llm_processor`` over a dataset; each against the references,
+    with launches read in the replicas."""
+    from ray_tpu_torch import data as rdata
+    from ray_tpu_torch.data.llm import build_llm_processor
+
+    torch.cuda.empty_cache()
+    free0 = _mem_line("at the phase's start", card)
+    cfg = LLMConfig(num_gpus=1, **SERVE_CFG)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+
+    # -- 1. reference streams: an in-process engine on the same weights --
+    t = time.perf_counter()
+    eng = _engine(cfg)
+    build_s = time.perf_counter() - t
+    try:
+        refs = [toks for _, _, toks in _run_concurrent(
+            eng, [(p, MAX_TOKENS, {}) for p in prompts])]
+        inproc = _stream_bench(_engine_submit(eng))
+    finally:
+        eng.stop()
+    check(eng.error is None, f"engine error: {eng.error}")
+    del eng
+    torch.cuda.empty_cache()
+    log(f"SERVE in-process engine (built in {build_s:.1f} s): "
+        f"{json.dumps({k: v for k, v in inproc.items() if k != 'ttft_all_ms'})}"
+        f"  [{card}]")
+    free1 = _mem_line("the reference engine freed", card)
+
+    t = time.perf_counter()
+    ray_tpu_torch.init()
+    out = dict(cluster_start_s=time.perf_counter() - t, in_process=inproc,
+               reference_engine_build_s=build_s, card=card)
+    try:
+        serve.start(http=True)
+        port = serve.get_proxy().port
+        bodies = [{"prompt": p, "max_tokens": MAX_TOKENS} for p in prompts]
+
+        # -- 2. mono: build_llm_app, num_gpus=1 --
+        t = time.perf_counter()
+        mono = serve.run(counted_llm_app(cfg), name="llm")
+        out["mono_ready_s"] = time.perf_counter() - t
+        _wait_route(port, "/llm")
+        _call(mono, "launches", True)
+        res = _http_concurrent(port, "/llm", bodies)
+        n, by_variant = _call(mono, "launches", True)
+        same = [r[2] == want for r, want in zip(res, refs)]
+        log(f"SERVE mono: ready in {out['mono_ready_s']:.1f} s; 8 "
+            f"concurrent requests over HTTP equal the references: {same}; "
+            f"flash_fwd launches in the replica {n} {by_variant}")
+        check(all(same), f"mono streams differ from the in-process "
+              f"engine's: {same}")
+        check(n == cfg.n_layers * len(prompts)
+              and by_variant == {"bf16_d128": n},
+              f"mono replica: flash_fwd launched {n} times ({by_variant}), "
+              f"expected {cfg.n_layers} per prefill x {len(prompts)}")
+        out["launches_mono"] = n
+        sampled = dict(bodies[1], **SERVE_SAMPLED)
+        mono_sampled = _http_request(port, "/llm", sampled)[2]
+        out["mono"] = _stream_bench(
+            lambda b: _http_request(port, "/llm", b))
+        log(f"SERVE mono over HTTP: "
+            f"{json.dumps({k: v for k, v in out['mono'].items() if k != 'ttft_all_ms'})}"
+            f"  [{card}]")
+        out["mono_decode_profile"] = _call(mono, "profile_decode")
+        log(f"SERVE mono replica, one decode chunk of 8 steps, 8 slots: "
+            f"{json.dumps(out['mono_decode_profile'])}  [{card}]")
+        serve.delete("llm")
+        out["mono_freed_s"] = _wait_for_card(free1, "mono deleted")
+
+        # -- 3. PD: two pools on the one card, num_gpus=0 --
+        cfg_pd = dataclasses.replace(cfg, num_gpus=0)
+        t = time.perf_counter()
+        pd, pre, dec = run_counted_pd(cfg_pd, "pd")
+        out["pd_ready_s"] = time.perf_counter() - t
+        _mem_line("the PD pools up", card)
+        _wait_route(port, "/pd")
+        _call(pre, "launches", True)
+        _call(dec, "launches", True)
+        plane0 = _call(dec, "plane")
+        res = _http_concurrent(port, "/pd", bodies)
+        n_pre, by_pre = _call(pre, "launches", True)
+        n_dec, by_dec = _call(dec, "launches", True)
+        same = [r[2] == want for r, want in zip(res, refs)]
+        log(f"SERVE PD: ready in {out['pd_ready_s']:.1f} s; 8 concurrent "
+            f"requests equal the references: {same}; flash_fwd launches: "
+            f"prefill {n_pre} {by_pre}, decode {n_dec} {by_dec}")
+        check(all(same), f"PD streams differ from the references: {same}")
+        check(n_pre == cfg.n_layers * len(prompts)
+              and by_pre == {"bf16_d128": n_pre} and n_dec == 0,
+              f"PD: flash_fwd launched {n_pre} times in the prefill pool "
+              f"({by_pre}) and {n_dec} in the decode pool, expected "
+              f"{cfg.n_layers} per prefill x {len(prompts)} and 0")
+        out["launches_prefill"], out["launches_decode"] = n_pre, n_dec
+        pd_sampled = _http_request(port, "/pd", sampled)[2]
+        check(pd_sampled == mono_sampled, f"PD sampled stream "
+              f"{pd_sampled} differs from the mono app's {mono_sampled}")
+        plane_mid = _call(dec, "plane")
+        out["pd"] = _stream_bench(lambda b: _http_request(port, "/pd", b))
+        plane1 = _call(dec, "plane")
+        out["handoff_profile"] = _profile_handoffs(pre, dec, prompts)
+        log(f"SERVE PD decode replica, KV handoffs under the profiler: "
+            f"{json.dumps(out['handoff_profile'])}  [{card}]")
+        held = _call(pre, "held")
+        # Every request through /pd: the 8 and the sampled one, then the
+        # bench's 1 + 15 + 2 + 8 of a 16-token prompt; each hands over k
+        # and v.
+        n_burst = len(bodies) + 1
+        n_small = 1 + SERVE_TTFT_N + SERVE_DECODE_RUNS + SERVE_AGG_STREAMS
+        n_req = n_burst + n_small
+        pulls = _plane_delta(plane1, plane0, "pulls_by_route")
+        handoff = dict(requests=n_req, pulls=pulls,
+                       burst=_handoff(plane_mid, plane0, n_burst),
+                       small=_handoff(plane1, plane_mid, n_small),
+                       prefill_holds_after=held)
+        out["handoff"] = handoff
+        log(f"SERVE PD over HTTP: "
+            f"{json.dumps({k: v for k, v in out['pd'].items() if k != 'ttft_all_ms'})};"
+            f" KV handoffs {json.dumps(handoff)}  [{card}]")
+        check(pulls == {"cuda_ipc": 2 * n_req, "host_relay": 0},
+              f"PD handoffs: {pulls}, expected k and v of {n_req} requests "
+              f"by CUDA IPC and none by the host relay")
+        check(held == 0, f"the prefill replica still holds {held} device "
+              f"objects after the streams ended")
+        serve.shutdown()
+        out["pd_freed_s"] = _wait_for_card(free1, "PD shut down")
+
+        # -- 4. batch inference over a dataset --
+        rows = [{"prompt": prompts[i % len(prompts)], "row": i}
+                for i in range(BATCH_ROWS)]
+        t = time.perf_counter()
+        proc = build_llm_processor(cfg, max_tokens=BATCH_TOKENS,
+                                   concurrency=1)
+        got = sorted(proc(rdata.from_items(rows)).take_all(),
+                     key=lambda r: r["row"])
+        out["batch_s"] = time.perf_counter() - t
+        same = [np.asarray(r["generated"]).tolist()
+                == refs[r["row"] % len(prompts)][:BATCH_TOKENS] for r in got]
+        log(f"SERVE build_llm_processor: {len(got)} rows in "
+            f"{out['batch_s']:.1f} s (actor start included), generated "
+            f"equal to the references: {same}  [{card}]")
+        check(len(got) == BATCH_ROWS and all(same),
+              f"batch inference differs from the references: {same}")
+        out["batch_equal"] = same
+        if engine is not None:  # phase 3, same run: in process, full traffic
+            out["phase3_ttft_idle_s"] = engine["ttft_idle_s"]
+        log(f"SERVE TTFT p50 ms: in process {inproc['ttft_p50_ms']:.1f}, "
+            f"mono over HTTP {out['mono']['ttft_p50_ms']:.1f}, PD over HTTP "
+            f"{out['pd']['ttft_p50_ms']:.1f}; decode tok/s {inproc['decode_tok_s']:.1f}"
+            f" / {out['mono']['decode_tok_s']:.1f} / "
+            f"{out['pd']['decode_tok_s']:.1f}  [{card}]")
+    finally:
+        with contextlib.suppress(Exception):
+            serve.shutdown()
+        ray_tpu_torch.shutdown()
+    return out
+
+
 def _variant_entries(rows, bwd_rows, parity) -> list:
     """The kernels line's entries of the generic variants: launches from
     their train-parity run (the path that reaches them), times at that
@@ -1857,6 +2397,8 @@ def main() -> int:
                     help="build the kernels and run phase 11 only")
     ap.add_argument("--only-trainer", action="store_true",
                     help="build the kernels and run phases 8 and 12 only")
+    ap.add_argument("--only-serve", action="store_true",
+                    help="build the kernels and run phase 13 only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1889,20 +2431,22 @@ def main() -> int:
         for line in text.splitlines():
             if any(w in line for w in BUILD_REPORT):
                 log(f"BUILD {name}: {line.strip()}")
-    # The generic variants at head_dim 384 and 512 hold D/4 (forward) or
-    # 2 D/8 (dK/dV) f32 accumulators per thread, near the register limit:
-    # a spill there is a defect, not a slowdown to accept.
+    # The generic variants hold DC/4 (forward) or 2 DC/8 (dK/dV) f32
+    # accumulators per thread for their chunk of DC columns, near the
+    # register limit at DC 384 and 512 (one chunk; the chunked instances
+    # stop at 256 for that reason): a spill in any instance is a defect,
+    # not a slowdown to accept.
     spills = {k: v for text in _build.build_log.values()
               for k, v in ptxas_spills(text).items()}
-    wide = {k: v for k, v in spills.items()
-            if "generic" in k and re.search(r"Li(384|512)E", k)}
-    log(f"BUILD spills (store, load bytes) of the D384/D512 variants: "
-        f"{json.dumps(wide)}")
-    check(len(wide) == 12 or len(_build.build_log) < len(_build.sources()),
-          f"expected 12 D384/D512 generic instances in the ptxas report, "
-          f"got {sorted(wide)}")
-    check(all(v == (0, 0) for v in wide.values()),
-          f"ptxas spills in the D384/D512 variants: {wide}")
+    generic = {k: v for k, v in spills.items() if "generic" in k}
+    log(f"BUILD spills (store, load bytes) of the generic instances: "
+        f"{json.dumps(generic)}")
+    check(len(generic) == GENERIC_INSTANCES
+          or len(_build.build_log) < len(_build.sources()),
+          f"expected {GENERIC_INSTANCES} generic instances in the ptxas "
+          f"report, got {sorted(generic)}")
+    check(all(v == (0, 0) for v in generic.values()),
+          f"ptxas spills in the generic instances: {generic}")
 
     if args.only_ttft:
         phase_ttft_only(card, args.only_ttft)
@@ -1922,6 +2466,12 @@ def main() -> int:
     if args.only_trainer:
         phase_trainer(card, phase_train_bench(card))
         return 0
+    if args.only_serve:
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        for B, H, KVH, S, causal, dt, layout in SERVE_FWD_CASES:
+            _fwd_case(gen, card, B, H, KVH, S, causal, dt, layout)
+        phase_serve(card)
+        return 0
     rows = phase_kernels(card)
     route = phase_reference_route(card)
     if args.only_kernels:
@@ -1936,6 +2486,7 @@ def main() -> int:
     ckpt = phase_checkpoint(card, server)
     runtime = phase_runtime(card)
     trainer = phase_trainer(card, bench)
+    serving = phase_serve(card, engine)
 
     main_row = next(r for r in rows if r["shape"] == "B1 H32 KVH8 S8192 D128"
                     and r["causal"] and r["layout"] == "dense")
@@ -1951,7 +2502,10 @@ def main() -> int:
         launches_moe_train=moe["train"]["launches"]["flash_fwd"],
         launches_runtime_actor=runtime["launches"],
         launches_trainer_worker=trainer["launches"]["flash_fwd"][
-            "bf16_d128"])]
+            "bf16_d128"],
+        launches_serve_mono_replica=serving["launches_mono"],
+        launches_serve_prefill_replica=serving["launches_prefill"],
+        launches_serve_decode_replica=serving["launches_decode"])]
     bwd_main = next(r for r in bwd_rows
                     if r["shape"] == "B1 H32 KVH8 S8192 D128" and r["causal"]
                     and r["layout"] == "dense")
@@ -1976,7 +2530,8 @@ def main() -> int:
                        engine=engine, bwd_rows=bwd_rows, train_parity=parity,
                        train=train, train_bench=bench, moe=moe,
                        reference_route=route, checkpoint=ckpt,
-                       runtime=runtime, trainer=trainer, kernels=kernels), f,
+                       runtime=runtime, trainer=trainer, serve=serving,
+                       kernels=kernels), f,
                   indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -163,12 +163,17 @@ _pyapi = ctypes.pythonapi
 _pyapi.PyCapsule_New.restype = ctypes.py_object
 _pyapi.PyCapsule_New.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
                                  ctypes.c_void_p]
-_pyapi.PyCapsule_IsValid.restype = ctypes.c_int
-_pyapi.PyCapsule_IsValid.argtypes = [ctypes.py_object, ctypes.c_char_p]
-_pyapi.PyCapsule_GetPointer.restype = ctypes.c_void_p
-_pyapi.PyCapsule_GetPointer.argtypes = [ctypes.py_object, ctypes.c_char_p]
 
-_CAP_DESTRUCTOR = ctypes.CFUNCTYPE(None, ctypes.py_object)
+# The destructor gets the capsule as a raw pointer: it runs while the
+# capsule is being deallocated, so it must not take a reference to it (a
+# py_object argument would, and its release would free the capsule again).
+_CAP_DESTRUCTOR = ctypes.CFUNCTYPE(None, ctypes.c_void_p)
+_cap_is_valid = ctypes.PYFUNCTYPE(ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_char_p)(("PyCapsule_IsValid",
+                                                    _pyapi))
+_cap_pointer = ctypes.PYFUNCTYPE(ctypes.c_void_p, ctypes.c_void_p,
+                                 ctypes.c_char_p)(("PyCapsule_GetPointer",
+                                                   _pyapi))
 
 
 @_CAP_DESTRUCTOR
@@ -176,8 +181,8 @@ def _cap_destruct(cap):
     # Fires when the capsule is garbage-collected UNCONSUMED (a consumer
     # renames it to "used_dltensor" and owns the deleter from then on).
     try:
-        if _pyapi.PyCapsule_IsValid(cap, b"dltensor"):
-            p = _pyapi.PyCapsule_GetPointer(cap, b"dltensor")
+        if _cap_is_valid(cap, b"dltensor"):
+            p = _cap_pointer(cap, b"dltensor")
             mt = ctypes.cast(p, ctypes.POINTER(DLManagedTensor))
             mt.contents.deleter(mt)
     except Exception:

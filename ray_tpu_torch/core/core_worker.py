@@ -61,12 +61,13 @@ _trace_local = threading.local()
 _trace_ctxvar: "_contextvars.ContextVar" = _contextvars.ContextVar(
     "ray_tpu_torch_trace", default=None)
 
-# Device objects, the device transfer plane and collectives (the DAG's
-# device edges and allreduce) wait for their own port.
+# The DAG's device edges and its allreduce need device channels
+# (experimental/channel.py) and collectives (collective.py), which wait for
+# their own port; device objects and the CUDA IPC plane are here.
 _DEVICE_PLANE_MISSING = (
-    "device objects and the device transfer plane are not ported to "
-    "ray_tpu_torch yet (ROADMAP Queue 1 item 5: device objects and "
-    "collectives); DAG edges without with_tensor_transport() and "
+    "the DAG's device edges need device channels and collectives, which "
+    "are not ported to ray_tpu_torch yet (experimental/channel.py, "
+    "collective.py); DAG edges without with_tensor_transport() and "
     "without allreduce() work")
 
 PENDING, READY, ERROR = "PENDING", "READY", "ERROR"
@@ -1206,14 +1207,13 @@ class CoreWorker:
 
     @long_poll
     async def device_pull_info(self, key: bytes,
-                               wait_s: float = 0.0) -> Optional[tuple]:
-        """Stage the device object for ONE pull by the calling peer and
-        return the tiny control tuple (transfer_addr, uuid, aval_descs).
-        The tensor itself never touches this RPC — the peer pulls it
-        device-to-device through the transfer plane. wait_s>0 parks until
-        the key is registered (collective rendezvous; a poll loop — the
-        producer may register from an exec thread, so no cross-thread
-        asyncio primitives)."""
+                               wait_s: float = 0.0) -> Optional[dict]:
+        """Stage the device object for ONE CUDA IPC pull by a peer of this
+        node and return the tiny control descriptor
+        (``experimental/device_plane.py``). The tensor itself never touches
+        this RPC. wait_s>0 parks until the key is registered (collective
+        rendezvous; a poll loop — the producer may register from an exec
+        thread, so no cross-thread asyncio primitives)."""
         arr = self._device_objects.get(key)
         if arr is None and wait_s > 0:
             deadline = asyncio.get_running_loop().time() + wait_s
@@ -1223,22 +1223,39 @@ class CoreWorker:
                 arr = self._device_objects.get(key)
         if arr is None:
             return None
-        # Staging for a device-to-device pull needs the transfer plane.
-        raise NotImplementedError(_DEVICE_PLANE_MISSING)
+        from ray_tpu_torch.experimental.device_plane import DevicePlane
+        loop = asyncio.get_running_loop()
+        # Staging records an IPC event on the card; keep it off the io loop.
+        desc = await loop.run_in_executor(None, DevicePlane.get().stage, arr)
+        left = self._device_consumers.get(key)
+        if left is not None:
+            if left <= 1:
+                # Last consumer staged. Defer the actual free briefly so
+                # the puller's copy finishes before the tensor is dropped.
+                self._device_consumers.pop(key, None)
+                token = self._device_tokens.get(key)
+
+                async def _deferred_free():
+                    await asyncio.sleep(60.0)
+                    if self._device_tokens.get(key) is token:
+                        self.free_device_object(key)
+
+                spawn(_deferred_free())
+            else:
+                self._device_consumers[key] = left - 1
+        return desc
 
     async def fetch_device_object(self, key: bytes) -> Optional[tuple]:
-        """Host-bytes fallback endpoint (cross-backend transfers, or when
-        the transfer plane is unavailable): device -> host array -> wire
-        (pickle-5 ships the buffer without an extra copy). The D2H copy
-        runs OFF the io loop — a multi-GB transfer must not stall this
-        worker's RPC service."""
+        """The host relay (a CPU tensor, or a puller on another node):
+        device -> host tensor -> wire (pickle-5 ships the buffer without an
+        extra copy). The device-to-host copy runs OFF the io loop — a
+        multi-GB transfer must not stall this worker's RPC service."""
         arr = self._device_objects.get(key)
         if arr is None:
             return None
-        import numpy as np
         host = await asyncio.get_running_loop().run_in_executor(
-            None, np.asarray, arr)
-        return (host, str(host.dtype), host.shape)
+            None, lambda: arr.detach().cpu())
+        return (host, str(host.dtype), tuple(host.shape))
 
     async def free_device_object_remote(self, key: bytes) -> None:
         self.free_device_object(key)
@@ -1316,15 +1333,15 @@ class CoreWorker:
                           *args, **kwargs):
         """Run an actor method for a compiled DAG with device-plane IO
         (DeviceRef args pulled device-to-device; out_mode='device' keeps
-        the result on the card). The device plane is not ported yet."""
+        the result on the card). Waits for device channels."""
         raise NotImplementedError(_DEVICE_PLANE_MISSING)
 
     def _builtin_dag_allreduce(self, op_key: bytes, rank: int, world: int,
                                op: str, inputs: list,
                                timeout: float = 120.0):
         """In-DAG allreduce across the participating actors' device
-        tensors (hub reduce over the transfer plane). The device plane is
-        not ported yet."""
+        tensors (hub reduce over the transfer plane). Waits for
+        collectives."""
         raise NotImplementedError(_DEVICE_PLANE_MISSING)
 
     # ------------------------------------------------------------------

@@ -5,14 +5,11 @@ and backward (counterpart of ``ray_tpu/ops/attention.py``).
     f32 softmax; ground truth for the tests.
   * ``attention_route`` — where a head_dim goes, decided by shape before
     anything launches, as the JAX package decides (``_flash_fwd`` and
-    ``_flash_vjp_bwd``, ray_tpu/ops/attention.py:394-450): 128, 256, 384
-    and 512 to the hand-written kernels (their plain versions on CPU
-    tensors); a
-    head_dim that is not a multiple of 128 to the port's copy of the JAX
+    ``_flash_vjp_bwd``, ray_tpu/ops/attention.py:394-450): every multiple of
+    128 to the hand-written kernels (their plain versions on CPU tensors),
+    a head_dim that is not a multiple of 128 to the port's copy of the JAX
     package's jnp branch (``flash_fwd_reference``, ``flash_bwd_reference``,
-    on any device: that branch has no Pallas kernel); a multiple of 128
-    from 640 up, which the Pallas kernels take and these kernels do not
-    (their tiles outgrow the card's shared memory), raises.
+    on any device: that branch has no Pallas kernel).
   * ``flash_fwd`` — the wrapper of the hand-written CUDA kernel
     ``csrc/flash_fwd.cu`` (which replaces the Pallas TPU kernel
     ``_flash_fwd_kernel``). On a CUDA tensor it launches the kernel or
@@ -27,8 +24,10 @@ and backward (counterpart of ``ray_tpu/ops/attention.py``).
   * ``flash_attention`` — ``torch.autograd.Function`` over ``flash_fwd``
     and ``flash_bwd``.
 
-Each kernel takes f32 and bf16 at head_dim 128, 256, 384 and 512: bf16 at
-128 runs its wgmma kernel, every other case its generic variant. Sequence lengths
+Each kernel takes f32 and bf16 at any head_dim that is a multiple of 128:
+bf16 at 128 runs its wgmma kernel, every other case its generic variant,
+which from 640 up tiles over D (chunks of 256 or 128 columns, the scores
+summed over the chunks; ``ops/csrc/flash_common.cuh`` ``gen_chunk``). Sequence lengths
 are not routed: the kernels take any S (TMA zero-fills, the stores are
 guarded), where the JAX package sends S % 128 != 0 to its jnp branch.
 
@@ -107,25 +106,16 @@ def _fwd_with_lse_reference(q, k, v, *, causal, sm_scale):
 # Routing by head_dim, and the JAX package's jnp branch
 # ---------------------------------------------------------------------------
 
-KERNEL_HEAD_DIMS = (128, 256, 384, 512)
+# The head_dims the kernels take are the multiples of this.
+KERNEL_HEAD_DIM_STEP = 128
 
 
 def attention_route(head_dim: int) -> str:
-    """"kernel" for a head_dim the kernels take (128, 256, 384, 512),
-    "reference" for one that is not a multiple of 128 (the JAX package's
-    jnp branch); ValueError for a multiple of 128 from 640 up, where the
-    generic variants' dK/dV and dQ tiles (252 and 249 KB at 640) pass the
-    card's 227 KB of shared memory per block. Decided by shape alone, never
-    because a launch failed."""
-    if head_dim in KERNEL_HEAD_DIMS:
-        return "kernel"
-    if head_dim % 128:
-        return "reference"
-    raise ValueError(f"head_dim {head_dim}: the flash kernels take head_dim "
-                     f"128, 256, 384 and 512 (from 640 up their tiles do "
-                     f"not fit the 227 KB of shared memory per block), and "
-                     f"the jnp branch head_dims that are not multiples of "
-                     f"128")
+    """"kernel" for a head_dim the kernels take (any multiple of 128; from
+    640 up their generic variants tile over D), "reference" for one that is
+    not a multiple of 128 (the JAX package's jnp branch). Decided by shape
+    alone, never because a launch failed."""
+    return "reference" if head_dim % KERNEL_HEAD_DIM_STEP else "kernel"
 
 
 def flash_fwd_reference(q, k, v, causal: bool, sm_scale: float
@@ -220,8 +210,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 def kernel_variant(q: torch.Tensor) -> str:
     """The name of the kernel variant that q's dtype and head_dim launch:
-    "bf16_d128" (the wgmma kernels), "f32_d128" ... "f32_d512", "bf16_d256"
-    ... "bf16_d512" (the generic ones). The wrappers count launches by it in
+    "bf16_d128" (the wgmma kernels), "f32_d128", "f32_d256", ...,
+    "bf16_d256", ... (the generic ones). The wrappers count launches by it in
     ``launches_by_variant`` beside ``launches``."""
     dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
     return f"{dt}_d{q.shape[-1]}"
@@ -302,7 +292,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash-attention forward -> (O [b, h, sq, d] in q's dtype, LSE
     [b, h, sq] f32). Routed by ``attention_route``: at the kernels'
-    head_dims (128 to 512) CUDA tensors launch ``csrc/flash_fwd.cu`` (counted in
+    head_dims (multiples of 128) CUDA tensors launch ``csrc/flash_fwd.cu`` (counted in
     ``flash_fwd.launches``) and CPU tensors run ``flash_fwd_plain``; a
     head_dim that is not a multiple of 128 runs ``flash_fwd_reference``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
@@ -405,9 +395,10 @@ def _bwd_check(q, k, v, dout, lse, delta):
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"the flash backward kernels take float32 or "
                         f"bfloat16, not {q.dtype}")
-    if q.shape[-1] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash backward kernels take head_dim "
-                         f"{KERNEL_HEAD_DIMS}, not {q.shape[-1]}")
+    if q.shape[-1] % KERNEL_HEAD_DIM_STEP:
+        raise ValueError(f"the flash backward kernels take head_dims that "
+                         f"are multiples of {KERNEL_HEAD_DIM_STEP}, not "
+                         f"{q.shape[-1]}")
     if dout.dtype != q.dtype or dout.shape != q.shape:
         raise ValueError(f"dout must match q: {tuple(dout.shape)} "
                          f"{dout.dtype} vs {tuple(q.shape)} {q.dtype}")
@@ -488,8 +479,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, sm_scale: Optional[float] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flash-attention backward -> (dQ, dK, dV), dK/dV with k's KVH heads.
-    Routed by ``attention_route``: at the kernels' head_dims (128 to 512)
-    CUDA tensors
+    Routed by ``attention_route``: at the kernels' head_dims (multiples of
+    128) CUDA tensors
     compute delta = rowsum(dO·O) and launch the dK/dV kernel and the dQ
     kernel, CPU tensors run ``flash_bwd_plain``; a head_dim that is not a
     multiple of 128 runs ``flash_bwd_reference``."""

@@ -56,8 +56,9 @@
 //     [B, S, heads, D] views load without a copy; TMA zero-fills rows past
 //     Sq and Skv, and the stores are guarded by row < Skv.
 // That kernel serves bf16 at head_dim 128. A generic variant (at the end of
-// this file) serves f32 at head_dim 128 to 512 and bf16 at 256 to 512, with P
-// and dS rounded to the input dtype as the Pallas kernel rounds them.
+// this file) serves f32 at any head_dim that is a multiple of 128 and bf16 at
+// those from 256 up (tiled over D from 640 up), with P and dS rounded to the
+// input dtype as the Pallas kernel rounds them.
 
 #include <math.h>
 
@@ -340,32 +341,41 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// Generic variant: f32 at D = 128 to 512, bf16 at D = 256 to 512 (all but bf16
-// D = 128, which the wgmma kernel above serves). The same function on the CUDA
-// cores: one block of 128 threads per (b, KV head, 16 KV rows), walking the
-// group's query heads and their 32-row q tiles as the kernel above does, with
-// K, V, Q, dO as f32 tiles in dynamic shared memory (104 KB at D = 256, 198 KB
-// at 512). Each thread holds 4 entries of P^T and dS^T (KV row tid / 8, q
-// columns tid % 8 + 8i; P rounded to v's dtype, dS to q's) and an eighth of its
-// KV row's dK and dV columns as interleaved float4s, in f32 registers for the
-// whole loop, so the group's query heads are summed in f32 with no atomics.
-// Bound by shared-memory reads, not by the FMA rate; simple first.
+// Generic variant: every dtype and head_dim (a multiple of 128) but bf16
+// D = 128, which the wgmma kernel above serves. The same function on the CUDA
+// cores: one block of 128 threads per (b, KV head, 16 KV rows, chunk of D),
+// walking the group's query heads and their 32-row q tiles as the kernel
+// above does, with K, V, Q, dO as f32 tiles in dynamic shared memory (104 KB
+// at DC = 256, 198 KB at 512). D up to 512 runs in one chunk (DC = D); above,
+// D is cut into chunks of DC = 256 or 128 columns (flash::gen_chunk; the
+// chunked instances): each block writes one chunk of dK
+// and dV, and the contractions over D (S^T = K Q^T and dP^T = V dO^T) are
+// summed over the chunks staged one at a time, in the order that ends with
+// the block's own chunk, so Q's and dO's columns for dK and dV are the ones
+// left in shared memory. With more than one chunk K and V are reloaded per
+// chunk and every block recomputes the scores (D / DC times their work;
+// right and slow first). Each thread holds 4 entries of P^T and dS^T (KV row
+// tid / 8, q columns tid % 8 + 8i; P rounded to v's dtype, dS to q's) and an
+// eighth of its KV row's dK and dV chunk as interleaved float4s, in f32
+// registers for the whole loop, so the group's query heads are summed in f32
+// with no atomics. Bound by shared-memory reads, not by the FMA rate; simple
+// first.
 // ---------------------------------------------------------------------------
 
 constexpr int kGBKV = 16;  // KV rows per block, 8 threads per row
 constexpr int kGBQ = 32;   // q rows per tile
 
-template <int D>
+template <int DC>
 constexpr int gen_smem_bytes() {
-  return ((2 * kGBKV + 2 * kGBQ) * (D + 4) + 2 * kGBKV * (kGBQ + 1) +
+  return ((2 * kGBKV + 2 * kGBQ) * (DC + 4) + 2 * kGBKV * (kGBQ + 1) +
           2 * kGBQ) * 4;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(128)
-flash_bwd_dkv_generic_kernel(const flash::BwdParams p) {
+template <typename T, int DC, bool kChunked>
+__device__ __forceinline__ void flash_bwd_dkv_generic_body(
+    const flash::BwdParams& p) {
   extern __shared__ float4 gen_smem[];
-  constexpr int kP = D + 4;       // row pitch of the f32 tiles
+  constexpr int kP = DC + 4;      // row pitch of the f32 tiles
   constexpr int kPT = kGBQ + 1;   // row pitch of P^T and dS^T
   float* Ks = reinterpret_cast<float*>(gen_smem);
   float* Vs = Ks + kGBKV * kP;
@@ -380,11 +390,14 @@ flash_bwd_dkv_generic_kernel(const flash::BwdParams p) {
   const int kr = tid / 8;  // KV row of the tile
   const int cc = tid % 8;
   // Block -> (KV tile, b, KV head), the KV tile slowest: causal, the first
-  // KV tiles see the most q tiles, so they start first.
+  // KV tiles see the most q tiles, so they start first. blockIdx.y is the
+  // chunk of D.
   const int n_kvt = (p.Skv + kGBKV - 1) / kGBKV;
   const int n_bk = gridDim.x / n_kvt;  // B * KVH
   const int bk = blockIdx.x % n_bk;
   const int kvt = blockIdx.x / n_bk;
+  const int n_dc = kChunked ? gridDim.y : 1;
+  const int oc = kChunked ? blockIdx.y : 0;
   const int kvh = bk % p.KVH;
   const int b = bk / p.KVH;
   const int G = p.H / p.KVH;
@@ -394,16 +407,16 @@ flash_bwd_dkv_generic_kernel(const flash::BwdParams p) {
   // Causal: q tiles wholly before this KV tile see none of it.
   const int qt_first = p.causal ? min(k0 / kGBQ, n_qt) : 0;
 
-  flash::load_tile<T, D>(
-      Ks, static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh, p.k_ss, k0,
-      kGBKV, p.Skv, tid, 128);
-  flash::load_tile<T, D>(
-      Vs, static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh, p.v_ss, k0,
-      kGBKV, p.Skv, tid, 128);
+  const T* K = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const T* V = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  if (n_dc == 1) {
+    flash::load_tile<T, DC>(Ks, K, p.k_ss, k0, kGBKV, p.Skv, tid, 128);
+    flash::load_tile<T, DC>(Vs, V, p.v_ss, k0, kGBKV, p.Skv, tid, 128);
+  }
 
-  float dk[D / 8], dv[D / 8];
+  float dk[DC / 8], dv[DC / 8];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < DC / 8; ++i) dk[i] = dv[i] = 0.f;
 
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
@@ -412,30 +425,42 @@ flash_bwd_dkv_generic_kernel(const flash::BwdParams p) {
     const long long row0 = (static_cast<long long>(b) * p.H + h) * p.Sq;
     for (int qt = qt_first; qt < n_qt; ++qt) {
       const int q0 = qt * kGBQ;
-      __syncthreads();  // K, V stored / the last tile's readers are done
-      flash::load_tile<T, D>(Qs, Q, p.q_ss, q0, kGBQ, p.Sq, tid, 128);
-      flash::load_tile<T, D>(Os, dO, p.o_ss, q0, kGBQ, p.Sq, tid, 128);
-      for (int i = tid; i < kGBQ; i += 128) {  // +inf / 0 past Sq: P = 0
-        const int r = q0 + i;
-        Ls[i] = r < p.Sq ? p.lse[row0 + r] : INFINITY;
-        Ds[i] = r < p.Sq ? p.delta[row0 + r] : 0.f;
-      }
-      __syncthreads();
-
       // S^T and dP^T entries (krow, q0 + cc + 8i)
       float4 s4[kGBQ / 8], p4[kGBQ / 8];
 #pragma unroll
       for (int i = 0; i < kGBQ / 8; ++i)
         s4[i] = p4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int ci = 0; ci < n_dc; ++ci) {
+        const int dc = (oc + 1 + ci) % n_dc;  // ends with the block's chunk
+        __syncthreads();  // K, V stored / the last chunk's readers are done
+        if (n_dc > 1) {
+          flash::load_tile<T, DC>(Ks, K + dc * DC, p.k_ss, k0, kGBKV, p.Skv,
+                                  tid, 128);
+          flash::load_tile<T, DC>(Vs, V + dc * DC, p.v_ss, k0, kGBKV, p.Skv,
+                                  tid, 128);
+        }
+        flash::load_tile<T, DC>(Qs, Q + dc * DC, p.q_ss, q0, kGBQ, p.Sq, tid,
+                                128);
+        flash::load_tile<T, DC>(Os, dO + dc * DC, p.o_ss, q0, kGBQ, p.Sq, tid,
+                                128);
+        if (ci == 0) {
+          for (int j = tid; j < kGBQ; j += 128) {  // +inf / 0 past Sq: P = 0
+            const int r = q0 + j;
+            Ls[j] = r < p.Sq ? p.lse[row0 + r] : INFINITY;
+            Ds[j] = r < p.Sq ? p.delta[row0 + r] : 0.f;
+          }
+        }
+        __syncthreads();
 #pragma unroll 2
-      for (int d = 0; d < D; d += 4) {
-        const float4 k4 = flash::ld4(Ks + kr * kP + d);
-        const float4 v4 = flash::ld4(Vs + kr * kP + d);
+        for (int d = 0; d < DC; d += 4) {
+          const float4 k4 = flash::ld4(Ks + kr * kP + d);
+          const float4 v4 = flash::ld4(Vs + kr * kP + d);
 #pragma unroll
-        for (int i = 0; i < kGBQ / 8; ++i) {
-          const int j = cc + 8 * i;
-          flash::fma4(s4[i], k4, flash::ld4(Qs + j * kP + d));
-          flash::fma4(p4[i], v4, flash::ld4(Os + j * kP + d));
+          for (int i = 0; i < kGBQ / 8; ++i) {
+            const int j = cc + 8 * i;
+            flash::fma4(s4[i], k4, flash::ld4(Qs + j * kP + d));
+            flash::fma4(p4[i], v4, flash::ld4(Os + j * kP + d));
+          }
         }
       }
 #pragma unroll
@@ -451,13 +476,14 @@ flash_bwd_dkv_generic_kernel(const flash::BwdParams p) {
       }
       __syncthreads();
 
-      // dV += P^T dO, dK += dS^T Q over the tile's q rows
+      // dV += P^T dO, dK += dS^T Q over the tile's q rows (the chunk's
+      // columns)
 #pragma unroll 4
       for (int j = 0; j < kGBQ; ++j) {
         const float pj = Pt[kr * kPT + j];
         const float sj = St[kr * kPT + j];
 #pragma unroll
-        for (int q = 0; q < D / 32; ++q) {
+        for (int q = 0; q < DC / 32; ++q) {
           const int col = 4 * (cc + 8 * q);
           const float4 o4 = flash::ld4(Os + j * kP + col);
           const float4 q4 = flash::ld4(Qs + j * kP + col);
@@ -476,11 +502,12 @@ flash_bwd_dkv_generic_kernel(const flash::BwdParams p) {
 
   if (krow < p.Skv) {
     const long long o =
-        ((static_cast<long long>(b) * p.KVH + kvh) * p.Skv + krow) * D;
+        ((static_cast<long long>(b) * p.KVH + kvh) * p.Skv + krow) *
+            (DC * n_dc) + oc * DC;
     T* dK = static_cast<T*>(p.out0) + o;
     T* dV = static_cast<T*>(p.out1) + o;
 #pragma unroll
-    for (int q = 0; q < D / 32; ++q) {
+    for (int q = 0; q < DC / 32; ++q) {
       const int col = 4 * (cc + 8 * q);
       flash::Elem<T>::store4(dK + col, make_float4(dk[4 * q], dk[4 * q + 1],
                                                    dk[4 * q + 2],
@@ -492,30 +519,58 @@ flash_bwd_dkv_generic_kernel(const flash::BwdParams p) {
   }
 }
 
-template <typename T, int D>
-int launch_generic(const flash::BwdParams& p, int B, cudaStream_t st) {
-  constexpr int smem = gen_smem_bytes<D>();
-  const cudaError_t err =
-      flash::allow_smem(flash_bwd_dkv_generic_kernel<T, D>, smem);
+// One block per (KV tile, b, KV head): D up to 4 kD, in one chunk.
+template <typename T, int DC>
+__global__ void __launch_bounds__(128)
+flash_bwd_dkv_generic_kernel(const flash::BwdParams p) {
+  flash_bwd_dkv_generic_body<T, DC, false>(p);
+}
+
+// One block per (KV tile, b, KV head, chunk of D): D above 4 kD.
+template <typename T, int DC>
+__global__ void __launch_bounds__(128, 1)
+flash_bwd_dkv_generic_chunked_kernel(const flash::BwdParams p) {
+  flash_bwd_dkv_generic_body<T, DC, true>(p);
+}
+
+template <typename T, int DC, bool kChunked>
+int launch_generic(const flash::BwdParams& p, int D, int B, cudaStream_t st) {
+  constexpr int smem = gen_smem_bytes<DC>();
+  void (*kernel)(const flash::BwdParams);
+  if constexpr (kChunked)
+    kernel = flash_bwd_dkv_generic_chunked_kernel<T, DC>;
+  else
+    kernel = flash_bwd_dkv_generic_kernel<T, DC>;
+  const cudaError_t err = flash::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_kvt = (p.Skv + kGBKV - 1) / kGBKV;
-  flash_bwd_dkv_generic_kernel<T, D><<<B * p.KVH * n_kvt, 128, smem, st>>>(p);
+  dim3 grid(B * p.KVH * n_kvt, D / DC);
+  kernel<<<grid, 128, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Picks the generic instance by D (a multiple of kD up to 4 kD, checked by
-// the caller) and dtype; bf16 at D = kD is the wgmma kernel's.
+// Picks the generic instance by D (a multiple of kD, checked by the caller)
+// and dtype: D itself up to 4 kD (bf16 at D = kD is the wgmma kernel's),
+// above that a chunk of flash::gen_chunk(D) columns.
 int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
                      cudaStream_t st) {
-  if (dtype == 1) {
-    if (D == 2 * kD) return launch_generic<bf16, 2 * kD>(p, B, st);
-    if (D == 3 * kD) return launch_generic<bf16, 3 * kD>(p, B, st);
-    return launch_generic<bf16, 4 * kD>(p, B, st);
+  if (D > 4 * kD) {
+    const bool wide = flash::gen_chunk(D) == 2 * kD;
+    if (dtype == 1)
+      return wide ? launch_generic<bf16, 2 * kD, true>(p, D, B, st)
+                  : launch_generic<bf16, kD, true>(p, D, B, st);
+    return wide ? launch_generic<float, 2 * kD, true>(p, D, B, st)
+                : launch_generic<float, kD, true>(p, D, B, st);
   }
-  if (D == kD) return launch_generic<float, kD>(p, B, st);
-  if (D == 2 * kD) return launch_generic<float, 2 * kD>(p, B, st);
-  if (D == 3 * kD) return launch_generic<float, 3 * kD>(p, B, st);
-  return launch_generic<float, 4 * kD>(p, B, st);
+  if (dtype == 1) {
+    if (D == 2 * kD) return launch_generic<bf16, 2 * kD, false>(p, D, B, st);
+    if (D == 3 * kD) return launch_generic<bf16, 3 * kD, false>(p, D, B, st);
+    return launch_generic<bf16, 4 * kD, false>(p, D, B, st);
+  }
+  if (D == kD) return launch_generic<float, kD, false>(p, D, B, st);
+  if (D == 2 * kD) return launch_generic<float, 2 * kD, false>(p, D, B, st);
+  if (D == 3 * kD) return launch_generic<float, 3 * kD, false>(p, D, B, st);
+  return launch_generic<float, 4 * kD, false>(p, D, B, st);
 }
 
 }  // namespace
@@ -523,8 +578,8 @@ int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
 // q/dO [B, H, Sq, D] and k/v [B, KVH, Skv, D] given by element strides (batch,
 // head, seq; the last dim dense, every stride and base address a multiple of 16
 // bytes, as TMA and the 16-byte loads require); lse and delta [B, H, Sq] f32
-// and dk/dv [B, KVH, Skv, D] dense, in the inputs' dtype. D is 128, 256, 384 or
-// 512; dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 runs the wgmma kernel,
+// and dk/dv [B, KVH, Skv, D] dense, in the inputs' dtype. D is a multiple of
+// 128; dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 runs the wgmma kernel,
 // every other case the generic variant. Returns cudaGetLastError() after the
 // launch (cudaErrorInvalidValue for a shape or layout the kernels do not take).
 extern "C" int ray_flash_bwd_dkv(
@@ -535,7 +590,7 @@ extern "C" int ray_flash_bwd_dkv(
     long long o_sb, long long o_sh, long long o_ss, int B, int H, int KVH,
     int Sq, int Skv, int D, float scale, int causal, int dtype,
     void* stream) {
-  if (D % kD != 0 || D < kD || D > 4 * kD || B < 1 || H < 1 || KVH < 1 ||
+  if (D % kD != 0 || D < kD || B < 1 || H < 1 || KVH < 1 ||
       H % KVH != 0 || Sq < 1 || Skv < 1 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

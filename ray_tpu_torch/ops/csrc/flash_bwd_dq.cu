@@ -44,8 +44,9 @@
 //     copy; TMA zero-fills rows past Sq and Skv, rows past Sq get LSE =
 //     +inf (P = 0), and the stores are guarded by row < Sq.
 // That kernel serves bf16 at head_dim 128. A generic variant (at the end of
-// this file) serves f32 at head_dim 128 to 512 and bf16 at 256 to 512, with P
-// and dS rounded to the input dtype as the Pallas kernel rounds them.
+// this file) serves f32 at any head_dim that is a multiple of 128 and bf16 at
+// those from 256 up (tiled over D from 640 up), with P and dS rounded to the
+// input dtype as the Pallas kernel rounds them.
 
 #include <math.h>
 
@@ -315,29 +316,37 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// Generic variant: f32 at D = 128 to 512, bf16 at D = 256 to 512 (all but bf16
-// D = 128, which the wgmma kernel above serves). The same function on the CUDA
-// cores: one block of 128 threads per (b, h, 16 q rows), walking the visible
-// 32-row KV tiles, with Q, dO, K, V as f32 tiles in dynamic shared memory (102
-// KB at D = 256, 196 KB at 512). Each thread computes 4 entries of dS (q row
-// tid / 8, KV columns tid % 8 + 8i; rounded to q's dtype) and holds an eighth
-// of its row's dQ columns as interleaved float4s in f32 registers for the whole
-// KV loop. Bound by shared-memory reads, not by the FMA rate; simple first.
+// Generic variant: every dtype and head_dim (a multiple of 128) but bf16
+// D = 128, which the wgmma kernel above serves. The same function on the CUDA
+// cores: one block of 128 threads per (b, h, 16 q rows, chunk of D), walking
+// the visible 32-row KV tiles, with Q, dO, K, V as f32 tiles in dynamic
+// shared memory (102 KB at DC = 256, 196 KB at 512). D up to 512 runs in one
+// chunk (DC = D); above, D is cut into chunks of DC = 256 or 128 columns
+// (flash::gen_chunk; the chunked instances): each block writes one chunk of
+// dQ, and the contractions over D (S = Q K^T and dP = dO V^T) are
+// summed over the chunks staged one at a time, in the order that ends with
+// the block's own chunk, so K's columns for dQ are the ones left in shared
+// memory. With more than one chunk Q and dO are reloaded per chunk and every
+// block recomputes the scores (D / DC times their work; right and slow
+// first). Each thread computes 4 entries of dS (q row tid / 8, KV columns
+// tid % 8 + 8i; rounded to q's dtype) and holds an eighth of its row's dQ
+// chunk as interleaved float4s in f32 registers for the whole KV loop. Bound
+// by shared-memory reads, not by the FMA rate; simple first.
 // ---------------------------------------------------------------------------
 
 constexpr int kGBQ = 16;  // q rows per block, 8 threads per row
 constexpr int kGBN = 32;  // KV rows per tile
 
-template <int D>
+template <int DC>
 constexpr int gen_smem_bytes() {
-  return ((2 * kGBQ + 2 * kGBN) * (D + 4) + kGBQ * (kGBN + 1)) * 4;
+  return ((2 * kGBQ + 2 * kGBN) * (DC + 4) + kGBQ * (kGBN + 1)) * 4;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_generic_kernel(const flash::BwdParams p) {
+template <typename T, int DC, bool kChunked>
+__device__ __forceinline__ void flash_bwd_dq_generic_body(
+    const flash::BwdParams& p) {
   extern __shared__ float4 gen_smem[];
-  constexpr int kP = D + 4;       // row pitch of the f32 tiles
+  constexpr int kP = DC + 4;      // row pitch of the f32 tiles
   constexpr int kPS = kGBN + 1;   // row pitch of dS
   float* Qs = reinterpret_cast<float*>(gen_smem);
   float* Os = Qs + kGBQ * kP;  // dO
@@ -351,6 +360,8 @@ flash_bwd_dq_generic_kernel(const flash::BwdParams p) {
   const int n_qt = gridDim.x;
   const int qt = p.causal ? (n_qt - 1 - blockIdx.x) : blockIdx.x;
   const int bh = blockIdx.y;
+  const int n_dc = kChunked ? gridDim.z : 1;
+  const int oc = kChunked ? blockIdx.z : 0;
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int kvh = h / (p.H / p.KVH);
@@ -360,42 +371,52 @@ flash_bwd_dq_generic_kernel(const flash::BwdParams p) {
   const float lse = row < p.Sq ? p.lse[rowg] : INFINITY;  // P = 0 past Sq
   const float delta = row < p.Sq ? p.delta[rowg] : 0.f;
 
+  const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* dO = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
   const T* K = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const T* V = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  flash::load_tile<T, D>(
-      Qs, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, q0,
-      kGBQ, p.Sq, tid, 128);
-  flash::load_tile<T, D>(
-      Os, static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh, p.o_ss,
-      q0, kGBQ, p.Sq, tid, 128);
+  if (n_dc == 1) {
+    flash::load_tile<T, DC>(Qs, Q, p.q_ss, q0, kGBQ, p.Sq, tid, 128);
+    flash::load_tile<T, DC>(Os, dO, p.o_ss, q0, kGBQ, p.Sq, tid, 128);
+  }
 
-  float dq[D / 8];
+  float dq[DC / 8];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) dq[i] = 0.f;
+  for (int i = 0; i < DC / 8; ++i) dq[i] = 0.f;
 
   const int kv_end = p.causal ? min(p.Skv, q0 + kGBQ) : p.Skv;
   const int n_kt = (kv_end + kGBN - 1) / kGBN;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kGBN;
-    __syncthreads();  // Q, dO stored / the last tile's readers are done
-    flash::load_tile<T, D>(Ks, K, p.k_ss, k0, kGBN, p.Skv, tid, 128);
-    flash::load_tile<T, D>(Vs, V, p.v_ss, k0, kGBN, p.Skv, tid, 128);
-    __syncthreads();
-
     // S and dP entries (row, k0 + cc + 8i)
     float4 s4[kGBN / 8], p4[kGBN / 8];
 #pragma unroll
     for (int i = 0; i < kGBN / 8; ++i)
       s4[i] = p4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int ci = 0; ci < n_dc; ++ci) {
+      const int dc = (oc + 1 + ci) % n_dc;  // ends with the block's chunk
+      __syncthreads();  // Q, dO stored / the last chunk's readers are done
+      if (n_dc > 1) {
+        flash::load_tile<T, DC>(Qs, Q + dc * DC, p.q_ss, q0, kGBQ, p.Sq, tid,
+                                128);
+        flash::load_tile<T, DC>(Os, dO + dc * DC, p.o_ss, q0, kGBQ, p.Sq,
+                                tid, 128);
+      }
+      flash::load_tile<T, DC>(Ks, K + dc * DC, p.k_ss, k0, kGBN, p.Skv, tid,
+                              128);
+      flash::load_tile<T, DC>(Vs, V + dc * DC, p.v_ss, k0, kGBN, p.Skv, tid,
+                              128);
+      __syncthreads();
 #pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-      const float4 q4 = flash::ld4(Qs + r * kP + d);
-      const float4 o4 = flash::ld4(Os + r * kP + d);
+      for (int d = 0; d < DC; d += 4) {
+        const float4 q4 = flash::ld4(Qs + r * kP + d);
+        const float4 o4 = flash::ld4(Os + r * kP + d);
 #pragma unroll
-      for (int i = 0; i < kGBN / 8; ++i) {
-        const int j = cc + 8 * i;
-        flash::fma4(s4[i], q4, flash::ld4(Ks + j * kP + d));
-        flash::fma4(p4[i], o4, flash::ld4(Vs + j * kP + d));
+        for (int i = 0; i < kGBN / 8; ++i) {
+          const int j = cc + 8 * i;
+          flash::fma4(s4[i], q4, flash::ld4(Ks + j * kP + d));
+          flash::fma4(p4[i], o4, flash::ld4(Vs + j * kP + d));
+        }
       }
     }
 #pragma unroll
@@ -410,12 +431,12 @@ flash_bwd_dq_generic_kernel(const flash::BwdParams p) {
     }
     __syncthreads();
 
-    // dQ += dS K over the tile's KV rows
+    // dQ += dS K over the tile's KV rows (the chunk's columns)
 #pragma unroll 4
     for (int j = 0; j < kGBN; ++j) {
       const float sj = Ss[r * kPS + j];
 #pragma unroll
-      for (int q = 0; q < D / 32; ++q) {
+      for (int q = 0; q < DC / 32; ++q) {
         const float4 k4 = flash::ld4(Ks + j * kP + 4 * (cc + 8 * q));
         dq[4 * q] = fmaf(sj, k4.x, dq[4 * q]);
         dq[4 * q + 1] = fmaf(sj, k4.y, dq[4 * q + 1]);
@@ -426,39 +447,66 @@ flash_bwd_dq_generic_kernel(const flash::BwdParams p) {
   }
 
   if (row < p.Sq) {
-    T* dQ = static_cast<T*>(p.out0) + rowg * D;
+    T* dQ = static_cast<T*>(p.out0) + rowg * (DC * n_dc) + oc * DC;
 #pragma unroll
-    for (int q = 0; q < D / 32; ++q)
+    for (int q = 0; q < DC / 32; ++q)
       flash::Elem<T>::store4(dQ + 4 * (cc + 8 * q),
                              make_float4(dq[4 * q], dq[4 * q + 1],
                                          dq[4 * q + 2], dq[4 * q + 3]));
   }
 }
 
-template <typename T, int D>
-int launch_generic(const flash::BwdParams& p, int B, cudaStream_t st) {
-  constexpr int smem = gen_smem_bytes<D>();
-  const cudaError_t err =
-      flash::allow_smem(flash_bwd_dq_generic_kernel<T, D>, smem);
+// One block per (q tile, b * h): D up to 4 kD, in one chunk.
+template <typename T, int DC>
+__global__ void __launch_bounds__(128)
+flash_bwd_dq_generic_kernel(const flash::BwdParams p) {
+  flash_bwd_dq_generic_body<T, DC, false>(p);
+}
+
+// One block per (q tile, b * h, chunk of D): D above 4 kD.
+template <typename T, int DC>
+__global__ void __launch_bounds__(128, 1)
+flash_bwd_dq_generic_chunked_kernel(const flash::BwdParams p) {
+  flash_bwd_dq_generic_body<T, DC, true>(p);
+}
+
+template <typename T, int DC, bool kChunked>
+int launch_generic(const flash::BwdParams& p, int D, int B, cudaStream_t st) {
+  constexpr int smem = gen_smem_bytes<DC>();
+  void (*kernel)(const flash::BwdParams);
+  if constexpr (kChunked)
+    kernel = flash_bwd_dq_generic_chunked_kernel<T, DC>;
+  else
+    kernel = flash_bwd_dq_generic_kernel<T, DC>;
+  const cudaError_t err = flash::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((p.Sq + kGBQ - 1) / kGBQ, B * p.H);
-  flash_bwd_dq_generic_kernel<T, D><<<grid, 128, smem, st>>>(p);
+  dim3 grid((p.Sq + kGBQ - 1) / kGBQ, B * p.H, D / DC);
+  kernel<<<grid, 128, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Picks the generic instance by D (a multiple of kD up to 4 kD, checked by
-// the caller) and dtype; bf16 at D = kD is the wgmma kernel's.
+// Picks the generic instance by D (a multiple of kD, checked by the caller)
+// and dtype: D itself up to 4 kD (bf16 at D = kD is the wgmma kernel's),
+// above that a chunk of flash::gen_chunk(D) columns.
 int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
                      cudaStream_t st) {
-  if (dtype == 1) {
-    if (D == 2 * kD) return launch_generic<bf16, 2 * kD>(p, B, st);
-    if (D == 3 * kD) return launch_generic<bf16, 3 * kD>(p, B, st);
-    return launch_generic<bf16, 4 * kD>(p, B, st);
+  if (D > 4 * kD) {
+    const bool wide = flash::gen_chunk(D) == 2 * kD;
+    if (dtype == 1)
+      return wide ? launch_generic<bf16, 2 * kD, true>(p, D, B, st)
+                  : launch_generic<bf16, kD, true>(p, D, B, st);
+    return wide ? launch_generic<float, 2 * kD, true>(p, D, B, st)
+                : launch_generic<float, kD, true>(p, D, B, st);
   }
-  if (D == kD) return launch_generic<float, kD>(p, B, st);
-  if (D == 2 * kD) return launch_generic<float, 2 * kD>(p, B, st);
-  if (D == 3 * kD) return launch_generic<float, 3 * kD>(p, B, st);
-  return launch_generic<float, 4 * kD>(p, B, st);
+  if (dtype == 1) {
+    if (D == 2 * kD) return launch_generic<bf16, 2 * kD, false>(p, D, B, st);
+    if (D == 3 * kD) return launch_generic<bf16, 3 * kD, false>(p, D, B, st);
+    return launch_generic<bf16, 4 * kD, false>(p, D, B, st);
+  }
+  if (D == kD) return launch_generic<float, kD, false>(p, D, B, st);
+  if (D == 2 * kD) return launch_generic<float, 2 * kD, false>(p, D, B, st);
+  if (D == 3 * kD) return launch_generic<float, 3 * kD, false>(p, D, B, st);
+  return launch_generic<float, 4 * kD, false>(p, D, B, st);
 }
 
 }  // namespace
@@ -466,7 +514,7 @@ int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
 // q/dO [B, H, Sq, D] and k/v [B, KVH, Skv, D] given by element strides (batch,
 // head, seq; the last dim dense, every stride and base address a multiple of 16
 // bytes, as TMA and the 16-byte loads require); lse and delta [B, H, Sq] f32
-// and dq [B, H, Sq, D] dense, in the inputs' dtype. D is 128, 256, 384 or 512;
+// and dq [B, H, Sq, D] dense, in the inputs' dtype. D is a multiple of 128;
 // dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 runs the wgmma kernel,
 // every other case the generic variant. Returns cudaGetLastError() after the
 // launch (cudaErrorInvalidValue for a shape or layout the kernels do not take).
@@ -478,7 +526,7 @@ extern "C" int ray_flash_bwd_dq(
     long long o_sb, long long o_sh, long long o_ss, int B, int H, int KVH,
     int Sq, int Skv, int D, float scale, int causal, int dtype,
     void* stream) {
-  if (D % kD != 0 || D < kD || D > 4 * kD || B < 1 || H < 1 || KVH < 1 ||
+  if (D % kD != 0 || D < kD || B < 1 || H < 1 || KVH < 1 ||
       H % KVH != 0 || Sq < 1 || Skv < 1 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

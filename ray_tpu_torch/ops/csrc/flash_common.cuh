@@ -6,8 +6,9 @@
 // the release of a ring stage, and the two wgmma products they are built
 // from: A B^T with both operands K-major in shared memory, and A B with A
 // from registers and B MN-major. Then what the generic variants (f32, and
-// bf16 at head_dim 256) share: loads and stores by element type, rounding
-// to it, f32 tiles in shared memory, the backward's parameters.
+// bf16 from head_dim 256 up) share: loads and stores by element type,
+// rounding to it, f32 tiles in shared memory, the chunk of D they tile by,
+// the backward's parameters.
 
 #pragma once
 
@@ -100,12 +101,18 @@ __device__ __forceinline__ void mma_rs(float (&acc)[64],
 }
 
 // ---------------------------------------------------------------------------
-// The generic variants (f32 at D = 128 to 512, bf16 at D = 256 to 512): scalar
+// The generic variants (f32 at any multiple of 128, bf16 from 256 up): scalar
 // FMAs on the CUDA cores over f32 tiles in dynamic shared memory. Inputs are
 // read 4 elements at a time (16 bytes of f32, 8 of bf16: the wrappers'
 // layout check keeps rows 16-byte aligned) and widened to f32; P and dS are
 // rounded to the input dtype where the Pallas kernels round them.
 // ---------------------------------------------------------------------------
+
+// The chunk of D a generic variant tiles by above 4 kD (D itself up to 4 kD
+// runs in one chunk): 2 kD where it divides D, else kD. Chunks stay narrow
+// enough that the chunked instances, which hold the chunk's accumulators
+// and the chunk loop's state, fit in registers with no spill.
+inline int gen_chunk(int D) { return D % (2 * kD) == 0 ? 2 * kD : kD; }
 
 template <typename T>
 struct Elem;

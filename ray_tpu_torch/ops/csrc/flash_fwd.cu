@@ -50,8 +50,8 @@
 //   * The tensor maps are 4-D {D, S, heads, batch} built from the element
 //     strides the caller passes, so q/k from apply_rope (dense BHSD) and v
 //     as the transpose of a [B, S, KVH, D] view load without a copy.
-// A generic scalar-FMA variant serves f32 (D = 128, 256, 384, 512) and
-// bf16 at D = 256, 384 and 512.
+// A generic scalar-FMA variant serves f32 at any head_dim that is a
+// multiple of 128 and bf16 at those from 256 up, tiled over D from 640 up.
 
 #include <math.h>
 
@@ -439,32 +439,38 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// Generic variant: f32 at D = 128 to 512, bf16 at D = 256 to 512 (all but bf16
-// D = 128, which the wgmma kernel above serves). Scalar FMAs on the CUDA cores
-// over f32 tiles in dynamic shared memory (D = 256 needs 69 KB, above the 48 KB
-// of static memory, and D = 512 131 KB): 32 q rows per block, 4 threads per
+// Generic variant: every dtype and head_dim (a multiple of 128) but bf16
+// D = 128, which the wgmma kernel above serves. Scalar FMAs on the CUDA cores
+// over f32 tiles in dynamic shared memory: 32 q rows per block, 4 threads per
 // row, 16-row KV tiles, the same online softmax with P rounded to the input
-// dtype before P V. Each thread takes 4 scores of its row (columns c, c + 4,
-// ...) and a quarter of O's columns as interleaved float4s, so a warp's shared
-// loads fall in distinct banks. It is bound by shared-memory reads (5 float4
-// loads per 16 FMAs of the scores, 1 per 4 of P V), well below the 67 TFLOP/s
-// of the f32 FMA units; simple first, as the serving and training paths run
-// bf16 D = 128.
+// dtype before P V. D up to 512 runs in one chunk (DC = D). Above, D is cut
+// into chunks of DC = 256 or 128 columns (flash::gen_chunk; the chunked
+// instances): the grid's z axis gives each block one chunk of O's columns,
+// held in registers (acc[DC / 4]), and the scores S = Q K^T are summed over
+// the chunks staged one at a time through shared memory. So shared memory
+// (131 KB at most, DC = 512) and registers stay bounded at any D. With more
+// than one chunk a block reloads Q's chunks
+// for every KV tile, and every block recomputes the scores: D / DC times the
+// score work of one chunk, right and slow first. Each thread takes 4 scores
+// of its row (columns c, c + 4, ...) and a quarter of its chunk's columns as
+// interleaved float4s, so a warp's shared loads fall in distinct banks. It is
+// bound by shared-memory reads (5 float4 loads per 16 FMAs of the scores, 1
+// per 4 of P V), well below the 67 TFLOP/s of the f32 FMA units; simple
+// first, as the serving and training paths run bf16 D = 128.
 // ---------------------------------------------------------------------------
 
 constexpr int kGBM = 32;  // q rows per block, 4 threads per row
 constexpr int kGBN = 16;  // KV rows per tile
 
-template <int D>
+template <int DC>
 constexpr int gen_smem_bytes() {
-  return ((kGBM + 2 * kGBN) * (D + 4) + kGBM * (kGBN + 1)) * 4;
+  return ((kGBM + 2 * kGBN) * (DC + 4) + kGBM * (kGBN + 1)) * 4;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(128)
-flash_fwd_generic_kernel(const Params p) {
+template <typename T, int DC, bool kChunked>
+__device__ __forceinline__ void flash_fwd_generic_body(const Params& p) {
   extern __shared__ float4 gen_smem[];
-  constexpr int kP = D + 4;         // row pitch of the f32 tiles
+  constexpr int kP = DC + 4;        // row pitch of the f32 tiles
   constexpr int kPP = kGBN + 1;     // row pitch of P
   float* Qs = reinterpret_cast<float*>(gen_smem);
   float* Ks = Qs + kGBM * kP;
@@ -477,6 +483,8 @@ flash_fwd_generic_kernel(const Params p) {
   const int n_qt = gridDim.x;
   const int qt = p.causal ? (n_qt - 1 - blockIdx.x) : blockIdx.x;
   const int bh = blockIdx.y;
+  const int n_dc = kChunked ? gridDim.z : 1;  // chunks of D
+  const int oc = kChunked ? blockIdx.z : 0;   // the chunk of O this writes
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int kvh = h / (p.H / p.KVH);
@@ -485,31 +493,39 @@ flash_fwd_generic_kernel(const Params p) {
 
   const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* K = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const T* V = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  flash::load_tile<T, D>(Qs, Q, p.q_ss, q0, kGBM, p.Sq, tid, 128);
+  const T* V =
+      static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh + oc * DC;
+  if (n_dc == 1)
+    flash::load_tile<T, DC>(Qs, Q, p.q_ss, q0, kGBM, p.Sq, tid, 128);
 
-  float acc[D / 4];
+  float acc[DC / 4];
 #pragma unroll
-  for (int i = 0; i < D / 4; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DC / 4; ++i) acc[i] = 0.f;
   float m = -INFINITY, l = 0.f;
 
   const int n_kt = kv_tiles(p, q0, kGBM, kGBN);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kGBN;
-    __syncthreads();  // Q is stored / the last tile's readers are done
-    flash::load_tile<T, D>(Ks, K, p.k_ss, k0, kGBN, p.Skv, tid, 128);
-    flash::load_tile<T, D>(Vs, V, p.v_ss, k0, kGBN, p.Skv, tid, 128);
-    __syncthreads();
-
     float4 dot[kGBN / 4];
 #pragma unroll
     for (int i = 0; i < kGBN / 4; ++i) dot[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int dc = 0; dc < n_dc; ++dc) {
+      __syncthreads();  // Q is stored / the last chunk's readers are done
+      if (n_dc > 1)
+        flash::load_tile<T, DC>(Qs, Q + dc * DC, p.q_ss, q0, kGBM, p.Sq, tid,
+                                128);
+      flash::load_tile<T, DC>(Ks, K + dc * DC, p.k_ss, k0, kGBN, p.Skv, tid,
+                              128);
+      if (dc == n_dc - 1)
+        flash::load_tile<T, DC>(Vs, V, p.v_ss, k0, kGBN, p.Skv, tid, 128);
+      __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      const float4 q4 = flash::ld4(Qs + r * kP + d);
+      for (int d = 0; d < DC; d += 4) {
+        const float4 q4 = flash::ld4(Qs + r * kP + d);
 #pragma unroll
-      for (int i = 0; i < kGBN / 4; ++i)
-        flash::fma4(dot[i], q4, flash::ld4(Ks + (c + 4 * i) * kP + d));
+        for (int i = 0; i < kGBN / 4; ++i)
+          flash::fma4(dot[i], q4, flash::ld4(Ks + (c + 4 * i) * kP + d));
+      }
     }
     float sv[kGBN / 4];
     float mx = -INFINITY;
@@ -538,12 +554,12 @@ flash_fwd_generic_kernel(const Params p) {
     l = l * corr + sum;
     __syncwarp();  // the 4 threads of row r share Ps[r]
 #pragma unroll
-    for (int i = 0; i < D / 4; ++i) acc[i] *= corr;
+    for (int i = 0; i < DC / 4; ++i) acc[i] *= corr;
 #pragma unroll 4
     for (int j = 0; j < kGBN; ++j) {
       const float pj = Ps[r * kPP + j];
 #pragma unroll
-      for (int q = 0; q < D / 16; ++q) {
+      for (int q = 0; q < DC / 16; ++q) {
         const float4 v4 = flash::ld4(Vs + j * kP + 4 * (c + 4 * q));
         acc[4 * q] = fmaf(pj, v4.x, acc[4 * q]);
         acc[4 * q + 1] = fmaf(pj, v4.y, acc[4 * q + 1]);
@@ -556,41 +572,69 @@ flash_fwd_generic_kernel(const Params p) {
   if (row < p.Sq) {
     l = fmaxf(l, 1e-30f);
     T* O = static_cast<T*>(p.o) +
-           (static_cast<long long>(bh) * p.Sq + row) * D;
+           (static_cast<long long>(bh) * p.Sq + row) * (DC * n_dc) + oc * DC;
 #pragma unroll
-    for (int q = 0; q < D / 16; ++q)
+    for (int q = 0; q < DC / 16; ++q)
       flash::Elem<T>::store4(
           O + 4 * (c + 4 * q),
           make_float4(acc[4 * q] / l, acc[4 * q + 1] / l, acc[4 * q + 2] / l,
                       acc[4 * q + 3] / l));
-    if (c == 0) p.lse[static_cast<long long>(bh) * p.Sq + row] = m + logf(l);
+    if (c == 0 && oc == 0)
+      p.lse[static_cast<long long>(bh) * p.Sq + row] = m + logf(l);
   }
 }
 
-template <typename T, int D>
-int launch_generic(const Params& p, int B, cudaStream_t st) {
-  constexpr int smem = gen_smem_bytes<D>();
-  const cudaError_t err =
-      flash::allow_smem(flash_fwd_generic_kernel<T, D>, smem);
+// One block per (q tile, b * h): D up to 4 kD, in one chunk.
+template <typename T, int DC>
+__global__ void __launch_bounds__(128)
+flash_fwd_generic_kernel(const Params p) {
+  flash_fwd_generic_body<T, DC, false>(p);
+}
+
+// One block per (q tile, b * h, chunk of D): D above 4 kD.
+template <typename T, int DC>
+__global__ void __launch_bounds__(128, 1)
+flash_fwd_generic_chunked_kernel(const Params p) {
+  flash_fwd_generic_body<T, DC, true>(p);
+}
+
+template <typename T, int DC, bool kChunked>
+int launch_generic(const Params& p, int D, int B, cudaStream_t st) {
+  constexpr int smem = gen_smem_bytes<DC>();
+  void (*kernel)(const Params);
+  if constexpr (kChunked)
+    kernel = flash_fwd_generic_chunked_kernel<T, DC>;
+  else
+    kernel = flash_fwd_generic_kernel<T, DC>;
+  const cudaError_t err = flash::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((p.Sq + kGBM - 1) / kGBM, B * p.H);
-  flash_fwd_generic_kernel<T, D><<<grid, 128, smem, st>>>(p);
+  dim3 grid((p.Sq + kGBM - 1) / kGBM, B * p.H, D / DC);
+  kernel<<<grid, 128, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Picks the generic instance by D (a multiple of kD up to 4 kD, checked by
-// the caller) and dtype; bf16 at D = kD is the wgmma kernel's.
+// Picks the generic instance by D (a multiple of kD, checked by the caller)
+// and dtype: D itself up to 4 kD (bf16 at D = kD is the wgmma kernel's),
+// above that a chunk of flash::gen_chunk(D) columns.
 int launch_generic_d(const Params& p, int D, int dtype, int B,
                      cudaStream_t st) {
-  if (dtype == 1) {
-    if (D == 2 * kD) return launch_generic<bf16, 2 * kD>(p, B, st);
-    if (D == 3 * kD) return launch_generic<bf16, 3 * kD>(p, B, st);
-    return launch_generic<bf16, 4 * kD>(p, B, st);
+  if (D > 4 * kD) {
+    const bool wide = flash::gen_chunk(D) == 2 * kD;
+    if (dtype == 1)
+      return wide ? launch_generic<bf16, 2 * kD, true>(p, D, B, st)
+                  : launch_generic<bf16, kD, true>(p, D, B, st);
+    return wide ? launch_generic<float, 2 * kD, true>(p, D, B, st)
+                : launch_generic<float, kD, true>(p, D, B, st);
   }
-  if (D == kD) return launch_generic<float, kD>(p, B, st);
-  if (D == 2 * kD) return launch_generic<float, 2 * kD>(p, B, st);
-  if (D == 3 * kD) return launch_generic<float, 3 * kD>(p, B, st);
-  return launch_generic<float, 4 * kD>(p, B, st);
+  if (dtype == 1) {
+    if (D == 2 * kD) return launch_generic<bf16, 2 * kD, false>(p, D, B, st);
+    if (D == 3 * kD) return launch_generic<bf16, 3 * kD, false>(p, D, B, st);
+    return launch_generic<bf16, 4 * kD, false>(p, D, B, st);
+  }
+  if (D == kD) return launch_generic<float, kD, false>(p, D, B, st);
+  if (D == 2 * kD) return launch_generic<float, 2 * kD, false>(p, D, B, st);
+  if (D == 3 * kD) return launch_generic<float, 3 * kD, false>(p, D, B, st);
+  return launch_generic<float, 4 * kD, false>(p, D, B, st);
 }
 
 }  // namespace
@@ -619,7 +663,7 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 // q [B, H, Sq, D], k/v [B, KVH, Skv, D] given by element strides (batch,
 // head, seq; the last dim dense); o [B, H, Sq, D] and lse [B, H, Sq] dense.
-// D is 128, 256, 384 or 512; dtype: 0 = float32, 1 = bfloat16. bf16 at
+// D is a multiple of 128; dtype: 0 = float32, 1 = bfloat16. bf16 at
 // D = 128 runs the wgmma kernel, every other case the generic variant. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape or
 // layout the kernels do not take: every stride and the base addresses must
@@ -631,7 +675,7 @@ extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
                              long long v_sh, long long v_ss, int B, int H,
                              int KVH, int Sq, int Skv, int D, float scale,
                              int causal, int dtype, void* stream) {
-  if (D % kD != 0 || D < kD || D > 4 * kD || B < 1 || H < 1 || KVH < 1 ||
+  if (D % kD != 0 || D < kD || B < 1 || H < 1 || KVH < 1 ||
       H % KVH != 0 || Sq < 1 || Skv < 1 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -325,6 +325,18 @@ def _cast_params(params: Dict[str, Any], dtype: torch.dtype,
     return {k: conv(k, v) for k, v in params.items()}
 
 
+def prefill_buckets(max_seq: int) -> List[int]:
+    """Prefill shape buckets: powers of 2 from ``Engine._MIN_BUCKET``,
+    capped at ``max_seq``."""
+    out: List[int] = []
+    b = min(Engine._MIN_BUCKET, max_seq)
+    while b < max_seq:
+        out.append(b)
+        b *= 2
+    out.append(max_seq)
+    return out
+
+
 class Engine:
     """One continuous-batching decode loop over a paged KV cache.
     submit() from any thread; each request streams token chunks through
@@ -357,13 +369,7 @@ class Engine:
          empty) = _build_fns(mcfg, n_slots, decode_chunk, self.page,
                              n_pages, self.device)
         self._kc, self._vc = empty()
-        # Prefill shape buckets (powers of 2, capped at max_seq).
-        self.buckets: List[int] = []
-        b = min(self._MIN_BUCKET, mcfg.max_seq)
-        while b < mcfg.max_seq:
-            self.buckets.append(b)
-            b *= 2
-        self.buckets.append(mcfg.max_seq)
+        self.buckets = prefill_buckets(mcfg.max_seq)
         # host-side slot + page state (control flow is host-predicted;
         # only token VALUES come back from the device)
         self._slot_req: List[Optional[_Request]] = [None] * n_slots

@@ -284,5 +284,13 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                 "ray_tpu_torch.core.worker_main",
                 "ray_tpu_torch.core.object_store",
                 "ray_tpu_torch.core._native.graftrpc",
-                "ray_tpu_torch.utils.config"):
+                "ray_tpu_torch.utils.config",
+                "ray_tpu_torch.serve.routing", "ray_tpu_torch.serve.replica",
+                "ray_tpu_torch.serve.handle",
+                "ray_tpu_torch.serve.controller", "ray_tpu_torch.serve.api",
+                "ray_tpu_torch.serve.multiplex", "ray_tpu_torch.serve.proxy",
+                "ray_tpu_torch.serve.grpc_proxy",
+                "ray_tpu_torch.device_objects",
+                "ray_tpu_torch.experimental.device_plane",
+                "ray_tpu_torch.data.llm"):
         assert f"'{mod}'" in out.stdout

@@ -454,21 +454,47 @@ def test_flash_bwd_kernel_wrappers_on_cpu_split_flash_bwd():
 # ---------------------------------------------------------------------------
 
 def test_attention_route_follows_the_reference_dispatch():
-    """head_dim 128, 256, 384 and 512 go to the kernels (the Pallas
-    kernels' widths the port's kernels take), head_dims that are not
-    multiples of 128 to the jnp branch; multiples of 128 from 640 up,
-    which the Pallas kernels take and the port's kernels' tiles do not fit,
-    raise before anything runs."""
-    assert [tatt.attention_route(d) for d in (128, 256, 384, 512)] == \
-        ["kernel"] * 4
+    """Every multiple of 128 goes to the kernels (the Pallas kernels'
+    widths; from 640 up the port's generic variants tile over D), head_dims
+    that are not multiples of 128 to the jnp branch, decided before
+    anything runs."""
+    assert [tatt.attention_route(d) for d in (128, 256, 384, 512, 640, 1024)
+            ] == ["kernel"] * 6
     assert [tatt.attention_route(d) for d in (16, 64, 96)] == \
         ["reference"] * 3
-    for d in (640, 1024):
-        with pytest.raises(ValueError, match="shared memory"):
-            tatt.attention_route(d)
     q, k, v = _t(*_qkv(1, 2, 8, 640, seed=30))
-    with pytest.raises(ValueError, match="shared memory"):
-        tatt.flash_attention(q, k, v)
+    calls = (tatt.flash_fwd_reference.calls, tatt.flash_bwd_reference.calls)
+    assert tatt.flash_attention(q, k, v).shape == (1, 2, 8, 640)
+    assert (tatt.flash_fwd_reference.calls,
+            tatt.flash_bwd_reference.calls) == calls
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [640, 1024])
+def test_flash_attention_wide_head_dims_match_jax(d, causal):
+    """head_dim 640 and 1024 (the generic variants' D-tiled widths; on the
+    CPU their plain versions) in f32 against the JAX package's
+    flash_attention and jax.grad on the CPU (its jnp branch): output and
+    dQ, dK, dV to 1e-5 of the largest element (f32 on both sides,
+    summation order alone). Grouped-query heads on the JAX side through
+    repeat_kv."""
+    q, k, v = _qkv(1, 4, 40, d, kvh=2, seed=50 + d)
+    g = _rand((1, 4, 40, d), 51)
+
+    def loss(q, k, v):
+        out = jatt.flash_attention(q, jatt.repeat_kv(k, 2),
+                                   jatt.repeat_kv(v, 2), causal)
+        return jnp.sum(out * jnp.asarray(g)), out
+
+    (_, want_o), want = jax.value_and_grad(loss, argnums=(0, 1, 2),
+                                           has_aux=True)(*_j(q, k, v))
+    tq, tk, tv = [t.requires_grad_() for t in _t(q, k, v)]
+    out = tatt.flash_attention(tq, tk, tv, causal)
+    (out * torch.from_numpy(g)).sum().backward()
+    assert out.shape == (1, 4, 40, d) and tk.grad.shape == (1, 2, 40, d)
+    assert _rel(out, want_o) <= 1e-5
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        assert _rel(got, w) <= 1e-5
 
 
 # head_dim 384 (a generic instance; 512 is the same code at a wider D,
