@@ -131,6 +131,31 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    added (``CountedLLMServer`` ...): 32 ``bf16_d128`` forwards per
    prefill in the mono replica and in the prefill pool, none in the
    decode pool.
+14. The device edges: ``init()`` and three ``num_gpus=0`` actors that
+   share the card. ``DeviceChannel`` at capacity 2 from this process to
+   an actor and from one actor to another, bf16 tensors of 4 KB and
+   256 MB: each read bitwise equal on the card, the writer's allocated
+   bytes back down after the releases; at capacity 1 a second write times
+   out until the reader releases. A DAG edge
+   ``a0.part.bind(inp).with_tensor_transport()`` -> ``a1.check`` at 64 MB
+   f32 (staged at the producer, pulled by the consumer, replayed), its
+   execute ms with and without the transport (medians of 20);
+   ``allreduce`` over the three for sum, mean, max, min and prod at 64 MB
+   f32 and sum in bf16, every output bitwise equal to the rank-order
+   reduction on the card, mean's output also feeding a consumer; the
+   host-plane collectives (``CollectiveMixin``, the coordinator actor)
+   on 1 MB CUDA tensors in f32 and bf16, each result on the caller's card
+   in its dtype. Every channel read and DAG pull of the phase must go by
+   CUDA IPC, none by the host relay.
+15. RLlib with the learners on the card: each of the four learners, 3
+   updates on the card against the same learner on the CPU from the same
+   weights and batches (SAC under the same injected noise), every leaf
+   within rel L2 1e-4; then PPO, IMPALA and DQN on CartPole, SAC on
+   Pendulum and multi-agent PPO on CooperativeMatch at their reference
+   tests' configurations, each to its test's criterion, with seconds per
+   iteration split into sampling and learner, learner ms per update and
+   env steps/s; and one update of each learner on the card and on the
+   CPU in this process (64 x 64 MLPs: launch-bound on a GPU).
 
 Any mismatch raises and the script exits non-zero. The line before the last
 is the kernels' JSON; the last is ``{"ok": true, "device": {...}}``.
@@ -141,7 +166,9 @@ Details go to ``chiprun_out/chip_smoke.json``.
 builds the kernels and runs phase 2 alone (a quick check after a kernel
 edit), ``--only-bwd`` runs phase 5 alone in the same way, ``--only-moe``
 phase 9, ``--only-ckpt`` phases 4 and 10, ``--only-runtime`` phase 11,
-``--only-trainer`` phases 8 and 12, ``--only-serve`` phase 13, and
+``--only-trainer`` phases 8 and 12, ``--only-serve`` phase 13,
+``--only-edges`` phase 14, ``--only-rllib`` phase 15 (their details go to
+``chiprun_out/chip_smoke_edges.json`` and ``..._rllib.json``), and
 ``--only-ttft N``
 measures idle TTFT alone (N requests per prompt length; run it from
 another tree's root to compare the two); none prints a result line.
@@ -175,8 +202,12 @@ import torch.nn.functional as F
 import ray_tpu_torch
 import ray_tpu_torch.serve as serve
 from ray_tpu_torch import accelerators
+from ray_tpu_torch.collective import CollectiveMixin, init_collective_group
 from ray_tpu_torch.core import object_store
 from ray_tpu_torch.core._native import graftrpc
+from ray_tpu_torch.dag import InputNode, MultiOutputNode, allreduce
+from ray_tpu_torch.device_objects import device_get
+from ray_tpu_torch.experimental import DeviceChannel, device_plane
 from ray_tpu_torch.models.llama import (LlamaConfig, flops_per_token,
                                         forward, forward_with_aux,
                                         init_params, loss_fn, param_count)
@@ -191,6 +222,10 @@ from ray_tpu_torch.ops.attention import (attention_route, flash_bwd,
 from ray_tpu_torch.ops import moe as moe_module
 from ray_tpu_torch.ops.moe import moe_ffn
 from ray_tpu_torch.parallel import MeshConfig, ParallelContext
+from ray_tpu_torch.rllib import (CartPole, CooperativeMatch, DQNConfig,
+                                 DQNLearner, IMPALAConfig, IMPALALearner,
+                                 MultiAgentPPOConfig, Pendulum, PPOConfig,
+                                 PPOLearner, SACConfig, SACLearner)
 from ray_tpu_torch.serve.engine import Engine
 from ray_tpu_torch.serve.api import Application, Deployment
 from ray_tpu_torch.serve.llm import (DecodeServer, LLMConfig, LLMServer,
@@ -2341,6 +2376,744 @@ def phase_serve(card: str, engine: dict = None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the device edges on one card. Three num_gpus=0 actors share it
+# (a worker given no GPU sees every card, as phase 13's PD pools do).
+# ---------------------------------------------------------------------------
+# Channels carry bf16 tensors of 4 KB and 256 MB (EDGE_CHANNEL_ROUNDS writes
+# per size and route, capacity 2); the DAG's transport and allreduce f32
+# tensors of 64 MB (and the allreduce's sum once in bf16); the host-plane
+# collectives tensors of 1 MB.
+EDGE_CHANNEL_BYTES = (4 * 1024, 256 * 2**20)
+EDGE_CHANNEL_ROUNDS = 3
+EDGE_DAG_BYTES = 64 * 2**20
+EDGE_AR_OPS = ("sum", "mean", "max", "min", "prod")
+EDGE_DAG_REPEATS = 20
+EDGE_COLL_BYTES = 2**20
+EDGE_COLL_REPEATS = 10
+EDGE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+# The writer's allocated bytes after the last release may exceed those
+# before the first write by no more than this (the caching allocator's
+# rounding; an item left in the table would be 256 MB).
+EDGE_MEM_SLACK = 2**20
+
+
+def _edge_tensor(spec: tuple, seed: int, device) -> torch.Tensor:
+    """The tensor of ``spec`` = (bytes, dtype name) that a participant with
+    ``seed`` makes: normal draws from a seeded generator on ``device``, so
+    any process there makes it again bit for bit."""
+    nbytes, dt = spec
+    dtype = EDGE_DTYPES[dt]
+    numel = nbytes // torch.empty((), dtype=dtype).element_size()
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    return torch.randn(numel, generator=gen, device=device).to(dtype)
+
+
+def _edge_reduce(parts: list, op: str) -> torch.Tensor:
+    """The DAG allreduce's arithmetic, in rank order (``CoreWorker.
+    _builtin_dag_allreduce``): the result each output must equal."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = {"sum": torch.add, "mean": torch.add, "max": torch.maximum,
+               "min": torch.minimum, "prod": torch.mul}[op](acc, p)
+    return acc / len(parts) if op == "mean" else acc
+
+
+def _median_ms(fn, repeats: int) -> float:
+    times = []
+    for _ in range(repeats):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+class EdgeActor(CollectiveMixin):
+    """A participant of phase 14: makes its tensors on the card, reads
+    channels, runs DAG nodes and the host-plane collectives, and reports
+    its plane's counters and its allocated bytes."""
+
+    def __init__(self, rank: int, device: str = "cuda"):
+        self.rank = rank
+        self.device = torch.device(device)
+
+    def ready(self) -> str:
+        if self.device.type == "cuda":
+            torch.cuda.init()
+            return torch.cuda.get_device_name(0)
+        return "cpu"
+
+    def part(self, spec: tuple) -> torch.Tensor:
+        return _edge_tensor(spec, 100 + self.rank, self.device)
+
+    def check(self, t: torch.Tensor, spec: tuple, src_rank: int) -> bool:
+        """``t`` is bit for bit rank ``src_rank``'s part, on this
+        process's device."""
+        return (t.device.type == self.device.type
+                and torch.equal(t, _edge_tensor(spec, 100 + src_rank,
+                                                self.device)))
+
+    def check_mean(self, t: torch.Tensor, spec: tuple, world: int) -> bool:
+        want = _edge_reduce([_edge_tensor(spec, 100 + r, self.device)
+                             for r in range(world)], "mean")
+        return t.device.type == self.device.type and torch.equal(t, want)
+
+    def write_channel(self, ch, spec: tuple, seed: int) -> tuple:
+        """Write one item: the write's wall ms, and this process's
+        allocated bytes while the channel holds it."""
+        x = _edge_tensor(spec, seed, self.device)
+        _sync(self.device)
+        t = time.perf_counter()
+        ch.write(x, timeout=120)
+        ms = (time.perf_counter() - t) * 1e3
+        del x
+        return ms, _allocated(self.device)
+
+    def read_channel(self, ch, spec: tuple, seed: int) -> dict:
+        """Read one item: its wall ms and whether it is, bit for bit and on
+        this process's device, what the writer made from ``seed``."""
+        t = time.perf_counter()
+        x = ch.read(timeout=120)
+        _sync(self.device)
+        ms = (time.perf_counter() - t) * 1e3
+        ok = (x.device.type == self.device.type
+              and torch.equal(x, _edge_tensor(spec, seed, self.device)))
+        return {"ms": ms, "equal": bool(ok)}
+
+    def stats(self):
+        plane = device_plane.DevicePlane.maybe()
+        return plane.stats() if plane else None
+
+    def allocated(self) -> int:
+        return _allocated(self.device)
+
+    def table_size(self) -> int:
+        from ray_tpu_torch.core.ref import get_core_worker
+        return len(get_core_worker()._device_objects)
+
+    def collectives(self, nbytes: int, dt: str, repeats: int) -> dict:
+        """Each host-plane collective on this rank's tensor of ``nbytes``
+        (its rank + 1 everywhere): right values, on this device, in the
+        expected dtype; then the median ms of each over ``repeats``."""
+        from ray_tpu_torch import collective as col
+
+        dtype = EDGE_DTYPES[dt]
+        world = col.get_collective_group_size("edges")
+        # about nbytes: a multiple of the world for reducescatter
+        numel = (nbytes // torch.empty((), dtype=dtype).element_size()
+                 // world * world)
+        x = torch.full((numel,), float(self.rank + 1), device=self.device,
+                       dtype=dtype)
+        total = float(world * (world + 1) // 2)
+
+        def same(t, value, n=numel):
+            return (t.device.type == self.device.type and t.dtype == dtype
+                    and t.numel() == n
+                    and bool((t.float() == value).all()))
+
+        calls = {
+            "allreduce": (lambda: col.allreduce(x, "edges"),
+                          lambda t: same(t, total)),
+            "allgather": (lambda: col.allgather(x, "edges"),
+                          lambda ts: all(same(t, r + 1.0)
+                                         for r, t in enumerate(ts))),
+            "broadcast": (lambda: col.broadcast(x, 1, "edges"),
+                          lambda t: same(t, 2.0)),
+            "reducescatter": (lambda: col.reducescatter(x, "edges"),
+                              lambda t: same(t, total, numel // world)),
+            "barrier": (lambda: col.barrier("edges"), lambda r: r is None),
+        }
+        out = {"ok": {}, "ms": {}}
+        for name, (call, good) in calls.items():
+            out["ok"][name] = bool(good(call()))
+            out["ms"][name] = _median_ms(call, repeats)
+        return out
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _allocated(device: torch.device) -> int:
+    """This process's allocated bytes on the card, once the blocks it
+    shared by CUDA IPC and its peers have let go are collected."""
+    if device.type != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    torch.cuda.ipc_collect()
+    return torch.cuda.memory_allocated()
+
+
+def _route_sum(stats: list, key: str) -> dict:
+    out: dict = {}
+    for st in stats:
+        for k, v in (st or {}).get(key, {}).items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def phase_edges(card: str) -> dict:
+    """Phase 14 on the card: ``ray_tpu_torch.init()``, then
+    ``_phase_edges``."""
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ray_tpu_torch.init()
+    start_s = time.perf_counter() - t
+    try:
+        out = _phase_edges(card, "cuda", start_s)
+    finally:
+        ray_tpu_torch.shutdown()
+    out["phase_s"] = time.perf_counter() - t
+    log(f"EDGES phase 14 took {out['phase_s']:.1f} s  [{card}]")
+    return out
+
+
+def _phase_edges(card: str, device: str, start_s: float = 0.0,
+                 channel_bytes=EDGE_CHANNEL_BYTES, dag_bytes=EDGE_DAG_BYTES,
+                 coll_bytes=EDGE_COLL_BYTES, repeats=EDGE_DAG_REPEATS
+                 ) -> dict:
+    """Device channels (this process to an actor, an actor to an actor,
+    capacity 1's backpressure), the DAG's tensor transport and allreduce,
+    and the host-plane collectives, among three actors on ``device``.
+    On a card every channel read and every DAG pull must go by CUDA IPC;
+    the sizes are arguments so that the phase can run on the CPU, small,
+    where every pull is a host relay."""
+    from ray_tpu_torch.core.ref import get_core_worker
+
+    dev = torch.device(device)
+    ipc = dev.type == "cuda"
+    route = device_plane.ROUTE_IPC if ipc else device_plane.ROUTE_HOST
+    other = device_plane.ROUTE_HOST if ipc else device_plane.ROUTE_IPC
+    t = time.perf_counter()
+    actors = [ray_tpu_torch.remote(num_gpus=0)(EdgeActor).remote(r, device)
+              for r in range(3)]
+    names = ray_tpu_torch.get([a.ready.remote() for a in actors],
+                              timeout=300)
+    out = dict(card=card, cluster_start_s=start_s,
+               actors_ready_s=time.perf_counter() - t)
+    log(f"EDGES cluster up in {start_s:.2f} s; 3 num_gpus=0 actors on "
+        f"{names} in {out['actors_ready_s']:.2f} s  [{card}]")
+    a0, a1, a2 = actors
+    reads = 0  # pulls the phase makes, each by ``route``
+    here0 = device_plane.DevicePlane.get().stats()  # this process's so far
+
+    # -- 1. channels: this process -> a0, then a1 -> a0, capacity 2 --
+    chans = []
+    base = _allocated(dev)
+    for label, writer in (("driver->actor", None), ("actor->actor", a1)):
+        ch = DeviceChannel.create([a0], capacity=2)
+        w_base = base if writer is None else ray_tpu_torch.get(
+            writer.allocated.remote())
+        held = 0  # the writer's allocated bytes while it holds an item
+        for nbytes in channel_bytes:
+            spec = (nbytes, "bf16")
+            writes, got = [], []
+            for i in range(EDGE_CHANNEL_ROUNDS):
+                # Each write completes before its read starts (capacity 2
+                # lets it), so a read's time is the pull alone.
+                seed = 1000 + i
+                if writer is None:
+                    x = _edge_tensor(spec, seed, dev)
+                    _sync(dev)
+                    t = time.perf_counter()
+                    ch.write(x, timeout=120)
+                    writes.append((time.perf_counter() - t) * 1e3)
+                    del x  # the channel holds it until the reader releases
+                    held = max(held, _allocated(dev))
+                else:
+                    ms, alloc = ray_tpu_torch.get(writer.write_channel.remote(
+                        ch, spec, seed), timeout=300)
+                    writes.append(ms)
+                    held = max(held, alloc)
+                got.append(ray_tpu_torch.get(
+                    a0.read_channel.remote(ch, spec, seed), timeout=300))
+                reads += 1
+            check(all(g["equal"] for g in got),
+                  f"channel {label} {nbytes} B: a read differs from the "
+                  f"write")
+            read_ms = statistics.median(g["ms"] for g in got)
+            row = dict(route=label, bytes=nbytes,
+                       write_ms=statistics.median(writes), read_ms=read_ms,
+                       read_gb_s=nbytes / read_ms / 1e6,
+                       write_ms_all=writes, read_ms_all=[g["ms"] for g in got])
+            chans.append(row)
+            log(f"EDGES channel {label} bf16 {nbytes} B: write "
+                f"{row['write_ms']:.3f} ms, read {read_ms:.3f} ms "
+                f"({row['read_gb_s']:.2f} GB/s), medians of "
+                f"{EDGE_CHANNEL_ROUNDS}  [{card}]")
+        after = (_allocated(dev) if writer is None else
+                 ray_tpu_torch.get(writer.allocated.remote()))
+        log(f"EDGES channel {label}: the writer's allocated bytes "
+            f"{w_base} before the first write, at most {held} while it "
+            f"held an item, {after} after the last release  [{card}]")
+        check(held >= w_base + channel_bytes[-1] or not ipc,
+              f"channel {label}: the writer's allocated bytes ({held}) "
+              f"never held the item")
+        check(after <= w_base + EDGE_MEM_SLACK,
+              f"channel {label}: the writer holds {after - w_base} more "
+              f"bytes after every release")
+        if writer is None:
+            check(not get_core_worker()._channel_items.get(ch.channel_id),
+                  "channel driver->actor: released items left in the "
+                  "writer's table")
+        ch.close()
+    out["channels"] = chans
+
+    # -- 2. capacity 1: a second write times out until the reader releases
+    spec = (channel_bytes[0], "bf16")
+    ch = DeviceChannel.create([a0], capacity=1)
+    ch.write(_edge_tensor(spec, 1, dev), timeout=60)
+    t = time.perf_counter()
+    try:
+        ch.write(_edge_tensor(spec, 2, dev), timeout=1.5)
+        blocked = False
+    except TimeoutError:
+        blocked = True
+    blocked_s = time.perf_counter() - t
+    check(blocked, "capacity 1: the second write did not wait for the "
+          "reader's release")
+    check(ray_tpu_torch.get(a0.read_channel.remote(ch, spec, 1))["equal"],
+          "capacity 1: the first read differs")
+    ch.write(_edge_tensor(spec, 2, dev), timeout=60)
+    check(ray_tpu_torch.get(a0.read_channel.remote(ch, spec, 2))["equal"],
+          "capacity 1: the read after the release differs")
+    reads += 2
+    ch.close()
+    out["backpressure_timeout_s"] = blocked_s
+    log(f"EDGES capacity 1: the second write timed out after "
+        f"{blocked_s:.2f} s until the reader released  [{card}]")
+
+    # -- 3. DAG transport: a0.part -> a1.check, 64 MB f32 --
+    spec = (dag_bytes, "f32")
+    st0 = ray_tpu_torch.get([a.stats.remote() for a in actors])
+    with InputNode() as inp:
+        t_node = a0.part.bind(inp).with_tensor_transport()
+        dag = a1.check.bind(t_node, inp, 0)
+    compiled = dag.experimental_compile()
+    check(ray_tpu_torch.get(compiled.execute(spec), timeout=300),
+          "DAG transport: the consumer's tensor differs")
+    check(ray_tpu_torch.get(compiled.execute(spec), timeout=300),
+          "DAG transport: the replay's tensor differs")
+    st1 = ray_tpu_torch.get([a.stats.remote() for a in actors])
+    staged = (st1[0] or {}).get("staged", 0) - (st0[0] or {}).get(
+        "staged", 0)
+    pulled = _plane_delta(st1[1], st0[1], "pulls_by_route")
+    check(pulled[route] == 2 and pulled[other] == 0,
+          f"DAG transport: the consumer's pulls {pulled}, expected 2 by "
+          f"{route}")
+    check(staged == (2 if ipc else 0),
+          f"DAG transport: the producer staged {staged}")
+    reads += 2
+    with_ms = _median_ms(
+        lambda: ray_tpu_torch.get(compiled.execute(spec), timeout=300),
+        repeats)
+    reads += repeats
+    with InputNode() as inp:
+        host_dag = a1.check.bind(a0.part.bind(inp), inp, 0)
+    host_compiled = host_dag.experimental_compile()
+    check(ray_tpu_torch.get(host_compiled.execute(spec), timeout=300),
+          "DAG without tensor transport: the consumer's tensor differs")
+    without_ms = _median_ms(
+        lambda: ray_tpu_torch.get(host_compiled.execute(spec), timeout=300),
+        repeats)
+    out["dag_transport"] = dict(
+        bytes=dag_bytes, staged=staged, pulls=pulled,
+        execute_ms_with_transport=with_ms,
+        execute_ms_without_transport=without_ms, repeats=repeats)
+    log(f"EDGES DAG a0.part -> a1.check, f32 {dag_bytes} B: execute "
+        f"{with_ms:.2f} ms with tensor transport, {without_ms:.2f} ms "
+        f"without (the host object path), medians of {repeats}; staged "
+        f"{staged}, pulls {pulled}  [{card}]")
+
+    # -- 4. DAG allreduce over the three actors --
+    ars = []
+    for op, dt in [(op, "f32") for op in EDGE_AR_OPS] + [("sum", "bf16")]:
+        spec = (dag_bytes, dt)
+        with InputNode() as inp:
+            outs = allreduce([a.part.bind(inp) for a in actors], op=op)
+            dag = MultiOutputNode(outs)
+        compiled = dag.experimental_compile()
+        t = time.perf_counter()
+        drefs = ray_tpu_torch.get(compiled.execute(spec), timeout=300)
+        first_ms = (time.perf_counter() - t) * 1e3
+        want = _edge_reduce([_edge_tensor(spec, 100 + r, dev)
+                             for r in range(3)], op)
+        same = [bool(torch.equal(device_get(
+                    d, device=None if ipc else "cpu", timeout=120), want))
+                for d in drefs]
+        check(all(same), f"DAG allreduce {op} {dt}: outputs equal to the "
+              f"rank-order reduction: {same}")
+        # rank 0 pulls 2 peers, ranks 1 and 2 the result, this process the
+        # three outputs
+        reads += 2 + 2 + 3
+        del drefs
+        ms = _median_ms(lambda: ray_tpu_torch.get(
+            compiled.execute(spec), timeout=300), 5)
+        reads += 4 * 5
+        ars.append(dict(op=op, dtype=dt, bytes=dag_bytes,
+                        first_ms=first_ms, ms=ms))
+        log(f"EDGES DAG allreduce {op} {dt} 3 x {dag_bytes} B: outputs "
+            f"bitwise equal to the rank-order reduction; {ms:.2f} ms "
+            f"(median of 5; the first {first_ms:.2f} ms)  [{card}]")
+    spec = (dag_bytes, "f32")
+    with InputNode() as inp:
+        outs = allreduce([a.part.bind(inp) for a in actors], op="mean")
+        # Every rank's output is an output of the DAG, so that all three
+        # run (rank 1's waits for rank 0's); a0 consumes rank 1's, after
+        # its own rank's task (an actor runs its tasks in order).
+        dag = MultiOutputNode([outs[0], outs[2],
+                               a0.check_mean.bind(outs[1], inp, 3)])
+    fed = ray_tpu_torch.get(dag.experimental_compile().execute(spec),
+                            timeout=300)
+    check(fed[2] is True,
+          "DAG allreduce mean -> consumer: the consumer's tensor differs")
+    del fed
+    reads += 4 + 1
+    out["dag_allreduce"] = ars
+
+    # -- 5. the host-plane collectives over the coordinator actor --
+    init_collective_group(actors, "edges")
+    colls = {}
+    for dt in ("f32", "bf16"):
+        res = ray_tpu_torch.get(
+            [a.collectives.remote(coll_bytes, dt, EDGE_COLL_REPEATS)
+             for a in actors], timeout=300)
+        check(all(all(r["ok"].values()) for r in res),
+              f"collectives {dt}: {[r['ok'] for r in res]}")
+        colls[dt] = {k: statistics.median(r["ms"][k] for r in res)
+                     for k in res[0]["ms"]}
+        log(f"EDGES collectives {dt} {coll_bytes} B through the "
+            f"coordinator actor, ms (median over ranks of each rank's "
+            f"median of {EDGE_COLL_REPEATS}): {json.dumps(colls[dt])}  "
+            f"[{card}]")
+    out["collectives"] = dict(bytes=coll_bytes, ms=colls)
+
+    # -- every pull of the phase went by ``route`` --
+    final = ray_tpu_torch.get([a.stats.remote() for a in actors])
+    here = device_plane.DevicePlane.get().stats()
+    final.append({k: _plane_delta(here, here0, k)
+                  for k in ("pulls_by_route", "relays_by_reason")})
+    by_route = _route_sum(final, "pulls_by_route")
+    relays = _route_sum(final, "relays_by_reason")
+    out.update(pulls_by_route=by_route, relays_by_reason=relays,
+               pulls_expected=reads)
+    log(f"EDGES pulls by route over the phase: {by_route}, host relays by "
+        f"reason {relays} ({reads} expected by {route})  [{card}]")
+    check(by_route.get(route, 0) == reads and by_route.get(other, 0) == 0,
+          f"pulls {by_route}: expected {reads}, all by {route}")
+    for a in actors:
+        ray_tpu_torch.kill(a)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: RLlib with its learners on the card
+# ---------------------------------------------------------------------------
+# Each learner on the card against the same learner on the CPU, from the
+# same weights, over RL_PARITY_STEPS updates on the same batches (SAC under
+# the same injected noise): every parameter leaf within rel L2
+# RL_PARITY_REL_L2 and every metric within rel RL_PARITY_RTOL. TF32 is off
+# (main()), so both run f32 matmuls; cuBLAS sums in another order than the
+# CPU's kernels, and CUDA's tanh, exp and log round differently, which Adam
+# carries into each leaf at about 1e-6 of its size.
+RL_PARITY_STEPS = 3
+RL_PARITY_REL_L2 = 1e-4
+RL_PARITY_RTOL = 1e-4
+# The finding: one learner update on the card against the CPU in this
+# process, on the reference tests' shapes (ms per update, median of
+# RL_UPDATE_REPEATS after a warm-up).
+RL_UPDATE_REPEATS = 20
+
+
+def _rl_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _rl_leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _rl_leaves(v, f"{path}/{i}")
+    else:
+        yield path, np.asarray(tree, np.float64)
+
+
+def _rl_tree_err(got, want) -> float:
+    got, want = dict(_rl_leaves(got)), dict(_rl_leaves(want))
+    check(sorted(got) == sorted(want), f"leaves differ: {sorted(got)} vs "
+          f"{sorted(want)}")
+    return max(float(np.linalg.norm(got[k] - want[k])
+                     / max(np.linalg.norm(want[k]), 1e-30)) for k in want)
+
+
+def _rl_metric_err(got: dict, want: dict) -> float:
+    check(sorted(got) == sorted(want), f"metrics differ: {sorted(got)}")
+    return max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+               for k in want)
+
+
+def _rl_batches(kind: str, rng) -> dict:
+    """One batch of the shape each algorithm's reference test gives its
+    learner: PPO 1024 rows of CartPole (2 runners x 512), IMPALA 4
+    fragments of 64, DQN 64 transitions with importance weights, SAC 128
+    of Pendulum (observations scaled into tanh's unsaturated range, where
+    the card's and the CPU's f32 tanh agree to a few ulps that the log of
+    1 - tanh^2 does not blow up)."""
+    if kind == "ppo":
+        n = 1024
+        return {"obs": rng.randn(n, 4).astype(np.float32),
+                "actions": rng.randint(0, 2, n).astype(np.int32),
+                "logp_old": np.log(rng.uniform(0.2, 0.8, n)).astype(
+                    np.float32),
+                "advantages": rng.randn(n).astype(np.float32),
+                "returns": rng.randn(n).astype(np.float32)}
+    if kind == "impala":
+        B, T, D = 4, 64, 4
+        terms = (rng.rand(B, T) < 0.05).astype(np.float32)
+        truncs = ((rng.rand(B, T) < 0.05) & (terms == 0)).astype(np.float32)
+        return {"obs": rng.randn(B, T, D).astype(np.float32),
+                "actions": rng.randint(0, 2, (B, T)).astype(np.int32),
+                "rewards": np.ones((B, T), np.float32),
+                "terms": terms, "truncs": truncs,
+                "trunc_obs": np.where(truncs[..., None] > 0,
+                                      rng.randn(B, T, D), 0).astype(
+                                          np.float32),
+                "behavior_logp": np.log(rng.uniform(0.2, 0.8, (B, T))
+                                        ).astype(np.float32),
+                "bootstrap_obs": rng.randn(B, D).astype(np.float32)}
+    if kind == "dqn":
+        n = 64
+        return {"obs": rng.randn(n, 4).astype(np.float32),
+                "actions": rng.randint(0, 2, n).astype(np.int32),
+                "rewards": np.ones(n, np.float32),
+                "next_obs": rng.randn(n, 4).astype(np.float32),
+                "dones": (rng.rand(n) < 0.05).astype(np.float32),
+                "weights": rng.uniform(0.2, 1.0, n).astype(np.float32)}
+    n = 128
+    return {"obs": (rng.randn(n, 3) * 0.2).astype(np.float32),
+            "actions": rng.uniform(-2, 2, (n, 1)).astype(np.float32),
+            "rewards": -rng.uniform(0, 10, n).astype(np.float32),
+            "next_obs": (rng.randn(n, 3) * 0.2).astype(np.float32),
+            "dones": np.zeros(n, np.float32)}
+
+
+def _rl_learners(kind: str, device: str):
+    if kind == "ppo":
+        return PPOLearner(4, 2, lr=1e-3, seed=1, device=device)
+    if kind == "impala":
+        return IMPALALearner(4, 2, lr=1e-3, seed=1, device=device)
+    if kind == "dqn":
+        return DQNLearner(4, 2, lr=1e-3, seed=1, device=device)
+    return SACLearner(3, 1, action_scale=2.0, lr=1e-3, seed=0,
+                      device=device)
+
+
+def _rl_update(kind: str, learner, batch: dict, noise=None) -> dict:
+    if kind == "ppo":
+        return learner.update_minibatches(batch, num_epochs=6,
+                                          minibatch_size=128)
+    if kind == "dqn":
+        return learner.update(batch)[0]
+    if kind == "sac":
+        return learner.update(batch, noise=noise)
+    return learner.update(batch)
+
+
+def _rl_parity(card: str, device: str = "cuda") -> dict:
+    """Each learner on ``device`` against the same one on the CPU."""
+    out = {}
+    for kind in ("ppo", "impala", "dqn", "sac"):
+        cpu = _rl_learners(kind, "cpu")
+        dev = _rl_learners(kind, device)
+        dev.load_params(cpu.params_numpy(), cpu.target_params_numpy())
+        rng = np.random.RandomState(7)
+        leaf_err = metric_err = 0.0
+        for _ in range(RL_PARITY_STEPS):
+            batch = _rl_batches(kind, rng)
+            noise = None
+            if kind == "sac":
+                n = len(batch["obs"])
+                noise = (rng.randn(n, 1).astype(np.float32),
+                         rng.randn(n, 1).astype(np.float32))
+            want = _rl_update(kind, cpu, batch, noise)
+            got = _rl_update(kind, dev, batch, noise)
+            metric_err = max(metric_err, _rl_metric_err(got, want))
+            leaf_err = max(leaf_err, _rl_tree_err(dev.params_numpy(),
+                                                  cpu.params_numpy()))
+            if cpu.target is not None:
+                leaf_err = max(leaf_err, _rl_tree_err(
+                    dev.target_params_numpy(), cpu.target_params_numpy()))
+        on_dev = all(p.device.type == torch.device(device).type
+                     for p in dev.nets.parameters())
+        out[kind] = dict(leaf_rel_l2=leaf_err, metric_rel=metric_err,
+                         on_device=on_dev)
+        log(f"RLLIB parity {kind} on {device} vs the CPU, "
+            f"{RL_PARITY_STEPS} updates: every leaf within rel L2 "
+            f"{leaf_err:.3g}, metrics within rel {metric_err:.3g}  [{card}]")
+        check(on_dev, f"{kind}: the learner's parameters are not on "
+              f"{device}")
+        check(leaf_err <= RL_PARITY_REL_L2 and metric_err <= RL_PARITY_RTOL,
+              f"{kind} on {device} differs from the CPU: leaves "
+              f"{leaf_err:.3g}, metrics {metric_err:.3g}")
+    return out
+
+
+def _rl_update_ms(card: str, device: str = "cuda") -> dict:
+    """The finding: ms per learner update on ``device`` and on the CPU in
+    this process, on the reference tests' shapes."""
+    out = {}
+    for kind in ("ppo", "impala", "dqn", "sac"):
+        row = {}
+        for where in (device, "cpu"):
+            learner = _rl_learners(kind, where)
+            batch = _rl_batches(kind, np.random.RandomState(3))
+            _rl_update(kind, learner, batch)  # warm-up
+            ms = _median_ms(lambda: _rl_update(kind, learner, batch),
+                            RL_UPDATE_REPEATS)
+            if kind == "ppo":  # 6 epochs x 8 minibatches per call
+                ms /= 48
+            row[where] = ms
+        out[kind] = row
+        log(f"RLLIB one {kind} learner update (ms, median of "
+            f"{RL_UPDATE_REPEATS}): {device} {row[device]:.3f}, cpu "
+            f"{row['cpu']:.3f} in this process "
+            f"({torch.get_num_threads()} CPU threads)  [{card}]")
+    return out
+
+
+def _rl_train(name: str, algo, iters: int, done, card: str,
+              device: str) -> dict:
+    """Train ``algo`` until ``done(history)`` or ``iters`` iterations;
+    the split of each iteration's wall time between sampling and the
+    learner."""
+    try:
+        learner = getattr(algo, "_learner", None)
+        learners = ([learner] if learner is not None
+                    else list(algo._learners.values()))
+        on_dev = all(p.device.type == torch.device(device).type
+                     for ln in learners for p in ln.nets.parameters())
+        check(on_dev, f"{name}: the learner's parameters are not on "
+              f"{device}")
+        hist = []
+        for _ in range(iters):
+            hist.append(algo.train())
+            if done(hist):
+                break
+    finally:
+        algo.stop()
+    total = sum(h["time_this_iter_s"] for h in hist)
+    learn = sum(h["learner_time_this_iter_s"] for h in hist)
+    updates = sum(h.get("learner_updates_this_iter",
+                        h.get("updates_this_iter", 0)) for h in hist)
+    steps = sum(h["env_steps_this_iter"] for h in hist)
+    row = dict(iterations=len(hist), solved=bool(done(hist)),
+               s_per_iter=total / len(hist),
+               learner_s_per_iter=learn / len(hist),
+               sampling_s_per_iter=(total - learn) / len(hist),
+               learner_ms_per_update=learn / updates * 1e3 if updates
+               else None,
+               env_steps_per_s=steps / total,
+               returns=[h["episode_return_mean"] for h in hist])
+    log(f"RLLIB {name} (learner on {device}): {len(hist)} iterations, "
+        f"solved {row['solved']}; {row['s_per_iter']:.3f} s/iter "
+        f"(sampling {row['sampling_s_per_iter']:.3f}, learner "
+        f"{row['learner_s_per_iter']:.3f}); learner "
+        f"{row['learner_ms_per_update'] or 0:.3f} ms/update; "
+        f"{row['env_steps_per_s']:.0f} env steps/s; returns "
+        f"{[round(r, 1) for r in row['returns']]}  [{card}]")
+    check(row["solved"], f"{name} did not meet its test's criterion: "
+          f"{row['returns']}")
+    return row
+
+
+def _ppo_done(hist) -> bool:
+    # tests/test_rllib.py::test_ppo_learns_cartpole
+    baseline = hist[0]["episode_return_mean"]
+    best = max(h["episode_return_mean"] for h in hist)
+    return len(hist) > 1 and best > max(2 * baseline, 60)
+
+
+def _impala_done(hist) -> bool:
+    # test_impala_learns_cartpole (and test_dqn_learns_cartpole's return
+    # criterion): the baseline floored at 15
+    baseline = max(hist[0]["episode_return_mean"], 15.0)
+    best = max(h["episode_return_mean"] for h in hist)
+    return len(hist) > 1 and best > max(2 * baseline, 60)
+
+
+def _dqn_done(hist) -> bool:
+    return _impala_done(hist) and hist[-1]["epsilon"] < 0.5
+
+
+def _sac_done(hist) -> bool:
+    # test_sac_learns_pendulum: after iteration 20, final > -950 and 250
+    # above iteration 6's
+    if len(hist) < 22:
+        return False
+    final = hist[-1]["episode_return_mean"]
+    return final > -950 and final - hist[6]["episode_return_mean"] > 250
+
+
+def _ma_done(hist) -> bool:
+    # test_multi_agent_ppo_learns_cooperation
+    return len(hist) > 11 and hist[-1]["episode_return_mean"] > 9.0
+
+
+def phase_rllib(card: str) -> dict:
+    """Phase 15 on the card: ``ray_tpu_torch.init()``, then
+    ``_phase_rllib``."""
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ray_tpu_torch.init()
+    try:
+        out = _phase_rllib(card, "cuda")
+    finally:
+        ray_tpu_torch.shutdown()
+    out["phase_s"] = time.perf_counter() - t
+    log(f"RLLIB phase 15 took {out['phase_s']:.1f} s  [{card}]")
+    return out
+
+
+def _phase_rllib(card: str, device: str) -> dict:
+    """The four learners on ``device`` against the CPU, then PPO, IMPALA,
+    DQN, SAC and multi-agent PPO with their learners on ``device``, each
+    at its reference test's configuration and to its criterion, and the
+    GPU-against-CPU learner finding."""
+    out = dict(card=card, parity=_rl_parity(card, device))
+    algos = [
+        ("ppo_cartpole", PPOConfig().environment(CartPole)
+         .env_runners(2, rollout_fragment_length=512)
+         .training(lr=1e-3, num_epochs=6, minibatch_size=128, seed=1,
+                   device=device), 15, _ppo_done),
+        ("impala_cartpole", IMPALAConfig().environment(CartPole)
+         .env_runners(2, rollout_fragment_length=64)
+         .training(lr=1e-3, train_batch_fragments=4,
+                   updates_per_iteration=8, entropy_coeff=0.01, seed=1,
+                   device=device), 15, _impala_done),
+        ("dqn_cartpole", DQNConfig().environment(CartPole)
+         .env_runners(2, rollout_fragment_length=64)
+         .training(lr=1e-3, train_batch_size=64, updates_per_iteration=64,
+                   fragments_per_iteration=4, learning_starts=500,
+                   target_update_freq=50, epsilon_anneal_steps=3000,
+                   seed=1, device=device), 25, _dqn_done),
+        ("sac_pendulum", SACConfig().environment(Pendulum)
+         .env_runners(2, rollout_fragment_length=100)
+         .training(updates_per_iteration=200, train_batch_size=128,
+                   learning_starts=400, lr=1e-3, seed=0, device=device),
+         40, _sac_done),
+        ("multi_agent_ppo", MultiAgentPPOConfig()
+         .environment(CooperativeMatch)
+         .multi_agent(policy_mapping_fn=lambda a: a)
+         .env_runners(2, rollout_fragment_length=256)
+         .training(lr=5e-3, minibatch_size=128, num_epochs=4, seed=0,
+                   device=device), 30, _ma_done),
+    ]
+    out["train"] = {name: _rl_train(name, cfg.build(), iters, done, card,
+                                    device)
+                    for name, cfg, iters, done in algos}
+    out["update_ms"] = _rl_update_ms(card, device)
+    return out
+
+
 def _variant_entries(rows, bwd_rows, parity) -> list:
     """The kernels line's entries of the generic variants: launches from
     their train-parity run (the path that reaches them), times at that
@@ -2380,6 +3153,12 @@ def _variant_entries(rows, bwd_rows, parity) -> list:
     return out
 
 
+def _dump(name: str, result: dict) -> None:
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, name), "w") as f:
+        json.dump(result, f, indent=1)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only-kernels", action="store_true",
@@ -2399,6 +3178,10 @@ def main() -> int:
                     help="build the kernels and run phases 8 and 12 only")
     ap.add_argument("--only-serve", action="store_true",
                     help="build the kernels and run phase 13 only")
+    ap.add_argument("--only-edges", action="store_true",
+                    help="build the kernels and run phase 14 only")
+    ap.add_argument("--only-rllib", action="store_true",
+                    help="build the kernels and run phase 15 only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2472,6 +3255,12 @@ def main() -> int:
             _fwd_case(gen, card, B, H, KVH, S, causal, dt, layout)
         phase_serve(card)
         return 0
+    if args.only_edges:
+        _dump("chip_smoke_edges.json", phase_edges(card))
+        return 0
+    if args.only_rllib:
+        _dump("chip_smoke_rllib.json", phase_rllib(card))
+        return 0
     rows = phase_kernels(card)
     route = phase_reference_route(card)
     if args.only_kernels:
@@ -2487,6 +3276,8 @@ def main() -> int:
     runtime = phase_runtime(card)
     trainer = phase_trainer(card, bench)
     serving = phase_serve(card, engine)
+    edges = phase_edges(card)
+    rl = phase_rllib(card)
 
     main_row = next(r for r in rows if r["shape"] == "B1 H32 KVH8 S8192 D128"
                     and r["causal"] and r["layout"] == "dense")
@@ -2531,7 +3322,7 @@ def main() -> int:
                        train=train, train_bench=bench, moe=moe,
                        reference_route=route, checkpoint=ckpt,
                        runtime=runtime, trainer=trainer, serve=serving,
-                       kernels=kernels), f,
+                       edges=edges, rllib=rl, kernels=kernels), f,
                   indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -61,15 +61,6 @@ _trace_local = threading.local()
 _trace_ctxvar: "_contextvars.ContextVar" = _contextvars.ContextVar(
     "ray_tpu_torch_trace", default=None)
 
-# The DAG's device edges and its allreduce need device channels
-# (experimental/channel.py) and collectives (collective.py), which wait for
-# their own port; device objects and the CUDA IPC plane are here.
-_DEVICE_PLANE_MISSING = (
-    "the DAG's device edges need device channels and collectives, which "
-    "are not ported to ray_tpu_torch yet (experimental/channel.py, "
-    "collective.py); DAG edges without with_tensor_transport() and "
-    "without allreduce() work")
-
 PENDING, READY, ERROR = "PENDING", "READY", "ERROR"
 
 
@@ -201,6 +192,13 @@ class CoreWorker:
         # receiver acks (ack_reply_refs) or the grace fallback fires.
         self._reply_holds: Dict[Any, list] = {}
         self._reply_hold_timers: Dict[Any, Any] = {}
+        # oid -> this process's add_borrow RPCs in flight for refs it
+        # unpickled (concurrent futures: set on the loop, made on any
+        # thread). A remove_borrow for the oid waits for them, so that the
+        # owner counts the borrow before it sees the release of the result
+        # that carried the ref.
+        self._borrow_adds: Dict[bytes, list] = {}
+        self._borrow_adds_lock = threading.Lock()
         from collections import OrderedDict
         self._map_cache: "OrderedDict[bytes, Any]" = OrderedDict()
         self._map_cache_bytes = 0
@@ -221,6 +219,9 @@ class CoreWorker:
         self._channel_inbox: Dict[bytes, Any] = {}
         self._channel_acks: Dict[bytes, Dict] = {}
         self._channel_ack_events: Dict[bytes, Any] = {}
+        # Writer side: channel -> {seq: (device-table key, readers)} of the
+        # items not yet released by every reader.
+        self._channel_items: Dict[bytes, Dict[int, tuple]] = {}
         # Task-event buffer, flushed to the controller in batches
         # (reference: task_event_buffer.cc -> gcs_task_manager.cc).
         # Guarded: submit runs on user threads, completion on the io loop.
@@ -1044,18 +1045,47 @@ class CoreWorker:
         self.add_local_ref(ref)
         owner = ref.owner_addr
         if first and owner is not None and tuple(owner) != self.address:
+            # The caller goes on before the owner has counted this borrow,
+            # and may drop the result that carried the ref at once: that
+            # result's release (a remove_borrow from this process) then
+            # waits for this add (``_notify_remove_borrow``).
+            done = concurrent.futures.Future()
+            with self._borrow_adds_lock:
+                self._borrow_adds.setdefault(k, []).append(done)
             try:
-                self._spawn(self._notify_add_borrow(tuple(owner), k))
+                self._spawn(self._notify_add_borrow(tuple(owner), k, done))
             except RuntimeError:
-                pass
+                self._borrow_add_done(k, done)
 
-    async def _notify_add_borrow(self, owner: Address, oid: bytes) -> None:
+    def _borrow_add_done(self, oid: bytes,
+                         done: concurrent.futures.Future) -> None:
+        with self._borrow_adds_lock:
+            pending = self._borrow_adds.get(oid, [])
+            if done in pending:
+                pending.remove(done)
+            if not pending:
+                self._borrow_adds.pop(oid, None)
+        if not done.done():
+            done.set_result(None)
+
+    async def _notify_add_borrow(
+            self, owner: Address, oid: bytes,
+            done: Optional[concurrent.futures.Future] = None) -> None:
         try:
             await self._client_for_worker(owner).call("add_borrow", oid)
         except Exception:
             pass
+        finally:
+            if done is not None:
+                self._borrow_add_done(oid, done)
 
     async def _notify_remove_borrow(self, owner: Address, oid: bytes) -> None:
+        with self._borrow_adds_lock:
+            pending = list(self._borrow_adds.get(oid, ()))
+        if pending:
+            # A borrow this process registered by unpickling the ref lands
+            # at the owner before any release this process sends for it.
+            await asyncio.gather(*[asyncio.wrap_future(f) for f in pending])
         try:
             await self._client_for_worker(owner).call("remove_borrow", oid)
         except Exception:
@@ -1205,15 +1235,11 @@ class CoreWorker:
         self._device_consumers.pop(key, None)
         self._device_tokens.pop(key, None)
 
-    @long_poll
-    async def device_pull_info(self, key: bytes,
-                               wait_s: float = 0.0) -> Optional[dict]:
-        """Stage the device object for ONE CUDA IPC pull by a peer of this
-        node and return the tiny control descriptor
-        (``experimental/device_plane.py``). The tensor itself never touches
-        this RPC. wait_s>0 parks until the key is registered (collective
-        rendezvous; a poll loop — the producer may register from an exec
-        thread, so no cross-thread asyncio primitives)."""
+    async def _wait_device_object(self, key: bytes, wait_s: float) -> Any:
+        """The device object ``key``, waiting up to ``wait_s`` for it to be
+        registered (collective rendezvous; a poll loop — the producer may
+        register from an exec thread, so no cross-thread asyncio
+        primitives)."""
         arr = self._device_objects.get(key)
         if arr is None and wait_s > 0:
             deadline = asyncio.get_running_loop().time() + wait_s
@@ -1221,40 +1247,65 @@ class CoreWorker:
                    and asyncio.get_running_loop().time() < deadline):
                 await asyncio.sleep(0.02)
                 arr = self._device_objects.get(key)
+        return arr
+
+    def _consumed(self, key: bytes, defer_s: float) -> None:
+        """One consumer of a self-freeing entry (``consumers`` > 0) has its
+        copy or its ticket: the last one frees the entry, after
+        ``defer_s``."""
+        left = self._device_consumers.get(key)
+        if left is None:
+            return
+        if left > 1:
+            self._device_consumers[key] = left - 1
+            return
+        self._device_consumers.pop(key, None)
+        if defer_s <= 0:
+            self.free_device_object(key)
+            return
+        token = self._device_tokens.get(key)
+
+        async def _deferred_free():
+            await asyncio.sleep(defer_s)
+            if self._device_tokens.get(key) is token:
+                self.free_device_object(key)
+
+        spawn(_deferred_free())
+
+    @long_poll
+    async def device_pull_info(self, key: bytes,
+                               wait_s: float = 0.0) -> Optional[dict]:
+        """Stage the device object for ONE CUDA IPC pull by a peer of this
+        node and return the tiny control descriptor
+        (``experimental/device_plane.py``). The tensor itself never touches
+        this RPC. wait_s>0 parks until the key is registered."""
+        arr = await self._wait_device_object(key, wait_s)
         if arr is None:
             return None
         from ray_tpu_torch.experimental.device_plane import DevicePlane
         loop = asyncio.get_running_loop()
         # Staging records an IPC event on the card; keep it off the io loop.
         desc = await loop.run_in_executor(None, DevicePlane.get().stage, arr)
-        left = self._device_consumers.get(key)
-        if left is not None:
-            if left <= 1:
-                # Last consumer staged. Defer the actual free briefly so
-                # the puller's copy finishes before the tensor is dropped.
-                self._device_consumers.pop(key, None)
-                token = self._device_tokens.get(key)
-
-                async def _deferred_free():
-                    await asyncio.sleep(60.0)
-                    if self._device_tokens.get(key) is token:
-                        self.free_device_object(key)
-
-                spawn(_deferred_free())
-            else:
-                self._device_consumers[key] = left - 1
+        # Last consumer staged. Defer the actual free briefly so the
+        # puller's copy finishes before the tensor is dropped.
+        self._consumed(key, 60.0)
         return desc
 
-    async def fetch_device_object(self, key: bytes) -> Optional[tuple]:
+    @long_poll
+    async def fetch_device_object(self, key: bytes,
+                                  wait_s: float = 0.0) -> Optional[tuple]:
         """The host relay (a CPU tensor, or a puller on another node):
         device -> host tensor -> wire (pickle-5 ships the buffer without an
         extra copy). The device-to-host copy runs OFF the io loop — a
-        multi-GB transfer must not stall this worker's RPC service."""
-        arr = self._device_objects.get(key)
+        multi-GB transfer must not stall this worker's RPC service. wait_s
+        as for ``device_pull_info``; a self-freeing entry counts this
+        consumer down once its host copy is taken."""
+        arr = await self._wait_device_object(key, wait_s)
         if arr is None:
             return None
         host = await asyncio.get_running_loop().run_in_executor(
             None, lambda: arr.detach().cpu())
+        self._consumed(key, 0.0)
         return (host, str(host.dtype), tuple(host.shape))
 
     async def free_device_object_remote(self, key: bytes) -> None:
@@ -1267,23 +1318,39 @@ class CoreWorker:
     # transfer plane)
     # ------------------------------------------------------------------
     async def channel_notify(self, channel_id: bytes, seq: int,
-                             writer_addr, addr: str, uuid: int,
-                             descs: list) -> None:
-        """A writer published item `seq`: enqueue the pull ticket for the
-        local reader."""
+                             writer_addr, item: dict) -> None:
+        """A writer published item `seq`: enqueue its ticket (the key of
+        the writer's device-table entry and the tensor's node, device and
+        card, from which the reader picks the route) for the local
+        reader."""
         q = self._channel_inbox.get(channel_id)
         if q is None:
             q = self._channel_inbox[channel_id] = asyncio.Queue()
-        q.put_nowait((seq, tuple(writer_addr), addr, uuid, descs))
+        q.put_nowait((seq, tuple(writer_addr), item))
+
+    def channel_publish(self, channel_id: bytes, seq: int, key: bytes,
+                        value: Any, n_readers: int) -> None:
+        """Writer side: hold item `seq` in the device table under `key`
+        until every one of the `n_readers` readers has released it
+        (``channel_release`` frees it then)."""
+        self.put_device_object(key, value)
+        st = self._channel_items.setdefault(channel_id, {})
+        st[seq] = (key, n_readers)
 
     async def channel_release(self, channel_id: bytes, reader_addr,
                               seq: int) -> None:
-        """A reader finished with item `seq` (writer-side handler)."""
+        """A reader finished with item `seq` (writer-side handler). Items
+        every reader has released leave the writer's device table now."""
         st = self._channel_acks.get(channel_id)
         if st is None:
             st = self._channel_acks[channel_id] = {}
         key = tuple(reader_addr)
         st[key] = max(st.get(key, 0), seq)
+        items = self._channel_items.get(channel_id, {})
+        for n, (obj_key, n_readers) in list(items.items()):
+            if len(st) >= n_readers and all(v >= n for v in st.values()):
+                del items[n]
+                self.free_device_object(obj_key)
         ev = self._channel_ack_events.get(channel_id)
         if ev is not None:
             ev.set()
@@ -1323,6 +1390,8 @@ class CoreWorker:
         self._channel_inbox.pop(channel_id, None)
         self._channel_acks.pop(channel_id, None)
         self._channel_ack_events.pop(channel_id, None)
+        for key, _ in self._channel_items.pop(channel_id, {}).values():
+            self.free_device_object(key)
 
     # ------------------------------------------------------------------
     # compiled-DAG builtins (executed like actor methods, provided by the
@@ -1331,18 +1400,99 @@ class CoreWorker:
     # ------------------------------------------------------------------
     def _builtin_dag_call(self, method_name: str, out_mode: str,
                           *args, **kwargs):
-        """Run an actor method for a compiled DAG with device-plane IO
-        (DeviceRef args pulled device-to-device; out_mode='device' keeps
-        the result on the card). Waits for device channels."""
-        raise NotImplementedError(_DEVICE_PLANE_MISSING)
+        """Run an actor method for a compiled DAG with device-plane IO:
+        DeviceRef args are materialized here (a CUDA IPC pull within the
+        node; a CPU tensor stays on the CPU); out_mode='device' keeps the
+        result in this process's memory and ships only a DeviceRef. Sync
+        methods only (DAG nodes are compute steps)."""
+        from ray_tpu_torch import device_objects
+
+        def _unwrap(v):
+            if isinstance(v, device_objects.DeviceRef):
+                return device_objects.device_get(
+                    v, device="cpu" if v.device == "cpu" else None)
+            return v
+
+        args = [_unwrap(a) for a in args]
+        kwargs = {k: _unwrap(v) for k, v in kwargs.items()}
+        method = getattr(self._actor_instance, method_name)
+        import inspect as _inspect
+        if _inspect.iscoroutinefunction(method):
+            raise TypeError(
+                f"DAG device-transport edges require sync methods; "
+                f"{method_name!r} is async (its coroutine would be "
+                f"stored, not awaited)")
+        result = method(*args, **kwargs)
+        if out_mode == "device":
+            return device_objects.device_put_ref(result)
+        return result
 
     def _builtin_dag_allreduce(self, op_key: bytes, rank: int, world: int,
                                op: str, inputs: list,
                                timeout: float = 120.0):
-        """In-DAG allreduce across the participating actors' device
-        tensors (hub reduce over the transfer plane). Waits for
-        collectives."""
-        raise NotImplementedError(_DEVICE_PLANE_MISSING)
+        """In-DAG allreduce across the participating actors' tensors. Hub
+        reduce: rank 0 pulls every peer's tensor, reduces them on its
+        device in rank order and registers the result under op_key for
+        world-1 consumers; every other rank pulls it (a rendezvous on
+        op_key). Each pull takes the route ``device_objects.pull`` picks:
+        CUDA IPC within the node, host bytes for a CPU tensor or another
+        node. Only control tuples ride RPC."""
+        from ray_tpu_torch import device_objects
+        from ray_tpu_torch.core.ref import ObjectRef
+
+        # The group's inputs travel as a LIST of refs (nested refs are
+        # not auto-resolved by arg resolution): settle them to DeviceRefs.
+        inputs = [self.get([x], timeout)[0] if isinstance(x, ObjectRef)
+                  else x for x in inputs]
+
+        def _get(ref):
+            return device_objects.device_get(
+                ref, device="cpu" if ref.device == "cpu" else None,
+                timeout=timeout)
+
+        mine = _get(inputs[rank])
+        if world == 1:
+            return device_objects.device_put_ref(mine)
+        if rank == 0:
+            import torch
+
+            from ray_tpu_torch.collective import _guard_hub_size
+            _guard_hub_size(mine.numel() * mine.element_size(), world,
+                            "DAG allreduce")
+            acc = mine
+            parts = [_get(inputs[j]) for j in range(1, world)]
+            if op in ("sum", "mean"):
+                for p in parts:
+                    acc = acc + p.to(acc.device)
+                if op == "mean":
+                    acc = acc / world
+            elif op == "max":
+                for p in parts:
+                    acc = torch.maximum(acc, p.to(acc.device))
+            elif op == "min":
+                for p in parts:
+                    acc = torch.minimum(acc, p.to(acc.device))
+            elif op == "prod":
+                for p in parts:
+                    acc = acc * p.to(acc.device)
+            else:
+                raise ValueError(f"unsupported allreduce op: {op}")
+            if acc.is_cuda:
+                # Peers pull on other streams: the reduction must be done.
+                torch.cuda.current_stream(acc.device).synchronize()
+            self.put_device_object(op_key, acc, consumers=world - 1)
+            return device_objects.device_put_ref(acc)
+        src = inputs[0]
+        try:
+            out = device_objects.pull(
+                tuple(src.owner_addr), op_key, src.node, src.device,
+                src.card, device="cpu" if src.device == "cpu" else None,
+                timeout=timeout, wait_s=timeout,
+                what=f"allreduce result (rank {rank})")
+        except KeyError:
+            raise TimeoutError(
+                f"allreduce rendezvous timed out (rank {rank})") from None
+        return device_objects.device_put_ref(out)
 
     # ------------------------------------------------------------------
     # streaming generators (owner side; reference: task_manager.cc

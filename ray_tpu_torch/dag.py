@@ -8,10 +8,12 @@ redesign: the lazy ``bind`` API is kept verbatim; compilation
 topologically sorts the graph ONCE and replays it per execute() with
 direct pipelined actor pushes and ObjectRef plumbing. Edges marked
 ``.with_tensor_transport()`` move their tensors over the DEVICE plane:
-the producer keeps the array in HBM and ships a tiny DeviceRef; the
-consumer pulls it device-to-device through the PJRT transfer server (DMA
-on TPU) — no host pickle round-trip. ``allreduce([...])`` is the in-DAG
-collective node.
+the producer keeps the tensor in its own memory and ships a tiny
+DeviceRef; a consumer of the same node pulls a CUDA tensor into its own
+memory on the card by CUDA IPC (``experimental/device_plane.py``) — no
+host pickle round-trip; a CPU tensor, or a consumer on another node, takes
+the host relay. ``allreduce([...])`` is the in-DAG collective node (a hub
+reduce on the first participant's device).
 
     with InputNode() as inp:
         x = preproc.run.bind(inp).with_tensor_transport()
@@ -190,8 +192,8 @@ class CompiledDAG:
                     for up in node._upstream)
                 if node.tensor_transport or device_in:
                     # Device-plane edge: run through the worker builtin
-                    # that unwraps DeviceRef args (device-to-device pull)
-                    # and/or keeps the output in HBM.
+                    # that unwraps DeviceRef args (a CUDA IPC pull within
+                    # the node) and/or keeps the output in device memory.
                     out_mode = "device" if node.tensor_transport else "host"
                     method = ActorMethod(node.actor, "__rt_dag_call__")
                     values[id(node)] = method.remote(

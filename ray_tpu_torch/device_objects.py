@@ -117,6 +117,29 @@ def device_get(ref: DeviceRef, *, device: DeviceLike = None,
     the owner, put on ``device``: ``None`` is the card, as the reference's
     ``jax.device_put`` puts them on the default accelerator, and raises
     without one; pass ``device="cpu"`` to keep them on the CPU."""
+    cw = get_core_worker()
+    if ref.owner_addr is None or tuple(ref.owner_addr) == cw.address:
+        # CUDA IPC cannot open a handle in the process that made it.
+        local = cw.get_device_object_local(ref.key)
+        if local is None:
+            raise KeyError(f"device object freed: {ref}")
+        return local if device is None else local.to(resolve_device(device))
+    return pull(tuple(ref.owner_addr), ref.key, ref.node, ref.device,
+                ref.card, device=device, timeout=timeout, what=repr(ref))
+
+
+def pull(owner_addr, key: bytes, node: str, device_type: str, card: str, *,
+         device: DeviceLike = None, timeout: float = 120.0,
+         wait_s: float = 0.0, what: str = "") -> torch.Tensor:
+    """Pull the device object ``key`` held by the process at
+    ``owner_addr`` (another process), whose tensor lies on
+    ``device_type`` ("cuda" or "cpu") on the card ``card`` of the node
+    ``node``, by the route ``choose_route`` picks: CUDA IPC into this
+    process's memory on that card, else host bytes put on ``device``
+    (``None``: the card). ``wait_s`` > 0 waits that long at the owner for
+    the key to be registered (a rendezvous). Raises ``KeyError`` when the
+    owner no longer holds it; a failed IPC pull raises, with no fallback.
+    Device channels and the DAG's allreduce pull through here too."""
     from ray_tpu_torch.experimental.device_plane import (ROUTE_HOST,
                                                          ROUTE_IPC,
                                                          DevicePlane,
@@ -124,33 +147,27 @@ def device_get(ref: DeviceRef, *, device: DeviceLike = None,
                                                          local_index)
 
     cw = get_core_worker()
-    key = ref.key
-    if ref.owner_addr is None or tuple(ref.owner_addr) == cw.address:
-        # CUDA IPC cannot open a handle in the process that made it.
-        local = cw.get_device_object_local(key)
-        if local is None:
-            raise KeyError(f"device object freed: {ref}")
-        return local if device is None else local.to(resolve_device(device))
-    client = cw._client_for_worker(tuple(ref.owner_addr))
+    client = cw._client_for_worker(tuple(owner_addr))
     # Decided BEFORE device_pull_info: staging ties up the owner's block.
-    same_node_cuda = ref.node == _node(cw) and ref.device == "cuda"
+    same_node_cuda = node == _node(cw) and device_type == "cuda"
     route, reason = choose_route(
-        ref.node, _node(cw), ref.device,
+        node, _node(cw), device_type,
         same_node_cuda and torch.cuda.is_available()
-        and local_index(ref.card) is not None)
+        and local_index(card) is not None)
     plane = DevicePlane.get()
     t0 = time.perf_counter()
     if route == ROUTE_IPC:
         desc = cw._run(client.call("device_pull_info", key,
-                                   wait_s=0.0)).result(timeout)
+                                   wait_s=wait_s)).result(timeout + wait_s)
         if desc is None:
-            raise KeyError(f"device object freed on owner: {ref}")
+            raise KeyError(f"device object freed on owner: {what}")
         out = plane.pull(desc, t0)
         return out if device is None else out.to(resolve_device(device))
     dev = resolve_device(device)  # before the fetch: raises without a card
-    got = cw._run(client.call("fetch_device_object", key)).result(timeout)
+    got = cw._run(client.call("fetch_device_object", key,
+                              wait_s=wait_s)).result(timeout + wait_s)
     if got is None:
-        raise KeyError(f"device object freed on owner: {ref}")
+        raise KeyError(f"device object freed on owner: {what}")
     host = got[0]
     out = host.to(dev)
     plane.count(ROUTE_HOST, host.numel() * host.element_size(), t0, reason)

@@ -1,3 +1,5 @@
 """Experimental accelerator-plane features (counterpart of
-``ray_tpu/experimental``): the device transfer plane. Device channels and
-the DAG's tensor transport are not ported yet."""
+``ray_tpu/experimental``): the device transfer plane, device channels and
+the DAG's tensor transport (reference: python/ray/experimental/channel/)."""
+
+from ray_tpu_torch.experimental.channel import DeviceChannel  # noqa: F401

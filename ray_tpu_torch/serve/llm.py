@@ -307,13 +307,14 @@ class PDIngress:
             body["seed"] = random.getrandbits(62)
         resp = self._prefill.options(method_name="prefill").remote(body)
         # ``resp`` is held until the stream ends: its result entry borrows
-        # the KV DeviceRefs from the prefill replica before the reply is
-        # acknowledged, so they stay there until the decode pool has
-        # pulled (and freed) them. This works around a fault of the
-        # runtime, which the JAX package shares: the borrows of refs
-        # unpickled here register asynchronously
-        # (``CoreWorker.on_ref_deserialized``) and could land after a
-        # dropped result's release, freeing the KV early.
+        # the KV DeviceRefs from the prefill replica, so they stay there
+        # until the decode pool has pulled (and freed) them. The hold was
+        # the workaround for a fault of the runtime that the JAX package
+        # keeps: a borrow of a ref unpickled here registered
+        # asynchronously and could land after a dropped result's release.
+        # ``CoreWorker._notify_remove_borrow`` now waits for this process's
+        # own ``add_borrow`` of the ref first, so the hold is no longer
+        # needed for that; it stays as the plain lifetime of the reply.
         meta = resp.result(timeout=300)
         yield _text(self.cfg, [meta["first"]])
         if max_new <= 1:

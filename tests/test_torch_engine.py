@@ -292,5 +292,12 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                 "ray_tpu_torch.serve.grpc_proxy",
                 "ray_tpu_torch.device_objects",
                 "ray_tpu_torch.experimental.device_plane",
+                "ray_tpu_torch.experimental.channel",
+                "ray_tpu_torch.collective",
+                "ray_tpu_torch.rllib", "ray_tpu_torch.rllib.learner",
+                "ray_tpu_torch.rllib.env", "ray_tpu_torch.rllib.env_runner",
+                "ray_tpu_torch.rllib.replay", "ray_tpu_torch.rllib.ppo",
+                "ray_tpu_torch.rllib.impala", "ray_tpu_torch.rllib.dqn",
+                "ray_tpu_torch.rllib.sac", "ray_tpu_torch.rllib.multi_agent",
                 "ray_tpu_torch.data.llm"):
         assert f"'{mod}'" in out.stdout
