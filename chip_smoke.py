@@ -156,6 +156,25 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    iteration split into sampling and learner, learner ms per update and
    env steps/s; and one update of each learner on the card and on the
    CPU in this process (64 x 64 MLPs: launch-bound on a GPU).
+16. Tune, the CLI and jobs: ``init()``, then (a) ``Tuner`` over a function
+   trainable that trains phase 8's configuration (not cut) through
+   ``make_train_fns``: 4 trials over ``lr`` (phase 8's first), ASHA on
+   the loss (rungs at 1, 2 and 4 of 6 steps), ``resources_per_trial=
+   {"GPU": 1}`` and ``max_concurrent_trials=2`` on the one card. Each
+   trial reports its loss, step time and the kernels' launch counters
+   every step (16/8/8 per step, exactly), and a trial that runs all its
+   steps saves its state by ``train.checkpointing`` and reports the
+   directory's path. No trial errs, ASHA stops one early at least, the
+   trials hold the card one after the other, and the trial at phase 8's
+   ``lr`` reports phase 8's losses (rel 1e-3; whether bitwise is printed).
+   (b) ``PPO.as_trainable`` under ``Tuner``: 2 trials at once, their
+   learners on the card in ``num_gpus=0`` actors, each to a finite return
+   in 3 iterations. (c) ``python -m ray_tpu_torch.cli start --head``,
+   ``status`` (GPU 1), ``job submit`` of a driver whose ``num_gpus=1``
+   task holds the flash forward against its plain version at the train
+   step's shape (B8 H16 KVH16 S2048, its layout), ``job logs`` with the
+   task's line, the dashboard's nodes (the GPU) and jobs (SUCCEEDED), and
+   ``stop``, which leaves no process of the head's runtime.
 
 Any mismatch raises and the script exits non-zero. The line before the last
 is the kernels' JSON; the last is ``{"ok": true, "device": {...}}``.
@@ -167,8 +186,9 @@ builds the kernels and runs phase 2 alone (a quick check after a kernel
 edit), ``--only-bwd`` runs phase 5 alone in the same way, ``--only-moe``
 phase 9, ``--only-ckpt`` phases 4 and 10, ``--only-runtime`` phase 11,
 ``--only-trainer`` phases 8 and 12, ``--only-serve`` phase 13,
-``--only-edges`` phase 14, ``--only-rllib`` phase 15 (their details go to
-``chiprun_out/chip_smoke_edges.json`` and ``..._rllib.json``), and
+``--only-edges`` phase 14, ``--only-rllib`` phase 15, ``--only-tune``
+phase 16 (their details go to ``chiprun_out/chip_smoke_edges.json``,
+``..._rllib.json`` and ``..._tune.json``), and
 ``--only-ttft N``
 measures idle TTFT alone (N requests per prompt length; run it from
 another tree's root to compare the two); none prints a result line.
@@ -232,7 +252,8 @@ from ray_tpu_torch.serve.llm import (DecodeServer, LLMConfig, LLMServer,
                                      PrefillServer, _deploy_pd, _engine,
                                      _model_from_cfg, _pd_deployments,
                                      build_llm_app)
-from ray_tpu_torch.train import (AsyncCheckpointer, make_train_fns,
+from ray_tpu_torch.train import (AsyncCheckpointer, Checkpoint,
+                                 default_optimizer, make_train_fns,
                                  restore_checkpoint)
 from ray_tpu_torch.train.checkpointing import save_checkpoint
 
@@ -3114,10 +3135,536 @@ def _phase_rllib(card: str, device: str) -> dict:
     return out
 
 
-def _variant_entries(rows, bwd_rows, parity) -> list:
+# ---------------------------------------------------------------------------
+# phase 16: Tune, the CLI and jobs on the card
+# ---------------------------------------------------------------------------
+
+# (a) Tune over phase 8's configuration: 4 trials over lr, phase 8's
+# (default_optimizer's) first, so that ASHA records it at every rung before
+# the others; each trial asks for a whole card, and two may run at once, so
+# the tuner holds the second until the first has ended.
+TUNE_LRS = (3e-4, 1e-4, 3e-5, 1e-5)
+TUNE_STEPS = 6           # ASHA's max_t: rungs at 1, 2 and 4 steps
+TUNE_CONCURRENT = 2
+TUNE_ASHA = dict(grace_period=1, reduction_factor=2)
+# (b) PPO.as_trainable: two trials over lr, phase 15's PPO configuration
+TUNE_PPO_LRS = (1e-3, 3e-4)
+TUNE_PPO_ITERS = 3
+# (c) the job's task: the flash forward at the training step's shape and
+# layout (bench.py's configuration: B8 H16 KVH16 S2048 D128, causal)
+JOB_FLASH_SHAPE = (BENCH_BATCH, BENCH_MODEL["n_heads"],
+                   BENCH_MODEL["n_kv_heads"], BENCH_SEQ,
+                   BENCH_MODEL["d_model"] // BENCH_MODEL["n_heads"])
+CLI_TIMEOUT_S = 300
+# A job's driver: it connects through RAY_TPU_TORCH_ADDRESS, which the job
+# supervisor sets, runs one num_gpus=1 task (the forward against its plain
+# version; launches counted in the task from zero) and prints the task's
+# line; argv: the shape as JSON, the device, the two tolerances.
+JOB_DRIVER = '''\
+import json
+import sys
+
+import ray_tpu_torch
+
+
+@ray_tpu_torch.remote(num_gpus=1)
+def flash_task(shape, device, atol_o, atol_lse):
+    import os
+
+    import torch
+
+    from ray_tpu_torch.ops.attention import flash_fwd, flash_fwd_plain
+    B, H, KVH, S, D = shape
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def x(heads):  # the train step's layout: [B, S, heads, D] transposed
+        return torch.randn(B, S, heads, D, generator=gen, device=device
+                           ).to(torch.bfloat16).transpose(1, 2)
+
+    q, k, v = x(H), x(KVH), x(KVH)
+    flash_fwd.launches = 0
+    flash_fwd.launches_by_variant.clear()
+    o, lse = flash_fwd(q, k, v, True)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(flash_fwd.launches_by_variant)
+    o_ref, lse_ref = flash_fwd_plain(q, k, v, True, D ** -0.5)
+    err_o = (o.float() - o_ref.float()).abs().max().item()
+    err_lse = (lse - lse_ref).abs().max().item()
+    line = dict(shape=list(shape), launches=launches, max_abs_err=err_o,
+                lse_abs_err=err_lse,
+                ok=bool(torch.isfinite(o).all()) and err_o <= atol_o
+                and err_lse <= atol_lse,
+                cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                device=(torch.cuda.get_device_name(0) if device == "cuda"
+                        else device))
+    print("FLASH_TASK " + json.dumps(line), flush=True)
+    return line
+
+
+ray_tpu_torch.init()
+line = ray_tpu_torch.get(flash_task.remote(
+    json.loads(sys.argv[1]), sys.argv[2], float(sys.argv[3]),
+    float(sys.argv[4])), timeout=600)
+print("FLASH_RESULT " + json.dumps(line), flush=True)
+sys.exit(0 if line["ok"] else 1)
+'''
+
+
+def _tune_trial(config):
+    """One trial of phase 16 (a): ``make_train_fns`` on ``config["model"]``
+    at ``config["lr"]`` from ``config["seed"]``, ``config["steps"]`` steps
+    on phase 8's batch (``_tokens``'s draw), each reported with its loss,
+    its time and the kernels' launch counters by variant (zeroed just
+    before the first step). After the last step the state is saved by
+    ``train.checkpointing`` into a directory under ``config["ckpt_root"]``,
+    and its path, never the tensors, goes with the last report. A trial
+    that ASHA stops raises out of ``tune.report`` and saves nothing.
+    Self-contained: it is pickled by value into the trial's actor."""
+    import time
+    t_start = time.time()
+    import os
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
+                                             flash_fwd)
+    from ray_tpu_torch.train import make_train_fns
+    from ray_tpu_torch.train.checkpointing import save_checkpoint
+    from ray_tpu_torch.train.spmd import default_optimizer
+
+    t_import = time.time()
+    dev = torch.device(config["device"])
+    torch.backends.cuda.matmul.allow_tf32 = config["allow_tf32"]
+    torch.backends.cudnn.allow_tf32 = config["allow_tf32"]
+    cfg = LlamaConfig(**config["model"])
+    init_fn, step_fn = make_train_fns(
+        cfg, opt=default_optimizer(lr=config["lr"]), device=dev)
+    state = init_fn(config["seed"])
+    rng = np.random.default_rng(config["seed"] + 2)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (config["batch"], config["seq"]))).to(dev)
+    wrappers = {"flash_fwd": flash_fwd, "flash_bwd_dkv": flash_bwd_dkv,
+                "flash_bwd_dq": flash_bwd_dq}
+    # What a cold process's first step pays besides the step: loading the
+    # kernels' libraries (built by this checkout's first process) and the
+    # first cuBLAS call; nothing is launched here.
+    cold = {}
+    if dev.type == "cuda":
+        from ray_tpu_torch.ops import _build
+        t = time.perf_counter()
+        for name in wrappers:
+            _build.load(name)
+        cold["kernel_load_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        x = torch.ones(64, 64, device=dev)
+        (x @ x).sum().item()
+        cold["first_matmul_s"] = time.perf_counter() - t
+    for w in wrappers.values():
+        w.launches = 0
+        w.launches_by_variant.clear()
+    t_ready = time.time()
+    for i in range(config["steps"]):
+        t = time.perf_counter()
+        state, m = step_fn(state, tokens)
+        loss = m["loss"].item()
+        report = dict(
+            loss=loss, step_s=time.perf_counter() - t, t_step=time.time(),
+            launches={k: dict(w.launches_by_variant)
+                      for k, w in wrappers.items()},
+            t_start=t_start, t_import=t_import, t_ready=t_ready,
+            cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"),
+            pid=os.getpid(), **cold)
+        if i + 1 < config["steps"]:
+            tune.report(report)
+            continue
+        t = time.perf_counter()
+        ckpt = save_checkpoint(os.path.join(
+            config["ckpt_root"], f"lr{config['lr']:g}"), state, i + 1)
+        report.update(checkpoint_dir=ckpt.path,
+                      checkpoint_s=time.perf_counter() - t,
+                      t_end=time.time())
+        tune.report(report, checkpoint=ckpt.path)
+
+
+def _in_process_losses(model: dict, batch: int, seq: int, steps: int,
+                       lr: float, device: str) -> list:
+    """The trial's steps in this process: phase 8's run (``ctx=None``)
+    where phase 8 did not run."""
+    cfg = LlamaConfig(**model)
+    init_fn, step_fn = make_train_fns(
+        cfg, opt=default_optimizer(lr=lr), device=device)
+    state = init_fn(SEED)
+    rng = np.random.default_rng(SEED + 2)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq))
+                              ).to(device)
+    losses = []
+    for _ in range(steps):
+        state, m = step_fn(state, tokens)
+        losses.append(m["loss"].item())
+    del state, m, tokens
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return losses
+
+
+def _tune_trials(card: str, device: str, model: dict, batch: int, seq: int,
+                 steps: int, lrs: tuple, ref_losses: list) -> dict:
+    """Phase 16 (a) on the cluster this process is connected to."""
+    from ray_tpu_torch import tune
+
+    L = model["n_layers"]
+    per_step = ({"flash_fwd": 2 * L, "flash_bwd_dkv": L, "flash_bwd_dq": L}
+                if device == "cuda" else {})
+    pinned = accelerators.worker_env_for_gpus([0])["CUDA_VISIBLE_DEVICES"]
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    try:
+        t_fit = time.time()
+        grid = tune.Tuner(
+            _tune_trial,
+            param_space=dict(
+                lr=tune.grid_search(list(lrs)), model=model, batch=batch,
+                seq=seq, steps=steps, seed=SEED, device=device,
+                ckpt_root=ckpt_root,
+                allow_tf32=torch.backends.cuda.matmul.allow_tf32),
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min",
+                max_concurrent_trials=TUNE_CONCURRENT,
+                scheduler=tune.ASHAScheduler(max_t=steps, **TUNE_ASHA),
+                resources_per_trial={"GPU": 1})).fit()
+        fit_s = time.time() - t_fit
+        check(grid.num_errors() == 0,
+              f"tune: errored trials: {[r.error for r in grid]}")
+        trials, spans, total = [], [], {}
+        for r in grid:
+            hist = r.metrics_history
+            check(len(hist) == r.iterations >= 1,
+                  f"tune {r.trial_id}: {len(hist)} reports in "
+                  f"{r.iterations} iterations")
+            for j, h in enumerate(hist, 1):
+                want = {k: {"bf16_d128": n * j} for k, n in per_step.items()}
+                got = {k: v for k, v in h["launches"].items() if v}
+                check(got == want, f"tune {r.trial_id} step {j}: launches "
+                      f"{h['launches']}, expected {want}")
+                check(h["cuda_visible_devices"] == pinned,
+                      f"tune {r.trial_id}: not pinned to one card: "
+                      f"{h['cuda_visible_devices']}")
+            for k, v in hist[-1]["launches"].items():
+                for variant, n in v.items():
+                    total.setdefault(k, {}).setdefault(variant, 0)
+                    total[k][variant] += n
+            last = hist[-1]
+            end = last.get("t_end", last["t_step"])
+            spans.append((last["t_start"], end, r.trial_id))
+            step_t = [h["t_step"] for h in hist]
+            row = dict(
+                trial_id=r.trial_id, lr=r.config["lr"], status=r.status,
+                iterations=r.iterations, losses=[h["loss"] for h in hist],
+                start_s=last["t_start"] - t_fit,
+                torch_import_s=last["t_import"] - last["t_start"],
+                state_s=last["t_ready"] - last["t_import"],
+                first_step_s=hist[0]["step_s"],
+                kernel_load_s=last.get("kernel_load_s"),
+                first_matmul_s=last.get("first_matmul_s"),
+                steps_per_s=((len(hist) - 1) / (step_t[-1] - step_t[0])
+                             if len(hist) > 1 else None),
+                step_s=[h["step_s"] for h in hist], pid=last["pid"])
+            if "checkpoint_dir" in last:
+                path = last["checkpoint_dir"]
+                with open(os.path.join(path, "_METADATA.json")) as f:
+                    saved = json.load(f)["step"]
+                check(Checkpoint(path).is_valid()
+                      and saved == steps == r.iterations,
+                      f"tune {r.trial_id}: checkpoint {path} (committed "
+                      f"{Checkpoint(path).is_valid()}) of step {saved} "
+                      f"after {r.iterations} steps")
+                row.update(checkpoint_dir=path,
+                           checkpoint_s=last["checkpoint_s"],
+                           checkpoint_gb=_dir_bytes(path) / 1e9)
+            else:
+                check(r.iterations < steps,
+                      f"tune {r.trial_id} ran {steps} steps and saved no "
+                      f"checkpoint")
+            trials.append(row)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    spans.sort()
+    check(all(a[1] <= b[0] for a, b in zip(spans, spans[1:])),
+          f"tune: trials held the card at once: {spans}")
+    early = [t for t in trials if t["iterations"] < steps]
+    check(early, f"tune: ASHA stopped no trial early: "
+          f"{[(t['lr'], t['iterations']) for t in trials]}")
+    check(any("checkpoint_dir" in t for t in trials),
+          "tune: no trial saved a checkpoint")
+    first = next(t for t in trials if t["lr"] == lrs[0])
+    mine = first["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(mine, ref_losses))
+    bitwise = mine == list(ref_losses[:len(mine)])
+    check(rel <= TRAINER_LOSS_RTOL,
+          f"tune: the trial at lr {lrs[0]} lost {mine}, phase 8 "
+          f"{ref_losses[:len(mine)]}")
+    for t in trials:
+        log(f"TUNE trial {t['trial_id']} lr {t['lr']:g}: {t['status']} "
+            f"after {t['iterations']} steps; started {t['start_s']:.2f} s "
+            f"after fit() (torch import {t['torch_import_s']:.2f} s, "
+            f"state {t['state_s']:.2f} s, kernel libraries "
+            f"{t['kernel_load_s'] or 0:.2f} s, first matmul "
+            f"{t['first_matmul_s'] or 0:.2f} s), first step "
+            f"{t['first_step_s']:.2f} s, "
+            f"{t['steps_per_s'] or 0:.2f} steps/s, losses "
+            f"{[round(x, 4) for x in t['losses']]}"
+            + (f"; checkpoint {t['checkpoint_gb']:.2f} GB in "
+               f"{t['checkpoint_s']:.2f} s" if "checkpoint_dir" in t
+               else "") + f"  [{card}]")
+    log(f"TUNE {len(trials)} trials in {fit_s:.2f} s, {len(early)} stopped "
+        f"early by ASHA; the card held one at a time; launches in the "
+        f"trials {total}; the lr {lrs[0]:g} trial against phase 8: rel "
+        f"{rel:.3g} (bitwise {bitwise})  [{card}]")
+    return dict(fit_s=fit_s, trials=trials, launches=total,
+                losses_rel=rel, losses_bitwise=bitwise,
+                spans=[list(s) for s in spans])
+
+
+def _tune_ppo(card: str, device: str, fragment: int = 512) -> dict:
+    """Phase 16 (b): ``PPO.as_trainable`` under ``Tuner``, two trials at
+    once with their learners on ``device`` (actors with ``num_gpus=0``
+    that share the card)."""
+    from ray_tpu_torch import tune
+
+    algo = (PPOConfig().environment(CartPole)
+            .env_runners(2, rollout_fragment_length=fragment)
+            .training(num_epochs=6, minibatch_size=128, seed=1,
+                      device=device).build())
+    try:
+        trainable = algo.as_trainable(TUNE_PPO_ITERS)
+    finally:
+        algo.stop()
+    t = time.time()
+    grid = tune.Tuner(
+        trainable, param_space={"lr": tune.grid_search(list(TUNE_PPO_LRS))},
+        tune_config=tune.TuneConfig(metric="episode_return_mean",
+                                    mode="max", max_concurrent_trials=2),
+    ).fit()
+    fit_s = time.time() - t
+    check(grid.num_errors() == 0,
+          f"tune PPO: errored trials: {[r.error for r in grid]}")
+    out = dict(fit_s=fit_s, trials=[])
+    for r in grid:
+        returns = [h["episode_return_mean"] for h in r.metrics_history]
+        check(r.iterations == TUNE_PPO_ITERS
+              and all(np.isfinite(x) for x in returns),
+              f"tune PPO {r.trial_id}: {r.status}, returns {returns}")
+        out["trials"].append(dict(
+            lr=r.config["lr"], returns=returns,
+            s_per_iter=statistics.mean(
+                h["time_this_iter_s"] for h in r.metrics_history),
+            learner_s_per_iter=statistics.mean(
+                h["learner_time_this_iter_s"] for h in r.metrics_history)))
+    log(f"TUNE PPO.as_trainable: 2 trials x {TUNE_PPO_ITERS} iterations "
+        f"with the learners on {device} in {fit_s:.2f} s; "
+        + "; ".join(f"lr {t['lr']:g}: returns "
+                    f"{[round(x, 1) for x in t['returns']]}, "
+                    f"{t['s_per_iter']:.3f} s/iter (learner "
+                    f"{t['learner_s_per_iter']:.3f})" for t in out["trials"])
+        + f"  [{card}]")
+    return out
+
+
+def _runtime_procs(mark: str) -> list:
+    """(pid, command line) of the port's runtime processes (controller,
+    node agent, workers) whose environment carries ``mark``: the ones a
+    head started with it spawned."""
+    pat = re.compile(r"ray_tpu_torch\.core\.(worker_main|node_agent|"
+                     r"controller)")
+    found = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+            if not pat.search(cmd):
+                continue
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                if mark.encode() not in f.read():
+                    continue
+        except OSError:  # gone, or not ours to read
+            continue
+        found.append((int(pid), cmd))
+    return found
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _phase_cli(card: str, device: str, shape: tuple,
+               extra_env: dict = None) -> dict:
+    """Phase 16 (c): ``python -m ray_tpu_torch.cli start --head``,
+    ``status``, ``job submit`` of ``JOB_DRIVER`` and ``job logs``, the
+    dashboard's nodes and jobs endpoints, ``stop``; no process of the
+    head's runtime may be left. Every command's output goes to a file:
+    the head's processes inherit the first one's."""
+    import uuid
+
+    mark = f"chip-smoke-cli-{uuid.uuid4().hex}"
+    env = dict(os.environ, CHIP_SMOKE_CLI_MARK=mark, **(extra_env or {}))
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    n_cmd = [0]
+
+    def cli(*args, wait=True):
+        n_cmd[0] += 1
+        out_path = os.path.join(work, f"{n_cmd[0]}_{args[0]}.out")
+        with open(out_path, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "ray_tpu_torch.cli", *args],
+                stdout=f, stderr=subprocess.STDOUT, env=env, text=True)
+        if not wait:
+            return proc, out_path
+        rc = proc.wait(timeout=CLI_TIMEOUT_S)
+        with open(out_path) as f:
+            return rc, f.read()
+
+    out = dict(card=card)
+    dash = None
+    t = time.perf_counter()
+    rc, text = cli("start", "--head")
+    out["start_s"] = time.perf_counter() - t
+    m = re.search(r"Controller at (\S+:\d+)", text)
+    check(rc == 0 and m is not None, f"cli start --head: rc {rc}: {text}")
+    addr = m.group(1)
+    try:
+        check(_runtime_procs(mark), "cli start --head left no process")
+        t = time.perf_counter()
+        rc, text = cli("status", "--address", addr)
+        out["status_s"] = time.perf_counter() - t
+        n = torch.cuda.device_count() if device == "cuda" else 1
+        check(rc == 0 and f"GPU: {n:g}/{n:g} available" in text,
+              f"cli status does not show GPU {n}: rc {rc}: {text}")
+        drv = os.path.join(work, "flash_job.py")
+        with open(drv, "w") as f:
+            f.write(JOB_DRIVER)
+        t = time.perf_counter()
+        # The command right after "submit": on some Python 3.12 releases
+        # argparse takes no positional of the command after the options.
+        rc, text = cli("job", "submit", sys.executable, drv,
+                       json.dumps(list(shape)), device, str(ATOL_O_BF16),
+                       str(ATOL_LSE), "--address", addr, "--wait",
+                       "--timeout", str(CLI_TIMEOUT_S))
+        out["job_wall_s"] = time.perf_counter() - t
+        m = re.search(r"submitted: (\S+)", text)
+        check(rc == 0 and m is not None and "SUCCEEDED" in text,
+              f"cli job submit: rc {rc}: {text}")
+        job_id = m.group(1)
+        rc, logs = cli("job", "logs", "--address", addr, "--job-id", job_id)
+        m = re.search(r"^FLASH_RESULT (.*)$", logs, re.M)
+        check(rc == 0 and m is not None,
+              f"cli job logs shows no task line: rc {rc}: {logs}")
+        # the task's own line, streamed to the driver, may follow on it
+        task = json.JSONDecoder().raw_decode(m.group(1))[0]
+        # A task's GPU is a reservation: the runtime pins actors to their
+        # cards (CUDA_VISIBLE_DEVICES), not pooled task workers, as the
+        # JAX package pins TPU chips to actors only.
+        want = {"bf16_d128": 1} if device == "cuda" else {}
+        check(task["ok"] and task["launches"] == want,
+              f"the job's task: {task}, expected launches {want}")
+        out.update(job_id=job_id, task=task,
+                   task_line_streamed="FLASH_TASK" in logs)
+        port = _free_port()
+        dash, dash_out = cli("dashboard", "--address", addr, "--port",
+                             str(port), wait=False)
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/api/nodes",
+                        timeout=10) as r:
+                    nodes = json.loads(r.read())
+                break
+            except OSError:
+                check(dash.poll() is None and time.monotonic() < deadline,
+                      f"the dashboard did not answer: "
+                      f"{open(dash_out).read()}")
+                time.sleep(0.2)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/api/jobs",
+                                    timeout=30) as r:
+            jobs = json.loads(r.read())
+        check(any(nd["resources_total"].get("GPU") == n for nd in nodes),
+              f"the dashboard's nodes list no GPU: {nodes}")
+        check(any(j["submission_id"] == job_id
+                  and j["status"] == "SUCCEEDED" for j in jobs),
+              f"the dashboard's jobs do not list {job_id}: {jobs}")
+    finally:
+        if dash is not None:
+            dash.terminate()
+            try:
+                dash.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                dash.kill()
+                dash.wait()
+        rc, text = cli("stop", "--address", addr)
+        deadline = time.monotonic() + 30
+        while _runtime_procs(mark) and time.monotonic() < deadline:
+            time.sleep(0.2)
+    check(rc == 0, f"cli stop: rc {rc}: {text}")
+    left = _runtime_procs(mark)
+    check(not left, f"cli stop left processes of the runtime: {left}")
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"CLI start --head {out['start_s']:.2f} s, status "
+        f"{out['status_s']:.2f} s (GPU {n}); job {out['job_id']} SUCCEEDED "
+        f"in {out['job_wall_s']:.2f} s (submit to end): its num_gpus=1 "
+        f"task's flash forward at {list(shape)} |dO| "
+        f"{task['max_abs_err']:.3g} |dLSE| {task['lse_abs_err']:.3g}, "
+        f"launches {task['launches']}, on {task['device']} "
+        f"(CUDA_VISIBLE_DEVICES {task['cuda_visible_devices']}; its own "
+        f"line streamed to the job's log: {out['task_line_streamed']}); the "
+        f"dashboard lists the "
+        f"GPU and the job; stop left no process  [{card}]")
+    return out
+
+
+def phase_tune(card: str, bench: dict = None) -> dict:
+    """Phase 16 on the card: ``ray_tpu_torch.init()``, (a) the Tune trials
+    over phase 8's configuration (their losses against phase 8's, or
+    against this process's run of the same steps where phase 8 did not
+    run) and (b) ``PPO.as_trainable``; then (c) the CLI and jobs on a head
+    of their own."""
+    t0 = time.perf_counter()
+    if bench is None:
+        ref = _in_process_losses(BENCH_MODEL, BENCH_BATCH, BENCH_SEQ,
+                                 TUNE_STEPS, TUNE_LRS[0], "cuda")
+    else:
+        ref = bench["no_ctx"]["losses"]
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ray_tpu_torch.init()
+    out = dict(card=card, cluster_start_s=time.perf_counter() - t)
+    try:
+        check(ray_tpu_torch.cluster_resources().get("GPU")
+              == torch.cuda.device_count(), "the agent advertises no GPU")
+        out["trials"] = _tune_trials(card, "cuda", BENCH_MODEL, BENCH_BATCH,
+                                     BENCH_SEQ, TUNE_STEPS, TUNE_LRS, ref)
+        out["ppo"] = _tune_ppo(card, "cuda")
+    finally:
+        ray_tpu_torch.shutdown()
+    out["cli"] = _phase_cli(card, "cuda", JOB_FLASH_SHAPE)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"TUNE phase 16 took {out['phase_s']:.1f} s (cluster up "
+        f"{out['cluster_start_s']:.2f} s)  [{card}]")
+    return out
+
+
+def _variant_entries(rows, bwd_rows, parity, tune_launches) -> list:
     """The kernels line's entries of the generic variants: launches from
-    their train-parity run (the path that reaches them), times at that
-    run's shape (``VARIANT_MAIN``, S2048 causal), errors over every case."""
+    their train-parity run (the path that reaches them) and in phase 16's
+    Tune trials (by variant), times at that run's shape (``VARIANT_MAIN``,
+    S2048 causal), errors over every case."""
     out = []
     for variant, D, dt in VARIANTS:
         B, H, KVH = VARIANT_MAIN[D]
@@ -3136,7 +3683,8 @@ def _variant_entries(rows, bwd_rows, parity) -> list:
                             if r["variant"] == variant),
             ms=fwd["ms"], plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
             bound_by=fwd["bound_by"], library_ms=fwd["library_ms"],
-            shape=label))
+            shape=label, launches_tune_trials=tune_launches.get(
+                "flash_fwd", {}).get(variant, 0)))
         for name, src, line in (("flash_bwd_dkv", "flash_bwd_dkv.cu", 326),
                                 ("flash_bwd_dq", "flash_bwd_dq.cu", 356)):
             out.append(dict(
@@ -3149,7 +3697,9 @@ def _variant_entries(rows, bwd_rows, parity) -> list:
                 ms=bwd["ms"][name], plain_ms=bwd["plain_ms"][name],
                 bound_ms=bwd["bound_ms"][name],
                 bound_by=bwd["bound_by"][name],
-                library_ms=bwd["sdpa_bwd_ms"], shape=label))
+                library_ms=bwd["sdpa_bwd_ms"], shape=label,
+                launches_tune_trials=tune_launches.get(name, {}).get(
+                    variant, 0)))
     return out
 
 
@@ -3182,6 +3732,8 @@ def main() -> int:
                     help="build the kernels and run phase 14 only")
     ap.add_argument("--only-rllib", action="store_true",
                     help="build the kernels and run phase 15 only")
+    ap.add_argument("--only-tune", action="store_true",
+                    help="build the kernels and run phase 16 only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3261,6 +3813,9 @@ def main() -> int:
     if args.only_rllib:
         _dump("chip_smoke_rllib.json", phase_rllib(card))
         return 0
+    if args.only_tune:
+        _dump("chip_smoke_tune.json", phase_tune(card))
+        return 0
     rows = phase_kernels(card)
     route = phase_reference_route(card)
     if args.only_kernels:
@@ -3278,6 +3833,7 @@ def main() -> int:
     serving = phase_serve(card, engine)
     edges = phase_edges(card)
     rl = phase_rllib(card)
+    tuned = phase_tune(card, bench)
 
     main_row = next(r for r in rows if r["shape"] == "B1 H32 KVH8 S8192 D128"
                     and r["causal"] and r["layout"] == "dense")
@@ -3296,7 +3852,10 @@ def main() -> int:
             "bf16_d128"],
         launches_serve_mono_replica=serving["launches_mono"],
         launches_serve_prefill_replica=serving["launches_prefill"],
-        launches_serve_decode_replica=serving["launches_decode"])]
+        launches_serve_decode_replica=serving["launches_decode"],
+        launches_tune_trials=tuned["trials"]["launches"].get(
+            "flash_fwd", {}).get("bf16_d128", 0),
+        launches_job=tuned["cli"]["task"]["launches"].get("bf16_d128", 0))]
     bwd_main = next(r for r in bwd_rows
                     if r["shape"] == "B1 H32 KVH8 S8192 D128" and r["causal"]
                     and r["layout"] == "dense")
@@ -3313,8 +3872,11 @@ def main() -> int:
             library_ms=bwd_main["sdpa_bwd_ms"],
             shape=bwd_main["shape"] + " causal bf16",
             launches_moe_train=moe["train"]["launches"][name],
-            launches_trainer_worker=trainer["launches"][name]["bf16_d128"]))
-    kernels += _variant_entries(rows, bwd_rows, parity)
+            launches_trainer_worker=trainer["launches"][name]["bf16_d128"],
+            launches_tune_trials=tuned["trials"]["launches"].get(
+                name, {}).get("bf16_d128", 0)))
+    kernels += _variant_entries(rows, bwd_rows, parity,
+                                tuned["trials"]["launches"])
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, build_s=build_s, kernel_rows=rows,
@@ -3322,8 +3884,8 @@ def main() -> int:
                        train=train, train_bench=bench, moe=moe,
                        reference_route=route, checkpoint=ckpt,
                        runtime=runtime, trainer=trainer, serve=serving,
-                       edges=edges, rllib=rl, kernels=kernels), f,
-                  indent=1)
+                       edges=edges, rllib=rl, tune=tuned, kernels=kernels),
+                  f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -122,6 +122,7 @@ struct Server {
   void* store = nullptr;
   void* arena = nullptr;  // graftshm slab arena (owned; see stop())
   std::string dir;
+  std::string sock_path;  // the listening socket's path (see stop())
   int listen_fd = -1;
   int notify_r = -1, notify_w = -1;  // pipe: journal nonempty signal
   pthread_t accept_thread;
@@ -484,6 +485,7 @@ void* store_server_start(void* store_handle, const char* sock_path,
   s->notify_r = fds[0];
   s->notify_w = fds[1];
   ::fcntl(s->notify_r, F_SETFL, O_NONBLOCK);
+  s->sock_path = sock_path;
   s->listen_fd = ::socket(AF_UNIX, SOCK_STREAM, 0);
   sockaddr_un addr;
   std::memset(&addr, 0, sizeof(addr));
@@ -550,9 +552,25 @@ void store_server_shm_stats(void* handle, uint64_t* out) {
 void store_server_stop(void* handle) {
   auto* s = static_cast<Server*>(handle);
   s->stopping.store(true, std::memory_order_release);
-  ::shutdown(s->listen_fd, SHUT_RDWR);
-  ::close(s->listen_fd);
+  // Wake the accept thread. shutdown() does so on Linux; gVisor refuses
+  // it on a listening socket (ENOTCONN) and wakes no accept() on close()
+  // either, so there a connection of our own wakes it: AcceptLoop sees
+  // `stopping`, closes it and returns. The fd closes after the join, so
+  // the path cannot name another socket meanwhile.
+  if (::shutdown(s->listen_fd, SHUT_RDWR) != 0) {
+    int fd = ::socket(AF_UNIX, SOCK_STREAM, 0);
+    if (fd >= 0) {
+      sockaddr_un addr;
+      std::memset(&addr, 0, sizeof(addr));
+      addr.sun_family = AF_UNIX;
+      std::snprintf(addr.sun_path, sizeof(addr.sun_path), "%s",
+                    s->sock_path.c_str());
+      ::connect(fd, (sockaddr*)&addr, sizeof(addr));
+      ::close(fd);
+    }
+  }
   pthread_join(s->accept_thread, nullptr);
+  ::close(s->listen_fd);
   // Kick every live connection out of its blocking read, then wait for
   // the detached handler threads to finish — freeing the Server while a
   // ConnLoop still references it would be a use-after-free.

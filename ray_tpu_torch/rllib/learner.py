@@ -5,11 +5,12 @@ Analogue of the reference's learner stack (reference: rllib/core/learner/
 learner.py + algorithms/ppo/ppo_torch_learner.py loss; RLModule forward).
 Each learner holds ``nn.Module`` MLPs (tanh between layers) on an explicit
 device — ``device=None`` is the CUDA card and raises without one; tests
-pass ``device="cpu"`` — and one ``torch.optim.Adam`` over every leaf
-(optax.adam's defaults: betas 0.9/0.999, eps 1e-8; SAC's leaves include
-``log_alpha``). Weights start from an explicit ``torch.Generator`` seeded
-with ``seed``: normal x sqrt(2/fan_in), zero biases, drawn on the CPU so
-that every device starts from the same numbers.
+pass ``device="cpu"`` — and one ``Adam`` over every leaf, which is
+``optax.adam``'s arithmetic in f32 (betas 0.9/0.999, eps 1e-8; SAC's
+leaves include ``log_alpha``). Weights start from an explicit
+``torch.Generator`` seeded with ``seed``: normal x sqrt(2/fan_in), zero
+biases, drawn on the CPU so that every device starts from the same
+numbers.
 
 ``get_weights()`` keeps the JAX package's layout and types — per layer
 ``{"w": [in, out], "b": [out]}`` as numpy f32 (``nn.Linear``'s weight
@@ -101,6 +102,50 @@ def _metrics(aux: Dict[str, torch.Tensor]) -> Dict[str, float]:
     return {k: float(v) for k, v in zip(keys, vals.tolist())}
 
 
+class Adam:
+    """``optax.adam(lr)`` over a list of leaves, as the JAX learners run it:
+    ``optax.scale_by_adam``'s arithmetic in f32 and in its order, then
+    ``scale_by_learning_rate`` and ``apply_updates``. Per leaf::
+
+        mu = (1 - b1) * g + b1 * mu
+        nu = (1 - b2) * g**2 + b2 * nu
+        update = (mu / (1 - b1**t)) / (sqrt(nu / (1 - b2**t)) + eps)
+        p = p + (-lr) * update
+
+    The bias corrections are f32 tensors on the leaves' device (where
+    ``torch.optim.Adam`` computes them in float64), and the division by
+    them is a true division (a CPU scalar would let CUDA multiply by the
+    reciprocal instead)."""
+
+    def __init__(self, params, lr: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        self.params = list(params)
+        dev = self.params[0].device
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+        self._b1 = torch.tensor(b1, **f32)
+        self._b2 = torch.tensor(b2, **f32)
+        self.count = torch.zeros((), **f32)
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        self.count += 1
+        bc1 = 1 - self._b1 ** self.count
+        bc2 = 1 - self._b2 ** self.count
+        for p, mu, nu in zip(self.params, self.mu, self.nu):
+            g = p.grad
+            mu.mul_(self.b1).add_(g * (1 - self.b1))
+            nu.mul_(self.b2).add_((g * g).mul_(1 - self.b2))
+            update = (mu / bc1).div_((nu / bc2).sqrt_().add_(self.eps))
+            p.add_(update.mul_(-self.lr))
+
+
 class _Learner:
     """Nets on one device and one Adam over their leaves."""
 
@@ -109,13 +154,13 @@ class _Learner:
         self.device = resolve_device(device)
         self.nets = nn.ModuleDict(nets).to(self.device)
         self.extra = nn.ParameterDict(extra or {}).to(self.device)
-        self._opt = torch.optim.Adam(
+        self._opt = Adam(
             list(self.nets.parameters()) + list(self.extra.parameters()),
-            lr=lr, betas=(0.9, 0.999), eps=1e-8)
+            lr=lr)
         self.target: Optional[nn.ModuleDict] = None
 
     def _step(self, loss: torch.Tensor) -> None:
-        self._opt.zero_grad(set_to_none=True)
+        self._opt.zero_grad()
         loss.backward()
         self._opt.step()
 

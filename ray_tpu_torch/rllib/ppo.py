@@ -136,7 +136,20 @@ class PPO:
 
     def as_trainable(self, num_iterations: int) -> Callable[[dict], None]:
         """Adapter for ray_tpu_torch.tune (reference: Algorithm as
-        Trainable). Tune is not ported yet."""
-        raise NotImplementedError(
-            "as_trainable needs ray_tpu_torch.tune, which is not ported "
-            "yet")
+        Trainable): each trial builds the algorithm from this config with
+        its overrides and reports every iteration's result."""
+        config = self.config
+
+        def trainable(overrides: dict):
+            import dataclasses
+
+            from ray_tpu_torch import tune
+            cfg = dataclasses.replace(config, **overrides)
+            algo = PPO(cfg)
+            try:
+                for _ in range(num_iterations):
+                    tune.report(algo.train())
+            finally:
+                algo.stop()
+
+        return trainable

@@ -299,5 +299,9 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                 "ray_tpu_torch.rllib.replay", "ray_tpu_torch.rllib.ppo",
                 "ray_tpu_torch.rllib.impala", "ray_tpu_torch.rllib.dqn",
                 "ray_tpu_torch.rllib.sac", "ray_tpu_torch.rllib.multi_agent",
-                "ray_tpu_torch.data.llm"):
+                "ray_tpu_torch.data.llm", "ray_tpu_torch.tune.tuner",
+                "ray_tpu_torch.tune.tpe", "ray_tpu_torch.util.queue",
+                "ray_tpu_torch.util.actor_pool",
+                "ray_tpu_torch.job_submission", "ray_tpu_torch.dashboard",
+                "ray_tpu_torch.cli"):
         assert f"'{mod}'" in out.stdout
