@@ -175,6 +175,25 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    step's shape (B8 H16 KVH16 S2048, its layout), ``job logs`` with the
    task's line, the dashboard's nodes (the GPU) and jobs (SUCCEEDED), and
    ``stop``, which leaves no process of the head's runtime.
+17. The autoscaler, the soak and the scale harness: (a) ``init()`` with
+   a head that advertises no GPU (``{"CPU": 2, "GPU": 0}``), an
+   ``Autoscaler`` over a ``LocalNodeProvider`` whose node shape is
+   ``{"CPU": 2, "GPU": 1}`` (1 to 2 nodes, 3 s idle timeout), and phase
+   11's ``num_gpus=1`` engine actor on ``llama3_8b(n_layers=4)`` (full
+   width), pending until the autoscaler's node registers. Exactly one node
+   is launched, the actor lands on it with the card pinned, phase 11's 8
+   requests go through it with 32 ``flash_fwd`` launches, and its greedy
+   streams equal the in-process engine's (phase 11's; alone, an in-process
+   engine built once the node is culled). Then the actor is killed: the
+   node is culled, its agent and the actor's process are gone and the
+   card's memory comes back. Printed: demand seen to ``create_node``, the
+   node registered, the actor ready (torch import, CUDA start, weights),
+   TTFT through it, kill to culled. (b) ``python -m ray_tpu_torch.cli soak
+   --profile smoke`` as a subprocess: exit 0, every verdict ``ok``; the
+   workloads' p50 and p99 and the chaos action's detection time. (c) The
+   scale harness's miniature (``run_scale`` on 8 and 16 simulated nodes,
+   two SIGKILLed; ``tests/test_graftscale.py``'s spec and asserts): the
+   level rows and ``kill_detected``'s ``detect_s``.
 
 Any mismatch raises and the script exits non-zero. The line before the last
 is the kernels' JSON; the last is ``{"ok": true, "device": {...}}``.
@@ -187,8 +206,9 @@ edit), ``--only-bwd`` runs phase 5 alone in the same way, ``--only-moe``
 phase 9, ``--only-ckpt`` phases 4 and 10, ``--only-runtime`` phase 11,
 ``--only-trainer`` phases 8 and 12, ``--only-serve`` phase 13,
 ``--only-edges`` phase 14, ``--only-rllib`` phase 15, ``--only-tune``
-phase 16 (their details go to ``chiprun_out/chip_smoke_edges.json``,
-``..._rllib.json`` and ``..._tune.json``), and
+phase 16, ``--only-autoscale`` phase 17 (their details go to
+``chiprun_out/chip_smoke_edges.json``, ``..._rllib.json``,
+``..._tune.json`` and ``..._autoscale.json``), and
 ``--only-ttft N``
 measures idle TTFT alone (N requests per prompt length; run it from
 another tree's root to compare the two); none prints a result line.
@@ -222,12 +242,14 @@ import torch.nn.functional as F
 import ray_tpu_torch
 import ray_tpu_torch.serve as serve
 from ray_tpu_torch import accelerators
+from ray_tpu_torch.autoscaler import Autoscaler, LocalNodeProvider
 from ray_tpu_torch.collective import CollectiveMixin, init_collective_group
 from ray_tpu_torch.core import object_store
 from ray_tpu_torch.core._native import graftrpc
 from ray_tpu_torch.dag import InputNode, MultiOutputNode, allreduce
 from ray_tpu_torch.device_objects import device_get
 from ray_tpu_torch.experimental import DeviceChannel, device_plane
+from ray_tpu_torch.load.verdict import passed as verdicts_passed
 from ray_tpu_torch.models.llama import (LlamaConfig, flops_per_token,
                                         forward, forward_with_aux,
                                         init_params, loss_fn, param_count)
@@ -246,6 +268,7 @@ from ray_tpu_torch.rllib import (CartPole, CooperativeMatch, DQNConfig,
                                  DQNLearner, IMPALAConfig, IMPALALearner,
                                  MultiAgentPPOConfig, Pendulum, PPOConfig,
                                  PPOLearner, SACConfig, SACLearner)
+from ray_tpu_torch.scale import ScaleSpec, run_scale
 from ray_tpu_torch.serve.engine import Engine
 from ray_tpu_torch.serve.api import Application, Deployment
 from ray_tpu_torch.serve.llm import (DecodeServer, LLMConfig, LLMServer,
@@ -1659,7 +1682,7 @@ def _phase_runtime(card: str, start_s: float) -> dict:
                 actor=info, spawn=spawn, launches=timed["launches"],
                 launches_per_prefill=timed["launches"] / len(PROMPT_LENS),
                 streams_equal=same, through_actor=timed, in_process=local,
-                put_get=put_get, card=card)
+                streams=local_streams, put_get=put_get, card=card)
 
 
 # ---------------------------------------------------------------------------
@@ -3660,6 +3683,290 @@ def phase_tune(card: str, bench: dict = None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the autoscaler, the soak and the scale harness
+# ---------------------------------------------------------------------------
+
+# (a) a head with no GPU; the autoscaler's node shape holds the card
+AUTOSCALE_HEAD = {"CPU": 2, "GPU": 0}
+AUTOSCALE_NODE = {"CPU": 2, "GPU": 1}
+AUTOSCALE_IDLE_S = 3.0
+AUTOSCALE_PERIOD_S = 0.5
+AUTOSCALE_TIMEOUT_S = 600
+AUTOSCALE_CULL_TIMEOUT_S = 120
+# (b) `python -m ray_tpu_torch.cli soak --profile smoke` (8 s of load)
+SOAK_TIMEOUT_S = 300
+# (c) the spec of tests/test_graftscale.py's ramp-kill case
+SCALE_FAST_CADENCE = {"pulse_period_ms": 500, "pulse_dead_ms": 3000,
+                      "health_check_period_ms": 100, "meta_tick_ms": 250}
+SCALE_SPEC = dict(levels=(8, 16), hold_s=3.0, tick_s=0.5, seed=42,
+                  kill_nodes=2, v1_nodes=1)
+
+
+class _TimedProvider(LocalNodeProvider):
+    """``LocalNodeProvider`` that stamps each ``create_node`` (its call
+    and its return: the agent is registered and listening) and keeps the
+    handles."""
+
+    def __init__(self, controller_addr):
+        super().__init__(controller_addr)
+        self.created = []
+
+    def create_node(self, resources):
+        t = time.time()
+        handle = super().create_node(resources)
+        self.created.append(dict(resources=dict(resources), t_call=t,
+                                 t_return=time.time(), handle=handle))
+        return handle
+
+
+class _TimedAutoscaler(Autoscaler):
+    """Stamps the first reconcile tick whose state holds a pending GPU
+    demand."""
+
+    t_demand = None
+
+    def _state(self) -> dict:
+        st = super()._state()
+        if self.t_demand is None and any(
+                d.get("GPU") for d in st["pending_actors"]):
+            self.t_demand = time.time()
+        return st
+
+
+def _gone(pid: int) -> bool:
+    """No such process, or only its zombie entry."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except OSError:
+        return True
+
+
+def _alive_nodes() -> dict:
+    return {n["node_id"].hex()[:12]: n for n in ray_tpu_torch.nodes()
+            if n["state"] == "ALIVE"}
+
+
+def _autoscaled_node(card: str, ref_streams) -> dict:
+    """Phase 17 (a): a head with ``AUTOSCALE_HEAD``, an ``Autoscaler``
+    over a ``LocalNodeProvider`` whose node shape holds the card, and a
+    ``num_gpus=1`` engine actor (phase 11's) that parks until the
+    autoscaler's node registers; phase 11's requests through it, then the
+    node culled after the actor is killed, and the card's memory back."""
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.mem_get_info()[0]
+    cfg = LlamaConfig.llama3_8b(n_layers=RUNTIME_LAYERS,
+                                param_dtype=torch.bfloat16)
+    pinned = accelerators.worker_env_for_gpus([0])["CUDA_VISIBLE_DEVICES"]
+    t = time.perf_counter()
+    ray_tpu_torch.init(resources=dict(AUTOSCALE_HEAD))
+    out = dict(card=card, head_start_s=time.perf_counter() - t,
+               free_before_gb=free_before / 1e9)
+    scaler = None
+    try:
+        from ray_tpu_torch import api, state
+        head = set(_alive_nodes())
+        check(ray_tpu_torch.cluster_resources().get("GPU", 0) == 0,
+              "the head advertises a GPU")
+        provider = _TimedProvider(api._cw().controller_addr)
+        scaler = _TimedAutoscaler(
+            provider, node_resources=dict(AUTOSCALE_NODE), min_nodes=1,
+            max_nodes=2, idle_timeout_s=AUTOSCALE_IDLE_S,
+            update_period_s=AUTOSCALE_PERIOD_S).start()
+        t_submit = time.time()
+        actor = ray_tpu_torch.remote(num_gpus=1)(RuntimeEngineActor).remote(
+            SEED, RUNTIME_LAYERS, RUNTIME_ENGINE,
+            torch.backends.cuda.matmul.allow_tf32)
+        ready_ref = actor.ready.remote()
+        t_registered = None
+        deadline = time.monotonic() + AUTOSCALE_TIMEOUT_S
+        while not ray_tpu_torch.wait([ready_ref], timeout=0.05)[0]:
+            if t_registered is None and set(_alive_nodes()) - head:
+                t_registered = time.time()
+            check(time.monotonic() < deadline,
+                  "the autoscaled actor did not become ready")
+        info = ray_tpu_torch.get(ready_ref)
+        t_ready = time.time()
+        t_registered = t_registered or t_ready
+        check(len(provider.created) == 1
+              and provider.created[0]["resources"] == AUTOSCALE_NODE,
+              f"the autoscaler launched {len(provider.created)} nodes: "
+              f"{[c['resources'] for c in provider.created]}")
+        launch = provider.created[0]
+        (new_id,) = set(_alive_nodes()) - head
+        node = _alive_nodes()[new_id]
+        (row,) = [a for a in state.list_actors()
+                  if a["state"] == "ALIVE"]
+        check(row["node_id"] == new_id
+              and node["addr"][1] == provider.node_port(launch["handle"])
+              and node["resources_total"].get("GPU") == 1,
+              f"the actor is on node {row['node_id']}, the launched node "
+              f"is {new_id} ({node})")
+        tm = info["times"]
+        timeline = dict(
+            demand_seen_s=scaler.t_demand - t_submit,
+            demand_to_create_node_s=launch["t_call"] - scaler.t_demand,
+            create_node_s=launch["t_return"] - launch["t_call"],
+            node_registered_s=t_registered - t_submit,
+            process_and_register_s=tm["init"] - launch["t_return"],
+            torch_import_s=tm["torch_imported"] - tm["init"],
+            cuda_init_s=tm["cuda_ready"] - tm["torch_imported"],
+            weights_and_engine_s=tm["weights_ready"] - tm["cuda_ready"],
+            submit_to_ready_s=t_ready - t_submit)
+        log(f"AUTOSCALE demand to ready: {json.dumps(timeline)}; the actor: "
+            f"{json.dumps({k: v for k, v in info.items() if k != 'times'})}"
+            f"  [{card}]")
+        check(info["cuda_visible_devices"] == pinned
+              and info["device_count"] == 1
+              and info["device_name"] == torch.cuda.get_device_name(0),
+              f"the autoscaled actor sees CUDA_VISIBLE_DEVICES="
+              f"{info['cuda_visible_devices']!r} ({info['device_count']} "
+              f"devices, {info['device_name']}), expected the pinned "
+              f"{pinned!r}")
+
+        timed, streams = _serve_and_time(
+            _ActorEngine(actor), cfg, "through the autoscaled actor", card,
+            lambda reset: ray_tpu_torch.get(actor.launches.remote(reset)))
+        err = ray_tpu_torch.get(actor.stop.remote(), timeout=120)
+        check(err is None, f"the actor's engine failed: {err}")
+
+        agent_pid = launch["handle"]["proc"].pid
+        t_kill = time.time()
+        ray_tpu_torch.kill(actor)
+        deadline = time.monotonic() + AUTOSCALE_CULL_TIMEOUT_S
+        while new_id in _alive_nodes() or scaler._launched:
+            check(time.monotonic() < deadline,
+                  f"the autoscaled node {new_id} was not culled")
+            time.sleep(0.1)
+        t_culled = time.time()
+        deadline = time.monotonic() + 30
+        while not (_gone(agent_pid) and _gone(info["pid"])):
+            check(time.monotonic() < deadline,
+                  f"the culled node left processes: agent {agent_pid} "
+                  f"gone {_gone(agent_pid)}, actor {info['pid']} gone "
+                  f"{_gone(info['pid'])}")
+            time.sleep(0.1)
+        freed_s = _wait_for_card(free_before, "the culled node")
+        check(len(provider.created) == 1, "the autoscaler launched again")
+        out.update(timeline=timeline, actor=info, pinned=pinned,
+                   launches=timed["launches"], through_actor=timed,
+                   kill_to_culled_s=t_culled - t_kill,
+                   culled_to_card_free_s=freed_s,
+                   free_after_gb=torch.cuda.mem_get_info()[0] / 1e9)
+    finally:
+        if scaler is not None:
+            scaler.stop()
+        ray_tpu_torch.shutdown()
+
+    if ref_streams is None:  # alone: the in-process engine on the freed card
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        eng = Engine(init_params(cfg, gen, device="cuda"), cfg,
+                     **RUNTIME_ENGINE)
+        try:
+            _, ref_streams = _serve_and_time(eng, cfg, "in process", card,
+                                             _local_launches)
+        finally:
+            eng.stop()
+        check(eng.error is None, f"engine error: {eng.error}")
+        del eng
+        torch.cuda.empty_cache()
+    same = [a == b for a, b in zip(streams, ref_streams, strict=True)]
+    check(all(same), f"the autoscaled actor's greedy streams differ from "
+          f"the in-process engine's: {same}")
+    out["streams_equal"] = same
+    log(f"AUTOSCALE one {AUTOSCALE_NODE} node launched for the pending "
+        f"num_gpus=1 actor; flash_fwd launches {timed['launches']}; TTFT "
+        f"through it idle {timed['ttft_idle_s'][100] * 1e3:.1f} ms (prompt "
+        f"100), burst p50 {statistics.median(timed['ttft_burst_s']) * 1e3:.1f}"
+        f" ms; streams equal to the in-process engine's {same}; kill to "
+        f"culled {out['kill_to_culled_s']:.2f} s, card free "
+        f"{out['free_after_gb']:.2f} GB ({out['free_before_gb']:.2f} before)"
+        f"  [{card}]")
+    return out
+
+
+def _soak(card: str) -> dict:
+    """Phase 17 (b): ``python -m ray_tpu_torch.cli soak --profile smoke``
+    as a subprocess: exit 0 and every verdict row ``ok``."""
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.cli", "soak", "--profile",
+         "smoke"], capture_output=True, text=True, timeout=SOAK_TIMEOUT_S)
+    wall_s = time.perf_counter() - t
+    rows = [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("{")]
+    verdicts = {r["check"]: r["ok"] for r in rows if r.get("row") == "verdict"}
+    check(proc.returncode == 0 and verdicts and all(verdicts.values()),
+          f"the soak: rc {proc.returncode}, verdicts {verdicts}: "
+          f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    workloads = {r["workload"]: dict(requests=r["requests"],
+                                     p50_ms=r["p50_ms"], p99_ms=r["p99_ms"])
+                 for r in rows if r.get("row") == "workload"}
+    chaos = [dict(kind=r["kind"], at_s=r["at_s"], ok=r["ok"],
+                  detect_s=r["recovery_s"]) for r in rows
+             if r.get("row") == "chaos"]
+    log(f"SOAK smoke: rc 0 in {wall_s:.1f} s, verdicts {verdicts}; "
+        f"workloads {json.dumps(workloads)}; chaos {json.dumps(chaos)}"
+        f"  [{card}]")
+    return dict(wall_s=wall_s, verdicts=verdicts, workloads=workloads,
+                chaos=chaos, rows=rows)
+
+
+def _scale(card: str) -> dict:
+    """Phase 17 (c): the scale harness's miniature, with the asserts of
+    ``tests/test_graftscale.py``'s ramp-kill case."""
+    t = time.perf_counter()
+    rows = run_scale(ScaleSpec(**SCALE_SPEC, env=dict(SCALE_FAST_CADENCE)))
+    wall_s = time.perf_counter() - t
+    by_check = {r["check"]: r for r in rows if r["row"] == "verdict"}
+    levels = [r for r in rows if r["row"] == "level"]
+    meta = [r for r in rows if r["row"] == "meta"][-1]
+    planes = {r["plane"] for r in rows if r["row"] == "plane"}
+    kill = by_check.get("kill_detected", {})
+    check([r["nodes"] for r in levels] == [8, 16]
+          and [r["alive"] for r in levels] == [8, 16]
+          and levels[-1]["pulse_records_per_s"] > 0
+          and levels[-1]["rss_bytes"] > 0
+          and all(by_check[c]["ok"] for c in (
+              "pulse_fold_p99_bounded", "loop_lag_bounded",
+              "no_unintended_deaths", "rss_per_node_bounded",
+              "kill_detected", "meta_ingest_drop",
+              "audit_clean_after_kill"))
+          and kill["detect_s"] < 30
+          and by_check["audit_clean_after_kill"]["leaked_objects"] == 0
+          and {"pulse", "trail", "log", "prof"} <= planes
+          and meta["max_nodes_sustained"] == 16 and meta["passed"] is True
+          and verdicts_passed(rows),
+          f"the scale harness: {json.dumps(rows)}")
+    level_rows = [dict(nodes=r["nodes"], alive=r["alive"],
+                       pulse_records_per_s=r["pulse_records_per_s"],
+                       rss_bytes=r["rss_bytes"],
+                       pulse_fold_p99_us=r["pulse_fold_p99_us"],
+                       loop_lag_p99_ms=r["loop_lag_p99_ms"])
+                  for r in levels]
+    log(f"SCALE levels {json.dumps(level_rows)}; kill_detected detect_s "
+        f"{kill['detect_s']}; passed in {wall_s:.1f} s  [{card}]")
+    return dict(wall_s=wall_s, levels=level_rows,
+                kill_detect_s=kill["detect_s"], rows=rows)
+
+
+def phase_autoscale(card: str, runtime: dict = None) -> dict:
+    """Phase 17: (a) the autoscaled GPU node (its streams against phase
+    11's in-process engine's, or, alone, an in-process engine's built
+    after the node is culled), (b) the smoke soak, (c) the scale
+    harness's miniature."""
+    t0 = time.perf_counter()
+    out = dict(card=card)
+    out["node"] = _autoscaled_node(
+        card, None if runtime is None else runtime["streams"])
+    out["soak"] = _soak(card)
+    out["scale"] = _scale(card)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"AUTOSCALE phase 17 took {out['phase_s']:.1f} s  [{card}]")
+    return out
+
+
 def _variant_entries(rows, bwd_rows, parity, tune_launches) -> list:
     """The kernels line's entries of the generic variants: launches from
     their train-parity run (the path that reaches them) and in phase 16's
@@ -3734,6 +4041,8 @@ def main() -> int:
                     help="build the kernels and run phase 15 only")
     ap.add_argument("--only-tune", action="store_true",
                     help="build the kernels and run phase 16 only")
+    ap.add_argument("--only-autoscale", action="store_true",
+                    help="build the kernels and run phase 17 only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3816,6 +4125,9 @@ def main() -> int:
     if args.only_tune:
         _dump("chip_smoke_tune.json", phase_tune(card))
         return 0
+    if args.only_autoscale:
+        _dump("chip_smoke_autoscale.json", phase_autoscale(card))
+        return 0
     rows = phase_kernels(card)
     route = phase_reference_route(card)
     if args.only_kernels:
@@ -3834,6 +4146,7 @@ def main() -> int:
     edges = phase_edges(card)
     rl = phase_rllib(card)
     tuned = phase_tune(card, bench)
+    auto = phase_autoscale(card, runtime)
 
     main_row = next(r for r in rows if r["shape"] == "B1 H32 KVH8 S8192 D128"
                     and r["causal"] and r["layout"] == "dense")
@@ -3855,7 +4168,8 @@ def main() -> int:
         launches_serve_decode_replica=serving["launches_decode"],
         launches_tune_trials=tuned["trials"]["launches"].get(
             "flash_fwd", {}).get("bf16_d128", 0),
-        launches_job=tuned["cli"]["task"]["launches"].get("bf16_d128", 0))]
+        launches_job=tuned["cli"]["task"]["launches"].get("bf16_d128", 0),
+        launches_autoscaled_actor=auto["node"]["launches"])]
     bwd_main = next(r for r in bwd_rows
                     if r["shape"] == "B1 H32 KVH8 S8192 D128" and r["causal"]
                     and r["layout"] == "dense")
@@ -3884,7 +4198,8 @@ def main() -> int:
                        train=train, train_bench=bench, moe=moe,
                        reference_route=route, checkpoint=ckpt,
                        runtime=runtime, trainer=trainer, serve=serving,
-                       edges=edges, rllib=rl, tune=tuned, kernels=kernels),
+                       edges=edges, rllib=rl, tune=tuned, autoscale=auto,
+                       kernels=kernels),
                   f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -336,8 +336,19 @@ def cmd_soak(args) -> int:
     nodes, then prints one JSON row per workload/chaos-action/verdict
     (`make bench-load` tees stdout into BENCH_LOAD.json). Exit 0 only
     if every SLO verdict passed."""
-    raise NotImplementedError(
-        "soak needs ray_tpu_torch.load, which is not ported yet")
+    from ray_tpu_torch.load import scenario, soak
+    spec = scenario.profile(args.profile, duration_s=args.duration,
+                            seed=args.seed)
+    if args.nodes:
+        spec.nodes = args.nodes
+    result = soak.run_soak(spec)
+    if args.out:
+        with open(args.out, "w") as f:
+            for row in result["rows"]:
+                f.write(json.dumps(row, default=str) + "\n")
+        print(f"wrote {len(result['rows'])} rows to {args.out}",
+              file=sys.stderr)
+    return 0 if result["ok"] else 1
 
 
 def _print_folded(folded: dict, indent: str = "  ") -> None:

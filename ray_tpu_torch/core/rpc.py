@@ -149,14 +149,18 @@ class RpcServer:
     async def stop(self) -> None:
         for srv in self._servers:
             srv.close()
-            await srv.wait_closed()
-        self._servers.clear()
         # Closing the listeners only stops NEW connections; a stopped
         # server must also drop established ones so clients see the loss
-        # (and fail their pending calls) instead of waiting forever.
+        # (and fail their pending calls) instead of waiting forever. Drop
+        # them BEFORE awaiting wait_closed(): since CPython 3.12.1 it
+        # returns only once every connection has closed, so awaiting it
+        # first hangs while any client stays connected.
         for w in list(self._conns):
             w.close()
         self._conns.clear()
+        for srv in self._servers:
+            await srv.wait_closed()
+        self._servers.clear()
 
     async def _on_client(self, reader: asyncio.StreamReader,
                          writer: asyncio.StreamWriter) -> None:

@@ -303,5 +303,8 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                 "ray_tpu_torch.tune.tpe", "ray_tpu_torch.util.queue",
                 "ray_tpu_torch.util.actor_pool",
                 "ray_tpu_torch.job_submission", "ray_tpu_torch.dashboard",
-                "ray_tpu_torch.cli"):
+                "ray_tpu_torch.cli", "ray_tpu_torch.autoscaler",
+                "ray_tpu_torch.load.soak", "ray_tpu_torch.load.verdict",
+                "ray_tpu_torch.scale.harness",
+                "ray_tpu_torch.scale.simnode"):
         assert f"'{mod}'" in out.stdout

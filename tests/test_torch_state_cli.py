@@ -1,8 +1,8 @@
 """The port's state API, task events and timeline, metrics pipeline and
 CLI (``python -m ray_tpu_torch.cli``): the cases of
 ``tests/test_state_cli.py`` with the same inputs and assertions on the
-port's runtime, ``soak``, which waits for ``ray_tpu_torch.load``, and
-the CLI on a head of its own through ``chip_smoke.py``'s phase 16 (c).
+port's runtime, ``soak`` over ``ray_tpu_torch.load``, and the CLI on a
+head of its own through ``chip_smoke.py``'s phase 16 (c).
 """
 
 import json
@@ -16,6 +16,8 @@ import pytest
 import ray_tpu_torch
 from ray_tpu_torch import state
 from ray_tpu_torch.core.cluster_utils import Cluster
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
@@ -339,12 +341,28 @@ def test_timeline_atomic_write_under_concurrent_reader(cluster,
     assert json.load(open(out))  # final dump is whole
 
 
-def test_soak_names_the_load_module():
-    """``soak`` needs ``ray_tpu_torch.load``, which is not ported yet: it
-    raises, naming it, and starts nothing."""
-    from ray_tpu_torch import cli
-    with pytest.raises(NotImplementedError, match=r"ray_tpu_torch\.load"):
-        cli.main(["soak", "--profile", "smoke"])
+@pytest.mark.timeout(170)
+def test_soak_smoke_profile_passes_every_verdict(tmp_path):
+    """``cli.main(["soak", ...])`` (``python -m ray_tpu_torch.cli soak``)
+    on the port's runtime: the smoke profile's load and worker kill on a
+    cluster of its own (a separate process, as this module's cluster is
+    connected here), exit 0, every verdict row ``ok``, and ``--out``
+    holds the rows printed."""
+    out = str(tmp_path / "soak.jsonl")
+    proc = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.cli", "soak", "--profile",
+         "smoke", "--duration", "6", "--out", out],
+        capture_output=True, text=True, timeout=150, cwd=REPO)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    rows = [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("{")]
+    assert rows == [json.loads(line) for line in open(out)]
+    verdicts = [r for r in rows if r.get("row") == "verdict"]
+    assert verdicts and all(r["ok"] for r in verdicts), verdicts
+    assert {r["workload"] for r in rows if r.get("row") == "workload"} \
+        == {"serve", "data", "train"}
+    (meta,) = [r for r in rows if r.get("row") == "meta"]
+    assert meta["passed"] is True and meta["profile"] == "smoke"
 
 
 def test_chip_smoke_cli_phase_on_the_cpu():
