@@ -194,6 +194,18 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    scale harness's miniature (``run_scale`` on 8 and 16 simulated nodes,
    two SIGKILLed; ``tests/test_graftscale.py``'s spec and asserts): the
    level rows and ``kill_detected``'s ``detect_s``.
+18. The native planes on the GPU host: (a) ``make -C
+   ray_tpu_torch/csrc test``, the seven C++ unit suites (the store, the
+   graftrpc reactor, the copy engine, the scope, shm, prof and log
+   planes), each ``ALL OK``, with each suite's seconds and the machine's
+   ``hardware_concurrency`` printed (the suites build first, in
+   parallel, with ``make -j suites``). (b) ``python -m
+   ray_tpu_torch.tools.lint`` from the root: 0 findings (the number of
+   files walked is printed), and the hot-path costs it derives from the
+   port's tree equal ``budgets.json``'s. (c) One ingest on the card: a
+   put 256x512 f32 array comes back from ``device_ingest(ref)`` as a
+   CUDA tensor equal to it, through a DLPack capsule over the store's
+   mapping (one capsule made), and no capsule is left live after ``del``.
 
 Any mismatch raises and the script exits non-zero. The line before the last
 is the kernels' JSON; the last is ``{"ok": true, "device": {...}}``.
@@ -206,9 +218,11 @@ edit), ``--only-bwd`` runs phase 5 alone in the same way, ``--only-moe``
 phase 9, ``--only-ckpt`` phases 4 and 10, ``--only-runtime`` phase 11,
 ``--only-trainer`` phases 8 and 12, ``--only-serve`` phase 13,
 ``--only-edges`` phase 14, ``--only-rllib`` phase 15, ``--only-tune``
-phase 16, ``--only-autoscale`` phase 17 (their details go to
+phase 16, ``--only-autoscale`` phase 17, ``--only-planes`` phase 18 and
+then (d) ``pytest`` on the eight plane suites ``tests/test_torch_graft*``
+and ``tests/test_torch_native_store.py`` (their details go to
 ``chiprun_out/chip_smoke_edges.json``, ``..._rllib.json``,
-``..._tune.json`` and ``..._autoscale.json``), and
+``..._tune.json``, ``..._autoscale.json`` and ``..._planes.json``), and
 ``--only-ttft N``
 measures idle TTFT alone (N requests per prompt length; run it from
 another tree's root to compare the two); none prints a result line.
@@ -219,6 +233,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import glob
 import inspect
 import json
@@ -226,6 +241,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -245,9 +261,9 @@ from ray_tpu_torch import accelerators
 from ray_tpu_torch.autoscaler import Autoscaler, LocalNodeProvider
 from ray_tpu_torch.collective import CollectiveMixin, init_collective_group
 from ray_tpu_torch.core import object_store
-from ray_tpu_torch.core._native import graftrpc
+from ray_tpu_torch.core._native import graftrpc, graftshm
 from ray_tpu_torch.dag import InputNode, MultiOutputNode, allreduce
-from ray_tpu_torch.device_objects import device_get
+from ray_tpu_torch.device_objects import device_get, device_ingest
 from ray_tpu_torch.experimental import DeviceChannel, device_plane
 from ray_tpu_torch.load.verdict import passed as verdicts_passed
 from ray_tpu_torch.models.llama import (LlamaConfig, flops_per_token,
@@ -275,6 +291,8 @@ from ray_tpu_torch.serve.llm import (DecodeServer, LLMConfig, LLMServer,
                                      PrefillServer, _deploy_pd, _engine,
                                      _model_from_cfg, _pd_deployments,
                                      build_llm_app)
+from ray_tpu_torch.tools.lint import hotpath, protocol
+from ray_tpu_torch.tools.lint.common import load_source
 from ray_tpu_torch.train import (AsyncCheckpointer, Checkpoint,
                                  default_optimizer, make_train_fns,
                                  restore_checkpoint)
@@ -3967,6 +3985,177 @@ def phase_autoscale(card: str, runtime: dict = None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the native planes: their C++ suites, the lint, one ingest
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(ROOT, "ray_tpu_torch", "csrc")
+C_SUITES = ("object_store_test", "rpc_core_test", "copy_core_test",
+            "scope_core_test", "shm_core_test", "prof_core_test",
+            "log_core_test")
+PLANE_TESTS = tuple(f"tests/test_torch_{n}.py" for n in (
+    "graftrpc", "graftcopy", "graftshm", "grafttrail", "graftprof",
+    "graftlog", "graftsched", "native_store"))
+C_SUITES_TIMEOUT_S = 300
+LINT_TIMEOUT_S = 300
+PLANE_TESTS_TIMEOUT_S = 900
+INGEST_SHAPE = (256, 512)
+
+
+def _run_group(cmd: list, timeout: float) -> subprocess.CompletedProcess:
+    """``cmd`` from the repo root in a process group of its own, killed
+    whole (make and the suites it runs, pytest and its clusters) if it
+    outlives ``timeout``."""
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise RuntimeError(f"{' '.join(cmd)} outlived {timeout} s: "
+                           f"{out[-3000:]} {err[-3000:]}")
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def _c_suites(card: str) -> dict:
+    """Phase 18 (a): the seven C++ unit suites of ray_tpu_torch/csrc."""
+    t = time.perf_counter()
+    built = _run_group(["make", "-s", "-C", CSRC_DIR,
+                        f"-j{os.cpu_count() or 1}", "suites"],
+                       C_SUITES_TIMEOUT_S)
+    build_s = time.perf_counter() - t
+    check(built.returncode == 0,
+          f"the C++ suites did not build: {built.stderr[-3000:]}")
+    t = time.perf_counter()
+    run = _run_group(["make", "-s", "-C", CSRC_DIR, "test"],
+                     C_SUITES_TIMEOUT_S)
+    run_s = time.perf_counter() - t
+    text = run.stdout
+    ok = [n for n in C_SUITES if f"{n}: ALL OK" in text]
+    check(run.returncode == 0 and ok == list(C_SUITES),
+          f"the C++ suites: rc {run.returncode}, ALL OK from {ok}: "
+          f"{text[-4000:]} {run.stderr[-3000:]}")
+    suite_s = {m.group(1): int(m.group(2)) / 1e3 for m in re.finditer(
+        r"^(\w+_test): (\d+) ms$", text, re.M)}
+    hw = re.search(r"hardware_concurrency (\d+), auto-sized pool (\d+)",
+                   text)
+    check(set(suite_s) == set(C_SUITES) and hw is not None,
+          f"the C++ suites' report: {text[-4000:]}")
+    log(f"PLANES C++ suites: all {len(ok)} ALL OK; build {build_s:.2f} s "
+        f"(make -j), run {run_s:.2f} s: {json.dumps(suite_s)}; "
+        f"hardware_concurrency {hw.group(1)}, copy pool {hw.group(2)}"
+        f"  [{card}]")
+    return dict(build_s=build_s, run_s=run_s, suite_s=suite_s,
+                hardware_concurrency=int(hw.group(1)),
+                copy_pool=int(hw.group(2)))
+
+
+def _lint(card: str) -> dict:
+    """Phase 18 (b): the port's lint over the checkout, and its derived
+    hot-path costs against the committed ``budgets.json``."""
+    t = time.perf_counter()
+    proc = _run_group([sys.executable, "-m", "ray_tpu_torch.tools.lint"],
+                      LINT_TIMEOUT_S)
+    lint_s = time.perf_counter() - t
+    m = re.search(r"graftlint: (\d+) finding\(s\) \((\d+) allowlisted\) "
+                  r"across (\d+) files", proc.stderr)
+    check(proc.returncode == 0 and m is not None and m.group(1) == "0",
+          f"the lint: rc {proc.returncode}: {proc.stdout[-3000:]} "
+          f"{proc.stderr[-3000:]}")
+    files = [load_source(os.path.join(ROOT, rel), ROOT)
+             for rel in hotpath.WALK_FILES]
+    budgets = hotpath.load_budgets(hotpath.DEFAULT_BUDGETS)
+    derived, _ = hotpath.derive_costs(
+        budgets, files, protocol.load_protocol(protocol.DEFAULT_PROTOCOL))
+    committed = {op: {k: int(spec.get("derived", {}).get(k, 0))
+                      for k in hotpath.COST_KEYS}
+                 for op, spec in budgets["ops"].items()}
+    check(derived == committed,
+          f"derived hot-path costs {derived} != budgets.json {committed}")
+    log(f"PLANES lint: 0 findings ({m.group(2)} allowlisted) across "
+        f"{m.group(3)} files in {lint_s:.2f} s; derived costs equal "
+        f"budgets.json for {len(derived)} ops  [{card}]")
+    return dict(lint_s=lint_s, files=int(m.group(3)),
+                allowlisted=int(m.group(2)), costs=derived)
+
+
+def _ingest(card: str) -> dict:
+    """Phase 18 (c): a put array to the card through ``device_ingest``."""
+    arr = np.random.default_rng(SEED).standard_normal(
+        INGEST_SHAPE, dtype=np.float32)
+    ray_tpu_torch.init()
+    try:
+        ref = ray_tpu_torch.put({"w": arr})
+        host_read_only = not ray_tpu_torch.get(ref)["w"].flags["WRITEABLE"]
+        made, live = graftshm.capsules_made(), graftshm.live_capsules()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = device_ingest(ref)
+        torch.cuda.synchronize()
+        ingest_ms = (time.perf_counter() - t) * 1e3
+        w = out["w"]
+        check(w.is_cuda and w.dtype == torch.float32
+              and tuple(w.shape) == INGEST_SHAPE
+              and torch.equal(w.cpu(), torch.from_numpy(arr)),
+              f"device_ingest gave {w.device} {w.dtype} {tuple(w.shape)}, "
+              f"or other values")
+        check(graftshm.capsules_made() == made + 1,
+              f"device_ingest made {graftshm.capsules_made() - made} "
+              f"capsules, not one: the DLPack path was not taken")
+        del out, w
+        deadline = time.monotonic() + 10
+        while graftshm.live_capsules() > live and \
+                time.monotonic() < deadline:
+            gc.collect()
+            time.sleep(0.05)
+        check(graftshm.live_capsules() <= live,
+              f"{graftshm.live_capsules() - live} capsules left live")
+    finally:
+        ray_tpu_torch.shutdown()
+    log(f"PLANES ingest: {INGEST_SHAPE} f32 put -> cuda through one DLPack "
+        f"capsule in {ingest_ms:.3f} ms (host view read-only: "
+        f"{host_read_only}); capsules released  [{card}]")
+    return dict(ingest_ms=ingest_ms, host_read_only=host_read_only)
+
+
+def _plane_suites(card: str) -> dict:
+    """Phase 18 (d), ``--only-planes`` only: the eight plane suites.
+    ``--noconftest``: tests/conftest.py imports jax, which a GPU host
+    of the port need not have. pytest.ini's ``-q`` leaves the count line
+    last."""
+    t = time.perf_counter()
+    proc = _run_group([sys.executable, "-m", "pytest", "--noconftest",
+                       "-rs", "-p", "no:cacheprovider", *PLANE_TESTS],
+                      PLANE_TESTS_TIMEOUT_S)
+    wall_s = time.perf_counter() - t
+    tail = proc.stdout.strip().splitlines()[-1] if proc.stdout else ""
+    counts = {k: int(n) for n, k in re.findall(
+        r"(\d+) (passed|failed|skipped|errors?)", tail)}
+    check(proc.returncode == 0 and counts.get("passed", 0) > 0,
+          f"the plane suites: rc {proc.returncode}: {proc.stdout[-6000:]} "
+          f"{proc.stderr[-2000:]}")
+    log(f"PLANES suites: {tail} ({wall_s:.1f} s)  [{card}]")
+    return dict(wall_s=wall_s, counts=counts, summary=tail)
+
+
+def phase_planes(card: str, suites: bool = False) -> dict:
+    """Phase 18: (a) the C++ suites, (b) the lint, (c) one ingest on the
+    card, and with ``suites`` (d) the Python plane suites."""
+    t0 = time.perf_counter()
+    out = dict(card=card)
+    out["c_suites"] = _c_suites(card)
+    out["lint"] = _lint(card)
+    out["ingest"] = _ingest(card)
+    if suites:
+        out["plane_suites"] = _plane_suites(card)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"PLANES phase 18 took {out['phase_s']:.1f} s  [{card}]")
+    return out
+
+
 def _variant_entries(rows, bwd_rows, parity, tune_launches) -> list:
     """The kernels line's entries of the generic variants: launches from
     their train-parity run (the path that reaches them) and in phase 16's
@@ -4043,6 +4232,9 @@ def main() -> int:
                     help="build the kernels and run phase 16 only")
     ap.add_argument("--only-autoscale", action="store_true",
                     help="build the kernels and run phase 17 only")
+    ap.add_argument("--only-planes", action="store_true",
+                    help="build the kernels and run phase 18 only, with "
+                    "the plane suites under pytest")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4128,6 +4320,9 @@ def main() -> int:
     if args.only_autoscale:
         _dump("chip_smoke_autoscale.json", phase_autoscale(card))
         return 0
+    if args.only_planes:
+        _dump("chip_smoke_planes.json", phase_planes(card, suites=True))
+        return 0
     rows = phase_kernels(card)
     route = phase_reference_route(card)
     if args.only_kernels:
@@ -4147,6 +4342,7 @@ def main() -> int:
     rl = phase_rllib(card)
     tuned = phase_tune(card, bench)
     auto = phase_autoscale(card, runtime)
+    planes = phase_planes(card)
 
     main_row = next(r for r in rows if r["shape"] == "B1 H32 KVH8 S8192 D128"
                     and r["causal"] and r["layout"] == "dense")
@@ -4199,7 +4395,7 @@ def main() -> int:
                        reference_route=route, checkpoint=ckpt,
                        runtime=runtime, trainer=trainer, serve=serving,
                        edges=edges, rllib=rl, tune=tuned, autoscale=auto,
-                       kernels=kernels),
+                       planes=planes, kernels=kernels),
                   f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -195,6 +195,13 @@ def live_capsules() -> int:
         return len(_live_capsules)
 
 
+def capsules_made() -> int:
+    """Exports made since import (test hook): a consumer that copies and
+    drops the CPU view at once leaves no live capsule behind."""
+    with _cap_lock:
+        return _next_key[0] - 1
+
+
 def _dtype_code_bits(dtype) -> Tuple[int, int]:
     name = getattr(dtype, "name", str(dtype))
     if name == "bfloat16":
