@@ -16,11 +16,13 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    D] views, which the TMA maps read through their strides), at the ragged
    lengths 100 and 8000 (TMA zero-fills past the end), at the MoE step's
    S4096 (both layouts), and at the bench configuration's B8 H16 KVH16
-   S2048; the generic variants (f32 at head_dim 128 to 1024, bf16 at 256
-   to 1024; 640 and 1024 tiled over D) at B1 H8 KVH2 S2048 and the ragged
-   S1000, causal and not, and at the shapes of their train-parity runs (no
-   ptxas spill allowed in any generic instance); time kernel, plain
-   version, SDPA
+   S2048; the other variants (f32 at head_dim 128 to 1024, bf16 at 256
+   to 1024; bf16 256 on the wgmma kernels, the rest generic; 640 and 1024
+   tiled over D) at B1 H8 KVH2 S2048 and the ragged S1000, causal and
+   not, and at the shapes of their train-parity runs, bf16 256 also at
+   ``llama3_8b(n_heads=16)``'s training length, B1 H16 KVH8 S8192 causal
+   (no ptxas spill allowed in any generic instance or wgmma kernel); time
+   kernel, plain version, SDPA
    (the library yardstick, never called by the port) and the roofline
    bound. Then head_dim 64 on the card: ``flash_fwd`` and ``flash_bwd``
    route to the JAX package's jnp branch and launch no kernel.
@@ -214,7 +216,10 @@ Details go to ``chiprun_out/chip_smoke.json``.
     python3 chip_smoke.py --only-kernels
 
 builds the kernels and runs phase 2 alone (a quick check after a kernel
-edit), ``--only-bwd`` runs phase 5 alone in the same way, ``--only-moe``
+edit), ``--only-bwd`` runs phase 5 alone in the same way, ``--only-times``
+times the bf16 wgmma kernels alone at head_dim 256 and 128, S2048 and
+S8192, in 3 rounds, and checks nothing of the build (run it from two
+trees' roots in turns to compare them), ``--only-moe``
 phase 9, ``--only-ckpt`` phases 4 and 10, ``--only-runtime`` phase 11,
 ``--only-trainer`` phases 8 and 12, ``--only-serve`` phase 13,
 ``--only-edges`` phase 14, ``--only-rllib`` phase 15, ``--only-tune``
@@ -332,12 +337,14 @@ FWD_CASES = [(1, 32, 8, S, True, BF16, "dense") for S in ATTN_WIDTHS] + [
 SERVE_FWD_CASES = [(1, 32, 16, S, True, BF16, "model")
                    for S in (32, 512, 2048, 8192)]
 FWD_CASES += SERVE_FWD_CASES
-# The generic kernel variants (every dtype and head_dim but bf16 D128), in
-# phases 2 and 5: at B1 H8 KVH2, S2048 and the ragged S1000, causal and not,
-# and at the shape the train-parity path of their dtype and head_dim gives
-# them (``PARITY_RUNS``: B1 H32 KVH8 D128, B1 H16 KVH8 D256, B1 H8 KVH4
-# D384, D512 and D640, B1 H4 KVH2 D1024, S2048 causal). D640 and D1024 are
-# tiled over D (5 chunks of 128 and 4 of 256).
+# The kernel variants other than bf16 D128 (bf16 D256 on the wgmma kernels
+# for the forward and dK/dV, every other one generic), in phases 2 and 5: at
+# B1 H8 KVH2, S2048 and the ragged S1000, causal and not, and at the shape
+# the train-parity path of their dtype and head_dim gives them
+# (``PARITY_RUNS``: B1 H32 KVH8 D128, B1 H16 KVH8 D256, B1 H8 KVH4 D384,
+# D512 and D640, B1 H4 KVH2 D1024, S2048 causal); bf16 D256 also at phase
+# 7's training length, B1 H16 KVH8 S8192 causal (``llama3_8b(n_heads=16)``
+# at S8192). D640 and D1024 are tiled over D (5 chunks of 128 and 4 of 256).
 VARIANTS = (("f32_d128", 128, F32), ("f32_d256", 256, F32),
             ("bf16_d256", 256, BF16), ("f32_d384", 384, F32),
             ("bf16_d384", 384, BF16), ("f32_d512", 512, F32),
@@ -346,10 +353,17 @@ VARIANTS = (("f32_d128", 128, F32), ("f32_d256", 256, F32),
             ("bf16_d1024", 1024, BF16))
 VARIANT_MAIN = {128: (1, 32, 8), 256: (1, 16, 8), 384: (1, 8, 4),
                 512: (1, 8, 4), 640: (1, 8, 4), 1024: (1, 4, 2)}  # B, H, KVH
+# Phase 7's sequence length, and the bf16 D256 case's below
+TRAIN_SEQ = 8192
 VARIANT_CASES = [(name, D, dt, 1, 8, 2, S, causal)
                  for name, D, dt in VARIANTS for S in (2048, 1000)
                  for causal in (True, False)] + [
-    (name, D, dt, *VARIANT_MAIN[D], 2048, True) for name, D, dt in VARIANTS]
+    (name, D, dt, *VARIANT_MAIN[D], 2048, True) for name, D, dt in VARIANTS
+] + [("bf16_d256", 256, BF16, *VARIANT_MAIN[256], TRAIN_SEQ, True)]
+# The variants that run wgmma kernels besides bf16 D128, by kernel: the bf16
+# D256 forward and dK/dV; its dQ is still generic.
+WGMMA_VARIANTS = {"flash_fwd": ("bf16_d256",),
+                  "flash_bwd_dkv": ("bf16_d256",), "flash_bwd_dq": ()}
 PROMPT_LENS = (17, 100, 300, 700, 1500, 3000, 5000, 8000)
 SAMPLED = {1: dict(temperature=0.8, top_k=40, seed=1234),
            6: dict(temperature=1.0, top_k=0, seed=5678)}
@@ -428,7 +442,6 @@ PARITY_RUNS = (("bf16_d128", dict(n_layers=2)),
                ("f32_d1024", dict(n_layers=2, n_heads=4, n_kv_heads=2,
                                   dtype=F32)))
 PARITY_SEQ = 2048
-TRAIN_SEQ = 8192
 TRAIN_LAYERS = 8
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 # bench.py:34-37, the repo's training benchmark configuration
@@ -466,9 +479,14 @@ OUT_DIR = "chiprun_out"
 # any warning (setmaxnreg ignored, wgmma serialized).
 BUILD_REPORT = ("registers", "spill", "smem", "arning", "wgmma",
                 "setmaxnreg")
-# Generic instances: 3 kernels x (7 one-chunk ones: f32 D128-512, bf16
-# D256-512; 4 chunked ones: f32 and bf16, chunks of 128 and 256)
-GENERIC_INSTANCES = 33
+# Generic instances: the forward and dK/dV 6 one-chunk ones each (f32
+# D128-512, bf16 D384-512; bf16 D256 is their wgmma kernels'), dQ 7 (also
+# bf16 D256), and each kernel 4 chunked ones (f32 and bf16, chunks of 128
+# and 256)
+GENERIC_INSTANCES = 31
+# wgmma kernels: the forward at D128 and D256 (one template), dK/dV at D128
+# and D256, dQ at D128
+WGMMA_INSTANCES = 5
 
 
 def log(*a):
@@ -977,6 +995,46 @@ def _bwd_case(gen, card, B, H, KVH, S, causal, layout, D=128, dt=BF16):
     del q, k, v, do, o, lse, delta, dq, dk, dv, args
     torch.cuda.empty_cache()
     return row
+
+
+# --only-times: the bf16 wgmma kernels alone at the training shapes of
+# head_dim 256 and 128 (D, H, KVH; B1, causal), each timed in 3 rounds in
+# turn, medians printed: the quick A/B of two trees in one call (run it
+# from each root in turns). dQ at D256 is the generic variant, timed in
+# phase 5.
+TIME_SHAPES = ((256, 16, 8), (128, 32, 8))
+TIME_SEQS = (2048, TRAIN_SEQ)
+TIME_ROUNDS = 3
+
+
+def phase_kernel_times(card: str) -> list:
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    rows = []
+    for S in TIME_SEQS:
+        for D, H, KVH in TIME_SHAPES:
+            q, k, v, do = (_attn_input(1, h, S, D, gen, BF16, "dense")
+                           for h in (H, KVH, KVH, H))
+            o, lse = flash_fwd(q, k, v, True)
+            delta = (do.float() * o.float()).sum(-1)
+            args = (q, k, v, do, lse, delta, True, D ** -0.5)
+            fns = dict(flash_fwd=lambda: flash_fwd(q, k, v, True),
+                       flash_bwd_dkv=lambda: flash_bwd_dkv(*args))
+            if D == 128:
+                fns["flash_bwd_dq"] = lambda: flash_bwd_dq(*args)
+            iters = 20 if S <= 2048 else 10
+            times = {n: [] for n in fns}
+            for _ in range(TIME_ROUNDS):
+                for n, fn in fns.items():
+                    times[n].append(gpu_ms(fn, iters))
+            row = dict(shape=f"B1 H{H} KVH{KVH} S{S} D{D}", causal=True,
+                       dtype="bfloat16",
+                       ms={n: statistics.median(t) for n, t in times.items()},
+                       rounds_ms=times, card=card)
+            log("TIMES", json.dumps(row))
+            rows.append(row)
+            del q, k, v, do, o, lse, delta, args, fns
+            torch.cuda.empty_cache()
+    return rows
 
 
 def phase_bwd_kernels(card: str):
@@ -4029,6 +4087,9 @@ def _c_suites(card: str) -> dict:
     build_s = time.perf_counter() - t
     check(built.returncode == 0,
           f"the C++ suites did not build: {built.stderr[-3000:]}")
+    # The suites hold CPU-time ratios (prof_core_test's spinner against
+    # its idler), so the host's load as they start goes into the record.
+    load1 = os.getloadavg()[0]
     t = time.perf_counter()
     run = _run_group(["make", "-s", "-C", CSRC_DIR, "test"],
                      C_SUITES_TIMEOUT_S)
@@ -4036,7 +4097,8 @@ def _c_suites(card: str) -> dict:
     text = run.stdout
     ok = [n for n in C_SUITES if f"{n}: ALL OK" in text]
     check(run.returncode == 0 and ok == list(C_SUITES),
-          f"the C++ suites: rc {run.returncode}, ALL OK from {ok}: "
+          f"the C++ suites: rc {run.returncode}, ALL OK from {ok}, "
+          f"load average {load1:.2f} at their start: "
           f"{text[-4000:]} {run.stderr[-3000:]}")
     suite_s = {m.group(1): int(m.group(2)) / 1e3 for m in re.finditer(
         r"^(\w+_test): (\d+) ms$", text, re.M)}
@@ -4046,9 +4108,9 @@ def _c_suites(card: str) -> dict:
           f"the C++ suites' report: {text[-4000:]}")
     log(f"PLANES C++ suites: all {len(ok)} ALL OK; build {build_s:.2f} s "
         f"(make -j), run {run_s:.2f} s: {json.dumps(suite_s)}; "
-        f"hardware_concurrency {hw.group(1)}, copy pool {hw.group(2)}"
-        f"  [{card}]")
-    return dict(build_s=build_s, run_s=run_s, suite_s=suite_s,
+        f"hardware_concurrency {hw.group(1)}, copy pool {hw.group(2)}; "
+        f"load average {load1:.2f} at their start  [{card}]")
+    return dict(build_s=build_s, run_s=run_s, suite_s=suite_s, load1=load1,
                 hardware_concurrency=int(hw.group(1)),
                 copy_pool=int(hw.group(2)))
 
@@ -4157,36 +4219,54 @@ def phase_planes(card: str, suites: bool = False) -> dict:
 
 
 def _variant_entries(rows, bwd_rows, parity, tune_launches) -> list:
-    """The kernels line's entries of the generic variants: launches from
-    their train-parity run (the path that reaches them) and in phase 16's
-    Tune trials (by variant), times at that run's shape (``VARIANT_MAIN``,
-    S2048 causal), errors over every case."""
+    """The kernels line's entries of the variants other than bf16 D128:
+    launches from their train-parity run (the path that reaches them) and
+    in phase 16's Tune trials (by variant), times at that run's shape
+    (``VARIANT_MAIN``, S2048 causal), errors over every case, the kernel
+    that serves each (``wgmma`` or ``generic``), and for a variant also
+    timed at S8192 (bf16 D256), its times there under ``at_s8192``."""
     out = []
+
+    def at(rs, shape, variant):
+        return next((r for r in rs if r["shape"] == shape and r["causal"]
+                     and r["variant"] == variant), None)
+
     for variant, D, dt in VARIANTS:
         B, H, KVH = VARIANT_MAIN[D]
         shape = f"B{B} H{H} KVH{KVH} S2048 D{D}"
-        fwd = next(r for r in rows if r["shape"] == shape and r["causal"]
-                   and r["variant"] == variant)
-        bwd = next(r for r in bwd_rows if r["shape"] == shape
-                   and r["causal"] and r["variant"] == variant)
+        long_shape = f"B{B} H{H} KVH{KVH} S{TRAIN_SEQ} D{D}"
+        fwd, bwd = at(rows, shape, variant), at(bwd_rows, shape, variant)
+        fwd_l, bwd_l = (at(rows, long_shape, variant),
+                        at(bwd_rows, long_shape, variant))
         label = f"{shape} causal {variant.split('_')[0]}"
-        out.append(dict(
+        entry = dict(
             name=f"flash_fwd.{variant}", route="cuda",
             source="ray_tpu_torch/ops/csrc/flash_fwd.cu",
             replaces="ray_tpu/ops/attention.py:140",
+            kernel="wgmma" if variant in WGMMA_VARIANTS["flash_fwd"]
+            else "generic",
             launches=parity[variant]["launches"]["flash_fwd"],
             max_abs_err=max(r["max_abs_err"] for r in rows
                             if r["variant"] == variant),
             ms=fwd["ms"], plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
             bound_by=fwd["bound_by"], library_ms=fwd["library_ms"],
             shape=label, launches_tune_trials=tune_launches.get(
-                "flash_fwd", {}).get(variant, 0)))
+                "flash_fwd", {}).get(variant, 0))
+        if fwd_l is not None:
+            entry["at_s8192"] = dict(
+                shape=f"{long_shape} causal", ms=fwd_l["ms"],
+                plain_ms=fwd_l["plain_ms"], bound_ms=fwd_l["bound_ms"],
+                bound_by=fwd_l["bound_by"], library_ms=fwd_l["library_ms"],
+                max_abs_err=fwd_l["max_abs_err"])
+        out.append(entry)
         for name, src, line in (("flash_bwd_dkv", "flash_bwd_dkv.cu", 326),
                                 ("flash_bwd_dq", "flash_bwd_dq.cu", 356)):
-            out.append(dict(
+            entry = dict(
                 name=f"{name}.{variant}", route="cuda",
                 source=f"ray_tpu_torch/ops/csrc/{src}",
                 replaces=f"ray_tpu/ops/attention.py:{line}",
+                kernel="wgmma" if variant in WGMMA_VARIANTS[name]
+                else "generic",
                 launches=parity[variant]["launches"][name],
                 max_abs_err=max(r["abs_err"][name] for r in bwd_rows
                                 if r["variant"] == variant),
@@ -4195,7 +4275,16 @@ def _variant_entries(rows, bwd_rows, parity, tune_launches) -> list:
                 bound_by=bwd["bound_by"][name],
                 library_ms=bwd["sdpa_bwd_ms"], shape=label,
                 launches_tune_trials=tune_launches.get(name, {}).get(
-                    variant, 0)))
+                    variant, 0))
+            if bwd_l is not None:
+                entry["at_s8192"] = dict(
+                    shape=f"{long_shape} causal", ms=bwd_l["ms"][name],
+                    plain_ms=bwd_l["plain_ms"][name],
+                    bound_ms=bwd_l["bound_ms"][name],
+                    bound_by=bwd_l["bound_by"][name],
+                    library_ms=bwd_l["sdpa_bwd_ms"],
+                    max_abs_err=bwd_l["abs_err"][name])
+            out.append(entry)
     return out
 
 
@@ -4211,6 +4300,9 @@ def main() -> int:
                     help="build the kernels and run phase 2 only")
     ap.add_argument("--only-bwd", action="store_true",
                     help="build the kernels and run phase 5 only")
+    ap.add_argument("--only-times", action="store_true",
+                    help="build the kernels and time the bf16 wgmma "
+                    "kernels alone, 3 rounds each (no check of the build)")
     ap.add_argument("--only-ttft", type=int, default=0, metavar="N",
                     help="build the kernels and measure idle TTFT only, N "
                     "requests per prompt length")
@@ -4267,22 +4359,30 @@ def main() -> int:
         for line in text.splitlines():
             if any(w in line for w in BUILD_REPORT):
                 log(f"BUILD {name}: {line.strip()}")
+    if args.only_times:  # before the checks of the build: it compares trees
+        phase_kernel_times(card)
+        return 0
     # The generic variants hold DC/4 (forward) or 2 DC/8 (dK/dV) f32
     # accumulators per thread for their chunk of DC columns, near the
     # register limit at DC 384 and 512 (one chunk; the chunked instances
-    # stop at 256 for that reason): a spill in any instance is a defect,
-    # not a slowdown to accept.
+    # stop at 256 for that reason); the wgmma kernels hold 128 (D128: O,
+    # or dK and dV; D256: O, or a half of dK and dV) beside their scores
+    # under setmaxnreg 240. A spill in any instance is a defect, not a
+    # slowdown to accept.
     spills = {k: v for text in _build.build_log.values()
               for k, v in ptxas_spills(text).items()}
     generic = {k: v for k, v in spills.items() if "generic" in k}
+    wgmma = {k: v for k, v in spills.items() if "generic" not in k}
     log(f"BUILD spills (store, load bytes) of the generic instances: "
-        f"{json.dumps(generic)}")
-    check(len(generic) == GENERIC_INSTANCES
-          or len(_build.build_log) < len(_build.sources()),
-          f"expected {GENERIC_INSTANCES} generic instances in the ptxas "
-          f"report, got {sorted(generic)}")
-    check(all(v == (0, 0) for v in generic.values()),
-          f"ptxas spills in the generic instances: {generic}")
+        f"{json.dumps(generic)}; of the wgmma kernels: {json.dumps(wgmma)}")
+    built_all = len(_build.build_log) == len(_build.sources())
+    check(not built_all or (len(generic) == GENERIC_INSTANCES
+                            and len(wgmma) == WGMMA_INSTANCES),
+          f"expected {GENERIC_INSTANCES} generic instances and "
+          f"{WGMMA_INSTANCES} wgmma kernels in the ptxas report, got "
+          f"{sorted(generic)} and {sorted(wgmma)}")
+    check(all(v == (0, 0) for v in spills.values()),
+          f"ptxas spills: {spills}")
 
     if args.only_ttft:
         phase_ttft_only(card, args.only_ttft)

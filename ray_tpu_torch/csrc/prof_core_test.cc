@@ -7,11 +7,13 @@
 #include "prof_core.h"
 
 #include <atomic>
+#include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <ctime>
+#include <mutex>
 #include <string>
 #include <thread>
 #include <vector>
@@ -110,12 +112,17 @@ int TestCpuAttribution() {
     while (!stop.load(std::memory_order_relaxed)) {
     }
   });
+  // The idler blocks until the end: a thread that polled on a short
+  // sleep instead was charged ~80 timer wakeups in the window, which on
+  // a contended VM host cost it a tenth of what the spinner got.
+  std::mutex idle_mu;
+  std::condition_variable idle_cv;
+  bool idle_done = false;
   std::thread idler([&] {
     idle_slot.store(prof_register_thread("idler"),
                     std::memory_order_release);
-    while (!stop.load(std::memory_order_relaxed)) {
-      SleepMs(5);
-    }
+    std::unique_lock<std::mutex> lk(idle_mu);
+    idle_cv.wait(lk, [&] { return idle_done; });
   });
   while (spin_slot.load(std::memory_order_acquire) < 0 ||
          idle_slot.load(std::memory_order_acquire) < 0) {
@@ -131,6 +138,8 @@ int TestCpuAttribution() {
   CHECK(k > ss && k > is);
   // The spinner burned a core for ~400ms; the idler slept. Require a
   // 10x separation (generous for a loaded CI host).
+  std::fprintf(stderr, "  cpu attribution: spinner %.3f ms, idler %.3f ms\n",
+               cpu[ss] / 1e6, cpu[is] / 1e6);
   CHECK(cpu[ss] > 50ull * 1000 * 1000);
   CHECK(cpu[ss] > 10 * (cpu[is] + 1));
   // The ring carries per-tick deltas for both slots, tick markers, and
@@ -158,6 +167,11 @@ int TestCpuAttribution() {
   CHECK(spin_us > 10 * (idle_us + 1));
   CHECK(prof_ticks() > 0);
   stop.store(true);
+  {
+    std::lock_guard<std::mutex> lk(idle_mu);
+    idle_done = true;
+  }
+  idle_cv.notify_one();
   spinner.join();
   idler.join();
   return 0;

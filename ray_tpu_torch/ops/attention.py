@@ -24,12 +24,19 @@ and backward (counterpart of ``ray_tpu/ops/attention.py``).
   * ``flash_attention`` — ``torch.autograd.Function`` over ``flash_fwd``
     and ``flash_bwd``.
 
-Each kernel takes f32 and bf16 at any head_dim that is a multiple of 128:
-bf16 at 128 runs its wgmma kernel, every other case its generic variant,
-which from 640 up tiles over D (chunks of 256 or 128 columns, the scores
-summed over the chunks; ``ops/csrc/flash_common.cuh`` ``gen_chunk``). Sequence lengths
-are not routed: the kernels take any S (TMA zero-fills, the stores are
-guarded), where the JAX package sends S % 128 != 0 to its jnp branch.
+Each kernel takes f32 and bf16 at any head_dim that is a multiple of 128.
+Which code runs is picked inside its C entry point by (dtype, head_dim):
+  * bf16 at 128: the wgmma kernel of each (forward, dK/dV, dQ);
+  * bf16 at 256: the forward's and dK/dV's wgmma kernels
+    (``flash_fwd_bf16_kernel<256, 64>``, ``flash_bwd_dkv_d256_kernel``),
+    and dQ's generic variant;
+  * every other case (f32 at any multiple of 128, bf16 from 384 up): the
+    generic variant on the CUDA cores, which from 640 up tiles over D
+    (chunks of 256 or 128 columns, the scores summed over the chunks;
+    ``ops/csrc/flash_common.cuh`` ``gen_chunk``).
+Sequence lengths are not routed: the kernels take any S (TMA zero-fills,
+the stores are guarded), where the JAX package sends S % 128 != 0 to its
+jnp branch.
 
 Layout: [batch, num_heads, seq, head_dim] (BHSD). k and v may carry fewer
 heads than q (grouped-query attention): q head h reads kv head
@@ -210,9 +217,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 def kernel_variant(q: torch.Tensor) -> str:
     """The name of the kernel variant that q's dtype and head_dim launch:
-    "bf16_d128" (the wgmma kernels), "f32_d128", "f32_d256", ...,
-    "bf16_d256", ... (the generic ones). The wrappers count launches by it in
-    ``launches_by_variant`` beside ``launches``."""
+    "bf16_d128" (the wgmma kernels), "bf16_d256" (the forward's and dK/dV's
+    wgmma kernels, dQ's generic variant), "f32_d128", "f32_d256", ...,
+    "bf16_d384", ... (the generic ones). The wrappers count launches by it
+    in ``launches_by_variant`` beside ``launches``."""
     dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
     return f"{dt}_d{q.shape[-1]}"
 
@@ -292,9 +300,11 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash-attention forward -> (O [b, h, sq, d] in q's dtype, LSE
     [b, h, sq] f32). Routed by ``attention_route``: at the kernels'
-    head_dims (multiples of 128) CUDA tensors launch ``csrc/flash_fwd.cu`` (counted in
-    ``flash_fwd.launches``) and CPU tensors run ``flash_fwd_plain``; a
-    head_dim that is not a multiple of 128 runs ``flash_fwd_reference``."""
+    head_dims (multiples of 128) CUDA tensors launch ``csrc/flash_fwd.cu``
+    (its wgmma kernel for bf16 at 128 and 256, its generic variant
+    otherwise; counted in ``flash_fwd.launches``) and CPU tensors run
+    ``flash_fwd_plain``; a head_dim that is not a multiple of 128 runs
+    ``flash_fwd_reference``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     _check_qkv("flash_fwd", q, k, v)
     if attention_route(q.shape[-1]) == "reference":
@@ -438,7 +448,8 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
                   sm_scale: Optional[float] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) [b, kvh, skv, d] in k's dtype. CUDA tensors launch
-    ``csrc/flash_bwd_dkv.cu`` (counted in ``flash_bwd_dkv.launches``); CPU
+    ``csrc/flash_bwd_dkv.cu`` (a wgmma kernel for bf16 at 128 and 256, the
+    generic variant otherwise; counted in ``flash_bwd_dkv.launches``); CPU
     tensors run ``flash_bwd_plain_dkv``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if _bwd_device("flash_bwd_dkv", q, k, v, dout, lse, delta) == "cpu":
@@ -455,8 +466,9 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
                  sm_scale: Optional[float] = None) -> torch.Tensor:
     """dQ [b, h, sq, d] in q's dtype. CUDA tensors launch
-    ``csrc/flash_bwd_dq.cu`` (counted in ``flash_bwd_dq.launches``); CPU
-    tensors run ``flash_bwd_plain_dq``."""
+    ``csrc/flash_bwd_dq.cu`` (the wgmma kernel for bf16 at 128, the generic
+    variant otherwise; counted in ``flash_bwd_dq.launches``); CPU tensors
+    run ``flash_bwd_plain_dq``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if _bwd_device("flash_bwd_dq", q, k, v, dout, lse, delta) == "cpu":
         return flash_bwd_plain_dq(q, k, v, dout, lse, delta, causal, scale)

@@ -55,10 +55,44 @@
 //     strides the caller passes, so q, k, v and dO as transposes of
 //     [B, S, heads, D] views load without a copy; TMA zero-fills rows past
 //     Sq and Skv, and the stores are guarded by row < Skv.
-// That kernel serves bf16 at head_dim 128. A generic variant (at the end of
-// this file) serves f32 at any head_dim that is a multiple of 128 and bf16 at
-// those from 256 up (tiled over D from 640 up), with P and dS rounded to the
-// input dtype as the Pallas kernel rounds them.
+// That kernel serves bf16 at head_dim 128. At 256 (llama3_8b(n_heads=16))
+// it cannot: dK and dV of 64 KV rows x 256 columns are 256 f32 registers a
+// thread in one warpgroup. flash_bwd_dkv_d256_kernel (after it) serves bf16
+// at 256, still bound by the tensor cores (the same FLOP as H32 D128 at equal
+// d_model), and by registers and shared memory:
+//   * A block owns 64 KV rows of one (b, KV head). K and V (64 x 256 each,
+//     four 64-column boxes) stay in shared memory; Q and dO tiles of 64 q
+//     rows (32 KB each) go through a 2-stage ring with LSE and delta as
+//     above. The two consumer warpgroups split dK and dV by columns: each
+//     holds a 128-column half of both, 64 + 64 f32 registers, for the whole
+//     loop, so the group's query heads are still summed in f32 with no
+//     atomics.
+//   * The products over D, S^T = K Q^T and dP^T = V dO^T, are split by q
+//     columns instead, so none is done twice: each consumer takes 32 of the
+//     tile's 64 q columns (wgmma.m64n32k16, 16 k-steps, both operands
+//     K-major in shared memory; 16 registers each). It computes its half of
+//     P^T and dS^T and stores it in bf16 (rounded where the Pallas kernel
+//     rounds) into a 128B-swizzled [kv][q] box in shared memory; a proxy
+//     fence and a named barrier over both consumers publish the two halves.
+//     Then dV[:, half] += P^T dO[:, half] and dK[:, half] += dS^T Q[:, half]
+//     are wgmma.m64n128k16 with both operands in shared memory (P^T or dS^T
+//     K-major as A, dO or Q MN-major through the transpose bit as B).
+//   * P^T and dS^T have two buffers each, so the one barrier an iteration
+//     also keeps a consumer from overwriting what the other still reads:
+//     shared memory is then 64 (K, V) + 128 (ring) + 32 KB, all 227 KB with
+//     the alignment slack.
+//   * The N = 32 score products read 3 KB of shared memory per 16
+//     tensor-core cycles, above the 128 B a cycle it gives, and the
+//     consumers meet at the barrier each iteration with the tensor cores
+//     idle while both compute P and dS: those two bound its rate. Issuing
+//     the next tile's S^T and dP^T before waiting for dV and dK would fill
+//     that gap, but ptxas then serializes every wgmma of the kernel
+//     (C7514/C7515, in three arrangements tried), which made it a quarter
+//     slower; so each iteration waits for its own products.
+// A generic variant (at the end of this file) serves f32 at any head_dim that
+// is a multiple of 128 and bf16 at those from 384 up (tiled over D from 640
+// up), with P and dS rounded to the input dtype as the Pallas kernel rounds
+// them.
 
 #include <math.h>
 
@@ -119,15 +153,17 @@ __device__ __forceinline__ void issue_t(float (&acc)[32], uint32_t a_base,
   flash::issue_abt<kBQ>(acc, a_base, kKvHalfBytes, b_base, kQHalfBytes);
 }
 
-// P^T in place: st[4j + 2a + b] holds KV row r_lo + 8a (r_lo = this
-// thread's first row), q column q0 + 8j + 2(lane % 4) + b. diag = r_lo -
-// q0: a score is masked (causal) where its q column is below its KV row.
-// The unmasked instance carries no mask code.
-template <bool kMasked>
-__device__ __forceinline__ void probs(float (&st)[32], const float* lse,
-                                      float c, int diag, int lane) {
+// P^T in place, for an accumulator of N q columns: st[4j + 2a + b] holds KV
+// row r_lo + 8a (r_lo = this thread's first row), q column 8j + 2(lane % 4)
+// + b of those the accumulator covers (lse points at the first one's). diag
+// = r_lo - that first q column: a score is masked (causal) where its q
+// column is below its KV row. The unmasked instance carries no mask code.
+template <bool kMasked, int N>
+__device__ __forceinline__ void probs_impl(float (&st)[N / 2],
+                                           const float* lse, float c,
+                                           int diag, int lane) {
 #pragma unroll
-  for (int j = 0; j < kBQ / 8; ++j) {
+  for (int j = 0; j < N / 8; ++j) {
     const int qc = 8 * j + 2 * (lane % 4);
     const float2 l = *reinterpret_cast<const float2*>(lse + qc);
 #pragma unroll
@@ -139,26 +175,29 @@ __device__ __forceinline__ void probs(float (&st)[32], const float* lse,
   }
 }
 
-__device__ __forceinline__ void probs(float (&st)[32], bool masked,
+template <int N>
+__device__ __forceinline__ void probs(float (&st)[N / 2], bool masked,
                                       const float* lse, float c, int diag,
                                       int lane) {
   if (masked)
-    probs<true>(st, lse, c, diag, lane);
+    probs_impl<true, N>(st, lse, c, diag, lane);
   else
-    probs<false>(st, lse, c, diag, lane);
+    probs_impl<false, N>(st, lse, c, diag, lane);
   // Keep P ahead of the wait for dP^T: without these ties the compiler may
   // sink the exponentials below it, and nothing would overlap.
 #pragma unroll
-  for (int i = 0; i < 32; ++i) hopper::fence_reg(st[i]);
+  for (int i = 0; i < N / 2; ++i) hopper::fence_reg(st[i]);
 }
 
-// dS^T = P^T (dP^T - delta) * scale in place of dP^T (delta by q column).
-__device__ __forceinline__ void dscores(float (&dpt)[32],
-                                        const float (&st)[32],
+// dS^T = P^T (dP^T - delta) * scale in place of dP^T (delta by q column,
+// pointing at the accumulator's first one).
+template <int N>
+__device__ __forceinline__ void dscores(float (&dpt)[N / 2],
+                                        const float (&st)[N / 2],
                                         const float* delta, float scale,
                                         int lane) {
 #pragma unroll
-  for (int j = 0; j < kBQ / 8; ++j) {
+  for (int j = 0; j < N / 8; ++j) {
     const float2 d =
         *reinterpret_cast<const float2*>(delta + 8 * j + 2 * (lane % 4));
 #pragma unroll
@@ -287,11 +326,11 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
       hopper::wgmma_wait<1>();        // S^T is done, dP^T may still run
 #pragma unroll
       for (int i = 0; i < 32; ++i) hopper::fence_reg(st[i]);
-      probs(st, masked, sm.lse[s], p.scale_log2, r_lo - q0, lane);
+      probs<kBQ>(st, masked, sm.lse[s], p.scale_log2, r_lo - q0, lane);
       hopper::wgmma_wait<0>();
 #pragma unroll
       for (int i = 0; i < 32; ++i) hopper::fence_reg(dpt[i]);
-      dscores(dpt, st, sm.delta[s], p.scale, lane);
+      dscores<kBQ>(dpt, st, sm.delta[s], p.scale, lane);
       pack_a(pa, st);
       pack_a(sa, dpt);
       hopper::wgmma_fence();
@@ -341,25 +380,264 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// Generic variant: every dtype and head_dim (a multiple of 128) but bf16
-// D = 128, which the wgmma kernel above serves. The same function on the CUDA
-// cores: one block of 128 threads per (b, KV head, 16 KV rows, chunk of D),
-// walking the group's query heads and their 32-row q tiles as the kernel
-// above does, with K, V, Q, dO as f32 tiles in dynamic shared memory (104 KB
-// at DC = 256, 198 KB at 512). D up to 512 runs in one chunk (DC = D); above,
-// D is cut into chunks of DC = 256 or 128 columns (flash::gen_chunk; the
-// chunked instances): each block writes one chunk of dK
-// and dV, and the contractions over D (S^T = K Q^T and dP^T = V dO^T) are
-// summed over the chunks staged one at a time, in the order that ends with
-// the block's own chunk, so Q's and dO's columns for dK and dV are the ones
-// left in shared memory. With more than one chunk K and V are reloaded per
-// chunk and every block recomputes the scores (D / DC times their work;
-// right and slow first). Each thread holds 4 entries of P^T and dS^T (KV row
-// tid / 8, q columns tid % 8 + 8i; P rounded to v's dtype, dS to q's) and an
-// eighth of its KV row's dK and dV chunk as interleaved float4s, in f32
-// registers for the whole loop, so the group's query heads are summed in f32
-// with no atomics. Bound by shared-memory reads, not by the FMA rate; simple
-// first.
+// bf16 at D = 256: 64 KV rows per block, the two consumers split dK and dV
+// by columns and the scores by q columns (see the top of this file). Its
+// block walk, producer and stores follow the D = 128 kernel's with four
+// boxes a tile; they are not shared with it because moving that kernel's
+// code into shared helpers changed its machine code (the same time, other
+// registers and order), and the D = 128 path is kept as it compiled.
+// ---------------------------------------------------------------------------
+
+namespace d256 {
+
+constexpr int kDW = 2 * kD;            // head_dim
+constexpr int kBoxes = kDW / kHalf;    // 64-column boxes of a row
+constexpr int kBKV = 64;               // KV rows per block
+constexpr int kBQ = 64;                // q rows per tile
+constexpr int kQCols = kBQ / kConsumers;  // S^T columns per consumer
+constexpr int kStages = 2;             // Q/dO ring depth
+constexpr uint32_t kBoxBytes = 64 * kHalf * 2;  // 8 KB: 64 rows x 128 B
+constexpr uint32_t kTileBytes = 64 * kDW * 2;   // one K, V, Q or dO tile
+
+struct __align__(1024) Smem {
+  bf16 k[kBoxes][kBKV * kHalf];
+  bf16 v[kBoxes][kBKV * kHalf];
+  bf16 q[kStages][kBoxes][kBQ * kHalf];
+  bf16 dout[kStages][kBoxes][kBQ * kHalf];
+  bf16 pt[2][kBKV * kBQ];   // P^T [kv][q], one 128B-swizzled box; 2 buffers
+  bf16 dst[2][kBKV * kBQ];  // dS^T, the same
+  float lse[kStages][kBQ];  // LSE * log2(e) of the tile's q rows
+  float delta[kStages][kBQ];
+  uint64_t kv_full;
+  uint64_t full[kStages];   // Q, dO landed; LSE, delta written
+  uint64_t empty[kStages];  // every consumer warp is done with the stage
+};
+
+// + slack to align the base to 1024 bytes: 232,448 bytes, the whole 227 KB
+// a block may opt in to.
+constexpr int kSmemBytes = static_cast<int>(sizeof(Smem)) + 1024;
+static_assert(kSmemBytes <= 232448, "over the H100's 227 KB per block");
+
+// This consumer's 64 x 32 slice (q columns 32 cw..) of an m64n32 accumulator
+// as bf16 into a [64 kv][64 q] box, 128B-swizzled as wgmma reads a K-major A
+// operand: the 16-byte chunk c of row r sits at chunk c ^ (r % 8). A warp's
+// 32 stores fall in 32 banks.
+__device__ __forceinline__ void store_t(bf16* box, const float (&x)[16],
+                                        int cw, int warp, int lane) {
+  unsigned char* base = reinterpret_cast<unsigned char*>(box);
+#pragma unroll
+  for (int j = 0; j < kQCols / 8; ++j)
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int r = 16 * warp + lane / 4 + 8 * a;
+      const int chunk = (cw * (kQCols / 8) + j) ^ (r % 8);
+      *reinterpret_cast<uint32_t*>(base + r * 128 + chunk * 16 +
+                                   4 * (lane % 4)) =
+          pack_bf16(x[4 * j + 2 * a], x[4 * j + 2 * a + 1]);
+    }
+}
+
+// acc (64 KV rows x 128 d) += A B inside a wgmma group: A = P^T or dS^T
+// (64 x 64, K-major in shared memory), B = dO or Q [q][d] MN-major, this
+// consumer's two 64-column boxes (LBO one box); 4 k-steps of 16 q rows.
+__device__ __forceinline__ void mma_t(float (&acc)[64], uint32_t a_base,
+                                      uint32_t b_base) {
+#pragma unroll
+  for (int kk = 0; kk < kBQ / 16; ++kk)
+    hopper::wgmma_m64n128k16_ss<1>(
+        acc, hopper::desc_sw128(a_base + kk * 32, 16, 1024),
+        hopper::desc_sw128(b_base + kk * 16 * 128, kBoxBytes, 1024), 1);
+}
+
+__global__ void __launch_bounds__(128 * (1 + kConsumers), 1)
+flash_bwd_dkv_d256_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const DkvArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  Smem& sm =
+      *reinterpret_cast<Smem*>(smem_raw + (((raw + 1023) & ~1023u) - raw));
+
+  // Block -> (KV tile, b, KV head), the KV tile slowest, as at D = 128.
+  const int G = p.H / p.KVH;
+  const int n_bk = gridDim.x / p.n_kvt;  // B * KVH
+  const int bk = blockIdx.x % n_bk;
+  const int kvt = blockIdx.x / n_bk;
+  const int kvh = bk % p.KVH;
+  const int b = bk / p.KVH;
+  const int k0 = kvt * kBKV;
+  const int n_qt = (p.Sq + kBQ - 1) / kBQ;
+  const int qt_first = p.causal ? min(kvt, n_qt) : 0;  // kBKV == kBQ
+  const int n_per = n_qt - qt_first;  // q tiles per query head
+  const int n_it = G * n_per;
+  auto q_start = [&](int it) { return (n_qt - 1 - it % n_per) * kBQ; };
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&sm.kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&sm.full[s], 1 + 32);  // TMA thread + LSE warp
+      hopper::mbar_init(&sm.empty[s], 4 * kConsumers);  // consumer warps
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------- producer: as at D = 128, four boxes a tile --------
+    hopper::reg_dealloc<kProducerRegs>();
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(&sm.kv_full, 2 * kTileBytes);
+#pragma unroll
+      for (int i = 0; i < kBoxes; ++i) {
+        hopper::tma_load_4d(sm.k[i], &tk, &sm.kv_full, i * kHalf, k0, kvh, b);
+        hopper::tma_load_4d(sm.v[i], &tv, &sm.kv_full, i * kHalf, k0, kvh, b);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages)
+          hopper::mbar_wait(&sm.empty[s], ((it / kStages) - 1) & 1);
+        const int h = kvh * G + it / n_per;
+        const int q0 = q_start(it);
+        hopper::mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
+#pragma unroll
+        for (int i = 0; i < kBoxes; ++i) {
+          hopper::tma_load_4d(sm.q[s][i], &tq, &sm.full[s], i * kHalf, q0, h,
+                              b);
+          hopper::tma_load_4d(sm.dout[s][i], &tdo, &sm.full[s], i * kHalf, q0,
+                              h, b);
+        }
+      }
+    } else if (warp == 1) {
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages)
+          hopper::mbar_wait(&sm.empty[s], ((it / kStages) - 1) & 1);
+        const int h = kvh * G + it / n_per;
+        const int q0 = q_start(it);
+        const long long row0 = (static_cast<long long>(b) * p.H + h) * p.Sq;
+        for (int i = lane; i < kBQ; i += 32) {
+          const int r = q0 + i;
+          sm.lse[s][i] = r < p.Sq ? p.lse[row0 + r] * kLog2e : INFINITY;
+          sm.delta[s][i] = r < p.Sq ? p.delta[row0 + r] : 0.f;
+        }
+        hopper::mbar_arrive(&sm.full[s]);
+      }
+    }
+  } else {
+    // ---------------- consumers: all 64 KV rows, half the columns -------
+    // Consumer cw computes S^T and dP^T for q columns 32 cw.. of the tile
+    // and owns columns 128 cw.. of dK and dV.
+    hopper::reg_alloc<kConsumerRegs>();
+    const int cw = wg - 1;
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32;
+    const int lane = t % 32;
+    const int r_lo = k0 + warp * 16 + lane / 4;  // this thread's KV rows
+    const int r_hi = r_lo + 8;
+
+    float dk[64], dv[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+    float st[kQCols / 2], dpt[kQCols / 2];
+    const uint32_t k_base = hopper::smem_u32(sm.k[0]);
+    const uint32_t v_base = hopper::smem_u32(sm.v[0]);
+    const uint32_t cols = cw * kQCols * 128;   // this consumer's q rows
+    const uint32_t half = 2 * cw * kBoxBytes;  // its dK/dV boxes
+
+    hopper::mbar_wait(&sm.kv_full, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % kStages;
+      const int buf = it & 1;
+      const int q0 = q_start(it);
+      hopper::mbar_wait(&sm.full[s], (it / kStages) & 1);
+      const bool masked = p.causal && q0 < k0 + kBKV - 1;  // the diagonal
+      const uint32_t q_base = hopper::smem_u32(sm.q[s][0]);
+      const uint32_t do_base = hopper::smem_u32(sm.dout[s][0]);
+      // S^T = K Q^T, dP^T = V dO^T: 16 k-steps of m64n32k16 each.
+      flash::issue_abt<kQCols, kDW>(st, k_base, kBoxBytes, q_base + cols,
+                                    kBoxBytes);
+      flash::issue_abt<kQCols, kDW>(dpt, v_base, kBoxBytes, do_base + cols,
+                                    kBoxBytes);
+      hopper::wgmma_wait<1>();  // S^T is done, dP^T may still run
+#pragma unroll
+      for (int i = 0; i < kQCols / 2; ++i) hopper::fence_reg(st[i]);
+      probs<kQCols>(st, masked, sm.lse[s] + cw * kQCols, p.scale_log2,
+                    r_lo - (q0 + cw * kQCols), lane);
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < kQCols / 2; ++i) hopper::fence_reg(dpt[i]);
+      dscores<kQCols>(dpt, st, sm.delta[s] + cw * kQCols, p.scale, lane);
+      // Both halves of P^T and dS^T, in bf16, for both consumers' products.
+      // Two buffers: the other consumer may still read this iteration's
+      // buffer of two iterations back until it has passed the barrier of
+      // the last one.
+      store_t(sm.pt[buf], st, cw, warp, lane);
+      store_t(sm.dst[buf], dpt, cw, warp, lane);
+      hopper::fence_proxy_async();
+      hopper::named_bar_sync(1, 256);
+      hopper::wgmma_fence();
+      mma_t(dv, hopper::smem_u32(sm.pt[buf]), do_base + half);  // P^T dO
+      mma_t(dk, hopper::smem_u32(sm.dst[buf]), q_base + half);  // dS^T Q
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        hopper::fence_reg(dv[i]);
+        hopper::fence_reg(dk[i]);
+      }
+      release(&sm.empty[s], lane);
+    }
+
+    const long long out0 = (static_cast<long long>(b) * p.KVH + kvh) * p.Skv;
+    bf16* dK = p.dk + out0 * kDW;
+    bf16* dV = p.dv + out0 * kDW;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      const int c = cw * kD + j * 8 + (lane % 4) * 2;
+      if (r_lo < p.Skv) {
+        const long long o = static_cast<long long>(r_lo) * kDW + c;
+        *reinterpret_cast<uint32_t*>(dK + o) =
+            pack_bf16(dk[4 * j], dk[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(dV + o) =
+            pack_bf16(dv[4 * j], dv[4 * j + 1]);
+      }
+      if (r_hi < p.Skv) {
+        const long long o = static_cast<long long>(r_hi) * kDW + c;
+        *reinterpret_cast<uint32_t*>(dK + o) =
+            pack_bf16(dk[4 * j + 2], dk[4 * j + 3]);
+        *reinterpret_cast<uint32_t*>(dV + o) =
+            pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);
+      }
+    }
+  }
+}
+
+}  // namespace d256
+
+// ---------------------------------------------------------------------------
+// Generic variant: every dtype and head_dim (a multiple of 128) but bf16 D =
+// 128 and 256, which the wgmma kernels above serve. The same function on the
+// CUDA cores: one block of 128 threads per (b, KV head, 16 KV rows, chunk of
+// D), walking the group's query heads and their 32-row q tiles as the wgmma
+// kernels do, with K, V, Q, dO as f32 tiles in dynamic shared memory (104 KB at
+// DC = 256, 198 KB at 512). D up to 512 runs in one chunk (DC = D); above, D is
+// cut into chunks of DC = 256 or 128 columns (flash::gen_chunk; the chunked
+// instances): each block writes one chunk of dK and dV, and the contractions
+// over D (S^T = K Q^T and dP^T = V dO^T) are summed over the chunks staged one
+// at a time, in the order that ends with the block's own chunk, so Q's and dO's
+// columns for dK and dV are the ones left in shared memory. With more than one
+// chunk K and V are reloaded per chunk and every block recomputes the scores (D
+// / DC times their work; right and slow first). Each thread holds 4 entries of
+// P^T and dS^T (KV row tid / 8, q columns tid % 8 + 8i; P rounded to v's dtype,
+// dS to q's) and an eighth of its KV row's dK and dV chunk as interleaved
+// float4s, in f32 registers for the whole loop, so the group's query heads are
+// summed in f32 with no atomics. Bound by shared-memory reads, not by the FMA
+// rate; simple first.
 // ---------------------------------------------------------------------------
 
 constexpr int kGBKV = 16;  // KV rows per block, 8 threads per row
@@ -550,8 +828,8 @@ int launch_generic(const flash::BwdParams& p, int D, int B, cudaStream_t st) {
 }
 
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
-// and dtype: D itself up to 4 kD (bf16 at D = kD is the wgmma kernel's),
-// above that a chunk of flash::gen_chunk(D) columns.
+// and dtype: D itself up to 4 kD (bf16 at D = kD and 2 kD is the wgmma
+// kernels'), above that a chunk of flash::gen_chunk(D) columns.
 int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -563,7 +841,6 @@ int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
                 : launch_generic<float, kD, true>(p, D, B, st);
   }
   if (dtype == 1) {
-    if (D == 2 * kD) return launch_generic<bf16, 2 * kD, false>(p, D, B, st);
     if (D == 3 * kD) return launch_generic<bf16, 3 * kD, false>(p, D, B, st);
     return launch_generic<bf16, 4 * kD, false>(p, D, B, st);
   }
@@ -579,9 +856,10 @@ int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
 // head, seq; the last dim dense, every stride and base address a multiple of 16
 // bytes, as TMA and the 16-byte loads require); lse and delta [B, H, Sq] f32
 // and dk/dv [B, KVH, Skv, D] dense, in the inputs' dtype. D is a multiple of
-// 128; dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 runs the wgmma kernel,
-// every other case the generic variant. Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for a shape or layout the kernels do not take).
+// 128; dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 and 256 runs a wgmma
+// kernel, every other case the generic variant. Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for a shape or layout the kernels do
+// not take).
 extern "C" int ray_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, long long q_sb,
@@ -594,7 +872,7 @@ extern "C" int ray_flash_bwd_dkv(
       H % KVH != 0 || Sq < 1 || Skv < 1 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 || D != kD) {
+  if (dtype == 0 || D > 2 * kD) {
     const flash::BwdParams p{
         q,    k,    v,    dout, static_cast<const float*>(lse),
         static_cast<const float*>(delta), dk, dv,
@@ -602,23 +880,36 @@ extern "C" int ray_flash_bwd_dkv(
         o_sb, o_sh, o_ss, H,    KVH,  Sq,   Skv,  scale, causal};
     return launch_generic_d(p, D, dtype, B, st);
   }
+  // bf16 at D = 128 (128 KV rows a block) or 256 (64)
+  const bool wide = D == 2 * kD;
+  const int bkv = wide ? d256::kBKV : kBKV;
+  const uint32_t bq = wide ? d256::kBQ : kBQ;
   CUtensorMap tq, tk, tv, tdo;
-  if (!flash::make_bhsd_map(&tq, q, B, H, Sq, q_sb, q_sh, q_ss, kBQ) ||
-      !flash::make_bhsd_map(&tk, k, B, KVH, Skv, k_sb, k_sh, k_ss, kBKV) ||
-      !flash::make_bhsd_map(&tv, v, B, KVH, Skv, v_sb, v_sh, v_ss, kBKV) ||
-      !flash::make_bhsd_map(&tdo, dout, B, H, Sq, o_sb, o_sh, o_ss, kBQ))
+  if (!flash::make_bhsd_map(&tq, q, B, H, Sq, q_sb, q_sh, q_ss, bq, D) ||
+      !flash::make_bhsd_map(&tk, k, B, KVH, Skv, k_sb, k_sh, k_ss, bkv, D) ||
+      !flash::make_bhsd_map(&tv, v, B, KVH, Skv, v_sb, v_sh, v_ss, bkv, D) ||
+      !flash::make_bhsd_map(&tdo, dout, B, H, Sq, o_sb, o_sh, o_ss, bq, D))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int n_kvt = (Skv + kBKV - 1) / kBKV;
+  const int n_kvt = (Skv + bkv - 1) / bkv;
   const DkvArgs a{static_cast<const float*>(lse),
                   static_cast<const float*>(delta),
                   static_cast<bf16*>(dk),
                   static_cast<bf16*>(dv),
                   H, KVH, Sq, Skv, n_kvt,
                   scale * kLog2e, scale, causal};
-  const cudaError_t err =
-      hopper::opt_in_smem(flash_bwd_dkv_kernel, kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkv_kernel<<<B * KVH * n_kvt, 128 * (1 + kConsumers), kSmemBytes,
-                         st>>>(tq, tk, tv, tdo, a);
+  const dim3 grid(B * KVH * n_kvt), block(128 * (1 + kConsumers));
+  if (wide) {
+    const cudaError_t err = hopper::opt_in_smem<2 * kD>(
+        d256::flash_bwd_dkv_d256_kernel, d256::kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    d256::flash_bwd_dkv_d256_kernel<<<grid, block, d256::kSmemBytes, st>>>(
+        tq, tk, tv, tdo, a);
+  } else {
+    const cudaError_t err =
+        hopper::opt_in_smem<kD>(flash_bwd_dkv_kernel, kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_dkv_kernel<<<grid, block, kSmemBytes, st>>>(tq, tk, tv, tdo,
+                                                          a);
+  }
   return static_cast<int>(cudaGetLastError());
 }

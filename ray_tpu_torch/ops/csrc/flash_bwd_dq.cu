@@ -550,7 +550,8 @@ extern "C" int ray_flash_bwd_dq(
                  static_cast<bf16*>(dq),
                  H, KVH, Sq, Skv, n_qt,
                  scale * kLog2e, scale, causal};
-  const cudaError_t err = hopper::opt_in_smem(flash_bwd_dq_kernel, kSmemBytes);
+  const cudaError_t err =
+      hopper::opt_in_smem<kD>(flash_bwd_dq_kernel, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_bwd_dq_kernel<<<B * H * n_qt, 128 * (1 + kConsumers), kSmemBytes,
                         st>>>(tq, tk, tv, tdo, a);

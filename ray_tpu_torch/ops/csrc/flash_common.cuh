@@ -1,14 +1,15 @@
 // What the three flash-attention kernels share besides hopper.cuh: the
 // mask value and head width of the TPU kernels, the constants of their
 // common layout (a producer warpgroup and two consumer warpgroups, tiles
-// stored as two 128B-swizzled 64-column halves), exp2 on the MUFU, bf16
-// packing of accumulators (for stores, or as a wgmma register A operand),
-// the release of a ring stage, and the two wgmma products they are built
-// from: A B^T with both operands K-major in shared memory, and A B with A
-// from registers and B MN-major. Then what the generic variants (f32, and
-// bf16 from head_dim 256 up) share: loads and stores by element type,
-// rounding to it, f32 tiles in shared memory, the chunk of D they tile by,
-// the backward's parameters.
+// stored as 128B-swizzled 64-column boxes: two at head_dim 128, four at
+// 256), exp2 on the MUFU, bf16 packing of accumulators (for stores, or as
+// a wgmma register A operand), the release of a ring stage, and the two
+// wgmma products they are built from: A B^T with both operands K-major in
+// shared memory (over D / 16 k-steps), and A B with A from registers and B
+// MN-major. Then what the generic variants (f32, and bf16 from head_dim 384
+// up; dQ also at 256) share: loads and stores by element type, rounding to
+// it, f32 tiles in shared memory, the chunk of D they tile by, the
+// backward's parameters.
 
 #pragma once
 
@@ -60,17 +61,18 @@ __device__ __forceinline__ void release(uint64_t* bar, int lane) {
 }
 
 // Issue acc = A B^T as one wgmma group; the caller waits for it. A is 64
-// rows and B is N rows (64 or 128) of [row][d] tiles with d contiguous
-// (K-major), each stored as two 64-column halves a_half / b_half bytes
-// apart; D = 128 in 8 k-steps.
-template <int N>
+// rows and B is N rows (32, 64 or 128) of [row][d] tiles with d contiguous
+// (K-major), each stored as D / 64 column boxes a_half / b_half bytes
+// apart; D / 16 k-steps (8 at the default D = 128, 16 at 256).
+template <int N, int D = kD>
 __device__ __forceinline__ void issue_abt(float (&acc)[N / 2],
                                           uint32_t a_base, uint32_t a_half,
                                           uint32_t b_base, uint32_t b_half) {
-  static_assert(N == 64 || N == 128, "wgmma shapes in hopper.cuh");
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma shapes in hopper.cuh");
+  static_assert(D % kHalf == 0, "D is a whole number of 64-column boxes");
   hopper::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t col = (kk % 4) * 32;  // bytes into the 128-byte row
     const uint64_t da =
         hopper::desc_sw128(a_base + (kk / 4) * a_half + col, 16, 1024);
@@ -78,8 +80,10 @@ __device__ __forceinline__ void issue_abt(float (&acc)[N / 2],
         hopper::desc_sw128(b_base + (kk / 4) * b_half + col, 16, 1024);
     if constexpr (N == 128)
       hopper::wgmma_m64n128k16_ss<0>(acc, da, db, kk > 0 ? 1 : 0);
-    else
+    else if constexpr (N == 64)
       hopper::wgmma_m64n64k16_ss(acc, da, db, kk > 0 ? 1 : 0);
+    else
+      hopper::wgmma_m64n32k16_ss(acc, da, db, kk > 0 ? 1 : 0);
   }
   hopper::wgmma_commit();
 }
@@ -88,7 +92,8 @@ __device__ __forceinline__ void issue_abt(float (&acc)[N / 2],
 // commits: A from registers (kSteps k-steps), B [k][n] in shared memory
 // with n contiguous, an MN-major operand (transpose bit 1) whose two
 // 64-wide n halves are b_half bytes apart; a k-step of 16 rows is 2048
-// bytes.
+// bytes. A wider B (D = 256) takes one call per 128-column half, each with
+// its own accumulator and b_base.
 template <int kSteps>
 __device__ __forceinline__ void mma_rs(float (&acc)[64],
                                        const uint32_t (&a)[kSteps][4],
@@ -101,11 +106,12 @@ __device__ __forceinline__ void mma_rs(float (&acc)[64],
 }
 
 // ---------------------------------------------------------------------------
-// The generic variants (f32 at any multiple of 128, bf16 from 256 up): scalar
-// FMAs on the CUDA cores over f32 tiles in dynamic shared memory. Inputs are
-// read 4 elements at a time (16 bytes of f32, 8 of bf16: the wrappers'
-// layout check keeps rows 16-byte aligned) and widened to f32; P and dS are
-// rounded to the input dtype where the Pallas kernels round them.
+// The generic variants (f32 at any multiple of 128, bf16 from 384 up, and
+// dQ's bf16 at 256): scalar FMAs on the CUDA cores over f32 tiles in dynamic
+// shared memory. Inputs are read 4 elements at a time (16 bytes of f32, 8 of
+// bf16: the wrappers' layout check keeps rows 16-byte aligned) and widened
+// to f32; P and dS are rounded to the input dtype where the Pallas kernels
+// round them.
 // ---------------------------------------------------------------------------
 
 // The chunk of D a generic variant tiles by above 4 kD (D itself up to 4 kD
@@ -216,8 +222,9 @@ inline cudaError_t allow_smem(Kernel kernel, int bytes) {
 // driver refuses it (a stride or base address not a multiple of 16 bytes).
 inline bool make_bhsd_map(CUtensorMap* map, const void* base, int B,
                           int heads, int S, long long sb, long long sh,
-                          long long ss, uint32_t rows) {
-  const uint64_t dims[4] = {kD, static_cast<uint64_t>(S),
+                          long long ss, uint32_t rows, int D = kD) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(D),
+                            static_cast<uint64_t>(S),
                             static_cast<uint64_t>(heads),
                             static_cast<uint64_t>(B)};
   const uint64_t strides[3] = {ss * 2ull, sh * 2ull, sb * 2ull};  // bytes

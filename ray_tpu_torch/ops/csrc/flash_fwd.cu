@@ -50,8 +50,28 @@
 //   * The tensor maps are 4-D {D, S, heads, batch} built from the element
 //     strides the caller passes, so q/k from apply_rope (dense BHSD) and v
 //     as the transpose of a [B, S, KVH, D] view load without a copy.
+// bf16 at head_dim 256 (llama3_8b(n_heads=16): d_model / n_heads) runs the
+// same kernel as flash_fwd_bf16_kernel<256, 64>:
+//   * It is bound by the tensor cores as at 128 (4 * B * H * D * pairs FLOP,
+//     the same as H32 D128 at equal d_model), and now by registers too: O
+//     of 64 q rows x 256 columns is 128 f32 registers per consumer thread
+//     (two m64n128 accumulators). So KV tiles are 64 rows: S (32 registers)
+//     and P packed (16) fit beside O under setmaxnreg 240 with no spill,
+//     where a 128-row tile would add 64 + 32.
+//   * Shared memory: Q (128 x 256, four 64-column boxes, 64 KB) and a
+//     2-stage ring of 64-row K and V tiles (32 KB each): 194 KB of the 227.
+//   * S = Q K^T is 16 wgmma.m64n64k16 with both operands in shared memory;
+//     at N = 64 they read 4 KB per 32 tensor-core cycles, shared memory's
+//     whole 128 B a cycle (N = 128 at D = 128 reads 96), so S is where this
+//     instance loses rate. O += P V is two wgmma.m64n128k16 per k-step, P
+//     from registers, V read MN-major by 128-column halves (LBO one box).
+//   * The rest is the D = 128 design: ping-pong, S of tile kt before P V of
+//     tile kt - 1, causal tiles above the diagonal never loaded, GQA in
+//     place, any S. With 64-row tiles the block's last causal tile lies
+//     wholly above consumer 0's rows: it runs that tile masked to zeros
+//     (turns stay balanced), 1 / (2 (qt + 1)) of its work.
 // A generic scalar-FMA variant serves f32 at any head_dim that is a
-// multiple of 128 and bf16 at those from 256 up, tiled over D from 640 up.
+// multiple of 128 and bf16 at those from 384 up, tiled over D from 640 up.
 
 #include <math.h>
 
@@ -95,22 +115,31 @@ __device__ __forceinline__ int kv_tiles(const Params& p, int q0, int bm,
 
 // ---------------------------------------------------------------------------
 // bf16: a producer warpgroup and two consumer warpgroups of 64 q rows each,
-// 128-row KV tiles in a 2-stage ring (TMA + mbarriers), wgmma.
+// KV tiles in a 2-stage ring (TMA + mbarriers), wgmma. One template, two
+// instances: D = 128 with 128-row KV tiles, D = 256 with 64-row ones.
 // ---------------------------------------------------------------------------
 
 typedef __nv_bfloat16 bf16;
 
 constexpr int kConsumers = 2;  // consumer warpgroups, 64 q rows each
 constexpr int kBM = 64 * kConsumers;  // q rows per block
-constexpr int kBN = 128;       // KV rows per tile
 constexpr int kStages = 2;     // K/V ring depth
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr uint32_t kTileBytes = kBN * kD * 2;  // one K or V tile, 32 KB
 
+// KV rows per tile by head_dim. At D = 256 a consumer thread holds O in
+// 128 f32 registers (two 64 x 128 accumulators); S of a 64-row tile (32)
+// and P packed (16) fit beside it under setmaxnreg 240, those of a
+// 128-row tile (64 + 32) would not.
+template <int D>
+constexpr int fwd_bn() {
+  return D == kD ? 128 : 64;
+}
+
+template <int D, int BN>
 struct __align__(1024) FwdSmem {
-  bf16 q[2][kBM * kHalf];             // two 64-column halves
-  bf16 k[kStages][2][kBN * kHalf];
-  bf16 v[kStages][2][kBN * kHalf];
+  bf16 q[D / kHalf][kBM * kHalf];  // 64-column boxes
+  bf16 k[kStages][D / kHalf][BN * kHalf];
+  bf16 v[kStages][D / kHalf][BN * kHalf];
   uint64_t q_full;
   uint64_t k_full[kStages];   // TMA bytes of K have landed
   uint64_t v_full[kStages];
@@ -118,8 +147,12 @@ struct __align__(1024) FwdSmem {
   uint64_t v_empty[kStages];
 };
 
-// + slack to align the base to 1024 bytes: 165,888 bytes in all.
-constexpr int kSmemBytes = static_cast<int>(sizeof(FwdSmem)) + 1024;
+// + slack to align the base to 1024 bytes: 165,888 bytes in all at D = 128,
+// 198,656 at D = 256.
+template <int D>
+constexpr int fwd_smem_bytes() {
+  return static_cast<int>(sizeof(FwdSmem<D, fwd_bn<D>()>)) + 1024;
+}
 
 struct FwdArgs {
   void* o;
@@ -129,26 +162,30 @@ struct FwdArgs {
   int causal;
 };
 
-constexpr uint32_t kKvHalfBytes = kBN * kHalf * 2;
-
 // Issue O += P V as one wgmma group: P (bf16) is the register A operand, V
-// is [kv][d] in shared memory with d contiguous (MN-major).
-__device__ __forceinline__ void issue_pv(float (&o)[64],
-                                         const uint32_t (&pa)[kBN / 16][4],
-                                         uint32_t v_base) {
+// is [kv][d] in shared memory with d contiguous (MN-major), D / 64 boxes of
+// box_bytes each; O is one 64 x 128 accumulator per 128 columns.
+template <int D, int BN>
+__device__ __forceinline__ void issue_pv(float (&o)[D / kD][64],
+                                         const uint32_t (&pa)[BN / 16][4],
+                                         uint32_t v_base,
+                                         uint32_t box_bytes) {
   hopper::wgmma_fence();
-  flash::mma_rs(o, pa, v_base, kKvHalfBytes);
+#pragma unroll
+  for (int hh = 0; hh < D / kD; ++hh)
+    flash::mma_rs(o[hh], pa, v_base + 2 * hh * box_bytes, box_bytes);
   hopper::wgmma_commit();
 }
 
-// Online softmax of one S tile in place (scores in log2 units): scale,
-// mask (kMasked: the diagonal tile or a ragged KV edge), new row max, P =
-// 2^(x - m); updates m and this thread's partial row sums l, returns the
-// factors that rescale O. The unmasked instance carries no mask code.
-template <bool kMasked>
-__device__ __forceinline__ void softmax_tile(float (&sc)[64], const FwdArgs& p,
-                                             int k0, int r_lo,
-                                             int lane, float& m_lo,
+// Online softmax of one S tile of N columns in place (scores in log2
+// units): scale, mask (kMasked: the diagonal tile or a ragged KV edge), new
+// row max, P = 2^(x - m); updates m and this thread's partial row sums l,
+// returns the factors that rescale O. The unmasked instance carries no mask
+// code.
+template <bool kMasked, int N>
+__device__ __forceinline__ void softmax_impl(float (&sc)[N / 2],
+                                             const FwdArgs& p, int k0,
+                                             int r_lo, int lane, float& m_lo,
                                              float& m_hi, float& l_lo,
                                              float& l_hi, float& corr_lo,
                                              float& corr_hi) {
@@ -156,7 +193,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], const FwdArgs& p,
   float mx_lo = -INFINITY, mx_hi = -INFINITY;
   if (kMasked) {  // scale, then mask: sc holds log2-unit scores
 #pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
+    for (int j = 0; j < N / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + j * 8 + (lane % 4) * 2 + (e & 1);
@@ -170,7 +207,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], const FwdArgs& p,
     }
   } else {  // sc stays raw; c > 0, so max(s) * c = max(s * c)
 #pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
+    for (int j = 0; j < N / 8; ++j) {
       mx_lo = fmaxf(mx_lo, fmaxf(sc[4 * j], sc[4 * j + 1]));
       mx_hi = fmaxf(mx_hi, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
@@ -192,7 +229,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], const FwdArgs& p,
   const float cs = kMasked ? 1.f : c;
   float sum_lo = 0.f, sum_hi = 0.f;
 #pragma unroll
-  for (int j = 0; j < kBN / 8; ++j) {
+  for (int j = 0; j < N / 8; ++j) {
     sc[4 * j] = fast_exp2(fmaf(sc[4 * j], cs, -mn_lo));
     sc[4 * j + 1] = fast_exp2(fmaf(sc[4 * j + 1], cs, -mn_lo));
     sc[4 * j + 2] = fast_exp2(fmaf(sc[4 * j + 2], cs, -mn_hi));
@@ -204,37 +241,56 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], const FwdArgs& p,
   l_hi = l_hi * corr_hi + sum_hi;
 }
 
-__device__ __forceinline__ void softmax_tile(float (&sc)[64], const FwdArgs& p,
-                                             bool masked, int k0, int r_lo,
-                                             int lane, float& m_lo,
-                                             float& m_hi, float& l_lo,
-                                             float& l_hi, float& corr_lo,
-                                             float& corr_hi) {
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&sc)[N / 2],
+                                             const FwdArgs& p, bool masked,
+                                             int k0, int r_lo, int lane,
+                                             float& m_lo, float& m_hi,
+                                             float& l_lo, float& l_hi,
+                                             float& corr_lo, float& corr_hi) {
   if (masked)
-    softmax_tile<true>(sc, p, k0, r_lo, lane, m_lo, m_hi, l_lo, l_hi,
-                       corr_lo, corr_hi);
+    softmax_impl<true, N>(sc, p, k0, r_lo, lane, m_lo, m_hi, l_lo, l_hi,
+                          corr_lo, corr_hi);
   else
-    softmax_tile<false>(sc, p, k0, r_lo, lane, m_lo, m_hi, l_lo, l_hi,
-                        corr_lo, corr_hi);
+    softmax_impl<false, N>(sc, p, k0, r_lo, lane, m_lo, m_hi, l_lo, l_hi,
+                           corr_lo, corr_hi);
   // Keep the softmax ahead of the next wgmma wait: without these ties the
   // compiler may sink the exponentials below it, and the softmax would no
   // longer run under the other product.
 #pragma unroll
-  for (int i = 0; i < 64; ++i) hopper::fence_reg(sc[i]);
+  for (int i = 0; i < N / 2; ++i) hopper::fence_reg(sc[i]);
   hopper::fence_reg(l_lo);
   hopper::fence_reg(l_hi);
   hopper::fence_reg(corr_lo);
   hopper::fence_reg(corr_hi);
 }
 
+template <int D, int BN>
+__device__ __forceinline__ void fence_o_pa(float (&o)[D / kD][64],
+                                           uint32_t (&pa)[BN / 16][4]) {
+#pragma unroll
+  for (int hh = 0; hh < D / kD; ++hh)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) hopper::fence_reg(o[hh][i]);
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) hopper::fence_reg(pa[kk][i]);
+}
+
+template <int D, int BN>
 __global__ void __launch_bounds__(128 * (1 + kConsumers), 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
                       const FwdArgs p) {
+  constexpr int kBoxes = D / kHalf;  // 64-column boxes of a row
+  constexpr uint32_t kQBoxBytes = kBM * kHalf * 2;
+  constexpr uint32_t kKvBoxBytes = BN * kHalf * 2;
+  constexpr uint32_t kTileBytes = BN * D * 2;  // one K or V tile, 32 KB
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
-  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(
+  FwdSmem<D, BN>& sm = *reinterpret_cast<FwdSmem<D, BN>*>(
       smem_raw + (((raw + 1023) & ~1023u) - raw));
 
   // Block -> (b, kv head, q tile, head in the group), the group fastest,
@@ -251,7 +307,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   const int qt = p.causal ? p.n_qt - 1 - rank : rank;
   const int q0 = qt * kBM;
   const int kv_end = p.causal ? min(p.Skv, q0 + kBM) : p.Skv;
-  const int n_kt = (kv_end + kBN - 1) / kBN;
+  const int n_kt = (kv_end + BN - 1) / BN;
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(&sm.q_full, 1);
@@ -272,23 +328,26 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     // V once they have O += P V of it.
     hopper::reg_dealloc<kProducerRegs>();
     if (threadIdx.x == 0) {
-      hopper::mbar_expect_tx(&sm.q_full, kBM * kD * 2);
-      hopper::tma_load_4d(sm.q[0], &tq, &sm.q_full, 0, q0, h, b);
-      hopper::tma_load_4d(sm.q[1], &tq, &sm.q_full, kHalf, q0, h, b);
+      hopper::mbar_expect_tx(&sm.q_full, kBM * D * 2);
+#pragma unroll
+      for (int i = 0; i < kBoxes; ++i)
+        hopper::tma_load_4d(sm.q[i], &tq, &sm.q_full, i * kHalf, q0, h, b);
       for (int kt = 0; kt < n_kt; ++kt) {
         const int s = kt % kStages;
         const uint32_t freed = ((kt / kStages) - 1) & 1;
-        const int k0 = kt * kBN;
+        const int k0 = kt * BN;
         if (kt >= kStages) hopper::mbar_wait(&sm.k_empty[s], freed);
         hopper::mbar_expect_tx(&sm.k_full[s], kTileBytes);
-        hopper::tma_load_4d(sm.k[s][0], &tk, &sm.k_full[s], 0, k0, kvh, b);
-        hopper::tma_load_4d(sm.k[s][1], &tk, &sm.k_full[s], kHalf, k0, kvh,
-                            b);
+#pragma unroll
+        for (int i = 0; i < kBoxes; ++i)
+          hopper::tma_load_4d(sm.k[s][i], &tk, &sm.k_full[s], i * kHalf, k0,
+                              kvh, b);
         if (kt >= kStages) hopper::mbar_wait(&sm.v_empty[s], freed);
         hopper::mbar_expect_tx(&sm.v_full[s], kTileBytes);
-        hopper::tma_load_4d(sm.v[s][0], &tv, &sm.v_full[s], 0, k0, kvh, b);
-        hopper::tma_load_4d(sm.v[s][1], &tv, &sm.v_full[s], kHalf, k0, kvh,
-                            b);
+#pragma unroll
+        for (int i = 0; i < kBoxes; ++i)
+          hopper::tma_load_4d(sm.v[s][i], &tv, &sm.v_full[s], i * kHalf, k0,
+                              kvh, b);
       }
     }
   } else {
@@ -317,19 +376,20 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       return;
     }
 
-    float o[64];
+    float o[D / kD][64];  // one 64 x 128 accumulator per 128 columns
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    for (int hh = 0; hh < D / kD; ++hh)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[hh][i] = 0.f;
     float m_lo = -INFINITY, m_hi = -INFINITY;  // running max, log2 units
     float l_lo = 0.f, l_hi = 0.f;  // this thread's partial row sums
     float corr_lo, corr_hi;
-    float sc[64];
-    uint32_t pa[kBN / 16][4];
+    float sc[BN / 2];
+    uint32_t pa[BN / 16][4];
 
-    constexpr uint32_t q_half_bytes = kBM * kHalf * 2;
     const uint32_t q_base = hopper::smem_u32(sm.q[0]) + cw * 64 * 128;
     auto masked = [&](int k0) {
-      return (k0 + kBN > p.Skv) || (p.causal && k0 + kBN - 1 > row_c);
+      return (k0 + BN > p.Skv) || (p.causal && k0 + BN - 1 > row_c);
     };
     // Ping-pong between the two consumers (named barriers 1 and 2): each
     // issues its products only after the other has issued its own, so one
@@ -351,62 +411,54 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     hopper::mbar_wait(&sm.q_full, 0);
     hopper::mbar_wait(&sm.k_full[0], 0);
     my_turn();
-    flash::issue_abt<kBN>(sc, q_base, q_half_bytes,  // S = Q K^T
-                          hopper::smem_u32(sm.k[0][0]), kKvHalfBytes);
+    flash::issue_abt<BN, D>(sc, q_base, kQBoxBytes,  // S = Q K^T
+                            hopper::smem_u32(sm.k[0][0]), kKvBoxBytes);
     pass_turn();
     hopper::wgmma_wait<0>();
 #pragma unroll
-    for (int i = 0; i < 64; ++i) hopper::fence_reg(sc[i]);
+    for (int i = 0; i < BN / 2; ++i) hopper::fence_reg(sc[i]);
     release(&sm.k_empty[0], lane);
-    softmax_tile(sc, p, masked(0), 0, r_lo, lane, m_lo, m_hi, l_lo, l_hi,
-                 corr_lo, corr_hi);
+    softmax_tile<BN>(sc, p, masked(0), 0, r_lo, lane, m_lo, m_hi, l_lo, l_hi,
+                     corr_lo, corr_hi);
     flash::pack_a(pa, sc);  // P as the next A operand
 
     for (int kt = 1; kt < n_kt; ++kt) {
       const int s = kt % kStages, sp = (kt - 1) % kStages;
-      const int k0 = kt * kBN;
+      const int k0 = kt * BN;
       hopper::mbar_wait(&sm.k_full[s], (kt / kStages) & 1);
       hopper::mbar_wait(&sm.v_full[sp], ((kt - 1) / kStages) & 1);
       my_turn();
-      flash::issue_abt<kBN>(sc, q_base, q_half_bytes,
-                            hopper::smem_u32(sm.k[s][0]), kKvHalfBytes);
-      issue_pv(o, pa, hopper::smem_u32(sm.v[sp][0]));
+      flash::issue_abt<BN, D>(sc, q_base, kQBoxBytes,
+                              hopper::smem_u32(sm.k[s][0]), kKvBoxBytes);
+      issue_pv<D, BN>(o, pa, hopper::smem_u32(sm.v[sp][0]), kKvBoxBytes);
       pass_turn();
       hopper::wgmma_wait<1>();  // S of tile kt is done, P V may still run
 #pragma unroll
-      for (int i = 0; i < 64; ++i) hopper::fence_reg(sc[i]);
+      for (int i = 0; i < BN / 2; ++i) hopper::fence_reg(sc[i]);
       release(&sm.k_empty[s], lane);
-      softmax_tile(sc, p, masked(k0), k0, r_lo, lane, m_lo, m_hi, l_lo,
-                   l_hi, corr_lo, corr_hi);
+      softmax_tile<BN>(sc, p, masked(k0), k0, r_lo, lane, m_lo, m_hi, l_lo,
+                       l_hi, corr_lo, corr_hi);
       hopper::wgmma_wait<0>();  // P V of tile kt - 1 is done
-#pragma unroll
-      for (int i = 0; i < 64; ++i) hopper::fence_reg(o[i]);
-#pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) hopper::fence_reg(pa[kk][i]);
+      fence_o_pa<D, BN>(o, pa);
       release(&sm.v_empty[sp], lane);
 #pragma unroll
-      for (int j = 0; j < kD / 8; ++j) {
-        o[4 * j] *= corr_lo;
-        o[4 * j + 1] *= corr_lo;
-        o[4 * j + 2] *= corr_hi;
-        o[4 * j + 3] *= corr_hi;
-      }
+      for (int hh = 0; hh < D / kD; ++hh)
+#pragma unroll
+        for (int j = 0; j < kD / 8; ++j) {
+          o[hh][4 * j] *= corr_lo;
+          o[hh][4 * j + 1] *= corr_lo;
+          o[hh][4 * j + 2] *= corr_hi;
+          o[hh][4 * j + 3] *= corr_hi;
+        }
       flash::pack_a(pa, sc);
     }
     const int sl = (n_kt - 1) % kStages;
     hopper::mbar_wait(&sm.v_full[sl], ((n_kt - 1) / kStages) & 1);
     my_turn();
-    issue_pv(o, pa, hopper::smem_u32(sm.v[sl][0]));
+    issue_pv<D, BN>(o, pa, hopper::smem_u32(sm.v[sl][0]), kKvBoxBytes);
     pass_turn();
     hopper::wgmma_wait<0>();
-#pragma unroll
-    for (int i = 0; i < 64; ++i) hopper::fence_reg(o[i]);
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) hopper::fence_reg(pa[kk][i]);
+    fence_o_pa<D, BN>(o, pa);
     release(&sm.v_empty[sl], lane);
 
 #pragma unroll
@@ -417,20 +469,22 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     l_lo = fmaxf(l_lo, 1e-30f);
     l_hi = fmaxf(l_hi, 1e-30f);
     const long long bh = static_cast<long long>(b) * p.H + h;
-    bf16* O = static_cast<bf16*>(p.o) + bh * p.Sq * kD;
+    bf16* O = static_cast<bf16*>(p.o) + bh * p.Sq * D;
     float* LSE = p.lse + bh * p.Sq;
 #pragma unroll
-    for (int j = 0; j < kD / 8; ++j) {
-      const int c = j * 8 + (lane % 4) * 2;
-      if (r_lo < p.Sq)
-        *reinterpret_cast<uint32_t*>(O + static_cast<long long>(r_lo) * kD +
-                                     c) =
-            pack_bf16(o[4 * j] / l_lo, o[4 * j + 1] / l_lo);
-      if (r_hi < p.Sq)
-        *reinterpret_cast<uint32_t*>(O + static_cast<long long>(r_hi) * kD +
-                                     c) =
-            pack_bf16(o[4 * j + 2] / l_hi, o[4 * j + 3] / l_hi);
-    }
+    for (int hh = 0; hh < D / kD; ++hh)
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) {
+        const int c = hh * kD + j * 8 + (lane % 4) * 2;
+        if (r_lo < p.Sq)
+          *reinterpret_cast<uint32_t*>(O + static_cast<long long>(r_lo) * D +
+                                       c) =
+              pack_bf16(o[hh][4 * j] / l_lo, o[hh][4 * j + 1] / l_lo);
+        if (r_hi < p.Sq)
+          *reinterpret_cast<uint32_t*>(O + static_cast<long long>(r_hi) * D +
+                                       c) =
+              pack_bf16(o[hh][4 * j + 2] / l_hi, o[hh][4 * j + 3] / l_hi);
+      }
     if (lane % 4 == 0) {
       if (r_lo < p.Sq) LSE[r_lo] = m_lo * kLn2 + logf(l_lo);
       if (r_hi < p.Sq) LSE[r_hi] = m_hi * kLn2 + logf(l_hi);
@@ -439,24 +493,24 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// Generic variant: every dtype and head_dim (a multiple of 128) but bf16
-// D = 128, which the wgmma kernel above serves. Scalar FMAs on the CUDA cores
-// over f32 tiles in dynamic shared memory: 32 q rows per block, 4 threads per
-// row, 16-row KV tiles, the same online softmax with P rounded to the input
+// Generic variant: every dtype and head_dim (a multiple of 128) but bf16 D =
+// 128 and 256, which the wgmma kernel above serves. Scalar FMAs on the CUDA
+// cores over f32 tiles in dynamic shared memory: 32 q rows per block, 4 threads
+// per row, 16-row KV tiles, the same online softmax with P rounded to the input
 // dtype before P V. D up to 512 runs in one chunk (DC = D). Above, D is cut
 // into chunks of DC = 256 or 128 columns (flash::gen_chunk; the chunked
-// instances): the grid's z axis gives each block one chunk of O's columns,
-// held in registers (acc[DC / 4]), and the scores S = Q K^T are summed over
-// the chunks staged one at a time through shared memory. So shared memory
-// (131 KB at most, DC = 512) and registers stay bounded at any D. With more
-// than one chunk a block reloads Q's chunks
-// for every KV tile, and every block recomputes the scores: D / DC times the
-// score work of one chunk, right and slow first. Each thread takes 4 scores
-// of its row (columns c, c + 4, ...) and a quarter of its chunk's columns as
-// interleaved float4s, so a warp's shared loads fall in distinct banks. It is
-// bound by shared-memory reads (5 float4 loads per 16 FMAs of the scores, 1
-// per 4 of P V), well below the 67 TFLOP/s of the f32 FMA units; simple
-// first, as the serving and training paths run bf16 D = 128.
+// instances): the grid's z axis gives each block one chunk of O's columns, held
+// in registers (acc[DC / 4]), and the scores S = Q K^T are summed over the
+// chunks staged one at a time through shared memory. So shared memory (131 KB
+// at most, DC = 512) and registers stay bounded at any D. With more than one
+// chunk a block reloads Q's chunks for every KV tile, and every block
+// recomputes the scores: D / DC times the score work of one chunk, right and
+// slow first. Each thread takes 4 scores of its row (columns c, c + 4, ...) and
+// a quarter of its chunk's columns as interleaved float4s, so a warp's shared
+// loads fall in distinct banks. It is bound by shared-memory reads (5 float4
+// loads per 16 FMAs of the scores, 1 per 4 of P V), well below the 67 TFLOP/s
+// of the f32 FMA units; simple first, as the serving and training paths run
+// bf16 D = 128.
 // ---------------------------------------------------------------------------
 
 constexpr int kGBM = 32;  // q rows per block, 4 threads per row
@@ -614,8 +668,8 @@ int launch_generic(const Params& p, int D, int B, cudaStream_t st) {
 }
 
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
-// and dtype: D itself up to 4 kD (bf16 at D = kD is the wgmma kernel's),
-// above that a chunk of flash::gen_chunk(D) columns.
+// and dtype: D itself up to 4 kD (bf16 at D = kD and 2 kD is the wgmma
+// kernel's), above that a chunk of flash::gen_chunk(D) columns.
 int launch_generic_d(const Params& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -627,7 +681,6 @@ int launch_generic_d(const Params& p, int D, int dtype, int B,
                 : launch_generic<float, kD, true>(p, D, B, st);
   }
   if (dtype == 1) {
-    if (D == 2 * kD) return launch_generic<bf16, 2 * kD, false>(p, D, B, st);
     if (D == 3 * kD) return launch_generic<bf16, 3 * kD, false>(p, D, B, st);
     return launch_generic<bf16, 4 * kD, false>(p, D, B, st);
   }
@@ -639,32 +692,38 @@ int launch_generic_d(const Params& p, int D, int dtype, int B,
 
 }  // namespace
 
-// The bf16 launch: tensor maps over q, k, v (4-D {D, S, heads, batch},
-// 128B swizzle, boxes of 64 columns x kBM or kBN rows), then the kernel.
+// The bf16 launch at D = 128 or 256: tensor maps over q, k, v (4-D {D, S,
+// heads, batch}, 128B swizzle, boxes of 64 columns x kBM or BN rows), then
+// the kernel.
+template <int D>
 static int launch_bf16(const void* q, const void* k, const void* v, void* o,
                        void* lse, const long long* qs, const long long* ks,
                        const long long* vs, int B, int H, int KVH, int Sq,
                        int Skv, float scale, int causal, cudaStream_t st) {
+  constexpr int BN = fwd_bn<D>();
+  constexpr int smem = fwd_smem_bytes<D>();
   CUtensorMap tq, tk, tv;
-  if (!flash::make_bhsd_map(&tq, q, B, H, Sq, qs[0], qs[1], qs[2], kBM) ||
-      !flash::make_bhsd_map(&tk, k, B, KVH, Skv, ks[0], ks[1], ks[2], kBN) ||
-      !flash::make_bhsd_map(&tv, v, B, KVH, Skv, vs[0], vs[1], vs[2], kBN))
+  if (!flash::make_bhsd_map(&tq, q, B, H, Sq, qs[0], qs[1], qs[2], kBM, D) ||
+      !flash::make_bhsd_map(&tk, k, B, KVH, Skv, ks[0], ks[1], ks[2], BN,
+                            D) ||
+      !flash::make_bhsd_map(&tv, v, B, KVH, Skv, vs[0], vs[1], vs[2], BN, D))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_qt = (Sq + kBM - 1) / kBM;
   const FwdArgs a{o,   static_cast<float*>(lse), H, KVH, Sq, Skv, n_qt,
                   scale * kLog2e, causal};
   const cudaError_t err =
-      hopper::opt_in_smem(flash_fwd_bf16_kernel, kSmemBytes);
+      hopper::opt_in_smem<D>(flash_fwd_bf16_kernel<D, BN>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd_bf16_kernel<<<B * H * n_qt, 128 * (1 + kConsumers), kSmemBytes,
-                          st>>>(tq, tk, tv, a);
+  flash_fwd_bf16_kernel<D, BN>
+      <<<B * H * n_qt, 128 * (1 + kConsumers), smem, st>>>(tq, tk, tv, a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // q [B, H, Sq, D], k/v [B, KVH, Skv, D] given by element strides (batch,
 // head, seq; the last dim dense); o [B, H, Sq, D] and lse [B, H, Sq] dense.
 // D is a multiple of 128; dtype: 0 = float32, 1 = bfloat16. bf16 at
-// D = 128 runs the wgmma kernel, every other case the generic variant. Returns
+// D = 128 and 256 runs the wgmma kernel, every other case the generic
+// variant. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape or
 // layout the kernels do not take: every stride and the base addresses must
 // be multiples of 16 bytes, as TMA and the 16-byte loads require).
@@ -679,12 +738,14 @@ extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
       H % KVH != 0 || Sq < 1 || Skv < 1 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == kD) {
+  if (dtype == 1 && (D == kD || D == 2 * kD)) {
     const long long qs[3] = {q_sb, q_sh, q_ss};
     const long long ks[3] = {k_sb, k_sh, k_ss};
     const long long vs[3] = {v_sb, v_sh, v_ss};
-    return launch_bf16(q, k, v, o, lse, qs, ks, vs, B, H, KVH, Sq, Skv,
-                       scale, causal, st);
+    return D == kD ? launch_bf16<kD>(q, k, v, o, lse, qs, ks, vs, B, H, KVH,
+                                     Sq, Skv, scale, causal, st)
+                   : launch_bf16<2 * kD>(q, k, v, o, lse, qs, ks, vs, B, H,
+                                         KVH, Sq, Skv, scale, causal, st);
   }
   const Params p{q,    k,    v,    o,    static_cast<float*>(lse),
                  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,

@@ -2,9 +2,10 @@
 // phase parity, TMA tile loads and the host-side tensor maps they read,
 // wgmma descriptors for 128-byte-swizzled tiles, wgmma.m64n128k16 (bf16 in,
 // f32 accumulate) with A from shared memory or from registers,
-// wgmma.m64n64k16 with both operands in shared memory, the fences around
-// them, named barriers, setmaxnreg and the once-per-device shared-memory
-// opt-in.
+// wgmma.m64n64k16 and wgmma.m64n32k16 with both operands in shared memory,
+// the fences around them (and the proxy fence that makes shared-memory
+// stores visible to wgmma), named barriers, setmaxnreg and the
+// once-per-device shared-memory opt-in.
 //
 // Shared-memory tiles are written by TMA with CU_TENSOR_MAP_SWIZZLE_128B: a
 // box is at most 64 bf16 (128 bytes) wide, so a 128-column tile is stored as
@@ -16,9 +17,9 @@
 //     desc_sw128(half + k_elem * 2, 16, 1024): a k-step of 16 elements
 //     moves the start address by 32 bytes inside the 128-byte row; LBO is
 //     unused, SBO is the 1024-byte stride of 8-row groups. The same
-//     descriptor serves an M of 64 rows (A) and an N of 64 or 128 rows (B):
-//     the unit reads N / 8 groups at SBO strides, so rows r0.. of a taller
-//     tile start at half + r0 * 128 (r0 a multiple of 8).
+//     descriptor serves an M of 64 rows (A) and an N of 32, 64 or 128 rows
+//     (B): the unit reads N / 8 groups at SBO strides, so rows r0.. of a
+//     taller tile start at half + r0 * 128 (r0 a multiple of 8).
 //   MN-major (the output dim contiguous, e.g. V of O += P V, trans-b = 1):
 //     desc_sw128(half0 + k_row * 128, half_bytes, 1024): LBO is the stride
 //     from one 64-wide MN block to the next (the other half), SBO the
@@ -253,10 +254,44 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+#define HOPPER_D16                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+#define HOPPER_D16_OPERANDS(d)                                             \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),         \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+
+// d[16] (+)= A (64 x 16, shared memory) * B (16 x 32, shared memory), both
+// K-major.
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " HOPPER_D16
+      ", %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_D16_OPERANDS(d)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 #undef HOPPER_D64
 #undef HOPPER_D64_OPERANDS
 #undef HOPPER_D32
 #undef HOPPER_D32_OPERANDS
+#undef HOPPER_D16
+#undef HOPPER_D16_OPERANDS
+
+// After shared-memory stores by ordinary instructions (the generic proxy)
+// and before a wgmma (the async proxy) reads them; each storing thread
+// fences, then a barrier orders the readers behind every store.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 // ---------------------------------------------------------------------------
 // Named barriers (ids 1..15; __syncthreads() owns 0) over `n` threads, a
@@ -290,11 +325,12 @@ __device__ __forceinline__ void reg_dealloc() {
 // ---------------------------------------------------------------------------
 // Host: above 48 KB a block gets shared memory only as dynamic memory, after
 // an opt-in that is per kernel and per device. Made once per device (one
-// bit each; every instantiation is one kernel), so a launch pays no
-// attribute call.
+// bit each), so a launch pays no attribute call. The bits are kept per
+// instantiation of this template, so two kernels of one function type take
+// two Tags.
 // ---------------------------------------------------------------------------
 
-template <typename Kernel>
+template <int Tag = 0, typename Kernel>
 inline cudaError_t opt_in_smem(Kernel kernel, int bytes) {
   static std::atomic<uint64_t> opted_in{0};
   int dev = 0;
