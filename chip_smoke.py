@@ -17,14 +17,14 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    lengths 100 and 8000 (TMA zero-fills past the end), at the MoE step's
    S4096 (both layouts), and at the bench configuration's B8 H16 KVH16
    S2048; the other variants (f32 at head_dim 128 to 1024, bf16 at 256
-   to 1024; bf16 256 on the wgmma kernels, the rest generic; 640 and 1024
-   tiled over D) at B1 H8 KVH2 S2048 and the ragged S1000, causal and
-   not, and at the shapes of their train-parity runs, bf16 256 also at
-   ``llama3_8b(n_heads=16)``'s training length, B1 H16 KVH8 S8192 causal
-   (no ptxas spill allowed in any generic instance or wgmma kernel); time
-   kernel, plain version, SDPA
-   (the library yardstick, never called by the port) and the roofline
-   bound. Then head_dim 64 on the card: ``flash_fwd`` and ``flash_bwd``
+   to 1024; bf16 256 on the wgmma kernels, f32 640's dK/dV on the cluster
+   kernel, the rest generic, tiled over D from 640) at B1 H8 KVH2 S2048
+   and the ragged S1000, causal and not, and at the shapes of their
+   train-parity runs, bf16 256 also at ``llama3_8b(n_heads=16)``'s
+   training length, B1 H16 KVH8 S8192 causal (no ptxas spill allowed in
+   any generic instance, wgmma kernel or the cluster kernel, and no
+   serialized wgmma); time kernel, plain version, SDPA (the library
+   yardstick, never called by the port) and the roofline bound. Then head_dim 64 on the card: ``flash_fwd`` and ``flash_bwd``
    route to the JAX package's jnp branch and launch no kernel.
 3. Serve 8 concurrent requests on Llama-3-8B at full width and depth
    (random bf16 weights from a seed) through ``Engine``; check every
@@ -218,8 +218,9 @@ Details go to ``chiprun_out/chip_smoke.json``.
 builds the kernels and runs phase 2 alone (a quick check after a kernel
 edit), ``--only-bwd`` runs phase 5 alone in the same way, ``--only-times``
 times the bf16 wgmma kernels alone at head_dim 256 and 128, S2048 and
-S8192, in 3 rounds, and checks nothing of the build (run it from two
-trees' roots in turns to compare them), ``--only-moe``
+S8192, and the f32 D640 dK/dV at its parity shape, in 3 rounds, and checks
+nothing of the build (run it from two trees' roots in turns to compare
+them), ``--only-moe``
 phase 9, ``--only-ckpt`` phases 4 and 10, ``--only-runtime`` phase 11,
 ``--only-trainer`` phases 8 and 12, ``--only-serve`` phase 13,
 ``--only-edges`` phase 14, ``--only-rllib`` phase 15, ``--only-tune``
@@ -237,6 +238,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import glob
@@ -337,14 +339,16 @@ FWD_CASES = [(1, 32, 8, S, True, BF16, "dense") for S in ATTN_WIDTHS] + [
 SERVE_FWD_CASES = [(1, 32, 16, S, True, BF16, "model")
                    for S in (32, 512, 2048, 8192)]
 FWD_CASES += SERVE_FWD_CASES
-# The kernel variants other than bf16 D128 (bf16 D256 on the wgmma kernels
-# for the forward and dK/dV, every other one generic), in phases 2 and 5: at
-# B1 H8 KVH2, S2048 and the ragged S1000, causal and not, and at the shape
+# The kernel variants other than bf16 D128 (bf16 D256 on the wgmma kernels,
+# f32 D640's dK/dV on the cluster kernel, every other one generic), in
+# phases 2 and 5: at B1 H8 KVH2, S2048 and the ragged S1000, causal and
+# not, and at the shape
 # the train-parity path of their dtype and head_dim gives them
 # (``PARITY_RUNS``: B1 H32 KVH8 D128, B1 H16 KVH8 D256, B1 H8 KVH4 D384,
 # D512 and D640, B1 H4 KVH2 D1024, S2048 causal); bf16 D256 also at phase
 # 7's training length, B1 H16 KVH8 S8192 causal (``llama3_8b(n_heads=16)``
-# at S8192). D640 and D1024 are tiled over D (5 chunks of 128 and 4 of 256).
+# at S8192). The generic D640 and D1024 instances are tiled over D (5 chunks
+# of 128 and 4 of 256); the cluster kernel splits D640 over 5 CTAs.
 VARIANTS = (("f32_d128", 128, F32), ("f32_d256", 256, F32),
             ("bf16_d256", 256, BF16), ("f32_d384", 384, F32),
             ("bf16_d384", 384, BF16), ("f32_d512", 512, F32),
@@ -360,10 +364,14 @@ VARIANT_CASES = [(name, D, dt, 1, 8, 2, S, causal)
                  for causal in (True, False)] + [
     (name, D, dt, *VARIANT_MAIN[D], 2048, True) for name, D, dt in VARIANTS
 ] + [("bf16_d256", 256, BF16, *VARIANT_MAIN[256], TRAIN_SEQ, True)]
-# The variants that run wgmma kernels besides bf16 D128, by kernel: the bf16
-# D256 forward and dK/dV; its dQ is still generic.
+# The variants that run wgmma kernels besides bf16 D128, by kernel: bf16
+# D256 (all three); and the one that runs the cluster kernel: f32 D640's
+# dK/dV. Every other variant runs a generic instance.
 WGMMA_VARIANTS = {"flash_fwd": ("bf16_d256",),
-                  "flash_bwd_dkv": ("bf16_d256",), "flash_bwd_dq": ()}
+                  "flash_bwd_dkv": ("bf16_d256",),
+                  "flash_bwd_dq": ("bf16_d256",)}
+CLUSTER_VARIANTS = {"flash_fwd": (), "flash_bwd_dkv": ("f32_d640",),
+                    "flash_bwd_dq": ()}
 PROMPT_LENS = (17, 100, 300, 700, 1500, 3000, 5000, 8000)
 SAMPLED = {1: dict(temperature=0.8, top_k=40, seed=1234),
            6: dict(temperature=1.0, top_k=0, seed=5678)}
@@ -479,18 +487,30 @@ OUT_DIR = "chiprun_out"
 # any warning (setmaxnreg ignored, wgmma serialized).
 BUILD_REPORT = ("registers", "spill", "smem", "arning", "wgmma",
                 "setmaxnreg")
-# Generic instances: the forward and dK/dV 6 one-chunk ones each (f32
-# D128-512, bf16 D384-512; bf16 D256 is their wgmma kernels'), dQ 7 (also
-# bf16 D256), and each kernel 4 chunked ones (f32 and bf16, chunks of 128
-# and 256)
-GENERIC_INSTANCES = 31
-# wgmma kernels: the forward at D128 and D256 (one template), dK/dV at D128
-# and D256, dQ at D128
-WGMMA_INSTANCES = 5
+# Generic instances: 6 one-chunk ones in each kernel (f32 D128-512, bf16
+# D384-512; bf16 D256 is the wgmma kernels'), and each kernel 4 chunked ones
+# (f32 and bf16, chunks of 128 and 256; f32 D640's dK/dV is the cluster
+# kernel's, and the f32 128-column chunked dK/dV instance serves D896 and
+# the like)
+GENERIC_INSTANCES = 30
+# wgmma kernels: each of the three at D128 and D256 (the forward's two from
+# one template)
+WGMMA_INSTANCES = 6
+# the f32 D640 dK/dV kernel, a cluster of 5 CTAs on the FMA units
+CLUSTER_INSTANCES = 1
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def kernel_kind(name: str, variant: str) -> str:
+    """"wgmma", "cluster" or "generic": which code of kernel ``name``
+    (``flash_fwd``, ``flash_bwd_dkv``, ``flash_bwd_dq``) the variant runs
+    besides bf16 D128."""
+    if variant in WGMMA_VARIANTS[name]:
+        return "wgmma"
+    return "cluster" if variant in CLUSTER_VARIANTS[name] else "generic"
 
 
 def card_line() -> str:
@@ -1000,44 +1020,63 @@ def _bwd_case(gen, card, B, H, KVH, S, causal, layout, D=128, dt=BF16):
 # --only-times: the bf16 wgmma kernels alone at the training shapes of
 # head_dim 256 and 128 (D, H, KVH; B1, causal), each timed in 3 rounds in
 # turn, medians printed: the quick A/B of two trees in one call (run it
-# from each root in turns). dQ at D256 is the generic variant, timed in
-# phase 5.
+# from each root in turns). Then the f32 D640 dK/dV (the cluster kernel) at
+# its parity run's shape, S2048 only.
 TIME_SHAPES = ((256, 16, 8), (128, 32, 8))
 TIME_SEQS = (2048, TRAIN_SEQ)
 TIME_ROUNDS = 3
+TIME_CLUSTER = (640, 8, 4, 2048)  # D, H, KVH, S; f32, B1, causal
 
 
 def phase_kernel_times(card: str) -> list:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    cases = [(D, H, KVH, S, BF16) for S in TIME_SEQS
+             for D, H, KVH in TIME_SHAPES] + [(*TIME_CLUSTER, F32)]
     rows = []
-    for S in TIME_SEQS:
-        for D, H, KVH in TIME_SHAPES:
-            q, k, v, do = (_attn_input(1, h, S, D, gen, BF16, "dense")
-                           for h in (H, KVH, KVH, H))
-            o, lse = flash_fwd(q, k, v, True)
-            delta = (do.float() * o.float()).sum(-1)
-            args = (q, k, v, do, lse, delta, True, D ** -0.5)
+    for D, H, KVH, S, dt in cases:
+        q, k, v, do = (_attn_input(1, h, S, D, gen, dt, "dense")
+                       for h in (H, KVH, KVH, H))
+        o, lse = flash_fwd(q, k, v, True)
+        delta = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, True, D ** -0.5)
+        if dt == F32:
+            fns = dict(flash_bwd_dkv=lambda: flash_bwd_dkv(*args))
+        else:
             fns = dict(flash_fwd=lambda: flash_fwd(q, k, v, True),
-                       flash_bwd_dkv=lambda: flash_bwd_dkv(*args))
-            if D == 128:
-                fns["flash_bwd_dq"] = lambda: flash_bwd_dq(*args)
-            iters = 20 if S <= 2048 else 10
-            times = {n: [] for n in fns}
-            for _ in range(TIME_ROUNDS):
-                for n, fn in fns.items():
-                    times[n].append(gpu_ms(fn, iters))
-            row = dict(shape=f"B1 H{H} KVH{KVH} S{S} D{D}", causal=True,
-                       dtype="bfloat16",
-                       ms={n: statistics.median(t) for n, t in times.items()},
-                       rounds_ms=times, card=card)
-            log("TIMES", json.dumps(row))
-            rows.append(row)
-            del q, k, v, do, o, lse, delta, args, fns
-            torch.cuda.empty_cache()
+                       flash_bwd_dkv=lambda: flash_bwd_dkv(*args),
+                       flash_bwd_dq=lambda: flash_bwd_dq(*args))
+        iters = 20 if S <= 2048 else 10
+        times = {n: [] for n in fns}
+        for _ in range(TIME_ROUNDS):
+            for n, fn in fns.items():
+                times[n].append(gpu_ms(fn, iters))
+        row = dict(shape=f"B1 H{H} KVH{KVH} S{S} D{D}", causal=True,
+                   dtype=str(dt).replace("torch.", ""),
+                   ms={n: statistics.median(t) for n, t in times.items()},
+                   rounds_ms=times, card=card)
+        log("TIMES", json.dumps(row))
+        rows.append(row)
+        del q, k, v, do, o, lse, delta, args, fns
+        torch.cuda.empty_cache()
     return rows
 
 
+def cluster_fit() -> int:
+    """How many 5-CTA clusters of the f32 D640 dK/dV kernel the card holds
+    at once (``cudaOccupancyMaxActiveClusters`` at its shared memory); at
+    least one, or that kernel cannot launch."""
+    n = ctypes.c_int(0)
+    err = _build.load("flash_bwd_dkv").ray_flash_bwd_dkv_max_clusters(
+        ctypes.byref(n))
+    check(err == 0 and n.value >= 1,
+          f"the f32 D640 dK/dV cluster does not fit: CUDA error {err}, "
+          f"{n.value} clusters")
+    return n.value
+
+
 def phase_bwd_kernels(card: str):
+    log(f"CLUSTER the f32 D640 dK/dV kernel: {cluster_fit()} clusters of 5 "
+        f"CTAs at once  [{card}]")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows = [_bwd_case(gen, card, B, H, KVH, S, causal, layout)
             for B, H, KVH, S, causal, layout in BWD_CASES]
@@ -4223,7 +4262,8 @@ def _variant_entries(rows, bwd_rows, parity, tune_launches) -> list:
     launches from their train-parity run (the path that reaches them) and
     in phase 16's Tune trials (by variant), times at that run's shape
     (``VARIANT_MAIN``, S2048 causal), errors over every case, the kernel
-    that serves each (``wgmma`` or ``generic``), and for a variant also
+    that serves each (``wgmma``, ``cluster`` or ``generic``), and for a
+    variant also
     timed at S8192 (bf16 D256), its times there under ``at_s8192``."""
     out = []
 
@@ -4243,8 +4283,7 @@ def _variant_entries(rows, bwd_rows, parity, tune_launches) -> list:
             name=f"flash_fwd.{variant}", route="cuda",
             source="ray_tpu_torch/ops/csrc/flash_fwd.cu",
             replaces="ray_tpu/ops/attention.py:140",
-            kernel="wgmma" if variant in WGMMA_VARIANTS["flash_fwd"]
-            else "generic",
+            kernel=kernel_kind("flash_fwd", variant),
             launches=parity[variant]["launches"]["flash_fwd"],
             max_abs_err=max(r["max_abs_err"] for r in rows
                             if r["variant"] == variant),
@@ -4265,8 +4304,7 @@ def _variant_entries(rows, bwd_rows, parity, tune_launches) -> list:
                 name=f"{name}.{variant}", route="cuda",
                 source=f"ray_tpu_torch/ops/csrc/{src}",
                 replaces=f"ray_tpu/ops/attention.py:{line}",
-                kernel="wgmma" if variant in WGMMA_VARIANTS[name]
-                else "generic",
+                kernel=kernel_kind(name, variant),
                 launches=parity[variant]["launches"][name],
                 max_abs_err=max(r["abs_err"][name] for r in bwd_rows
                                 if r["variant"] == variant),
@@ -4365,24 +4403,34 @@ def main() -> int:
     # The generic variants hold DC/4 (forward) or 2 DC/8 (dK/dV) f32
     # accumulators per thread for their chunk of DC columns, near the
     # register limit at DC 384 and 512 (one chunk; the chunked instances
-    # stop at 256 for that reason); the wgmma kernels hold 128 (D128: O,
-    # or dK and dV; D256: O, or a half of dK and dV) beside their scores
-    # under setmaxnreg 240. A spill in any instance is a defect, not a
-    # slowdown to accept.
+    # stop at 256 for that reason); the wgmma kernels hold 64 or 128 (D128:
+    # O, or dK and dV, or dQ; D256: O, or a half of dK and dV, or of dQ)
+    # beside their scores under setmaxnreg 240, the cluster kernel 32 dK or
+    # dV accumulators beside a 4 x 4 score tile. A spill in any instance is
+    # a defect, not a slowdown to accept.
     spills = {k: v for text in _build.build_log.values()
               for k, v in ptxas_spills(text).items()}
     generic = {k: v for k, v in spills.items() if "generic" in k}
-    wgmma = {k: v for k, v in spills.items() if "generic" not in k}
+    cluster = {k: v for k, v in spills.items() if "cluster" in k}
+    wgmma = {k: v for k, v in spills.items()
+             if k not in generic and k not in cluster}
     log(f"BUILD spills (store, load bytes) of the generic instances: "
-        f"{json.dumps(generic)}; of the wgmma kernels: {json.dumps(wgmma)}")
+        f"{json.dumps(generic)}; of the wgmma kernels: {json.dumps(wgmma)}"
+        f"; of the cluster kernel: {json.dumps(cluster)}")
     built_all = len(_build.build_log) == len(_build.sources())
     check(not built_all or (len(generic) == GENERIC_INSTANCES
-                            and len(wgmma) == WGMMA_INSTANCES),
-          f"expected {GENERIC_INSTANCES} generic instances and "
-          f"{WGMMA_INSTANCES} wgmma kernels in the ptxas report, got "
-          f"{sorted(generic)} and {sorted(wgmma)}")
+                            and len(wgmma) == WGMMA_INSTANCES
+                            and len(cluster) == CLUSTER_INSTANCES),
+          f"expected {GENERIC_INSTANCES} generic instances, "
+          f"{WGMMA_INSTANCES} wgmma kernels and {CLUSTER_INSTANCES} "
+          f"cluster kernel in the ptxas report, got {sorted(generic)}, "
+          f"{sorted(wgmma)} and {sorted(cluster)}")
     check(all(v == (0, 0) for v in spills.values()),
           f"ptxas spills: {spills}")
+    # C7514/C7515: ptxas serialized a kernel's wgmma (its overlap lost).
+    serialized = [n for n, text in _build.build_log.items()
+                  if "C7514" in text or "C7515" in text]
+    check(not serialized, f"ptxas serialized wgmma in {serialized}")
 
     if args.only_ttft:
         phase_ttft_only(card, args.only_ttft)
@@ -4487,6 +4535,9 @@ def main() -> int:
                 name, {}).get("bf16_d128", 0)))
     kernels += _variant_entries(rows, bwd_rows, parity,
                                 tuned["trials"]["launches"])
+    for entry in kernels:
+        if entry["name"] == "flash_bwd_dkv.f32_d640":
+            entry["max_active_clusters"] = cluster_fit()
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, build_s=build_s, kernel_rows=rows,

@@ -28,6 +28,7 @@ import concurrent.futures
 import hashlib
 import os
 import pickle
+import sys
 import threading
 import time
 import traceback
@@ -481,8 +482,12 @@ class CoreWorker:
             from ray_tpu_torch.core.pubsub import Subscription
 
             def _print_log(ev: dict) -> None:
-                print(f"(pid={ev['pid']}, node={ev['node']}) {ev['line']}",
-                      flush=True)
+                # One write: print() writes the text and its newline
+                # apart, so a line the driver's own thread printed in
+                # between would land inside this one.
+                sys.stdout.write(
+                    f"(pid={ev['pid']}, node={ev['node']}) {ev['line']}\n")
+                sys.stdout.flush()
 
             self._log_sub = Subscription(
                 self.controller, "log_events", _print_log,
@@ -499,7 +504,6 @@ class CoreWorker:
         seconds of graftprof folded samples instead of one snapshot —
         ``capture_stacks`` runs in the exec pool so the io loop keeps
         serving — plus the native sidecar-thread CPU table."""
-        import sys
         import threading
         import traceback
         if profile_s and profile_s > 0:

@@ -213,14 +213,31 @@ int TestGilProbe() {
 int TestDisable() {
   prof_set_enabled(0);
   CHECK(prof_enabled() == 0);
+  // A tick that read the flag just before it flipped still runs to its
+  // end and writes its records, and on a loaded host the sampler can be
+  // descheduled in between (seen on a VM host: one record landed after
+  // the drain). Take the baseline once the tick count and the ring have
+  // held still for 50 ms, or after 2 s.
   Drain();
+  uint64_t settle_deadline = MonoNs() + 2000ull * 1000 * 1000;
+  for (uint64_t t = prof_ticks();; t = prof_ticks()) {
+    SleepMs(50);
+    bool quiet = prof_ticks() == t && Drain().empty();
+    if (quiet || MonoNs() > settle_deadline) break;
+  }
   uint64_t ticks0 = prof_ticks();
   SleepMs(150);
   CHECK(prof_ticks() == ticks0);
   CHECK(Drain().empty());
   prof_set_enabled(1);
   CHECK(prof_enabled() == 1);
+  // The disabled sampler counts as idle and stretches its sleep to 16
+  // periods: wait 150 ms, then on until a tick has run or 2 s have passed.
+  uint64_t tick_deadline = MonoNs() + 2000ull * 1000 * 1000;
   SleepMs(150);
+  while (prof_ticks() == ticks0 && MonoNs() < tick_deadline) {
+    SleepMs(10);
+  }
   CHECK(prof_ticks() > ticks0);
   CHECK(!Drain().empty());
   return 0;

@@ -27,9 +27,12 @@ and backward (counterpart of ``ray_tpu/ops/attention.py``).
 Each kernel takes f32 and bf16 at any head_dim that is a multiple of 128.
 Which code runs is picked inside its C entry point by (dtype, head_dim):
   * bf16 at 128: the wgmma kernel of each (forward, dK/dV, dQ);
-  * bf16 at 256: the forward's and dK/dV's wgmma kernels
-    (``flash_fwd_bf16_kernel<256, 64>``, ``flash_bwd_dkv_d256_kernel``),
-    and dQ's generic variant;
+  * bf16 at 256: the wgmma kernels of all three
+    (``flash_fwd_bf16_kernel<256, 64>``, ``flash_bwd_dkv_d256_kernel``,
+    ``flash_bwd_dq_d256_kernel``);
+  * f32 at 640, dK/dV only: ``flash_bwd_dkv_f32_cluster_kernel``, a
+    cluster of 5 CTAs, one per 128 columns of D, that sum the scores over
+    D through each other's shared memory;
   * every other case (f32 at any multiple of 128, bf16 from 384 up): the
     generic variant on the CUDA cores, which from 640 up tiles over D
     (chunks of 256 or 128 columns, the scores summed over the chunks;
@@ -217,10 +220,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 def kernel_variant(q: torch.Tensor) -> str:
     """The name of the kernel variant that q's dtype and head_dim launch:
-    "bf16_d128" (the wgmma kernels), "bf16_d256" (the forward's and dK/dV's
-    wgmma kernels, dQ's generic variant), "f32_d128", "f32_d256", ...,
-    "bf16_d384", ... (the generic ones). The wrappers count launches by it
-    in ``launches_by_variant`` beside ``launches``."""
+    "bf16_d128" and "bf16_d256" (the wgmma kernels), "f32_d128",
+    "f32_d256", ..., "bf16_d384", ... (the generic ones; "f32_d640" is the
+    cluster kernel for dK/dV). The wrappers count launches by it in
+    ``launches_by_variant`` beside ``launches``."""
     dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
     return f"{dt}_d{q.shape[-1]}"
 
@@ -449,8 +452,8 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) [b, kvh, skv, d] in k's dtype. CUDA tensors launch
     ``csrc/flash_bwd_dkv.cu`` (a wgmma kernel for bf16 at 128 and 256, the
-    generic variant otherwise; counted in ``flash_bwd_dkv.launches``); CPU
-    tensors run ``flash_bwd_plain_dkv``."""
+    cluster kernel for f32 at 640, the generic variant otherwise; counted in
+    ``flash_bwd_dkv.launches``); CPU tensors run ``flash_bwd_plain_dkv``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if _bwd_device("flash_bwd_dkv", q, k, v, dout, lse, delta) == "cpu":
         return flash_bwd_plain_dkv(q, k, v, dout, lse, delta, causal, scale)
@@ -466,9 +469,9 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
                  sm_scale: Optional[float] = None) -> torch.Tensor:
     """dQ [b, h, sq, d] in q's dtype. CUDA tensors launch
-    ``csrc/flash_bwd_dq.cu`` (the wgmma kernel for bf16 at 128, the generic
-    variant otherwise; counted in ``flash_bwd_dq.launches``); CPU tensors
-    run ``flash_bwd_plain_dq``."""
+    ``csrc/flash_bwd_dq.cu`` (a wgmma kernel for bf16 at 128 and 256, the
+    generic variant otherwise; counted in ``flash_bwd_dq.launches``); CPU
+    tensors run ``flash_bwd_plain_dq``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if _bwd_device("flash_bwd_dq", q, k, v, dout, lse, delta) == "cpu":
         return flash_bwd_plain_dq(q, k, v, dout, lse, delta, causal, scale)

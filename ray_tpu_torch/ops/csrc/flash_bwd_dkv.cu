@@ -89,10 +89,52 @@
 //     that gap, but ptxas then serializes every wgmma of the kernel
 //     (C7514/C7515, in three arrangements tried), which made it a quarter
 //     slower; so each iteration waits for its own products.
-// A generic variant (at the end of this file) serves f32 at any head_dim that
-// is a multiple of 128 and bf16 at those from 384 up (tiled over D from 640
-// up), with P and dS rounded to the input dtype as the Pallas kernel rounds
-// them.
+// f32 at 640 runs flash_bwd_dkv_f32_cluster_kernel (after that). The generic
+// variant's chunked instance computed S^T and dP^T over all of D in each of
+// its 5 chunk blocks, and its inner loops read one shared-memory word per
+// FMA (32 words a clock against the FMA units' 128). This kernel is bound by
+// the FMA units: f32 has no exact tensor-core input (TF32 rounds, and the
+// f32 variants are held to 1e-4), 4 products of 64 * 32 * 640 FMAs per (64 KV
+// rows, 32 q rows) pair.
+//   * One cluster of 5 CTAs per (b, KV head, 64 KV rows), one CTA per
+//     128-column chunk of D. A CTA loads its chunk of K and V once and
+//     streams its chunk of Q and dO per 32-row q tile, walking the group's
+//     query heads as above, through a 3-stage ring (f32 TMA boxes of 32
+//     columns; K and V 128B-swizzled, since they are read down 8 rows of
+//     one column at once).
+//   * The products over D are split across the cluster, not repeated: each
+//     CTA computes S^T and dP^T (64 x 32) over its own 128 columns into its
+//     shared memory. Then each CTA sums a fifth of the KV rows over the 5
+//     chunks through distributed shared memory (ld.shared::cluster), in
+//     chunk order 0 to 4, forms P^T and dS^T of those rows in f32 (rounding
+//     nothing, as the Pallas kernel's casts do not in f32) and stores them
+//     into every CTA (st.shared::cluster): all five hold the same bits, and
+//     a CTA moves 26 KB through the cluster a tile, not the 64 KB of every
+//     CTA reading every partial.
+//   * dV[:, chunk] += P^T dO and dK[:, chunk] += dS^T Q: 64 f32 registers a
+//     thread for the whole loop, so the group's query heads are summed with
+//     no atomics.
+//   * Roles: two math warpgroups (setmaxnreg 224) run phase A (S^T or dP^T)
+//     of tile t, then phase B (dV or dK) of tile t - 1, so the exchange of
+//     tile t runs beside phase B; one warpgroup (56 registers) sums,
+//     exchanges and loads. They hand over through mbarriers that the peers
+//     arrive at (parts_ready, parts_free, pd_ready, pd_free), with double
+//     buffers, instead of a cluster barrier a tile.
+//   * Shared memory gives 32 words a clock and the FMA units take 128, so
+//     every inner loop runs on an 8 x 8 register tile (each word read feeds
+//     8 FMAs); phase A splits a tile's 128 columns over 4 lanes and sums them
+//     by shuffles.
+//   * An arrival released at cluster scope compiles to a GPU-wide memory
+//     barrier (MEMBAR.ALL.GPU) that stalls the warp: lanes 0-4 arrive at the
+//     5 CTAs in one instruction, only one math warp (another each tile)
+//     releases the partials, and the "done reading" signals arrive with CTA
+//     scope.
+//   * 226 KB of shared memory: one CTA an SM, and a cluster takes 5 SMs of
+//     one GPC (22 clusters fit on the H100).
+// A generic variant (at the end of this file) serves f32 at any other
+// head_dim that is a multiple of 128 and bf16 at those from 384 up (tiled
+// over D from 640 up), with P and dS rounded to the input dtype as the Pallas
+// kernel rounds them.
 
 #include <math.h>
 
@@ -390,13 +432,16 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 
 namespace d256 {
 
+using flash::kBoxBytes;  // 8 KB: 64 rows x 128 B
+using flash::mma_t;
+using flash::store_t;
+
 constexpr int kDW = 2 * kD;            // head_dim
 constexpr int kBoxes = kDW / kHalf;    // 64-column boxes of a row
 constexpr int kBKV = 64;               // KV rows per block
 constexpr int kBQ = 64;                // q rows per tile
 constexpr int kQCols = kBQ / kConsumers;  // S^T columns per consumer
 constexpr int kStages = 2;             // Q/dO ring depth
-constexpr uint32_t kBoxBytes = 64 * kHalf * 2;  // 8 KB: 64 rows x 128 B
 constexpr uint32_t kTileBytes = 64 * kDW * 2;   // one K, V, Q or dO tile
 
 struct __align__(1024) Smem {
@@ -417,37 +462,6 @@ struct __align__(1024) Smem {
 // a block may opt in to.
 constexpr int kSmemBytes = static_cast<int>(sizeof(Smem)) + 1024;
 static_assert(kSmemBytes <= 232448, "over the H100's 227 KB per block");
-
-// This consumer's 64 x 32 slice (q columns 32 cw..) of an m64n32 accumulator
-// as bf16 into a [64 kv][64 q] box, 128B-swizzled as wgmma reads a K-major A
-// operand: the 16-byte chunk c of row r sits at chunk c ^ (r % 8). A warp's
-// 32 stores fall in 32 banks.
-__device__ __forceinline__ void store_t(bf16* box, const float (&x)[16],
-                                        int cw, int warp, int lane) {
-  unsigned char* base = reinterpret_cast<unsigned char*>(box);
-#pragma unroll
-  for (int j = 0; j < kQCols / 8; ++j)
-#pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      const int r = 16 * warp + lane / 4 + 8 * a;
-      const int chunk = (cw * (kQCols / 8) + j) ^ (r % 8);
-      *reinterpret_cast<uint32_t*>(base + r * 128 + chunk * 16 +
-                                   4 * (lane % 4)) =
-          pack_bf16(x[4 * j + 2 * a], x[4 * j + 2 * a + 1]);
-    }
-}
-
-// acc (64 KV rows x 128 d) += A B inside a wgmma group: A = P^T or dS^T
-// (64 x 64, K-major in shared memory), B = dO or Q [q][d] MN-major, this
-// consumer's two 64-column boxes (LBO one box); 4 k-steps of 16 q rows.
-__device__ __forceinline__ void mma_t(float (&acc)[64], uint32_t a_base,
-                                      uint32_t b_base) {
-#pragma unroll
-  for (int kk = 0; kk < kBQ / 16; ++kk)
-    hopper::wgmma_m64n128k16_ss<1>(
-        acc, hopper::desc_sw128(a_base + kk * 32, 16, 1024),
-        hopper::desc_sw128(b_base + kk * 16 * 128, kBoxBytes, 1024), 1);
-}
 
 __global__ void __launch_bounds__(128 * (1 + kConsumers), 1)
 flash_bwd_dkv_d256_kernel(const __grid_constant__ CUtensorMap tq,
@@ -620,8 +634,445 @@ flash_bwd_dkv_d256_kernel(const __grid_constant__ CUtensorMap tq,
 }  // namespace d256
 
 // ---------------------------------------------------------------------------
+// f32 at D = 640: one cluster of 5 CTAs per (b, KV head, 32 KV rows), one
+// CTA per 128-column chunk of D; the scores summed over the cluster (see the
+// top of this file).
+// ---------------------------------------------------------------------------
+
+namespace f32c {
+
+constexpr int kChunks = 5;              // CTAs of a cluster = chunks of D
+constexpr int kDW = kChunks * kD;       // head_dim
+constexpr int kBKV = 64;                // KV rows per cluster
+constexpr int kBQ = 32;                 // q rows per tile
+constexpr int kStages = 3;              // Q/dO ring depth
+constexpr int kBox = 32;                // f32 columns of a 128-byte box
+constexpr int kBoxes = kD / kBox;       // boxes of a chunk's row
+constexpr int kMathWarps = 8;           // two warpgroups: the products
+constexpr int kXWarps = 4;              // one warpgroup: the exchange, loads
+constexpr int kThreads = 32 * (kMathWarps + kXWarps);
+constexpr int kMathRegs = 224;          // setmaxnreg of the math warpgroups
+constexpr int kXRegs = 56;              // and of the exchange warpgroup
+constexpr uint32_t kRowBytes = kD * 4;  // one row of a chunk
+
+// K, V, Q and dO chunks as TMA writes them: 4 boxes of 32 columns, each
+// `rows` x 128 bytes. K and V are read down 8 rows of one 16-byte column at
+// once, so their 16-byte column c of row r sits at c ^ (r % 8) within its
+// box (CU_TENSOR_MAP_SWIZZLE_128B) and those 8 words fall in 8 distinct
+// banks; Q and dO are read along a row, in place.
+struct __align__(1024) Smem {
+  float k[kBoxes][kBKV * kBox];
+  float v[kBoxes][kBKV * kBox];
+  float q[kStages][kBoxes][kBQ * kBox];
+  float dout[kStages][kBoxes][kBQ * kBox];
+  float part[2][2][kBKV * kBQ];  // [buffer][S^T, dP^T] over this chunk
+  float pd[2][2][kBKV * kBQ];    // [buffer][P^T, dS^T] over all of D
+  float lse[kStages][kBQ];
+  float delta[kStages][kBQ];
+  uint64_t kv_full;
+  uint64_t full[kStages];     // Q, dO landed (TMA bytes); LSE, delta written
+  uint64_t empty[kStages];    // this CTA's math warps are done with a stage
+  uint64_t parts_ready[2];    // every CTA's math warps wrote part[buffer]
+  uint64_t parts_free[2];     // every CTA's exchange warps read their slice
+  uint64_t pd_ready[2];       // every CTA stored its slice of pd[buffer]
+  uint64_t pd_free[2];        // every CTA's math warps are done with it
+};
+
+// + slack to align the base to 1024 bytes.
+constexpr int kSmemBytes = static_cast<int>(sizeof(Smem)) + 1024;
+static_assert(kSmemBytes <= 232448, "over the H100's 227 KB per block");
+
+// A [kv][q] partials tile: 8 16-byte columns a row, column c of row r at c
+// ^ (r % 8), so 8 consecutive rows' stores of one column fall in 8 banks.
+__device__ __forceinline__ int swz(int row, int col4) {
+  return row * kBQ + ((col4 ^ (row & 7)) << 2);
+}
+
+__device__ __forceinline__ void fma4(float (&acc)[4], float w, float4 b) {
+  acc[0] = fmaf(w, b.x, acc[0]);
+  acc[1] = fmaf(w, b.y, acc[1]);
+  acc[2] = fmaf(w, b.z, acc[2]);
+  acc[3] = fmaf(w, b.w, acc[3]);
+}
+
+__device__ __forceinline__ float4 f4(const float* x) {
+  return make_float4(x[0], x[1], x[2], x[3]);
+}
+
+__device__ __forceinline__ float4 add(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__global__ void __cluster_dims__(kChunks, 1, 1) __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_f32_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 const __grid_constant__ CUtensorMap tdo,
+                                 const flash::BwdParams p) {
+  extern __shared__ unsigned char cluster_smem[];
+  const uint32_t raw = hopper::smem_u32(cluster_smem);
+  Smem& sm = *reinterpret_cast<Smem*>(cluster_smem +
+                                      (((raw + 1023) & ~1023u) - raw));
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int c = static_cast<int>(hopper::cluster_ctarank());  // D chunk
+
+  // Cluster -> (KV tile, b, KV head), the KV tile slowest: causal, the
+  // first KV tiles see the most q tiles, so they start first.
+  const int G = p.H / p.KVH;
+  const int n_kvt = (p.Skv + kBKV - 1) / kBKV;
+  const int n_bk = gridDim.x / kChunks / n_kvt;  // B * KVH
+  const int cl = blockIdx.x / kChunks;
+  const int bk = cl % n_bk;
+  const int kvt = cl / n_bk;
+  const int kvh = bk % p.KVH;
+  const int b = bk / p.KVH;
+  const int k0 = kvt * kBKV;
+  const int n_qt = (p.Sq + kBQ - 1) / kBQ;
+  // Causal: q tiles wholly before this KV tile see none of it.
+  const int qt_first = p.causal ? min(k0 / kBQ, n_qt) : 0;
+  const int n_per = n_qt - qt_first;  // q tiles per query head
+  const int n_it = G * n_per;
+  // Tile it: query head head(it), q rows from q_start(it), the last first.
+  auto head = [&](int it) { return kvh * G + it / n_per; };
+  auto q_start = [&](int it) { return (n_qt - 1 - it % n_per) * kBQ; };
+
+  if (tid == 0) {
+    hopper::mbar_init(&sm.kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&sm.full[s], 1 + 32);  // TMA bytes + the loader
+      hopper::mbar_init(&sm.empty[s], kMathWarps);
+    }
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(&sm.parts_ready[i], kChunks);
+      hopper::mbar_init(&sm.parts_free[i], kChunks * kXWarps);
+      hopper::mbar_init(&sm.pd_ready[i], kChunks * kXWarps);
+      hopper::mbar_init(&sm.pd_free[i], kChunks * kMathWarps);
+    }
+    hopper::fence_barrier_init();
+  }
+  // The barriers are set up, and every CTA of the cluster runs, before a
+  // copy lands or a peer touches this CTA's shared memory.
+  hopper::cluster_sync();
+
+  if (warp >= kMathWarps) {
+    // ---------------- exchange warpgroup --------------------------------
+    hopper::reg_dealloc<kXRegs>();
+    // Its first warp loads: K and V once, then per tile Q and dO (TMA, 4
+    // boxes each; rows past Sq and Skv are zero-filled) and LSE and delta
+    // (+inf and 0 past Sq: P and dS are 0 on such a q row), the loads read
+    // an iteration ahead into registers.
+    const bool loader = warp == kMathWarps;
+    float lse_next = 0.f, delta_next = 0.f;
+    auto fetch_rows = [&](int it) {
+      const int r = q_start(it) + lane;
+      const long long at =
+          (static_cast<long long>(b) * p.H + head(it)) * p.Sq + r;
+      lse_next = r < p.Sq ? p.lse[at] : INFINITY;
+      delta_next = r < p.Sq ? p.delta[at] : 0.f;
+    };
+    auto load_tile = [&](int it) {
+      const int s = it % kStages;
+      if (lane == 0) {
+        hopper::mbar_expect_tx(&sm.full[s], 2 * kBQ * kRowBytes);
+        for (int x = 0; x < kBoxes; ++x) {
+          hopper::tma_load_4d(sm.q[s][x], &tq, &sm.full[s],
+                              c * kD + x * kBox, q_start(it), head(it), b);
+          hopper::tma_load_4d(sm.dout[s][x], &tdo, &sm.full[s],
+                              c * kD + x * kBox, q_start(it), head(it), b);
+        }
+      }
+      sm.lse[s][lane] = lse_next;
+      sm.delta[s][lane] = delta_next;
+      hopper::mbar_arrive(&sm.full[s]);
+    };
+    if (loader) {
+      if (lane == 0) {
+        hopper::mbar_expect_tx(&sm.kv_full, 2 * kBKV * kRowBytes);
+        for (int x = 0; x < kBoxes; ++x) {
+          hopper::tma_load_4d(sm.k[x], &tk, &sm.kv_full, c * kD + x * kBox,
+                              k0, kvh, b);
+          hopper::tma_load_4d(sm.v[x], &tv, &sm.kv_full, c * kD + x * kBox,
+                              k0, kvh, b);
+        }
+      }
+      for (int it = 0; it < min(n_it, kStages - 1); ++it) {
+        fetch_rows(it);
+        load_tile(it);
+      }
+    }
+
+    // This CTA's slice of the KV rows, [r0, r1): thread xt sums one 16-byte
+    // column of one row over the 5 chunks, in chunk order 0 to 4 in every
+    // CTA, so that all five hold the same P^T and dS^T bits, forms P^T =
+    // exp(S^T scale - LSE) and dS^T = P^T (dP^T - delta) scale in f32 (the
+    // Pallas kernel's casts round nothing in f32), and stores them into
+    // every CTA's pd.
+    const int xt = tid - 32 * kMathWarps;
+    const int row = c * kBKV / kChunks + xt / 8;
+    const int col4 = xt % 8;
+    const bool mine = row < (c + 1) * kBKV / kChunks;
+    const int krow = k0 + row;
+    for (int it = 0; it < n_it; ++it) {
+      const int buf = it & 1;
+      const int s = it % kStages;
+      const int q0 = q_start(it);
+      const int nx = it + kStages - 1;  // the tile the loader loads next
+      if (loader && nx < n_it) fetch_rows(nx);
+      hopper::mbar_wait_cluster(&sm.parts_ready[buf], (it >> 1) & 1);
+      float4 st = make_float4(0.f, 0.f, 0.f, 0.f), dpt = st;
+      if (mine) {
+        const uint32_t s_at =
+            hopper::smem_u32(sm.part[buf][0] + swz(row, col4));
+        const uint32_t p_at =
+            hopper::smem_u32(sm.part[buf][1] + swz(row, col4));
+#pragma unroll
+        for (int r = 0; r < kChunks; ++r) {
+          const float4 x = hopper::ld_cluster_f4(hopper::map_rank(s_at, r));
+          const float4 y = hopper::ld_cluster_f4(hopper::map_rank(p_at, r));
+          st = r == 0 ? x : add(st, x);
+          dpt = r == 0 ? y : add(dpt, y);
+        }
+      }
+      __syncwarp();
+      if (lane < kChunks) hopper::mbar_signal_rank(&sm.parts_free[buf], lane);
+      hopper::mbar_wait(&sm.full[s], (it / kStages) & 1);  // LSE, delta
+      if (mine) {
+        float pv[4] = {st.x, st.y, st.z, st.w};
+        float dv[4] = {dpt.x, dpt.y, dpt.z, dpt.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = 4 * col4 + e;
+          float x = pv[e] * p.scale;
+          if (p.causal && q0 + qi < krow) x = flash::kMaskValue;
+          const float pr = expf(x - sm.lse[s][qi]);
+          pv[e] = pr;
+          dv[e] = (dv[e] - sm.delta[s][qi]) * pr * p.scale;
+        }
+        st = f4(pv);
+        dpt = f4(dv);
+      }
+      // Every CTA's math warps are done with this buffer's tile before.
+      if (it >= 2)
+        hopper::mbar_wait(&sm.pd_free[buf], ((it - 2) >> 1) & 1);
+      if (mine) {
+        const uint32_t p_at =
+            hopper::smem_u32(sm.pd[buf][0] + row * kBQ + 4 * col4);
+        const uint32_t d_at =
+            hopper::smem_u32(sm.pd[buf][1] + row * kBQ + 4 * col4);
+#pragma unroll
+        for (int r = 0; r < kChunks; ++r) {
+          hopper::st_cluster_f4(hopper::map_rank(p_at, r), st);
+          hopper::st_cluster_f4(hopper::map_rank(d_at, r), dpt);
+        }
+      }
+      __syncwarp();
+      if (lane < kChunks) hopper::mbar_arrive_rank(&sm.pd_ready[buf], lane);
+      // The tile two ahead goes into the stage of the one before this,
+      // once this CTA's math warps are done with it.
+      if (loader && nx < n_it) {
+        if (nx >= kStages)
+          hopper::mbar_wait(&sm.empty[nx % kStages], (nx / kStages - 1) & 1);
+        load_tile(nx);
+      }
+    }
+  } else {
+    // ---------------- math warpgroups -----------------------------------
+    // Phase A of tile it (S^T or dP^T over this chunk), then phase B of
+    // tile it - 1 (dV or dK), so the exchange of tile it runs beside phase
+    // B. Warps 0-3 compute S^T and dV, warps 4-7 dP^T and dK. Every inner
+    // loop runs on an 8 x 8 register tile, so each word read from shared
+    // memory feeds 8 FMAs (shared memory gives 32 words a clock, the FMA
+    // units take 128).
+    hopper::reg_alloc<kMathRegs>();
+    const int half = warp / 4;
+    const int w4 = warp % 4;
+    // Phase A: KV rows l8 + 8i by q rows 8 w4 + i' (i, i' < 8) over the
+    // 16-byte columns dq + 4j (j < 8) of the chunk, dq = lane / 8: the four
+    // lanes of a tile take a quarter of the columns each and are summed by
+    // shuffles. A quarter warp reads 8 KV rows of one column and one q
+    // word.
+    const int l8 = lane % 8;
+    const int dq = lane / 8;
+    // Phase B: KV rows kg + 8i (i < 8) by columns 4 dg + 64m + e (m < 2, e
+    // < 4): a quarter warp reads one P^T word and 8 consecutive 16-byte
+    // columns.
+    const int dg = lane % 16;
+    const int kg = 2 * w4 + lane / 16;
+    float acc[8][2][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][m][e] = 0.f;
+
+    hopper::mbar_wait(&sm.kv_full, 0);
+    for (int it = 0; it <= n_it; ++it) {
+      if (it < n_it) {
+        const int s = it % kStages;
+        const int buf = it & 1;
+        hopper::mbar_wait(&sm.full[s], (it / kStages) & 1);
+        // Every CTA's exchange warps are done with this buffer's tile.
+        if (it >= 2)
+          hopper::mbar_wait(&sm.parts_free[buf], ((it - 2) >> 1) & 1);
+        // Step j reads 16-byte column g = dq + 4j: box j / 2, column dq +
+        // 4 (j % 2) in it, at (dq + 4 (j % 2)) ^ l8 in K's and V's rows.
+        const float* a0 = (half ? sm.v[0] : sm.k[0]) + l8 * kBox +
+                          ((dq ^ l8) << 2);
+        const float* a1 = (half ? sm.v[0] : sm.k[0]) + l8 * kBox +
+                          ((dq ^ l8 ^ 4) << 2);
+        const float* b0 =
+            (half ? sm.dout[s][0] : sm.q[s][0]) + 8 * w4 * kBox + 4 * dq;
+        float x[8][8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int i2 = 0; i2 < 8; ++i2) x[i][i2] = 0.f;
+#pragma unroll 1
+        for (int j = 0; j < kD / 16; ++j) {
+          const float* ak = ((j & 1) ? a1 : a0) + (j >> 1) * kBKV * kBox;
+          const float* bk = b0 + (j >> 1) * kBQ * kBox + (j & 1) * 16;
+          float4 bq[8];
+#pragma unroll
+          for (int i2 = 0; i2 < 8; ++i2) bq[i2] = flash::ld4(bk + i2 * kBox);
+          // Consecutive FMAs go to 8 different accumulators.
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float4 a = flash::ld4(ak + 8 * i * kBox);
+#pragma unroll
+            for (int i2 = 0; i2 < 8; ++i2)
+              x[i][i2] = fmaf(a.x, bq[i2].x, x[i][i2]);
+#pragma unroll
+            for (int i2 = 0; i2 < 8; ++i2)
+              x[i][i2] = fmaf(a.y, bq[i2].y, x[i][i2]);
+#pragma unroll
+            for (int i2 = 0; i2 < 8; ++i2)
+              x[i][i2] = fmaf(a.z, bq[i2].z, x[i][i2]);
+#pragma unroll
+            for (int i2 = 0; i2 < 8; ++i2)
+              x[i][i2] = fmaf(a.w, bq[i2].w, x[i][i2]);
+          }
+        }
+        // The four column quarters' sums: lanes 8 apart trade KV rows (each
+        // keeps 4 of its 8), then lanes 16 apart trade q rows (each keeps
+        // 4).
+        const bool hi_kv = dq & 1, hi_q = dq & 2;
+        float y[4][8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int i2 = 0; i2 < 8; ++i2) {
+            const float keep = hi_kv ? x[i + 4][i2] : x[i][i2];
+            const float give = hi_kv ? x[i][i2] : x[i + 4][i2];
+            y[i][i2] = keep + __shfl_xor_sync(0xffffffffu, give, 8);
+          }
+        float* out = sm.part[buf][half];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float z[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float keep = hi_q ? y[i][e + 4] : y[i][e];
+            const float give = hi_q ? y[i][e] : y[i][e + 4];
+            z[e] = keep + __shfl_xor_sync(0xffffffffu, give, 16);
+          }
+          *reinterpret_cast<float4*>(
+              out + swz(l8 + 8 * (i + 4 * hi_kv), 2 * w4 + hi_q)) = f4(z);
+        }
+        // One warp, another each tile, waits at a named barrier for all
+        // eight warps' partials and arrives at each CTA's parts_ready
+        // (lanes 0-4 in one instruction): the release at cluster scope is
+        // a GPU-wide memory barrier that stalls the warp, so the other
+        // warps only arrive at the named barrier and go on. Its id
+        // alternates by tile, and no warp runs two tiles ahead of the
+        // signalling one (its phase B waits for the next tile's exchange).
+        if (warp == it % kMathWarps) {
+          hopper::named_bar_sync(1 + buf, 32 * kMathWarps);
+          if (lane < kChunks)
+            hopper::mbar_arrive_rank(&sm.parts_ready[buf], lane);
+        } else {
+          hopper::named_bar_arrive(1 + buf, 32 * kMathWarps);
+        }
+      }
+      if (it >= 1) {
+        // dV += P^T dO (warps 0-3) or dK += dS^T Q (4-7) over tile it - 1's
+        // q rows, this chunk's columns.
+        const int t = it - 1;
+        const int s = t % kStages;
+        const int buf = t & 1;
+        hopper::mbar_wait_cluster(&sm.pd_ready[buf], (t >> 1) & 1);
+        const float* Pm = sm.pd[buf][half] + kg * kBQ;
+        // 16-byte column dg + 16m of a row: box dg / 8 + 2m, column dg % 8.
+        const float* Bt = (half ? sm.q[s][0] : sm.dout[s][0]) +
+                          (dg >> 3) * kBQ * kBox + 4 * (dg & 7);
+#pragma unroll 2
+        for (int qq = 0; qq < kBQ; qq += 4) {
+          float4 w[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) w[i] = flash::ld4(Pm + 8 * i * kBQ + qq);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+              const float4 o =
+                  flash::ld4(Bt + 2 * m * kBQ * kBox + (qq + e) * kBox);
+#pragma unroll
+              for (int i = 0; i < 8; ++i) {
+                const float wi = e == 0   ? w[i].x
+                                 : e == 1 ? w[i].y
+                                 : e == 2 ? w[i].z
+                                          : w[i].w;
+                fma4(acc[i][m], wi, o);
+              }
+            }
+          }
+        }
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&sm.empty[s]);
+        if (lane < kChunks) hopper::mbar_signal_rank(&sm.pd_free[buf], lane);
+      }
+    }
+
+    float* out = static_cast<float*>(half ? p.out0 : p.out1);  // dK : dV
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = k0 + kg + 8 * i;
+      if (row >= p.Skv) continue;
+      float* o = out +
+                 ((static_cast<long long>(b) * p.KVH + kvh) * p.Skv + row) *
+                     kDW +
+                 c * kD + 4 * dg;
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+        *reinterpret_cast<float4*>(o + 64 * m) = f4(acc[i][m]);
+    }
+  }
+  // No CTA leaves while a peer may still touch its shared memory.
+  hopper::cluster_sync();
+}
+
+// Host: the f32 tensor map {D, S, heads, batch} over a [B, heads, S, D]
+// tensor given by element strides, boxes of 32 columns x `rows` rows.
+inline bool make_map(CUtensorMap* map, const void* base, int B, int heads,
+                     int S, long long sb, long long sh, long long ss,
+                     uint32_t rows, CUtensorMapSwizzle swizzle) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(kDW),
+                            static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(heads),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {ss * 4ull, sh * 4ull, sb * 4ull};  // bytes
+  const uint32_t box[4] = {kBox, rows, 1, 1};
+  return hopper::make_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, swizzle,
+                          base, 4, dims, strides, box);
+}
+
+}  // namespace f32c
+
+// ---------------------------------------------------------------------------
 // Generic variant: every dtype and head_dim (a multiple of 128) but bf16 D =
-// 128 and 256, which the wgmma kernels above serve. The same function on the
+// 128 and 256 and f32 D = 640, which the kernels above serve. The same function on the
 // CUDA cores: one block of 128 threads per (b, KV head, 16 KV rows, chunk of
 // D), walking the group's query heads and their 32-row q tiles as the wgmma
 // kernels do, with K, V, Q, dO as f32 tiles in dynamic shared memory (104 KB at
@@ -850,16 +1301,58 @@ int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
   return launch_generic<float, 4 * kD, false>(p, D, B, st);
 }
 
+// f32 at D = 5 kD: one cluster of f32c::kChunks CTAs per 64 KV rows. A
+// launch the card refuses (no room for a cluster) returns its error. The
+// shared-memory opt-in is set at every launch, as for the generic variants.
+int launch_cluster(const flash::BwdParams& p, int B, cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (!f32c::make_map(&tq, p.q, B, p.H, p.Sq, p.q_sb, p.q_sh, p.q_ss,
+                      f32c::kBQ, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !f32c::make_map(&tk, p.k, B, p.KVH, p.Skv, p.k_sb, p.k_sh, p.k_ss,
+                      f32c::kBKV, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !f32c::make_map(&tv, p.v, B, p.KVH, p.Skv, p.v_sb, p.v_sh, p.v_ss,
+                      f32c::kBKV, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !f32c::make_map(&tdo, p.dout, B, p.H, p.Sq, p.o_sb, p.o_sh, p.o_ss,
+                      f32c::kBQ, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = flash::allow_smem(
+      f32c::flash_bwd_dkv_f32_cluster_kernel, f32c::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_kvt = (p.Skv + f32c::kBKV - 1) / f32c::kBKV;
+  f32c::flash_bwd_dkv_f32_cluster_kernel<<<B * p.KVH * n_kvt * f32c::kChunks,
+                                           f32c::kThreads, f32c::kSmemBytes,
+                                           st>>>(tq, tk, tv, tdo, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// How many clusters of the f32 D = 640 kernel the current device holds at
+// once (cudaOccupancyMaxActiveClusters at its shared memory), into
+// *clusters. Returns the CUDA error.
+extern "C" int ray_flash_bwd_dkv_max_clusters(int* clusters) {
+  cudaError_t err = flash::allow_smem(f32c::flash_bwd_dkv_f32_cluster_kernel,
+                                      f32c::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(f32c::kChunks);
+  cfg.blockDim = dim3(f32c::kThreads);
+  cfg.dynamicSmemBytes = f32c::kSmemBytes;
+  err = cudaOccupancyMaxActiveClusters(
+      clusters,
+      reinterpret_cast<const void*>(f32c::flash_bwd_dkv_f32_cluster_kernel),
+      &cfg);
+  return static_cast<int>(err);
+}
 
 // q/dO [B, H, Sq, D] and k/v [B, KVH, Skv, D] given by element strides (batch,
 // head, seq; the last dim dense, every stride and base address a multiple of 16
 // bytes, as TMA and the 16-byte loads require); lse and delta [B, H, Sq] f32
 // and dk/dv [B, KVH, Skv, D] dense, in the inputs' dtype. D is a multiple of
 // 128; dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 and 256 runs a wgmma
-// kernel, every other case the generic variant. Returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for a shape or layout the kernels do
-// not take).
+// kernel, f32 at D = 640 the cluster kernel, every other case the generic
+// variant. Returns cudaGetLastError() after the launch (cudaErrorInvalidValue
+// for a shape or layout the kernels do not take).
 extern "C" int ray_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, long long q_sb,
@@ -878,6 +1371,7 @@ extern "C" int ray_flash_bwd_dkv(
         static_cast<const float*>(delta), dk, dv,
         q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
         o_sb, o_sh, o_ss, H,    KVH,  Sq,   Skv,  scale, causal};
+    if (dtype == 0 && D == f32c::kDW) return launch_cluster(p, B, st);
     return launch_generic_d(p, D, dtype, B, st);
   }
   // bf16 at D = 128 (128 KV rows a block) or 256 (64)

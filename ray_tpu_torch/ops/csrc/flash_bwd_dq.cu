@@ -43,10 +43,39 @@
 //     strides the caller passes, so strided q, k, v and dO load without a
 //     copy; TMA zero-fills rows past Sq and Skv, rows past Sq get LSE =
 //     +inf (P = 0), and the stores are guarded by row < Sq.
-// That kernel serves bf16 at head_dim 128. A generic variant (at the end of
-// this file) serves f32 at any head_dim that is a multiple of 128 and bf16 at
-// those from 256 up (tiled over D from 640 up), with P and dS rounded to the
-// input dtype as the Pallas kernel rounds them.
+// That kernel serves bf16 at head_dim 128. At 256 (llama3_8b(n_heads=16)) its
+// arrangement does not fit: Q and dO for 128 rows take 128 KB of shared
+// memory and a 2-stage ring of 64-row K and V tiles another 128 KB, and
+// 32-row KV tiles would leave N = 32 products with both operands in shared
+// memory for the whole tile. flash_bwd_dq_d256_kernel (after it) serves bf16
+// at 256, bound by the tensor cores (3 products of 2 * 64 * 64 * 256 per
+// (64 q rows, 64 KV rows) pair) and by shared memory:
+//   * A block owns 64 q rows of one (b, h). Q and dO (64 x 256 each, four
+//     64-column boxes, 32 KB) are loaded once; K and V tiles of 64 rows go
+//     through a 2-stage ring with `full`/`empty` mbarriers as above.
+//   * The products over D, S = Q K^T and dP = dO V^T, are split by KV
+//     columns, so none is done twice: each consumer takes 32 of the tile's
+//     64 (wgmma.m64n32k16, 16 k-steps, both operands K-major; 16 registers
+//     each), computes its half of P and of dS = P (dP - delta) * scale and
+//     stores dS in bf16 (rounded as the Pallas kernel rounds it) into a
+//     128B-swizzled [q][kv] box; a proxy fence and a named barrier over
+//     both consumers publish the two halves.
+//   * dQ is split by columns: each consumer holds a 128-column half (64 f32
+//     registers) for the whole loop and computes dQ[:, half] += dS K[:,
+//     half] as wgmma.m64n128k16 with both operands in shared memory (dS
+//     K-major as A, K's two boxes of that half MN-major through the
+//     transpose bit as B).
+//   * dS has two buffers, so one barrier an iteration also keeps a
+//     consumer from overwriting what the other still reads: 64 (Q, dO) +
+//     128 (ring) + 16 KB of shared memory, 210 KB with the alignment.
+//   * As in the D = 256 dK/dV kernel, each iteration waits for its own
+//     products: the N = 32 score products read more shared memory than it
+//     gives the tensor cores, and the consumers meet at the barrier with
+//     the tensor cores idle while both compute P and dS.
+// A generic variant (at the end of this file) serves f32 at any head_dim
+// that is a multiple of 128 and bf16 at those from 384 up (tiled over D
+// from 640 up), with P and dS rounded to the input dtype as the Pallas
+// kernel rounds them.
 
 #include <math.h>
 
@@ -115,16 +144,17 @@ __device__ __forceinline__ void issue_dq(float (&dq)[64],
   hopper::wgmma_commit();
 }
 
-// P in place: s[4j + 2a + b] holds q row r_lo + 8a, KV column k0 + 8j +
-// 2(lane % 4) + b; lse_* are LSE * log2(e) of the two rows. Masked (the
-// diagonal tile or a ragged KV edge): columns past Skv, or after the row
-// (causal). The unmasked instance carries no mask code.
-template <bool kMasked>
-__device__ __forceinline__ void probs(float (&s)[64], const DqArgs& p,
+// P in place, for an accumulator of N / 2 KV columns: s[4j + 2a + b] holds
+// q row r_lo + 8a, KV column k0 + 8j + 2(lane % 4) + b; lse_* are LSE *
+// log2(e) of the two rows. Masked (the diagonal tile or a ragged KV edge):
+// columns past Skv, or after the row (causal). The unmasked instance carries
+// no mask code.
+template <bool kMasked, int N>
+__device__ __forceinline__ void probs(float (&s)[N], const DqArgs& p,
                                       float lse_lo, float lse_hi, int k0,
                                       int r_lo, int lane) {
 #pragma unroll
-  for (int j = 0; j < kBN / 8; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float x = fast_exp2(
@@ -139,18 +169,19 @@ __device__ __forceinline__ void probs(float (&s)[64], const DqArgs& p,
   }
 }
 
-__device__ __forceinline__ void probs(float (&s)[64], const DqArgs& p,
+template <int N>
+__device__ __forceinline__ void probs(float (&s)[N], const DqArgs& p,
                                       bool masked, float lse_lo,
                                       float lse_hi, int k0, int r_lo,
                                       int lane) {
   if (masked)
-    probs<true>(s, p, lse_lo, lse_hi, k0, r_lo, lane);
+    probs<true, N>(s, p, lse_lo, lse_hi, k0, r_lo, lane);
   else
-    probs<false>(s, p, lse_lo, lse_hi, k0, r_lo, lane);
+    probs<false, N>(s, p, lse_lo, lse_hi, k0, r_lo, lane);
   // Keep P ahead of the wait for dP: without these ties the compiler may
   // sink the exponentials below it, and nothing would overlap.
 #pragma unroll
-  for (int i = 0; i < 64; ++i) hopper::fence_reg(s[i]);
+  for (int i = 0; i < N; ++i) hopper::fence_reg(s[i]);
 }
 
 // dS = P (dP - delta) * scale, packed to bf16 as the register A operand of
@@ -316,8 +347,203 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at D = 256: 64 q rows per block, the two consumers split dQ by
+// columns and the scores by KV columns (see the top of this file), the
+// arrangement of the D = 256 dK/dV kernel with q and KV in each other's
+// places. Its block walk follows the D = 128 kernel's.
+// ---------------------------------------------------------------------------
+
+namespace d256 {
+
+using flash::kBoxBytes;  // 8 KB: 64 rows x 128 B
+using flash::mma_t;
+using flash::store_t;
+
+constexpr int kDW = 2 * kD;              // head_dim
+constexpr int kBoxes = kDW / kHalf;      // 64-column boxes of a row
+constexpr int kBM = 64;                  // q rows per block
+constexpr int kBN = 64;                  // KV rows per tile
+constexpr int kKvCols = kBN / kConsumers;  // S, dP columns per consumer
+constexpr uint32_t kTileBytes = 64 * kDW * 2;  // one Q, dO, K or V tile
+
+struct __align__(1024) Smem {
+  bf16 q[kBoxes][kBM * kHalf];
+  bf16 dout[kBoxes][kBM * kHalf];
+  bf16 k[kStages][kBoxes][kBN * kHalf];
+  bf16 v[kStages][kBoxes][kBN * kHalf];
+  bf16 ds[2][kBM * kBN];  // dS [q][kv], one 128B-swizzled box; 2 buffers
+  uint64_t q_full;            // Q and dO
+  uint64_t k_full[kStages];   // TMA bytes of K have landed
+  uint64_t v_full[kStages];
+  uint64_t k_empty[kStages];  // every consumer warp is done with K
+  uint64_t v_empty[kStages];
+};
+
+// + slack to align the base to 1024 bytes.
+constexpr int kSmemBytes = static_cast<int>(sizeof(Smem)) + 1024;
+static_assert(kSmemBytes <= 232448, "over the H100's 227 KB per block");
+
+__global__ void __launch_bounds__(128 * (1 + kConsumers), 1)
+flash_bwd_dq_d256_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const DqArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  Smem& sm =
+      *reinterpret_cast<Smem*>(smem_raw + (((raw + 1023) & ~1023u) - raw));
+
+  // Block -> (q tile, b, KV head, head in the group), as at D = 128.
+  const int G = p.H / p.KVH;
+  const int n_bk = gridDim.x / (G * p.n_qt);  // B * KVH
+  int id = blockIdx.x;
+  const int g = id % G;
+  id /= G;
+  const int bk = id % n_bk;
+  const int rank = id / n_bk;
+  const int kvh = bk % p.KVH;
+  const int b = bk / p.KVH;
+  const int h = kvh * G + g;
+  const int qt = p.causal ? p.n_qt - 1 - rank : rank;
+  const int q0 = qt * kBM;
+  const int kv_end = p.causal ? min(p.Skv, q0 + kBM) : p.Skv;
+  const int n_kt = (kv_end + kBN - 1) / kBN;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&sm.k_full[s], 1);
+      hopper::mbar_init(&sm.v_full[s], 1);
+      hopper::mbar_init(&sm.k_empty[s], 4 * kConsumers);  // consumer warps
+      hopper::mbar_init(&sm.v_empty[s], 4 * kConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------- producer: as at D = 128, four boxes a tile --------
+    hopper::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(&sm.q_full, 2 * kTileBytes);
+#pragma unroll
+      for (int i = 0; i < kBoxes; ++i) {
+        hopper::tma_load_4d(sm.q[i], &tq, &sm.q_full, i * kHalf, q0, h, b);
+        hopper::tma_load_4d(sm.dout[i], &tdo, &sm.q_full, i * kHalf, q0, h,
+                            b);
+      }
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % kStages;
+        const uint32_t freed = ((kt / kStages) - 1) & 1;
+        const int k0 = kt * kBN;
+        if (kt >= kStages) hopper::mbar_wait(&sm.k_empty[s], freed);
+        hopper::mbar_expect_tx(&sm.k_full[s], kTileBytes);
+#pragma unroll
+        for (int i = 0; i < kBoxes; ++i)
+          hopper::tma_load_4d(sm.k[s][i], &tk, &sm.k_full[s], i * kHalf, k0,
+                              kvh, b);
+        if (kt >= kStages) hopper::mbar_wait(&sm.v_empty[s], freed);
+        hopper::mbar_expect_tx(&sm.v_full[s], kTileBytes);
+#pragma unroll
+        for (int i = 0; i < kBoxes; ++i)
+          hopper::tma_load_4d(sm.v[s][i], &tv, &sm.v_full[s], i * kHalf, k0,
+                              kvh, b);
+      }
+    }
+  } else {
+    // ---------------- consumers: all 64 q rows, half the columns --------
+    // Consumer cw computes S and dP for KV columns 32 cw.. of the tile and
+    // owns columns 128 cw.. of dQ.
+    hopper::reg_alloc<kConsumerRegs>();
+    const int cw = wg - 1;
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32;
+    const int lane = t % 32;
+    const int r_lo = q0 + warp * 16 + lane / 4;  // this thread's q rows
+    const int r_hi = r_lo + 8;
+    // Rows past Sq get LSE = +inf, so P = 0 there and they add nothing.
+    const long long row0 = (static_cast<long long>(b) * p.H + h) * p.Sq;
+    const float lse_lo = r_lo < p.Sq ? p.lse[row0 + r_lo] * kLog2e : INFINITY;
+    const float lse_hi = r_hi < p.Sq ? p.lse[row0 + r_hi] * kLog2e : INFINITY;
+    const float dl_lo = r_lo < p.Sq ? p.delta[row0 + r_lo] : 0.f;
+    const float dl_hi = r_hi < p.Sq ? p.delta[row0 + r_hi] : 0.f;
+
+    float dq[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+    float sc[kKvCols / 2], dp[kKvCols / 2];
+    const uint32_t q_base = hopper::smem_u32(sm.q[0]);
+    const uint32_t do_base = hopper::smem_u32(sm.dout[0]);
+    const uint32_t rows = cw * kKvCols * 128;  // this consumer's KV rows
+    const uint32_t half = 2 * cw * kBoxBytes;  // its dQ columns' K boxes
+
+    hopper::mbar_wait(&sm.q_full, 0);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = kt % kStages;
+      const int buf = kt & 1;
+      const uint32_t parity = (kt / kStages) & 1;
+      const int k0 = kt * kBN;
+      const bool masked =
+          (k0 + kBN > p.Skv) || (p.causal && k0 + kBN - 1 > q0);
+      const uint32_t k_base = hopper::smem_u32(sm.k[s][0]);
+      // S = Q K^T, dP = dO V^T: 16 k-steps of m64n32k16 each.
+      hopper::mbar_wait(&sm.k_full[s], parity);
+      flash::issue_abt<kKvCols, kDW>(sc, q_base, kBoxBytes, k_base + rows,
+                                     kBoxBytes);
+      hopper::mbar_wait(&sm.v_full[s], parity);
+      flash::issue_abt<kKvCols, kDW>(dp, do_base, kBoxBytes,
+                                     hopper::smem_u32(sm.v[s][0]) + rows,
+                                     kBoxBytes);
+      hopper::wgmma_wait<1>();  // S is done, dP may still run
+#pragma unroll
+      for (int i = 0; i < kKvCols / 2; ++i) hopper::fence_reg(sc[i]);
+      // P for this consumer's KV columns, from k0 + 32 cw.
+      probs(sc, p, masked, lse_lo, lse_hi, k0 + cw * kKvCols, r_lo, lane);
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < kKvCols / 2; ++i) hopper::fence_reg(dp[i]);
+      release(&sm.v_empty[s], lane);
+      // dS = P (dP - delta) * scale in place of dP, rounded to bf16 by
+      // store_t as the Pallas kernel rounds it.
+#pragma unroll
+      for (int i = 0; i < kKvCols / 2; ++i)
+        dp[i] = sc[i] * (dp[i] - ((i % 4) < 2 ? dl_lo : dl_hi)) * p.scale;
+      // Both halves of dS for both consumers' products; two buffers, as
+      // in the D = 256 dK/dV kernel.
+      store_t(sm.ds[buf], dp, cw, warp, lane);
+      hopper::fence_proxy_async();
+      hopper::named_bar_sync(1, 256);
+      hopper::wgmma_fence();
+      mma_t(dq, hopper::smem_u32(sm.ds[buf]), k_base + half);  // dQ += dS K
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) hopper::fence_reg(dq[i]);
+      release(&sm.k_empty[s], lane);
+    }
+
+    bf16* dQ = p.dq + row0 * kDW;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      const int c = cw * kD + j * 8 + (lane % 4) * 2;
+      if (r_lo < p.Sq)
+        *reinterpret_cast<uint32_t*>(dQ + static_cast<long long>(r_lo) * kDW +
+                                     c) = pack_bf16(dq[4 * j], dq[4 * j + 1]);
+      if (r_hi < p.Sq)
+        *reinterpret_cast<uint32_t*>(dQ + static_cast<long long>(r_hi) * kDW +
+                                     c) =
+            pack_bf16(dq[4 * j + 2], dq[4 * j + 3]);
+    }
+  }
+}
+
+}  // namespace d256
+
+// ---------------------------------------------------------------------------
 // Generic variant: every dtype and head_dim (a multiple of 128) but bf16
-// D = 128, which the wgmma kernel above serves. The same function on the CUDA
+// D = 128 and 256, which the wgmma kernels above serve. The same function on the CUDA
 // cores: one block of 128 threads per (b, h, 16 q rows, chunk of D), walking
 // the visible 32-row KV tiles, with Q, dO, K, V as f32 tiles in dynamic
 // shared memory (102 KB at DC = 256, 196 KB at 512). D up to 512 runs in one
@@ -486,8 +712,8 @@ int launch_generic(const flash::BwdParams& p, int D, int B, cudaStream_t st) {
 }
 
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
-// and dtype: D itself up to 4 kD (bf16 at D = kD is the wgmma kernel's),
-// above that a chunk of flash::gen_chunk(D) columns.
+// and dtype: D itself up to 4 kD (bf16 at D = kD and 2 kD is the wgmma
+// kernels'), above that a chunk of flash::gen_chunk(D) columns.
 int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -499,7 +725,6 @@ int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
                 : launch_generic<float, kD, true>(p, D, B, st);
   }
   if (dtype == 1) {
-    if (D == 2 * kD) return launch_generic<bf16, 2 * kD, false>(p, D, B, st);
     if (D == 3 * kD) return launch_generic<bf16, 3 * kD, false>(p, D, B, st);
     return launch_generic<bf16, 4 * kD, false>(p, D, B, st);
   }
@@ -515,9 +740,10 @@ int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
 // head, seq; the last dim dense, every stride and base address a multiple of 16
 // bytes, as TMA and the 16-byte loads require); lse and delta [B, H, Sq] f32
 // and dq [B, H, Sq, D] dense, in the inputs' dtype. D is a multiple of 128;
-// dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 runs the wgmma kernel,
-// every other case the generic variant. Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for a shape or layout the kernels do not take).
+// dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 and 256 runs a wgmma
+// kernel, every other case the generic variant. Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for a shape or layout the kernels do
+// not take).
 extern "C" int ray_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, long long q_sb,
@@ -530,7 +756,7 @@ extern "C" int ray_flash_bwd_dq(
       H % KVH != 0 || Sq < 1 || Skv < 1 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 || D != kD) {
+  if (dtype == 0 || D > 2 * kD) {
     const flash::BwdParams p{
         q,    k,    v,    dout, static_cast<const float*>(lse),
         static_cast<const float*>(delta), dq, nullptr,
@@ -538,22 +764,34 @@ extern "C" int ray_flash_bwd_dq(
         o_sb, o_sh, o_ss, H,    KVH,  Sq,   Skv,  scale, causal};
     return launch_generic_d(p, D, dtype, B, st);
   }
+  // bf16 at D = 128 (128 q rows a block, 128-row KV tiles) or 256 (64, 64)
+  const bool wide = D == 2 * kD;
+  const uint32_t bm = wide ? d256::kBM : kBM;
+  const uint32_t bn = wide ? d256::kBN : kBN;
   CUtensorMap tq, tk, tv, tdo;
-  if (!flash::make_bhsd_map(&tq, q, B, H, Sq, q_sb, q_sh, q_ss, kBM) ||
-      !flash::make_bhsd_map(&tk, k, B, KVH, Skv, k_sb, k_sh, k_ss, kBN) ||
-      !flash::make_bhsd_map(&tv, v, B, KVH, Skv, v_sb, v_sh, v_ss, kBN) ||
-      !flash::make_bhsd_map(&tdo, dout, B, H, Sq, o_sb, o_sh, o_ss, kBM))
+  if (!flash::make_bhsd_map(&tq, q, B, H, Sq, q_sb, q_sh, q_ss, bm, D) ||
+      !flash::make_bhsd_map(&tk, k, B, KVH, Skv, k_sb, k_sh, k_ss, bn, D) ||
+      !flash::make_bhsd_map(&tv, v, B, KVH, Skv, v_sb, v_sh, v_ss, bn, D) ||
+      !flash::make_bhsd_map(&tdo, dout, B, H, Sq, o_sb, o_sh, o_ss, bm, D))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int n_qt = (Sq + kBM - 1) / kBM;
+  const int n_qt = (Sq + bm - 1) / bm;
   const DqArgs a{static_cast<const float*>(lse),
                  static_cast<const float*>(delta),
                  static_cast<bf16*>(dq),
                  H, KVH, Sq, Skv, n_qt,
                  scale * kLog2e, scale, causal};
-  const cudaError_t err =
-      hopper::opt_in_smem<kD>(flash_bwd_dq_kernel, kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_kernel<<<B * H * n_qt, 128 * (1 + kConsumers), kSmemBytes,
-                        st>>>(tq, tk, tv, tdo, a);
+  const dim3 grid(B * H * n_qt), block(128 * (1 + kConsumers));
+  if (wide) {
+    const cudaError_t err = hopper::opt_in_smem<2 * kD>(
+        d256::flash_bwd_dq_d256_kernel, d256::kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    d256::flash_bwd_dq_d256_kernel<<<grid, block, d256::kSmemBytes, st>>>(
+        tq, tk, tv, tdo, a);
+  } else {
+    const cudaError_t err =
+        hopper::opt_in_smem<kD>(flash_bwd_dq_kernel, kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_dq_kernel<<<grid, block, kSmemBytes, st>>>(tq, tk, tv, tdo, a);
+  }
   return static_cast<int>(cudaGetLastError());
 }

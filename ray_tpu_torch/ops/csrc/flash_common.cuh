@@ -6,10 +6,12 @@
 // a wgmma register A operand), the release of a ring stage, and the two
 // wgmma products they are built from: A B^T with both operands K-major in
 // shared memory (over D / 16 k-steps), and A B with A from registers and B
-// MN-major. Then what the generic variants (f32, and bf16 from head_dim 384
-// up; dQ also at 256) share: loads and stores by element type, rounding to
-// it, f32 tiles in shared memory, the chunk of D they tile by, the
-// backward's parameters.
+// MN-major. Then what the two D = 256 backward kernels share (a score
+// slice stored to a swizzled box, and A B with both operands in shared
+// memory), and what the generic variants (f32, and bf16 from head_dim 384
+// up) share: loads and stores by element type, rounding to it, f32 tiles
+// in shared memory, the chunk of D they tile by, the backward's
+// parameters.
 
 #pragma once
 
@@ -105,10 +107,49 @@ __device__ __forceinline__ void mma_rs(float (&acc)[64],
         1);
 }
 
+// What the two D = 256 backward kernels share: a 64-row [row][64 col] bf16
+// box (8 KB, 128B-swizzled as TMA writes it and as wgmma reads a K-major
+// operand), and the two steps that pass an m64n32 slice of scores from one
+// consumer to both through such a box.
+constexpr uint32_t kBoxBytes = 64 * kHalf * 2;
+
+// This consumer's 64 x 32 slice (columns 32 cw..) of an m64n32 accumulator
+// as bf16 into a [64][64] box, 128B-swizzled as wgmma reads a K-major A
+// operand: the 16-byte chunk c of row r sits at chunk c ^ (r % 8). A warp's
+// 32 stores fall in 32 banks.
+__device__ __forceinline__ void store_t(__nv_bfloat16* box,
+                                        const float (&x)[16], int cw,
+                                        int warp, int lane) {
+  unsigned char* base = reinterpret_cast<unsigned char*>(box);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int r = 16 * warp + lane / 4 + 8 * a;
+      const int chunk = (cw * 4 + j) ^ (r % 8);
+      *reinterpret_cast<uint32_t*>(base + r * 128 + chunk * 16 +
+                                   4 * (lane % 4)) =
+          pack_bf16(x[4 * j + 2 * a], x[4 * j + 2 * a + 1]);
+    }
+}
+
+// acc (64 rows x 128 d) += A B inside a wgmma group: A one [64][64] box
+// (K-major in shared memory, as store_t writes it), B [k][d] MN-major, two
+// 64-column boxes of a 64-row tile one box apart (LBO); 4 k-steps of 16
+// rows.
+__device__ __forceinline__ void mma_t(float (&acc)[64], uint32_t a_base,
+                                      uint32_t b_base) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hopper::wgmma_m64n128k16_ss<1>(
+        acc, hopper::desc_sw128(a_base + kk * 32, 16, 1024),
+        hopper::desc_sw128(b_base + kk * 16 * 128, kBoxBytes, 1024), 1);
+}
+
 // ---------------------------------------------------------------------------
-// The generic variants (f32 at any multiple of 128, bf16 from 384 up, and
-// dQ's bf16 at 256): scalar FMAs on the CUDA cores over f32 tiles in dynamic
-// shared memory. Inputs are read 4 elements at a time (16 bytes of f32, 8 of
+// The generic variants (f32 at any multiple of 128, bf16 from 384 up):
+// scalar FMAs on the CUDA cores over f32 tiles in dynamic shared memory.
+// Inputs are read 4 elements at a time (16 bytes of f32, 8 of
 // bf16: the wrappers' layout check keeps rows 16-byte aligned) and widened
 // to f32; P and dS are rounded to the input dtype where the Pallas kernels
 // round them.

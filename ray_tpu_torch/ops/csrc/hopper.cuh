@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's kernels: mbarriers with
-// phase parity, TMA tile loads and the host-side tensor maps they read,
-// wgmma descriptors for 128-byte-swizzled tiles, wgmma.m64n128k16 (bf16 in,
-// f32 accumulate) with A from shared memory or from registers,
+// phase parity, TMA tile loads and the host-side tensor maps they read (bf16
+// or f32), the cluster barrier, loads, stores and mbarrier arrivals in a
+// cluster peer's shared memory, wgmma descriptors for 128-byte-swizzled
+// tiles, wgmma.m64n128k16 (bf16 in, f32 accumulate) with A from shared
+// memory or from registers,
 // wgmma.m64n64k16 and wgmma.m64n32k16 with both operands in shared memory,
 // the fences around them (and the proxy fence that makes shared-memory
 // stores visible to wgmma), named barriers, setmaxnreg and the
@@ -121,6 +123,94 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Thread-block clusters: the barrier over every thread of the cluster
+// (release on arrival, acquire on the wait, so shared-memory stores before
+// it are visible to every CTA's loads after it), this CTA's rank, loads and
+// stores in another CTA's shared memory (distributed shared memory), and
+// mbarriers that other CTAs arrive at.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The address in CTA `rank`'s shared memory of what `addr` (a shared::cta
+// address) is in this CTA's.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster_f4(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// One arrival on the mbarrier `bar` (this CTA's address of it) in CTA
+// `rank`, releasing this thread's earlier writes at cluster scope.
+__device__ __forceinline__ void mbar_arrive_rank(uint64_t* bar,
+                                                 uint32_t rank) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          map_rank(smem_u32(bar), rank))
+      : "memory");
+}
+
+// An arrival at CTA `rank`'s barrier with the default (CTA-scope)
+// semantics, which need no fence: for "done reading" signals, whose reads
+// have delivered their values before the arrival issues. (The release at
+// cluster scope of mbar_arrive_rank compiles to a GPU-wide memory barrier,
+// MEMBAR.ALL.GPU, that stalls the warp.)
+__device__ __forceinline__ void mbar_signal_rank(uint64_t* bar,
+                                                 uint32_t rank) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   map_rank(smem_u32(bar), rank))
+               : "memory");
+}
+
+// mbar_wait for a barrier that other CTAs of the cluster arrive at: the
+// acquire is at cluster scope, so their released writes are visible.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  uint32_t ok = 0;
+  while (!ok) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(ok)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // ---------------------------------------------------------------------------
@@ -376,21 +466,21 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first, dims[0] dense) with
-// byte strides for dims 1..rank-1, box `box`, 128-byte swizzle and
-// zero-filled out-of-range elements. A dim of extent 1 may carry any
-// stride, so its stride is replaced by a valid one. Returns false when the
-// driver refuses the map (a stride that is not a multiple of 16 bytes, an
-// address that is not 16-byte aligned). A map depends only on these
-// arguments, so the last 16 built on each host thread are kept: a model's
-// layers hand the kernel the same recycled buffers again and again.
-inline bool make_map_bf16_sw128(CUtensorMap* map, const void* base, int rank,
-                                const uint64_t* dims,
-                                const uint64_t* strides_bytes,
-                                const uint32_t* box) {
+// A tensor map of `rank` dims (innermost first, dims[0] dense) of elements
+// of `elem_bytes` bytes with byte strides for dims 1..rank-1, box `box`,
+// swizzle `swizzle` and zero-filled out-of-range elements. A dim of extent 1
+// may carry any stride, so its stride is replaced by a valid one. Returns
+// false when the driver refuses the map (a stride that is not a multiple of
+// 16 bytes, an address that is not 16-byte aligned). A map depends only on
+// these arguments, so the last 16 built on each host thread are kept: a
+// model's layers hand the kernel the same recycled buffers again and again.
+inline bool make_map(CUtensorMap* map, CUtensorMapDataType dtype,
+                     uint32_t elem_bytes, CUtensorMapSwizzle swizzle,
+                     const void* base, int rank, const uint64_t* dims,
+                     const uint64_t* strides_bytes, const uint32_t* box) {
   struct Key {
     const void* base;
-    uint64_t rank;
+    uint64_t rank, dtype, swizzle;
     cuuint64_t dim[5], stride[4];
     cuuint32_t box[5], pad;
   };
@@ -407,8 +497,10 @@ inline bool make_map_bf16_sw128(CUtensorMap* map, const void* base, int rank,
   memset(&key, 0, sizeof(key));
   key.base = base;
   key.rank = static_cast<uint64_t>(rank);
+  key.dtype = static_cast<uint64_t>(dtype);
+  key.swizzle = static_cast<uint64_t>(swizzle);
   cuuint32_t estride[5];
-  uint64_t extent = dims[0] * 2;  // bytes spanned by the dims below
+  uint64_t extent = dims[0] * elem_bytes;  // bytes spanned by the dims below
   for (int i = 0; i < rank; ++i) {
     key.dim[i] = dims[i];
     key.box[i] = box[i];
@@ -428,11 +520,9 @@ inline bool make_map_bf16_sw128(CUtensorMap* map, const void* base, int rank,
   }
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return false;
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                      static_cast<cuuint32_t>(rank), const_cast<void*>(base),
-                      key.dim, key.stride, key.box, estride,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B,
+  CUresult r = encode(map, dtype, static_cast<cuuint32_t>(rank),
+                      const_cast<void*>(base), key.dim, key.stride, key.box,
+                      estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return false;
@@ -441,6 +531,16 @@ inline bool make_map_bf16_sw128(CUtensorMap* map, const void* base, int rank,
   next = (next + 1) % kCached;
   if (n_cached < kCached) ++n_cached;
   return true;
+}
+
+// make_map of bf16 elements, 128-byte swizzle.
+inline bool make_map_bf16_sw128(CUtensorMap* map, const void* base, int rank,
+                                const uint64_t* dims,
+                                const uint64_t* strides_bytes,
+                                const uint32_t* box) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                  CU_TENSOR_MAP_SWIZZLE_128B, base, rank, dims, strides_bytes,
+                  box);
 }
 
 }  // namespace hopper

@@ -140,7 +140,21 @@ def test_worker_prints_stream_to_driver(cluster, capfd):
         print(f"hello-from-task-{i}")
         return i
 
+    # capfd.readouterr() reads its capture file, then truncates it: a
+    # line the driver prints between the two is lost to the test (not
+    # to the driver). So wait until the driver's log subscription holds
+    # its cursor (it starts from the latest event) and then has handled
+    # the three lines (its cursor moves after each batch is printed)
+    # before reading; the reference reads while it prints.
+    from ray_tpu_torch import api
+    sub = api._cw()._log_sub
+    deadline = time.monotonic() + 30
+    while sub.next_seq < 0 and time.monotonic() < deadline:
+        time.sleep(0.05)
+    start = sub.next_seq
     assert ray_tpu_torch.get([chatty.remote(i) for i in range(3)]) == [0, 1, 2]
+    while sub.next_seq - start < 3 and time.monotonic() < deadline:
+        time.sleep(0.1)
     deadline = time.monotonic() + 20
     seen = ""
     while time.monotonic() < deadline:
