@@ -17,13 +17,15 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    lengths 100 and 8000 (TMA zero-fills past the end), at the MoE step's
    S4096 (both layouts), and at the bench configuration's B8 H16 KVH16
    S2048; the other variants (f32 at head_dim 128 to 1024, bf16 at 256
-   to 1024; bf16 256 on the wgmma kernels, f32 640's dK/dV on the cluster
-   kernel, the rest generic, tiled over D from 640) at B1 H8 KVH2 S2048
-   and the ragged S1000, causal and not, and at the shapes of their
-   train-parity runs, bf16 256 also at ``llama3_8b(n_heads=16)``'s
-   training length, B1 H16 KVH8 S8192 causal (no ptxas spill allowed in
-   any generic instance, wgmma kernel or the cluster kernel, and no
-   serialized wgmma); time kernel, plain version, SDPA (the library
+   to 1024; bf16 256 on the wgmma kernels, at 640 the f32 forward and the
+   f32 and bf16 dK/dV on the cluster kernels, the rest generic, tiled
+   over D from 640) at B1 H8 KVH2 S2048 and the ragged S1000, causal and
+   not, and at the shapes of their train-parity runs, bf16 256 also at
+   ``llama3_8b(n_heads=16)``'s training length, B1 H16 KVH8 S8192 causal,
+   and D896 (f32 and bf16, B1 H8 KVH2 S2048 causal: the generic chunked
+   instances of 128 columns that the cluster kernels took D640 from) (no
+   ptxas spill allowed in any generic instance, wgmma kernel or cluster
+   kernel, and no serialized wgmma); time kernel, plain version, SDPA (the library
    yardstick, never called by the port) and the roofline bound. Then head_dim 64 on the card: ``flash_fwd`` and ``flash_bwd``
    route to the JAX package's jnp branch and launch no kernel.
 3. Serve 8 concurrent requests on Llama-3-8B at full width and depth
@@ -218,7 +220,8 @@ Details go to ``chiprun_out/chip_smoke.json``.
 builds the kernels and runs phase 2 alone (a quick check after a kernel
 edit), ``--only-bwd`` runs phase 5 alone in the same way, ``--only-times``
 times the bf16 wgmma kernels alone at head_dim 256 and 128, S2048 and
-S8192, and the f32 D640 dK/dV at its parity shape, in 3 rounds, and checks
+S8192, and the three D640 cluster kernels (the f32 forward and dK/dV, the
+bf16 dK/dV) at their parity shape, in 3 rounds, and checks
 nothing of the build (run it from two trees' roots in turns to compare
 them), ``--only-moe``
 phase 9, ``--only-ckpt`` phases 4 and 10, ``--only-runtime`` phase 11,
@@ -340,15 +343,18 @@ SERVE_FWD_CASES = [(1, 32, 16, S, True, BF16, "model")
                    for S in (32, 512, 2048, 8192)]
 FWD_CASES += SERVE_FWD_CASES
 # The kernel variants other than bf16 D128 (bf16 D256 on the wgmma kernels,
-# f32 D640's dK/dV on the cluster kernel, every other one generic), in
-# phases 2 and 5: at B1 H8 KVH2, S2048 and the ragged S1000, causal and
-# not, and at the shape
+# at D640 the f32 forward and the f32 and bf16 dK/dV on the cluster kernels,
+# every other one generic), in phases 2 and 5: at B1 H8 KVH2, S2048 and the
+# ragged S1000, causal and not, and at the shape
 # the train-parity path of their dtype and head_dim gives them
 # (``PARITY_RUNS``: B1 H32 KVH8 D128, B1 H16 KVH8 D256, B1 H8 KVH4 D384,
 # D512 and D640, B1 H4 KVH2 D1024, S2048 causal); bf16 D256 also at phase
 # 7's training length, B1 H16 KVH8 S8192 causal (``llama3_8b(n_heads=16)``
 # at S8192). The generic D640 and D1024 instances are tiled over D (5 chunks
-# of 128 and 4 of 256); the cluster kernel splits D640 over 5 CTAs.
+# of 128 and 4 of 256); the cluster kernels split D640 over 5 CTAs. D896
+# (f32 and bf16, B1 H8 KVH2 S2048 causal) keeps the generic chunked
+# instances of 128 columns checked and timed: no parity run reaches them,
+# and since the cluster kernels took D640 they serve only D896, 1152, ...
 VARIANTS = (("f32_d128", 128, F32), ("f32_d256", 256, F32),
             ("bf16_d256", 256, BF16), ("f32_d384", 384, F32),
             ("bf16_d384", 384, BF16), ("f32_d512", 512, F32),
@@ -363,14 +369,18 @@ VARIANT_CASES = [(name, D, dt, 1, 8, 2, S, causal)
                  for name, D, dt in VARIANTS for S in (2048, 1000)
                  for causal in (True, False)] + [
     (name, D, dt, *VARIANT_MAIN[D], 2048, True) for name, D, dt in VARIANTS
-] + [("bf16_d256", 256, BF16, *VARIANT_MAIN[256], TRAIN_SEQ, True)]
+] + [("bf16_d256", 256, BF16, *VARIANT_MAIN[256], TRAIN_SEQ, True)] + [
+    (f"{dt_name}_d896", 896, dt, 1, 8, 2, 2048, True)
+    for dt_name, dt in (("f32", F32), ("bf16", BF16))]
 # The variants that run wgmma kernels besides bf16 D128, by kernel: bf16
-# D256 (all three); and the one that runs the cluster kernel: f32 D640's
-# dK/dV. Every other variant runs a generic instance.
+# D256 (all three); and those that run the cluster kernels: f32 D640's
+# forward, f32 and bf16 D640's dK/dV. Every other variant runs a generic
+# instance.
 WGMMA_VARIANTS = {"flash_fwd": ("bf16_d256",),
                   "flash_bwd_dkv": ("bf16_d256",),
                   "flash_bwd_dq": ("bf16_d256",)}
-CLUSTER_VARIANTS = {"flash_fwd": (), "flash_bwd_dkv": ("f32_d640",),
+CLUSTER_VARIANTS = {"flash_fwd": ("f32_d640",),
+                    "flash_bwd_dkv": ("f32_d640", "bf16_d640"),
                     "flash_bwd_dq": ()}
 PROMPT_LENS = (17, 100, 300, 700, 1500, 3000, 5000, 8000)
 SAMPLED = {1: dict(temperature=0.8, top_k=40, seed=1234),
@@ -489,15 +499,17 @@ BUILD_REPORT = ("registers", "spill", "smem", "arning", "wgmma",
                 "setmaxnreg")
 # Generic instances: 6 one-chunk ones in each kernel (f32 D128-512, bf16
 # D384-512; bf16 D256 is the wgmma kernels'), and each kernel 4 chunked ones
-# (f32 and bf16, chunks of 128 and 256; f32 D640's dK/dV is the cluster
-# kernel's, and the f32 128-column chunked dK/dV instance serves D896 and
-# the like)
+# (f32 and bf16, chunks of 128 and 256). D640 is the cluster kernels' for
+# the f32 forward and both dK/dVs, so the forward's f32 and the dK/dV's f32
+# and bf16 instances of 128-column chunks serve only D896, 1152, ... (D
+# above 512 with D % 256 != 0; the D896 cases of VARIANT_CASES run them)
 GENERIC_INSTANCES = 30
 # wgmma kernels: each of the three at D128 and D256 (the forward's two from
 # one template)
 WGMMA_INSTANCES = 6
-# the f32 D640 dK/dV kernel, a cluster of 5 CTAs on the FMA units
-CLUSTER_INSTANCES = 1
+# 5-CTA cluster kernels at D640: the f32 forward and the f32 dK/dV on the
+# FMA units, the bf16 dK/dV on wgmma
+CLUSTER_INSTANCES = 3
 
 
 def log(*a):
@@ -1020,18 +1032,19 @@ def _bwd_case(gen, card, B, H, KVH, S, causal, layout, D=128, dt=BF16):
 # --only-times: the bf16 wgmma kernels alone at the training shapes of
 # head_dim 256 and 128 (D, H, KVH; B1, causal), each timed in 3 rounds in
 # turn, medians printed: the quick A/B of two trees in one call (run it
-# from each root in turns). Then the f32 D640 dK/dV (the cluster kernel) at
-# its parity run's shape, S2048 only.
+# from each root in turns). Then the D640 cluster kernels at their parity
+# run's shape, S2048 only: in f32 the forward and dK/dV, in bf16 the dK/dV.
 TIME_SHAPES = ((256, 16, 8), (128, 32, 8))
 TIME_SEQS = (2048, TRAIN_SEQ)
 TIME_ROUNDS = 3
-TIME_CLUSTER = (640, 8, 4, 2048)  # D, H, KVH, S; f32, B1, causal
+TIME_CLUSTER = (640, 8, 4, 2048)  # D, H, KVH, S; B1, causal
 
 
 def phase_kernel_times(card: str) -> list:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     cases = [(D, H, KVH, S, BF16) for S in TIME_SEQS
-             for D, H, KVH in TIME_SHAPES] + [(*TIME_CLUSTER, F32)]
+             for D, H, KVH in TIME_SHAPES] + [
+        (*TIME_CLUSTER, F32), (*TIME_CLUSTER, BF16)]
     rows = []
     for D, H, KVH, S, dt in cases:
         q, k, v, do = (_attn_input(1, h, S, D, gen, dt, "dense")
@@ -1040,6 +1053,9 @@ def phase_kernel_times(card: str) -> list:
         delta = (do.float() * o.float()).sum(-1)
         args = (q, k, v, do, lse, delta, True, D ** -0.5)
         if dt == F32:
+            fns = dict(flash_fwd=lambda: flash_fwd(q, k, v, True),
+                       flash_bwd_dkv=lambda: flash_bwd_dkv(*args))
+        elif D == TIME_CLUSTER[0]:
             fns = dict(flash_bwd_dkv=lambda: flash_bwd_dkv(*args))
         else:
             fns = dict(flash_fwd=lambda: flash_fwd(q, k, v, True),
@@ -1061,22 +1077,36 @@ def phase_kernel_times(card: str) -> list:
     return rows
 
 
-def cluster_fit() -> int:
-    """How many 5-CTA clusters of the f32 D640 dK/dV kernel the card holds
-    at once (``cudaOccupancyMaxActiveClusters`` at its shared memory); at
-    least one, or that kernel cannot launch."""
-    n = ctypes.c_int(0)
-    err = _build.load("flash_bwd_dkv").ray_flash_bwd_dkv_max_clusters(
-        ctypes.byref(n))
-    check(err == 0 and n.value >= 1,
-          f"the f32 D640 dK/dV cluster does not fit: CUDA error {err}, "
-          f"{n.value} clusters")
-    return n.value
+# The cluster kernels by kernel-line entry: (library, its max-clusters
+# entry point).
+CLUSTER_FIT = {
+    "flash_fwd.f32_d640": ("flash_fwd", "ray_flash_fwd_max_clusters"),
+    "flash_bwd_dkv.f32_d640": ("flash_bwd_dkv",
+                               "ray_flash_bwd_dkv_max_clusters"),
+    "flash_bwd_dkv.bf16_d640": ("flash_bwd_dkv",
+                                "ray_flash_bwd_dkv_bf16_max_clusters")}
+
+
+def cluster_fit() -> dict:
+    """{kernel-line entry: how many of its 5-CTA clusters the card holds at
+    once} for each cluster kernel (``cudaOccupancyMaxActiveClusters`` at
+    its shared memory); at least one each, or that kernel cannot launch."""
+    out = {}
+    for name, (lib, fn) in CLUSTER_FIT.items():
+        f = getattr(_build.load(lib), fn)
+        f.argtypes, f.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+        n = ctypes.c_int(0)
+        err = f(ctypes.byref(n))
+        check(err == 0 and n.value >= 1,
+              f"the {name} cluster does not fit: CUDA error {err}, "
+              f"{n.value} clusters")
+        out[name] = n.value
+    return out
 
 
 def phase_bwd_kernels(card: str):
-    log(f"CLUSTER the f32 D640 dK/dV kernel: {cluster_fit()} clusters of 5 "
-        f"CTAs at once  [{card}]")
+    log(f"CLUSTER the D640 cluster kernels, clusters of 5 CTAs at once: "
+        f"{json.dumps(cluster_fit())}  [{card}]")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows = [_bwd_case(gen, card, B, H, KVH, S, causal, layout)
             for B, H, KVH, S, causal, layout in BWD_CASES]
@@ -4405,9 +4435,10 @@ def main() -> int:
     # register limit at DC 384 and 512 (one chunk; the chunked instances
     # stop at 256 for that reason); the wgmma kernels hold 64 or 128 (D128:
     # O, or dK and dV, or dQ; D256: O, or a half of dK and dV, or of dQ)
-    # beside their scores under setmaxnreg 240, the cluster kernel 32 dK or
-    # dV accumulators beside a 4 x 4 score tile. A spill in any instance is
-    # a defect, not a slowdown to accept.
+    # beside their scores under setmaxnreg 240, the f32 cluster kernels 64
+    # dK, dV or O accumulators beside an 8 x 8 score tile, the bf16 one 64
+    # dK or dV beside 32 of scores. A spill in any instance is a defect, not
+    # a slowdown to accept.
     spills = {k: v for text in _build.build_log.values()
               for k, v in ptxas_spills(text).items()}
     generic = {k: v for k, v in spills.items() if "generic" in k}
@@ -4416,14 +4447,14 @@ def main() -> int:
              if k not in generic and k not in cluster}
     log(f"BUILD spills (store, load bytes) of the generic instances: "
         f"{json.dumps(generic)}; of the wgmma kernels: {json.dumps(wgmma)}"
-        f"; of the cluster kernel: {json.dumps(cluster)}")
+        f"; of the cluster kernels: {json.dumps(cluster)}")
     built_all = len(_build.build_log) == len(_build.sources())
     check(not built_all or (len(generic) == GENERIC_INSTANCES
                             and len(wgmma) == WGMMA_INSTANCES
                             and len(cluster) == CLUSTER_INSTANCES),
           f"expected {GENERIC_INSTANCES} generic instances, "
           f"{WGMMA_INSTANCES} wgmma kernels and {CLUSTER_INSTANCES} "
-          f"cluster kernel in the ptxas report, got {sorted(generic)}, "
+          f"cluster kernels in the ptxas report, got {sorted(generic)}, "
           f"{sorted(wgmma)} and {sorted(cluster)}")
     check(all(v == (0, 0) for v in spills.values()),
           f"ptxas spills: {spills}")
@@ -4535,9 +4566,10 @@ def main() -> int:
                 name, {}).get("bf16_d128", 0)))
     kernels += _variant_entries(rows, bwd_rows, parity,
                                 tuned["trials"]["launches"])
+    fit = cluster_fit()
     for entry in kernels:
-        if entry["name"] == "flash_bwd_dkv.f32_d640":
-            entry["max_active_clusters"] = cluster_fit()
+        if entry["name"] in fit:
+            entry["max_active_clusters"] = fit[entry["name"]]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, build_s=build_s, kernel_rows=rows,

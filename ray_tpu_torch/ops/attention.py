@@ -30,13 +30,16 @@ Which code runs is picked inside its C entry point by (dtype, head_dim):
   * bf16 at 256: the wgmma kernels of all three
     (``flash_fwd_bf16_kernel<256, 64>``, ``flash_bwd_dkv_d256_kernel``,
     ``flash_bwd_dq_d256_kernel``);
-  * f32 at 640, dK/dV only: ``flash_bwd_dkv_f32_cluster_kernel``, a
-    cluster of 5 CTAs, one per 128 columns of D, that sum the scores over
-    D through each other's shared memory;
-  * every other case (f32 at any multiple of 128, bf16 from 384 up): the
-    generic variant on the CUDA cores, which from 640 up tiles over D
-    (chunks of 256 or 128 columns, the scores summed over the chunks;
-    ``ops/csrc/flash_common.cuh`` ``gen_chunk``).
+  * 640: clusters of 5 CTAs, one per 128 columns of D, that sum the
+    scores over D through each other's shared memory: the f32 forward
+    (``flash_fwd_f32_cluster_kernel``) and the f32 dK/dV
+    (``flash_bwd_dkv_f32_cluster_kernel``) on the FMA units, the bf16
+    dK/dV (``flash_bwd_dkv_bf16_cluster_kernel``) on wgmma;
+  * every other case (f32 at any multiple of 128, bf16 from 384 up, the
+    bf16 forward and both dQs at 640): the generic variant on the CUDA
+    cores, which from 640 up tiles over D (chunks of 256 or 128 columns,
+    the scores summed over the chunks; ``ops/csrc/flash_common.cuh``
+    ``gen_chunk``).
 Sequence lengths are not routed: the kernels take any S (TMA zero-fills,
 the stores are guarded), where the JAX package sends S % 128 != 0 to its
 jnp branch.
@@ -221,8 +224,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def kernel_variant(q: torch.Tensor) -> str:
     """The name of the kernel variant that q's dtype and head_dim launch:
     "bf16_d128" and "bf16_d256" (the wgmma kernels), "f32_d128",
-    "f32_d256", ..., "bf16_d384", ... (the generic ones; "f32_d640" is the
-    cluster kernel for dK/dV). The wrappers count launches by it in
+    "f32_d256", ..., "bf16_d384", ... (the generic ones; "f32_d640" runs
+    the cluster kernels of the forward and dK/dV, "bf16_d640" that of
+    dK/dV). The wrappers count launches by it in
     ``launches_by_variant`` beside ``launches``."""
     dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
     return f"{dt}_d{q.shape[-1]}"
@@ -304,8 +308,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash-attention forward -> (O [b, h, sq, d] in q's dtype, LSE
     [b, h, sq] f32). Routed by ``attention_route``: at the kernels'
     head_dims (multiples of 128) CUDA tensors launch ``csrc/flash_fwd.cu``
-    (its wgmma kernel for bf16 at 128 and 256, its generic variant
-    otherwise; counted in ``flash_fwd.launches``) and CPU tensors run
+    (its wgmma kernel for bf16 at 128 and 256, its cluster kernel for f32
+    at 640, its generic variant otherwise; counted in
+    ``flash_fwd.launches``) and CPU tensors run
     ``flash_fwd_plain``; a head_dim that is not a multiple of 128 runs
     ``flash_fwd_reference``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
@@ -451,9 +456,10 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
                   sm_scale: Optional[float] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) [b, kvh, skv, d] in k's dtype. CUDA tensors launch
-    ``csrc/flash_bwd_dkv.cu`` (a wgmma kernel for bf16 at 128 and 256, the
-    cluster kernel for f32 at 640, the generic variant otherwise; counted in
-    ``flash_bwd_dkv.launches``); CPU tensors run ``flash_bwd_plain_dkv``."""
+    ``csrc/flash_bwd_dkv.cu`` (a wgmma kernel for bf16 at 128 and 256, a
+    cluster kernel for f32 and bf16 at 640, the generic variant otherwise;
+    counted in ``flash_bwd_dkv.launches``); CPU tensors run
+    ``flash_bwd_plain_dkv``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if _bwd_device("flash_bwd_dkv", q, k, v, dout, lse, delta) == "cpu":
         return flash_bwd_plain_dkv(q, k, v, dout, lse, delta, causal, scale)

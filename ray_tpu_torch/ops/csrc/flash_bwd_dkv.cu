@@ -131,10 +131,37 @@
 //     scope.
 //   * 226 KB of shared memory: one CTA an SM, and a cluster takes 5 SMs of
 //     one GPC (22 clusters fit on the H100).
+// bf16 at 640 runs flash_bwd_dkv_bf16_cluster_kernel (after that): the same
+// cluster with each CTA's products on the tensor cores. The generic chunked
+// instance ran all four products as scalar FMAs, and its 5 chunk blocks each
+// recomputed S^T and dP^T over all of D. Here the four products of a (64 KV
+// rows, 64 q rows) tile pair are 4.2 MFLOP a CTA, about 0.56 us at one SM's
+// share of the tensor cores; the exchange of the f32 score partials (about
+// 49 KB a CTA a tile through distributed shared memory, 39 KB of it remote)
+// bounds it, not the tensor cores.
+//   * One cluster of 5 CTAs per (b, KV head, 64 KV rows). A CTA loads its
+//     chunk of K and V once (two 128B-swizzled 64-column boxes each) and
+//     streams its chunk of Q and dO per 64-row q tile through a 3-stage ring
+//     with LSE and delta (with 2 stages a tile's loads wait for the phase B
+//     of the tile before, which was slower on the card).
+//   * Warpgroup 0 computes S^T = K Q^T, warpgroup 1 dP^T = V dO^T, over the
+//     CTA's 128 columns (wgmma.m64n64k16, both operands K-major) into f32
+//     partials. The exchange warpgroup sums a fifth of the KV rows over the
+//     5 chunks in chunk order 0 to 4, forms P^T and, from that f32 P^T,
+//     dS^T, rounds both to bf16 (where the Pallas kernel rounds them) and
+//     stores them into every CTA as 128B-swizzled [kv][q] boxes. Then dV +=
+//     P^T dO and dK += dS^T Q are wgmma.m64n128k16 with both operands in
+//     shared memory (flash::mma_t), 64 f32 registers for the whole loop.
+//   * Phase B of tile t - 1 runs beside the exchange of tile t, with the
+//     f32 kernel's hand-overs. wgmma reads through the async proxy what
+//     other CTAs stored: the reader fences after its acquire, which was
+//     faster on the card than each writer fencing before its release.
+//   * 232,448 bytes of shared memory (3 ring stages, two buffers of the
+//     partials and of P^T and dS^T): one CTA an SM, 22 clusters at once.
 // A generic variant (at the end of this file) serves f32 at any other
-// head_dim that is a multiple of 128 and bf16 at those from 384 up (tiled
-// over D from 640 up), with P and dS rounded to the input dtype as the Pallas
-// kernel rounds them.
+// head_dim that is a multiple of 128 and bf16 at those from 384 up but 640
+// (tiled over D from 896 up), with P and dS rounded to the input dtype as the
+// Pallas kernel rounds them.
 
 #include <math.h>
 
@@ -688,19 +715,8 @@ __device__ __forceinline__ int swz(int row, int col4) {
   return row * kBQ + ((col4 ^ (row & 7)) << 2);
 }
 
-__device__ __forceinline__ void fma4(float (&acc)[4], float w, float4 b) {
-  acc[0] = fmaf(w, b.x, acc[0]);
-  acc[1] = fmaf(w, b.y, acc[1]);
-  acc[2] = fmaf(w, b.z, acc[2]);
-  acc[3] = fmaf(w, b.w, acc[3]);
-}
-
 __device__ __forceinline__ float4 f4(const float* x) {
   return make_float4(x[0], x[1], x[2], x[3]);
-}
-
-__device__ __forceinline__ float4 add(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
 __global__ void __cluster_dims__(kChunks, 1, 1) __launch_bounds__(kThreads, 1)
@@ -831,8 +847,8 @@ flash_bwd_dkv_f32_cluster_kernel(const __grid_constant__ CUtensorMap tq,
         for (int r = 0; r < kChunks; ++r) {
           const float4 x = hopper::ld_cluster_f4(hopper::map_rank(s_at, r));
           const float4 y = hopper::ld_cluster_f4(hopper::map_rank(p_at, r));
-          st = r == 0 ? x : add(st, x);
-          dpt = r == 0 ? y : add(dpt, y);
+          st = r == 0 ? x : flash::add4(st, x);
+          dpt = r == 0 ? y : flash::add4(dpt, y);
         }
       }
       __syncwarp();
@@ -1024,7 +1040,7 @@ flash_bwd_dkv_f32_cluster_kernel(const __grid_constant__ CUtensorMap tq,
                                  : e == 1 ? w[i].y
                                  : e == 2 ? w[i].z
                                           : w[i].w;
-                fma4(acc[i][m], wi, o);
+                flash::fma4(acc[i][m], wi, o);
               }
             }
           }
@@ -1053,27 +1069,355 @@ flash_bwd_dkv_f32_cluster_kernel(const __grid_constant__ CUtensorMap tq,
   hopper::cluster_sync();
 }
 
-// Host: the f32 tensor map {D, S, heads, batch} over a [B, heads, S, D]
-// tensor given by element strides, boxes of 32 columns x `rows` rows.
-inline bool make_map(CUtensorMap* map, const void* base, int B, int heads,
-                     int S, long long sb, long long sh, long long ss,
-                     uint32_t rows, CUtensorMapSwizzle swizzle) {
-  const uint64_t dims[4] = {static_cast<uint64_t>(kDW),
-                            static_cast<uint64_t>(S),
-                            static_cast<uint64_t>(heads),
-                            static_cast<uint64_t>(B)};
-  const uint64_t strides[3] = {ss * 4ull, sh * 4ull, sb * 4ull};  // bytes
-  const uint32_t box[4] = {kBox, rows, 1, 1};
-  return hopper::make_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, swizzle,
-                          base, 4, dims, strides, box);
-}
-
 }  // namespace f32c
 
 // ---------------------------------------------------------------------------
+// bf16 at D = 640: f32c's cluster (5 CTAs per 64 KV rows, one per 128
+// columns of D, the scores summed through distributed shared memory) with
+// each CTA's four products on the tensor cores (see the top of this file).
+// ---------------------------------------------------------------------------
+
+namespace bf16c {
+
+using flash::kBoxBytes;  // 8 KB: a 64-row [row][64 col] bf16 box
+
+constexpr int kChunks = 5;              // CTAs of a cluster = chunks of D
+constexpr int kDW = kChunks * kD;       // head_dim
+constexpr int kBKV = 64;                // KV rows per cluster
+constexpr int kBQ = 64;                 // q rows per tile
+constexpr int kStages = 3;              // Q/dO ring depth
+constexpr int kMathWarps = 8;           // two warpgroups: the products
+constexpr int kXWarps = 4;              // one warpgroup: the exchange, loads
+constexpr int kThreads = 32 * (kMathWarps + kXWarps);
+constexpr uint32_t kTileBytes = 64 * kD * 2;  // a chunk of K, V, Q or dO
+
+// K, V, Q and dO chunks as TMA writes them (two 128B-swizzled 64-column
+// boxes each), P^T and dS^T as one such box each ([kv][q], K-major for
+// the wgmma that reads them), the score partials in f32.
+struct __align__(1024) Smem {
+  bf16 k[2][kBKV * kHalf];
+  bf16 v[2][kBKV * kHalf];
+  bf16 q[kStages][2][kBQ * kHalf];
+  bf16 dout[kStages][2][kBQ * kHalf];
+  bf16 pd[2][2][kBKV * kBQ];      // [buffer][P^T, dS^T] over all of D
+  float part[2][2][kBKV * kBQ];   // [buffer][S^T, dP^T] over this chunk
+  float lse[kStages][kBQ];        // LSE * log2(e) of the tile's q rows
+  float delta[kStages][kBQ];
+  uint64_t kv_full;
+  uint64_t full[kStages];     // Q, dO landed (TMA bytes); LSE, delta written
+  uint64_t empty[kStages];    // this CTA's math warps are done with a stage
+  uint64_t parts_ready[2];    // every CTA's math warps wrote part[buffer]
+  uint64_t parts_free[2];     // every CTA's exchange warps read their slice
+  uint64_t pd_ready[2];       // every CTA stored its slice of pd[buffer]
+  uint64_t pd_free[2];        // every CTA's math warps are done with it
+};
+
+// + slack to align the base to 1024 bytes: 232,448 bytes, the whole 227 KB
+// a block may opt in to.
+constexpr int kSmemBytes = static_cast<int>(sizeof(Smem)) + 1024;
+static_assert(kSmemBytes <= 232448, "over the H100's 227 KB per block");
+
+// Float offset of the 16-byte column col4 of row `row` in a [kv][q] f32
+// partials tile (16 such columns a row): col4 ^ (row % 8), so the 8 rows
+// a warp's accumulator store covers fall in distinct banks.
+__device__ __forceinline__ int swz(int row, int col4) {
+  return row * kBQ + ((col4 ^ (row & 7)) << 2);
+}
+
+// Byte offset of q columns 4 col4.. of KV row `row` in a P^T or dS^T box,
+// where the 16-byte chunk c of a row sits at c ^ (row % 8) (flash::store_t's
+// layout).
+__device__ __forceinline__ uint32_t box_at(int row, int col4) {
+  return row * 128 + ((((col4 >> 1) ^ (row & 7))) << 4) + (col4 & 1) * 8;
+}
+
+__global__ void __cluster_dims__(kChunks, 1, 1) __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                  const __grid_constant__ CUtensorMap tk,
+                                  const __grid_constant__ CUtensorMap tv,
+                                  const __grid_constant__ CUtensorMap tdo,
+                                  const DkvArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  Smem& sm =
+      *reinterpret_cast<Smem*>(smem_raw + (((raw + 1023) & ~1023u) - raw));
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int c = static_cast<int>(hopper::cluster_ctarank());  // D chunk
+
+  // Cluster -> (KV tile, b, KV head), the KV tile slowest, as in f32c.
+  const int G = p.H / p.KVH;
+  const int n_bk = gridDim.x / kChunks / p.n_kvt;  // B * KVH
+  const int cl = blockIdx.x / kChunks;
+  const int bk = cl % n_bk;
+  const int kvt = cl / n_bk;
+  const int kvh = bk % p.KVH;
+  const int b = bk / p.KVH;
+  const int k0 = kvt * kBKV;
+  const int n_qt = (p.Sq + kBQ - 1) / kBQ;
+  const int qt_first = p.causal ? min(kvt, n_qt) : 0;  // kBKV == kBQ
+  const int n_per = n_qt - qt_first;  // q tiles per query head
+  const int n_it = G * n_per;
+  auto head = [&](int it) { return kvh * G + it / n_per; };
+  auto q_start = [&](int it) { return (n_qt - 1 - it % n_per) * kBQ; };
+
+  if (tid == 0) {
+    hopper::mbar_init(&sm.kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&sm.full[s], 1 + 32);  // TMA bytes + the loader
+      hopper::mbar_init(&sm.empty[s], kMathWarps);
+    }
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(&sm.parts_ready[i], kChunks);
+      hopper::mbar_init(&sm.parts_free[i], kChunks * kXWarps);
+      hopper::mbar_init(&sm.pd_ready[i], kChunks * kXWarps);
+      hopper::mbar_init(&sm.pd_free[i], kChunks * kMathWarps);
+    }
+    hopper::fence_barrier_init();
+  }
+  // The barriers are set up, and every CTA of the cluster runs, before a
+  // copy lands or a peer touches this CTA's shared memory.
+  hopper::cluster_sync();
+
+  if (warp >= kMathWarps) {
+    // ---------------- exchange warpgroup --------------------------------
+    // Its first warp loads: K and V once, then per tile Q and dO (TMA, two
+    // boxes each; rows past Sq and Skv are zero-filled) and LSE * log2(e)
+    // and delta (+inf and 0 past Sq: P and dS are 0 on such a q row), read
+    // an iteration ahead into registers.
+    const bool loader = warp == kMathWarps;
+    float lse_next[2] = {0.f, 0.f}, delta_next[2] = {0.f, 0.f};
+    auto fetch_rows = [&](int it) {
+      const long long at =
+          (static_cast<long long>(b) * p.H + head(it)) * p.Sq;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = q_start(it) + lane + 32 * i;
+        lse_next[i] = r < p.Sq ? p.lse[at + r] * kLog2e : INFINITY;
+        delta_next[i] = r < p.Sq ? p.delta[at + r] : 0.f;
+      }
+    };
+    auto load_tile = [&](int it) {
+      const int s = it % kStages;
+      if (lane == 0) {
+        hopper::mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
+        for (int x = 0; x < 2; ++x) {
+          hopper::tma_load_4d(sm.q[s][x], &tq, &sm.full[s],
+                              c * kD + x * kHalf, q_start(it), head(it), b);
+          hopper::tma_load_4d(sm.dout[s][x], &tdo, &sm.full[s],
+                              c * kD + x * kHalf, q_start(it), head(it), b);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sm.lse[s][lane + 32 * i] = lse_next[i];
+        sm.delta[s][lane + 32 * i] = delta_next[i];
+      }
+      hopper::mbar_arrive(&sm.full[s]);
+    };
+    if (loader) {
+      if (lane == 0) {
+        hopper::mbar_expect_tx(&sm.kv_full, 2 * kTileBytes);
+        for (int x = 0; x < 2; ++x) {
+          hopper::tma_load_4d(sm.k[x], &tk, &sm.kv_full, c * kD + x * kHalf,
+                              k0, kvh, b);
+          hopper::tma_load_4d(sm.v[x], &tv, &sm.kv_full, c * kD + x * kHalf,
+                              k0, kvh, b);
+        }
+      }
+      for (int it = 0; it < min(n_it, kStages - 1); ++it) {
+        fetch_rows(it);
+        load_tile(it);
+      }
+    }
+
+    // This CTA's slice of the KV rows, [r0, r1): thread xt sums 16-byte
+    // column col4 (4 q columns) of rows r0 + xt / 16 and r0 + xt / 16 + 8
+    // over the 5 chunks, in chunk order 0 to 4, forms P^T = exp(S^T scale
+    // - LSE) and from that f32 P^T dS^T = P^T (dP^T - delta) scale, rounds
+    // both to bf16 (where the Pallas kernel rounds them) and stores them
+    // into every CTA's pd.
+    const int xt = tid - 32 * kMathWarps;
+    const int r0 = c * kBKV / kChunks;
+    const int r1 = (c + 1) * kBKV / kChunks;
+    const int col4 = xt % 16;
+    int row[2];
+    bool mine[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      row[i] = r0 + xt / 16 + 8 * i;
+      mine[i] = row[i] < r1;
+    }
+    for (int it = 0; it < n_it; ++it) {
+      const int buf = it & 1;
+      const int s = it % kStages;
+      const int q0 = q_start(it);
+      const int nx = it + kStages - 1;  // the tile the loader loads next
+      if (loader && nx < n_it) fetch_rows(nx);
+      hopper::mbar_wait_cluster(&sm.parts_ready[buf], (it >> 1) & 1);
+      float4 st[2], dpt[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        st[i] = dpt[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (!mine[i]) continue;
+        const uint32_t s_at =
+            hopper::smem_u32(sm.part[buf][0] + swz(row[i], col4));
+        const uint32_t p_at =
+            hopper::smem_u32(sm.part[buf][1] + swz(row[i], col4));
+#pragma unroll
+        for (int r = 0; r < kChunks; ++r) {
+          const float4 x = hopper::ld_cluster_f4(hopper::map_rank(s_at, r));
+          const float4 y = hopper::ld_cluster_f4(hopper::map_rank(p_at, r));
+          st[i] = r == 0 ? x : flash::add4(st[i], x);
+          dpt[i] = r == 0 ? y : flash::add4(dpt[i], y);
+        }
+      }
+      __syncwarp();
+      if (lane < kChunks) hopper::mbar_signal_rank(&sm.parts_free[buf], lane);
+      hopper::mbar_wait(&sm.full[s], (it / kStages) & 1);  // LSE, delta
+      uint2 pw[2], dw[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float sv[4] = {st[i].x, st[i].y, st[i].z, st[i].w};
+        const float dv[4] = {dpt[i].x, dpt[i].y, dpt[i].z, dpt[i].w};
+        float pr[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = 4 * col4 + e;
+          pr[e] = fast_exp2(fmaf(sv[e], p.scale_log2, -sm.lse[s][qi]));
+          if (p.causal && q0 + qi < k0 + row[i]) pr[e] = 0.f;
+          ds[e] = pr[e] * (dv[e] - sm.delta[s][qi]) * p.scale;
+        }
+        pw[i] = make_uint2(pack_bf16(pr[0], pr[1]), pack_bf16(pr[2], pr[3]));
+        dw[i] = make_uint2(pack_bf16(ds[0], ds[1]), pack_bf16(ds[2], ds[3]));
+      }
+      // Every CTA's math warps are done with this buffer's tile before.
+      if (it >= 2)
+        hopper::mbar_wait(&sm.pd_free[buf], ((it - 2) >> 1) & 1);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (!mine[i]) continue;
+        const uint32_t at = box_at(row[i], col4);
+        const uint32_t p_at = hopper::smem_u32(sm.pd[buf][0]) + at;
+        const uint32_t d_at = hopper::smem_u32(sm.pd[buf][1]) + at;
+#pragma unroll
+        for (int r = 0; r < kChunks; ++r) {
+          hopper::st_cluster_u2(hopper::map_rank(p_at, r), pw[i]);
+          hopper::st_cluster_u2(hopper::map_rank(d_at, r), dw[i]);
+        }
+      }
+      __syncwarp();
+      if (lane < kChunks) hopper::mbar_arrive_rank(&sm.pd_ready[buf], lane);
+      // The tile two ahead goes into the stage of the one before this,
+      // once this CTA's math warps are done with it.
+      if (loader && nx < n_it) {
+        if (nx >= kStages)
+          hopper::mbar_wait(&sm.empty[nx % kStages], (nx / kStages - 1) & 1);
+        load_tile(nx);
+      }
+    }
+  } else {
+    // ---------------- math warpgroups -----------------------------------
+    // Warpgroup 0 computes S^T = K Q^T and dV += P^T dO, warpgroup 1 dP^T =
+    // V dO^T and dK += dS^T Q, over this chunk: phase A of tile it, then
+    // phase B of tile it - 1, so the exchange of tile it runs beside phase
+    // B. S^T and dP^T are wgmma.m64n64k16 with both operands K-major (8
+    // k-steps, 32 f32 registers); dV and dK are wgmma.m64n128k16 with A =
+    // P^T or dS^T from pd and B = dO or Q MN-major through the transpose bit
+    // (flash::mma_t, 4 k-steps), 64 f32 registers for the whole loop.
+    const int half = warp / 4;
+    const int w4 = warp % 4;
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    float sc[32];
+    const uint32_t a_base = hopper::smem_u32(half ? sm.v[0] : sm.k[0]);
+
+    hopper::mbar_wait(&sm.kv_full, 0);
+    for (int it = 0; it <= n_it; ++it) {
+      if (it < n_it) {
+        const int s = it % kStages;
+        const int buf = it & 1;
+        hopper::mbar_wait(&sm.full[s], (it / kStages) & 1);
+        // Every CTA's exchange warps are done with this buffer's tile.
+        if (it >= 2)
+          hopper::mbar_wait(&sm.parts_free[buf], ((it - 2) >> 1) & 1);
+        flash::issue_abt<kBQ>(
+            sc, a_base, kBoxBytes,
+            hopper::smem_u32(half ? sm.dout[s][0] : sm.q[s][0]), kBoxBytes);
+        hopper::wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 32; ++i) hopper::fence_reg(sc[i]);
+        // sc[4j + 2a + e]: KV row 16 w4 + lane / 4 + 8a, q column 8j +
+        // 2 (lane % 4) + e, into 16-byte column 2j + (lane % 4) / 2.
+        float* out = sm.part[buf][half];
+#pragma unroll
+        for (int j = 0; j < kBQ / 8; ++j)
+#pragma unroll
+          for (int a = 0; a < 2; ++a) {
+            const int r = 16 * w4 + lane / 4 + 8 * a;
+            *reinterpret_cast<float2*>(out + swz(r, 2 * j + (lane % 4) / 2) +
+                                       2 * (lane & 1)) =
+                make_float2(sc[4 * j + 2 * a], sc[4 * j + 2 * a + 1]);
+          }
+        // One warp, another each tile, releases the partials to every CTA
+        // once all eight warps have stored theirs, as in f32c.
+        if (warp == it % kMathWarps) {
+          hopper::named_bar_sync(1 + buf, 32 * kMathWarps);
+          if (lane < kChunks)
+            hopper::mbar_arrive_rank(&sm.parts_ready[buf], lane);
+        } else {
+          hopper::named_bar_arrive(1 + buf, 32 * kMathWarps);
+        }
+      }
+      if (it >= 1) {
+        // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1) over tile it -
+        // 1's q rows, this chunk's columns.
+        const int t = it - 1;
+        const int s = t % kStages;
+        const int buf = t & 1;
+        hopper::mbar_wait_cluster(&sm.pd_ready[buf], (t >> 1) & 1);
+        hopper::fence_proxy_async_cluster();  // peers' stores, then wgmma
+        hopper::wgmma_fence();
+        flash::mma_t(acc, hopper::smem_u32(sm.pd[buf][half]),
+                     hopper::smem_u32(half ? sm.q[s][0] : sm.dout[s][0]));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 64; ++i) hopper::fence_reg(acc[i]);
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&sm.empty[s]);
+        if (lane < kChunks) hopper::mbar_signal_rank(&sm.pd_free[buf], lane);
+      }
+    }
+
+    // acc[4j + 2a + e]: KV row k0 + 16 w4 + lane / 4 + 8a, column c kD +
+    // 8j + 2 (lane % 4) + e.
+    bf16* out = half ? p.dk : p.dv;
+    const long long row0 =
+        (static_cast<long long>(b) * p.KVH + kvh) * p.Skv + k0;
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int r = 16 * w4 + lane / 4 + 8 * a;
+      if (k0 + r >= p.Skv) continue;
+      bf16* o = out + (row0 + r) * kDW + c * kD + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j)
+        *reinterpret_cast<uint32_t*>(o + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * a], acc[4 * j + 2 * a + 1]);
+    }
+  }
+  // No CTA leaves while a peer may still touch its shared memory.
+  hopper::cluster_sync();
+}
+
+}  // namespace bf16c
+
+// ---------------------------------------------------------------------------
 // Generic variant: every dtype and head_dim (a multiple of 128) but bf16 D =
-// 128 and 256 and f32 D = 640, which the kernels above serve. The same function on the
-// CUDA cores: one block of 128 threads per (b, KV head, 16 KV rows, chunk of
+// 128 and 256 and D = 640, which the kernels above serve. The same function
+// on the CUDA cores: one block of 128 threads per (b, KV head, 16 KV rows, chunk of
 // D), walking the group's query heads and their 32-row q tiles as the wgmma
 // kernels do, with K, V, Q, dO as f32 tiles in dynamic shared memory (104 KB at
 // DC = 256, 198 KB at 512). D up to 512 runs in one chunk (DC = D); above, D is
@@ -1280,7 +1624,8 @@ int launch_generic(const flash::BwdParams& p, int D, int B, cudaStream_t st) {
 
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
 // and dtype: D itself up to 4 kD (bf16 at D = kD and 2 kD is the wgmma
-// kernels'), above that a chunk of flash::gen_chunk(D) columns.
+// kernels'), above that a chunk of flash::gen_chunk(D) columns (D = 5 kD is
+// the cluster kernels').
 int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -1306,14 +1651,17 @@ int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
 // shared-memory opt-in is set at every launch, as for the generic variants.
 int launch_cluster(const flash::BwdParams& p, int B, cudaStream_t st) {
   CUtensorMap tq, tk, tv, tdo;
-  if (!f32c::make_map(&tq, p.q, B, p.H, p.Sq, p.q_sb, p.q_sh, p.q_ss,
-                      f32c::kBQ, CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      !f32c::make_map(&tk, p.k, B, p.KVH, p.Skv, p.k_sb, p.k_sh, p.k_ss,
-                      f32c::kBKV, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !f32c::make_map(&tv, p.v, B, p.KVH, p.Skv, p.v_sb, p.v_sh, p.v_ss,
-                      f32c::kBKV, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !f32c::make_map(&tdo, p.dout, B, p.H, p.Sq, p.o_sb, p.o_sh, p.o_ss,
-                      f32c::kBQ, CU_TENSOR_MAP_SWIZZLE_NONE))
+  constexpr int D = f32c::kDW;
+  if (!flash::make_f32_map(&tq, p.q, B, p.H, p.Sq, p.q_sb, p.q_sh, p.q_ss,
+                           f32c::kBQ, D, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !flash::make_f32_map(&tk, p.k, B, p.KVH, p.Skv, p.k_sb, p.k_sh,
+                           p.k_ss, f32c::kBKV, D,
+                           CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !flash::make_f32_map(&tv, p.v, B, p.KVH, p.Skv, p.v_sb, p.v_sh,
+                           p.v_ss, f32c::kBKV, D,
+                           CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !flash::make_f32_map(&tdo, p.dout, B, p.H, p.Sq, p.o_sb, p.o_sh,
+                           p.o_ss, f32c::kBQ, D, CU_TENSOR_MAP_SWIZZLE_NONE))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = flash::allow_smem(
       f32c::flash_bwd_dkv_f32_cluster_kernel, f32c::kSmemBytes);
@@ -1325,24 +1673,50 @@ int launch_cluster(const flash::BwdParams& p, int B, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 at D = 5 kD: one cluster of bf16c::kChunks CTAs per 64 KV rows, on
+// 128B-swizzled 64-column boxes of every input. A launch the card refuses
+// returns its error.
+int launch_bf16_cluster(const flash::BwdParams& p, int B, cudaStream_t st) {
+  constexpr int D = bf16c::kDW;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!flash::make_bhsd_map(&tq, p.q, B, p.H, p.Sq, p.q_sb, p.q_sh, p.q_ss,
+                            bf16c::kBQ, D) ||
+      !flash::make_bhsd_map(&tk, p.k, B, p.KVH, p.Skv, p.k_sb, p.k_sh,
+                            p.k_ss, bf16c::kBKV, D) ||
+      !flash::make_bhsd_map(&tv, p.v, B, p.KVH, p.Skv, p.v_sb, p.v_sh,
+                            p.v_ss, bf16c::kBKV, D) ||
+      !flash::make_bhsd_map(&tdo, p.dout, B, p.H, p.Sq, p.o_sb, p.o_sh,
+                            p.o_ss, bf16c::kBQ, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = flash::allow_smem(
+      bf16c::flash_bwd_dkv_bf16_cluster_kernel, bf16c::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_kvt = (p.Skv + bf16c::kBKV - 1) / bf16c::kBKV;
+  const DkvArgs a{p.lse, p.delta, static_cast<bf16*>(p.out0),
+                  static_cast<bf16*>(p.out1), p.H, p.KVH, p.Sq, p.Skv, n_kvt,
+                  p.scale * kLog2e, p.scale, p.causal};
+  bf16c::flash_bwd_dkv_bf16_cluster_kernel<<<
+      B * p.KVH * n_kvt * bf16c::kChunks, bf16c::kThreads, bf16c::kSmemBytes,
+      st>>>(tq, tk, tv, tdo, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // How many clusters of the f32 D = 640 kernel the current device holds at
 // once (cudaOccupancyMaxActiveClusters at its shared memory), into
 // *clusters. Returns the CUDA error.
 extern "C" int ray_flash_bwd_dkv_max_clusters(int* clusters) {
-  cudaError_t err = flash::allow_smem(f32c::flash_bwd_dkv_f32_cluster_kernel,
-                                      f32c::kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(f32c::kChunks);
-  cfg.blockDim = dim3(f32c::kThreads);
-  cfg.dynamicSmemBytes = f32c::kSmemBytes;
-  err = cudaOccupancyMaxActiveClusters(
-      clusters,
-      reinterpret_cast<const void*>(f32c::flash_bwd_dkv_f32_cluster_kernel),
-      &cfg);
-  return static_cast<int>(err);
+  return flash::max_clusters(f32c::flash_bwd_dkv_f32_cluster_kernel,
+                             f32c::kChunks, f32c::kThreads, f32c::kSmemBytes,
+                             clusters);
+}
+
+// The same for the bf16 D = 640 kernel.
+extern "C" int ray_flash_bwd_dkv_bf16_max_clusters(int* clusters) {
+  return flash::max_clusters(bf16c::flash_bwd_dkv_bf16_cluster_kernel,
+                             bf16c::kChunks, bf16c::kThreads,
+                             bf16c::kSmemBytes, clusters);
 }
 
 // q/dO [B, H, Sq, D] and k/v [B, KVH, Skv, D] given by element strides (batch,
@@ -1350,8 +1724,8 @@ extern "C" int ray_flash_bwd_dkv_max_clusters(int* clusters) {
 // bytes, as TMA and the 16-byte loads require); lse and delta [B, H, Sq] f32
 // and dk/dv [B, KVH, Skv, D] dense, in the inputs' dtype. D is a multiple of
 // 128; dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 and 256 runs a wgmma
-// kernel, f32 at D = 640 the cluster kernel, every other case the generic
-// variant. Returns cudaGetLastError() after the launch (cudaErrorInvalidValue
+// kernel, D = 640 a cluster kernel (f32 or bf16), every other case the
+// generic variant. Returns cudaGetLastError() after the launch (cudaErrorInvalidValue
 // for a shape or layout the kernels do not take).
 extern "C" int ray_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
@@ -1371,7 +1745,9 @@ extern "C" int ray_flash_bwd_dkv(
         static_cast<const float*>(delta), dk, dv,
         q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
         o_sb, o_sh, o_ss, H,    KVH,  Sq,   Skv,  scale, causal};
-    if (dtype == 0 && D == f32c::kDW) return launch_cluster(p, B, st);
+    if (D == f32c::kDW)
+      return dtype == 0 ? launch_cluster(p, B, st)
+                        : launch_bf16_cluster(p, B, st);
     return launch_generic_d(p, D, dtype, B, st);
   }
   // bf16 at D = 128 (128 KV rows a block) or 256 (64)

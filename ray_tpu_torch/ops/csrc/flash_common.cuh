@@ -11,7 +11,9 @@
 // memory), and what the generic variants (f32, and bf16 from head_dim 384
 // up) share: loads and stores by element type, rounding to it, f32 tiles
 // in shared memory, the chunk of D they tile by, the backward's
-// parameters.
+// parameters. Last, on the host: the shared-memory opt-in, the tensor maps
+// (bf16, and f32 for the 5-CTA cluster kernels at D = 640) and how many
+// clusters of a kernel fit.
 
 #pragma once
 
@@ -206,6 +208,19 @@ __device__ __forceinline__ void fma4(float4& a, float4 b, float4 c) {
   a.w = fmaf(b.w, c.w, a.w);
 }
 
+// acc += w * b, elementwise: a row of the 5-CTA cluster kernels' 8 x 8
+// register tiles
+__device__ __forceinline__ void fma4(float (&acc)[4], float w, float4 b) {
+  acc[0] = fmaf(w, b.x, acc[0]);
+  acc[1] = fmaf(w, b.y, acc[1]);
+  acc[2] = fmaf(w, b.z, acc[2]);
+  acc[3] = fmaf(w, b.w, acc[3]);
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
 __device__ __forceinline__ float hsum(float4 a) {
   return (a.x + a.y) + (a.z + a.w);
 }
@@ -271,6 +286,41 @@ inline bool make_bhsd_map(CUtensorMap* map, const void* base, int B,
   const uint64_t strides[3] = {ss * 2ull, sh * 2ull, sb * 2ull};  // bytes
   const uint32_t box[4] = {kHalf, rows, 1, 1};
   return hopper::make_map_bf16_sw128(map, base, 4, dims, strides, box);
+}
+
+// Host: make_bhsd_map over an f32 tensor, boxes of 32 columns (128 bytes) x
+// `rows` rows, with `swizzle` (128B for a tile read down 8 rows of one
+// 16-byte column at once, none for one read along its rows). Used by the
+// 5-CTA cluster kernels (f32 at D = 640).
+inline bool make_f32_map(CUtensorMap* map, const void* base, int B,
+                         int heads, int S, long long sb, long long sh,
+                         long long ss, uint32_t rows, int D,
+                         CUtensorMapSwizzle swizzle) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(D),
+                            static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(heads),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {ss * 4ull, sh * 4ull, sb * 4ull};  // bytes
+  const uint32_t box[4] = {32, rows, 1, 1};
+  return hopper::make_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, swizzle,
+                          base, 4, dims, strides, box);
+}
+
+// Host: how many clusters of `kernel` (one cluster of `ctas` CTAs of
+// `threads` threads and `smem` bytes of dynamic shared memory each) the
+// current device holds at once, into *clusters; the CUDA error.
+template <typename Kernel>
+inline int max_clusters(Kernel kernel, int ctas, int threads, int smem,
+                        int* clusters) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  err = cudaOccupancyMaxActiveClusters(
+      clusters, reinterpret_cast<const void*>(kernel), &cfg);
+  return static_cast<int>(err);
 }
 
 }  // namespace flash

@@ -70,7 +70,34 @@
 //     place, any S. With 64-row tiles the block's last causal tile lies
 //     wholly above consumer 0's rows: it runs that tile masked to zeros
 //     (turns stay balanced), 1 / (2 (qt + 1)) of its work.
-// A generic scalar-FMA variant serves f32 at any head_dim that is a
+// f32 at head_dim 640 runs flash_fwd_f32_cluster_kernel (after it): the
+// f32 D640 dK/dV's cluster (flash_bwd_dkv.cu) carried over to the forward,
+// which has no dP. The generic chunked instance computed S over all of D in
+// each of its 5 chunk blocks and read one shared-memory word per 1 to 4
+// FMAs. This kernel is bound by the FMA units: f32 has no exact tensor-core
+// input (TF32 rounds, and the f32 forward is held to 1e-5), 2 products of
+// 128 x 32 x 640 FMAs per (q, KV) tile pair.
+//   * One cluster of 5 CTAs per (b, head, 128 q rows), one CTA per
+//     128-column chunk of D, the heaviest causal q tiles first. A CTA loads
+//     its chunk of Q once (f32 TMA boxes of 32 columns, 128B-swizzled since
+//     it is read down 8 rows of one column at once) and streams its chunk of
+//     K and V of the KV head per 32-row tile through a 3-stage ring.
+//   * The product over D is split across the cluster, not repeated: each CTA
+//     computes S (128 x 32) over its own 128 columns into its shared memory.
+//     The exchange warpgroup owns a fifth of the q rows for the whole loop:
+//     it sums their partials over the 5 chunks through distributed shared
+//     memory in chunk order 0 to 4, scales and masks them, keeps each row's
+//     running max m and sum l, and stores P = exp(S - m) (f32: nothing
+//     rounds) and the row's correction exp(m_old - m_new) into every CTA.
+//     O = O corr + P V follows, O (64 f32 a thread) in registers for the
+//     whole loop; at the end the owners store l into every CTA and write
+//     LSE = m + log(l).
+//   * Roles, hand-overs and 8 x 8 register tiles as in that dK/dV: two math
+//     warpgroups (S of tile t, then O of tile t - 1) and one exchange and
+//     load warpgroup. The exchange does not bound it: on the card, keeping
+//     its loads or its stores within the CTA left its time as it was.
+//   * 232,448 bytes of shared memory: one CTA an SM, 22 clusters at once.
+// A generic scalar-FMA variant serves f32 at any other head_dim that is a
 // multiple of 128 and bf16 at those from 384 up, tiled over D from 640 up.
 
 #include <math.h>
@@ -493,10 +520,444 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
+// f32 at D = 640: one cluster of 5 CTAs per (b, head, 128 q rows), one CTA
+// per 128-column chunk of D, the scores summed over the cluster (see the top
+// of this file).
+// ---------------------------------------------------------------------------
+
+namespace f32c {
+
+constexpr int kChunks = 5;              // CTAs of a cluster = chunks of D
+constexpr int kDW = kChunks * kD;       // head_dim
+constexpr int kBM = 128;                // q rows per cluster
+constexpr int kBN = 32;                 // KV rows per tile
+constexpr int kStages = 3;              // K/V ring depth
+constexpr int kBox = 32;                // f32 columns of a 128-byte box
+constexpr int kBoxes = kD / kBox;       // boxes of a chunk's row
+constexpr int kMathWarps = 8;           // two warpgroups: the products
+constexpr int kXWarps = 4;              // one warpgroup: the exchange, loads
+constexpr int kThreads = 32 * (kMathWarps + kXWarps);
+constexpr int kMathRegs = 224;          // setmaxnreg of the math warpgroups
+constexpr int kXRegs = 56;              // and of the exchange warpgroup
+constexpr uint32_t kRowBytes = kD * 4;  // one row of a chunk
+
+// Q, K and V chunks as TMA writes them: 4 boxes of 32 columns, each `rows`
+// x 128 bytes. Q is read down 8 rows of one 16-byte column at once, so its
+// 16-byte column c of row r sits at c ^ (r % 8) within its box
+// (CU_TENSOR_MAP_SWIZZLE_128B) and those 8 words fall in 8 distinct banks;
+// K and V are read along a row, in place.
+struct __align__(1024) Smem {
+  float q[kBoxes][kBM * kBox];
+  float k[kStages][kBoxes][kBN * kBox];
+  float v[kStages][kBoxes][kBN * kBox];
+  float part[2][kBM * kBN];  // [buffer] S over this chunk, [q][kv]
+  float pm[2][kBM * kBN];    // [buffer] P over all of D, [q][kv]
+  float corr[2][kBM];        // [buffer] exp(m_old - m_new) of each q row
+  float lsum[kBM];           // the row sums l after the last tile
+  uint64_t q_full;
+  uint64_t full[kStages];     // K, V landed (TMA bytes)
+  uint64_t empty[kStages];    // this CTA's math warps are done with a stage
+  uint64_t parts_ready[2];    // every CTA's math warps wrote part[buffer]
+  uint64_t parts_free[2];     // every CTA's exchange warps read their slice
+  uint64_t pd_ready[2];       // every CTA stored its rows of pm, corr
+  uint64_t pd_free[2];        // every CTA's math warps are done with them
+};
+
+// + slack to align the base to 1024 bytes: 232,448 bytes, the whole 227 KB
+// a block may opt in to.
+constexpr int kSmemBytes = static_cast<int>(sizeof(Smem)) + 1024;
+static_assert(kSmemBytes <= 232448, "over the H100's 227 KB per block");
+
+// A [q][kv] partials tile: 8 16-byte columns a row, column c of row r at c
+// ^ (r % 8), so 8 consecutive rows' stores of one column fall in 8 banks.
+__device__ __forceinline__ int swz(int row, int col4) {
+  return row * kBN + ((col4 ^ (row & 7)) << 2);
+}
+
+// P's 16-byte column c of row r sits at c ^ (r % 2): the two rows a warp
+// reads at once in phase B fall in other banks.
+__device__ __forceinline__ int pm_at(int row, int col4) {
+  return row * kBN + ((col4 ^ (row & 1)) << 2);
+}
+
+__global__ void __cluster_dims__(kChunks, 1, 1) __launch_bounds__(kThreads, 1)
+flash_fwd_f32_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  Smem& sm =
+      *reinterpret_cast<Smem*>(smem_raw + (((raw + 1023) & ~1023u) - raw));
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int c = static_cast<int>(hopper::cluster_ctarank());  // D chunk
+
+  // Cluster -> (q tile, b, head), the q tile slowest, heaviest causal tile
+  // first; the query heads of one KV head run next to each other, so they
+  // read its K and V from L2.
+  const int n_qt = (p.Sq + kBM - 1) / kBM;
+  const int n_bh = gridDim.x / kChunks / n_qt;  // B * H
+  const int cl = blockIdx.x / kChunks;
+  const int bh = cl % n_bh;
+  const int rank = cl / n_bh;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int kvh = h / (p.H / p.KVH);
+  const int qt = p.causal ? n_qt - 1 - rank : rank;
+  const int q0 = qt * kBM;
+  const int n_kt = kv_tiles(p, q0, kBM, kBN);
+
+  if (tid == 0) {
+    hopper::mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&sm.full[s], 1);
+      hopper::mbar_init(&sm.empty[s], kMathWarps);
+    }
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(&sm.parts_ready[i], kChunks);
+      hopper::mbar_init(&sm.parts_free[i], kChunks * kXWarps);
+      hopper::mbar_init(&sm.pd_ready[i], kChunks * kXWarps);
+      hopper::mbar_init(&sm.pd_free[i], kChunks * kMathWarps);
+    }
+    hopper::fence_barrier_init();
+  }
+  // The barriers are set up, and every CTA of the cluster runs, before a
+  // copy lands or a peer touches this CTA's shared memory.
+  hopper::cluster_sync();
+
+  if (warp >= kMathWarps) {
+    // ---------------- exchange warpgroup --------------------------------
+    // Its first warp's lane 0 loads (TMA, 4 boxes each; rows past Sq and
+    // Skv are zero-filled): Q once, K and V per tile of KV head kvh.
+    hopper::reg_dealloc<kXRegs>();
+    const bool loader = warp == kMathWarps && lane == 0;
+    auto load_tile = [&](int kt) {
+      const int s = kt % kStages;
+      hopper::mbar_expect_tx(&sm.full[s], 2 * kBN * kRowBytes);
+      for (int x = 0; x < kBoxes; ++x) {
+        hopper::tma_load_4d(sm.k[s][x], &tk, &sm.full[s], c * kD + x * kBox,
+                            kt * kBN, kvh, b);
+        hopper::tma_load_4d(sm.v[s][x], &tv, &sm.full[s], c * kD + x * kBox,
+                            kt * kBN, kvh, b);
+      }
+    };
+    if (loader) {
+      hopper::mbar_expect_tx(&sm.q_full, kBM * kRowBytes);
+      for (int x = 0; x < kBoxes; ++x)
+        hopper::tma_load_4d(sm.q[x], &tq, &sm.q_full, c * kD + x * kBox, q0,
+                            h, b);
+      for (int kt = 0; kt < min(n_kt, kStages - 1); ++kt) load_tile(kt);
+    }
+
+    // This CTA's q rows, [r0, r1), for the whole loop: 8 lanes a row, lane
+    // col4 of row r0 + xt / 8 + 16 i (i < 2) sums 16-byte column col4 (4
+    // KV columns) over the 5 chunks, in chunk order 0 to 4 in every CTA,
+    // applies scale and the mask, keeps the row's running max m and sum l
+    // (the same in its 8 lanes), and stores P = exp(S - m_new) in f32 (the
+    // Pallas kernel's cast to V's dtype rounds nothing in f32) and the
+    // row's correction exp(m_old - m_new) into every CTA.
+    const int xt = tid - 32 * kMathWarps;
+    const int r0 = c * kBM / kChunks;
+    const int r1 = (c + 1) * kBM / kChunks;
+    const int col4 = xt % 8;
+    int row[2];
+    bool mine[2];
+    float m[2], l[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      row[i] = r0 + xt / 8 + 16 * i;
+      mine[i] = row[i] < r1;  // the same in a row's 8 lanes
+      m[i] = -INFINITY;
+      l[i] = 0.f;
+    }
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int buf = kt & 1;
+      const int k0 = kt * kBN;
+      const int nx = kt + kStages - 1;  // the tile the loader loads next
+      hopper::mbar_wait_cluster(&sm.parts_ready[buf], (kt >> 1) & 1);
+      float4 sv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (!mine[i]) continue;
+        const uint32_t at = hopper::smem_u32(sm.part[buf] + swz(row[i], col4));
+#pragma unroll
+        for (int r = 0; r < kChunks; ++r) {
+          const float4 x = hopper::ld_cluster_f4(hopper::map_rank(at, r));
+          sv[i] = r == 0 ? x : flash::add4(sv[i], x);
+        }
+      }
+      __syncwarp();
+      if (lane < kChunks) hopper::mbar_signal_rank(&sm.parts_free[buf], lane);
+      float4 pv[2];
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float x[4] = {sv[i].x, sv[i].y, sv[i].z, sv[i].w};
+        float mx = -INFINITY;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 4 * col4 + e;
+          x[e] *= p.scale;
+          if (col >= p.Skv || (p.causal && col > q0 + row[i]))
+            x[e] = kMaskValue;
+          mx = fmaxf(mx, x[e]);
+        }
+#pragma unroll
+        for (int off = 1; off < 8; off <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float mn = fmaxf(m[i], mx);
+        corr[i] = expf(m[i] - mn);
+        m[i] = mn;
+        float sum = 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          x[e] = expf(x[e] - mn);
+          sum += x[e];
+        }
+#pragma unroll
+        for (int off = 1; off < 8; off <<= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        l[i] = l[i] * corr[i] + sum;
+        pv[i] = make_float4(x[0], x[1], x[2], x[3]);
+      }
+      // Every CTA's math warps are done with this buffer's tile before.
+      if (kt >= 2)
+        hopper::mbar_wait(&sm.pd_free[buf], ((kt - 2) >> 1) & 1);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (!mine[i]) continue;
+        const uint32_t p_at =
+            hopper::smem_u32(sm.pm[buf] + pm_at(row[i], col4));
+        const uint32_t c_at = hopper::smem_u32(sm.corr[buf] + row[i]);
+#pragma unroll
+        for (int r = 0; r < kChunks; ++r) {
+          hopper::st_cluster_f4(hopper::map_rank(p_at, r), pv[i]);
+          if (col4 == 0)
+            hopper::st_cluster_f32(hopper::map_rank(c_at, r), corr[i]);
+        }
+      }
+      __syncwarp();
+      if (lane < kChunks) hopper::mbar_arrive_rank(&sm.pd_ready[buf], lane);
+      // The tile two ahead goes into the stage of the one before this,
+      // once this CTA's math warps are done with it.
+      if (loader && nx < n_kt) {
+        if (nx >= kStages)
+          hopper::mbar_wait(&sm.empty[nx % kStages], (nx / kStages - 1) & 1);
+        load_tile(nx);
+      }
+    }
+    // The row sums into every CTA (published by the cluster barrier
+    // below), and LSE = m + log(l) in natural-log units, which the
+    // backward reads.
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (!mine[i] || col4 != 0) continue;
+      const float lf = fmaxf(l[i], 1e-30f);
+      const uint32_t at = hopper::smem_u32(sm.lsum + row[i]);
+      for (int r = 0; r < kChunks; ++r)
+        hopper::st_cluster_f32(hopper::map_rank(at, r), lf);
+      if (q0 + row[i] < p.Sq)
+        p.lse[static_cast<long long>(bh) * p.Sq + q0 + row[i]] =
+            m[i] + logf(lf);
+    }
+    // Publishes lsum to the math warps; no CTA leaves while a peer may
+    // still touch its shared memory.
+    hopper::cluster_sync();
+  } else {
+    // ---------------- math warpgroups -----------------------------------
+    // Phase A of tile kt (S = Q K^T over this chunk), then phase B of tile
+    // kt - 1 (O = O corr + P V), so the exchange of tile kt runs beside
+    // phase B. Every inner loop runs on an 8 x 8 register tile, so each
+    // word read from shared memory feeds 8 FMAs (shared memory gives 32
+    // words a clock, the FMA units take 128).
+    hopper::reg_alloc<kMathRegs>();
+    const int half = warp / 4;
+    const int w4 = warp % 4;
+    // Phase A: q rows 64 half + l8 + 8i by KV rows 8 w4 + i' (i, i' < 8)
+    // over the 16-byte columns dq + 4j (j < 8) of the chunk, dq = lane / 8:
+    // the four lanes of a tile take a quarter of the columns each and are
+    // summed by shuffles. A quarter warp reads 8 q rows of one column and
+    // one K word.
+    const int l8 = lane % 8;
+    const int dq = lane / 8;
+    // Phase B: q rows kg + 16i (i < 8) by columns 4 dg + 64m + e (m < 2, e
+    // < 4): a half warp reads one P word and 16 consecutive 16-byte
+    // columns of V.
+    const int dg = lane % 16;
+    const int kg = 2 * warp + lane / 16;
+    float acc[8][2][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][mm][e] = 0.f;
+
+    hopper::mbar_wait(&sm.q_full, 0);
+    for (int kt = 0; kt <= n_kt; ++kt) {
+      if (kt < n_kt) {
+        const int s = kt % kStages;
+        const int buf = kt & 1;
+        hopper::mbar_wait(&sm.full[s], (kt / kStages) & 1);
+        // Every CTA's exchange warps are done with this buffer's tile.
+        if (kt >= 2)
+          hopper::mbar_wait(&sm.parts_free[buf], ((kt - 2) >> 1) & 1);
+        // Step j reads 16-byte column g = dq + 4j: box j / 2, column dq +
+        // 4 (j % 2) in it, at (dq + 4 (j % 2)) ^ l8 in Q's rows.
+        const float* a0 =
+            sm.q[0] + (64 * half + l8) * kBox + ((dq ^ l8) << 2);
+        const float* a1 =
+            sm.q[0] + (64 * half + l8) * kBox + ((dq ^ l8 ^ 4) << 2);
+        const float* b0 = sm.k[s][0] + 8 * w4 * kBox + 4 * dq;
+        float x[8][8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int i2 = 0; i2 < 8; ++i2) x[i][i2] = 0.f;
+#pragma unroll 1
+        for (int j = 0; j < kD / 16; ++j) {
+          const float* ak = ((j & 1) ? a1 : a0) + (j >> 1) * kBM * kBox;
+          const float* bk = b0 + (j >> 1) * kBN * kBox + (j & 1) * 16;
+          float4 bq[8];
+#pragma unroll
+          for (int i2 = 0; i2 < 8; ++i2) bq[i2] = flash::ld4(bk + i2 * kBox);
+          // Consecutive FMAs go to 8 different accumulators.
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float4 a = flash::ld4(ak + 8 * i * kBox);
+#pragma unroll
+            for (int i2 = 0; i2 < 8; ++i2)
+              x[i][i2] = fmaf(a.x, bq[i2].x, x[i][i2]);
+#pragma unroll
+            for (int i2 = 0; i2 < 8; ++i2)
+              x[i][i2] = fmaf(a.y, bq[i2].y, x[i][i2]);
+#pragma unroll
+            for (int i2 = 0; i2 < 8; ++i2)
+              x[i][i2] = fmaf(a.z, bq[i2].z, x[i][i2]);
+#pragma unroll
+            for (int i2 = 0; i2 < 8; ++i2)
+              x[i][i2] = fmaf(a.w, bq[i2].w, x[i][i2]);
+          }
+        }
+        // The four column quarters' sums: lanes 8 apart trade q rows (each
+        // keeps 4 of its 8), then lanes 16 apart trade KV rows (each keeps
+        // 4).
+        const bool hi_q = dq & 1, hi_kv = dq & 2;
+        float y[4][8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int i2 = 0; i2 < 8; ++i2) {
+            const float keep = hi_q ? x[i + 4][i2] : x[i][i2];
+            const float give = hi_q ? x[i][i2] : x[i + 4][i2];
+            y[i][i2] = keep + __shfl_xor_sync(0xffffffffu, give, 8);
+          }
+        float* out = sm.part[buf];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float z[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float keep = hi_kv ? y[i][e + 4] : y[i][e];
+            const float give = hi_kv ? y[i][e] : y[i][e + 4];
+            z[e] = keep + __shfl_xor_sync(0xffffffffu, give, 16);
+          }
+          *reinterpret_cast<float4*>(
+              out + swz(64 * half + l8 + 8 * (i + 4 * hi_q), 2 * w4 + hi_kv)) =
+              make_float4(z[0], z[1], z[2], z[3]);
+        }
+        // One warp, another each tile, waits at a named barrier for all
+        // eight warps' partials and arrives at each CTA's parts_ready
+        // (lanes 0-4 in one instruction): the release at cluster scope is a
+        // GPU-wide memory barrier that stalls the warp, so the other warps
+        // only arrive at the named barrier and go on.
+        if (warp == kt % kMathWarps) {
+          hopper::named_bar_sync(1 + buf, 32 * kMathWarps);
+          if (lane < kChunks)
+            hopper::mbar_arrive_rank(&sm.parts_ready[buf], lane);
+        } else {
+          hopper::named_bar_arrive(1 + buf, 32 * kMathWarps);
+        }
+      }
+      if (kt >= 1) {
+        // O = O corr + P V over tile kt - 1's KV rows, this chunk's
+        // columns.
+        const int t = kt - 1;
+        const int s = t % kStages;
+        const int buf = t & 1;
+        hopper::mbar_wait_cluster(&sm.pd_ready[buf], (t >> 1) & 1);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float cr = sm.corr[buf][kg + 16 * i];
+#pragma unroll
+          for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][mm][e] *= cr;
+        }
+        const float* Pm = sm.pm[buf] + kg * kBN;
+        // 16-byte column dg + 16m of a row: box dg / 8 + 2m, column dg % 8.
+        const float* Vt =
+            sm.v[s][0] + (dg >> 3) * kBN * kBox + 4 * (dg & 7);
+#pragma unroll 2
+        for (int jj = 0; jj < kBN; jj += 4) {
+          // P's 16-byte column jj / 4 of rows kg + 16i, at (jj / 4) ^ (kg %
+          // 2) (pm_at).
+          const int pc = ((jj >> 2) ^ (kg & 1)) << 2;
+          float4 w[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) w[i] = flash::ld4(Pm + 16 * i * kBN + pc);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+#pragma unroll
+            for (int mm = 0; mm < 2; ++mm) {
+              const float4 o =
+                  flash::ld4(Vt + 2 * mm * kBN * kBox + (jj + e) * kBox);
+#pragma unroll
+              for (int i = 0; i < 8; ++i) {
+                const float wi = e == 0   ? w[i].x
+                                 : e == 1 ? w[i].y
+                                 : e == 2 ? w[i].z
+                                          : w[i].w;
+                flash::fma4(acc[i][mm], wi, o);
+              }
+            }
+          }
+        }
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&sm.empty[s]);
+        if (lane < kChunks) hopper::mbar_signal_rank(&sm.pd_free[buf], lane);
+      }
+    }
+    // Every CTA's row sums have arrived (the exchange warps' stores before
+    // the cluster barrier); after it no peer touches this CTA's memory.
+    hopper::cluster_sync();
+    float* O = static_cast<float*>(p.o);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = kg + 16 * i;
+      if (q0 + row >= p.Sq) continue;
+      const float lf = sm.lsum[row];
+      float* o = O + (static_cast<long long>(bh) * p.Sq + q0 + row) * kDW +
+                 c * kD + 4 * dg;
+#pragma unroll
+      for (int mm = 0; mm < 2; ++mm)
+        *reinterpret_cast<float4*>(o + 64 * mm) =
+            make_float4(acc[i][mm][0] / lf, acc[i][mm][1] / lf,
+                        acc[i][mm][2] / lf, acc[i][mm][3] / lf);
+    }
+  }
+}
+
+}  // namespace f32c
+
+// ---------------------------------------------------------------------------
 // Generic variant: every dtype and head_dim (a multiple of 128) but bf16 D =
-// 128 and 256, which the wgmma kernel above serves. Scalar FMAs on the CUDA
-// cores over f32 tiles in dynamic shared memory: 32 q rows per block, 4 threads
-// per row, 16-row KV tiles, the same online softmax with P rounded to the input
+// 128 and 256 and f32 D = 640, which the kernels above serve. Scalar FMAs on
+// the CUDA cores over f32 tiles in dynamic shared memory: 32 q rows per block,
+// 4 threads per row, 16-row KV tiles, the same online softmax with P rounded to the input
 // dtype before P V. D up to 512 runs in one chunk (DC = D). Above, D is cut
 // into chunks of DC = 256 or 128 columns (flash::gen_chunk; the chunked
 // instances): the grid's z axis gives each block one chunk of O's columns, held
@@ -669,7 +1130,8 @@ int launch_generic(const Params& p, int D, int B, cudaStream_t st) {
 
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
 // and dtype: D itself up to 4 kD (bf16 at D = kD and 2 kD is the wgmma
-// kernel's), above that a chunk of flash::gen_chunk(D) columns.
+// kernel's), above that a chunk of flash::gen_chunk(D) columns (f32 at D =
+// 5 kD is the cluster kernel's).
 int launch_generic_d(const Params& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -690,7 +1152,39 @@ int launch_generic_d(const Params& p, int D, int dtype, int B,
   return launch_generic<float, 4 * kD, false>(p, D, B, st);
 }
 
+// f32 at D = 5 kD: one cluster of f32c::kChunks CTAs per 128 q rows. A
+// launch the card refuses (no room for a cluster) returns its error. The
+// shared-memory opt-in is set at every launch, as for the generic variants.
+int launch_cluster(const Params& p, int B, cudaStream_t st) {
+  constexpr int D = f32c::kDW;
+  CUtensorMap tq, tk, tv;
+  if (!flash::make_f32_map(&tq, p.q, B, p.H, p.Sq, p.q_sb, p.q_sh, p.q_ss,
+                           f32c::kBM, D, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !flash::make_f32_map(&tk, p.k, B, p.KVH, p.Skv, p.k_sb, p.k_sh,
+                           p.k_ss, f32c::kBN, D, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !flash::make_f32_map(&tv, p.v, B, p.KVH, p.Skv, p.v_sb, p.v_sh,
+                           p.v_ss, f32c::kBN, D, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = flash::allow_smem(
+      f32c::flash_fwd_f32_cluster_kernel, f32c::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_qt = (p.Sq + f32c::kBM - 1) / f32c::kBM;
+  f32c::flash_fwd_f32_cluster_kernel<<<B * p.H * n_qt * f32c::kChunks,
+                                       f32c::kThreads, f32c::kSmemBytes,
+                                       st>>>(tq, tk, tv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// How many clusters of the f32 D = 640 kernel the current device holds at
+// once (cudaOccupancyMaxActiveClusters at its shared memory), into
+// *clusters. Returns the CUDA error.
+extern "C" int ray_flash_fwd_max_clusters(int* clusters) {
+  return flash::max_clusters(f32c::flash_fwd_f32_cluster_kernel,
+                             f32c::kChunks, f32c::kThreads, f32c::kSmemBytes,
+                             clusters);
+}
 
 // The bf16 launch at D = 128 or 256: tensor maps over q, k, v (4-D {D, S,
 // heads, batch}, 128B swizzle, boxes of 64 columns x kBM or BN rows), then
@@ -722,8 +1216,8 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* o,
 // q [B, H, Sq, D], k/v [B, KVH, Skv, D] given by element strides (batch,
 // head, seq; the last dim dense); o [B, H, Sq, D] and lse [B, H, Sq] dense.
 // D is a multiple of 128; dtype: 0 = float32, 1 = bfloat16. bf16 at
-// D = 128 and 256 runs the wgmma kernel, every other case the generic
-// variant. Returns
+// D = 128 and 256 runs the wgmma kernel, f32 at 640 the cluster kernel,
+// every other case the generic variant. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape or
 // layout the kernels do not take: every stride and the base addresses must
 // be multiples of 16 bytes, as TMA and the 16-byte loads require).
@@ -750,5 +1244,6 @@ extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
   const Params p{q,    k,    v,    o,    static_cast<float*>(lse),
                  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                  H,    KVH,  Sq,   Skv,  scale, causal};
+  if (dtype == 0 && D == f32c::kDW) return launch_cluster(p, B, st);
   return launch_generic_d(p, D, dtype, B, st);
 }

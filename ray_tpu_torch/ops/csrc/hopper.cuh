@@ -163,6 +163,17 @@ __device__ __forceinline__ void st_cluster_f4(uint32_t addr, float4 v) {
                : "memory");
 }
 
+__device__ __forceinline__ void st_cluster_u2(uint32_t addr, uint2 v) {
+  asm volatile("st.shared::cluster.v2.b32 [%0], {%1, %2};\n" ::"r"(addr),
+               "r"(v.x), "r"(v.y)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_cluster_f32(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
+}
+
 // One arrival on the mbarrier `bar` (this CTA's address of it) in CTA
 // `rank`, releasing this thread's earlier writes at cluster scope.
 __device__ __forceinline__ void mbar_arrive_rank(uint64_t* bar,
@@ -381,6 +392,15 @@ __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16],
 // fences, then a barrier orders the readers behind every store.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The same for stores that other CTAs made into this CTA's shared memory
+// (st.shared::cluster) before a wgmma here reads them: a proxy fence
+// anywhere on the causality path from the stores to the wgmma orders them,
+// so the reader fences after its acquire (cheaper than each writer's fence
+// before its release).
+__device__ __forceinline__ void fence_proxy_async_cluster() {
+  asm volatile("fence.proxy.async.shared::cluster;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -1,22 +1,28 @@
-"""The port's plain flash backward at head_dim 640 against the Pallas TPU
-kernels, on the CPU, with inputs made from a numpy seed.
+"""The port's plain flash forward and backward at head_dim 640 against the
+Pallas TPU kernels, on the CPU, with inputs made from a numpy seed.
 
-On the card, f32 at head_dim 640 runs the dK/dV cluster kernel
+On the card, head_dim 640 runs 5-CTA cluster kernels, one CTA per 128
+columns of D, that sum the scores over D through each other's shared
+memory: the f32 forward (``csrc/flash_fwd.cu``
+``flash_fwd_f32_cluster_kernel``, on the FMA units), the f32 dK/dV
 (``csrc/flash_bwd_dkv.cu`` ``flash_bwd_dkv_f32_cluster_kernel``) and the
-generic dQ, bf16 the generic variants, and ``chip_smoke.py`` holds each
-against ``flash_bwd_plain_dkv`` and ``flash_bwd_plain_dq``. Here those plain
-versions are held against the real Pallas bodies (``_flash_bwd_dkv_kernel``,
+bf16 dK/dV (``flash_bwd_dkv_bf16_cluster_kernel``, wgmma in each CTA); the
+bf16 forward and both dQs run the generic variants. ``chip_smoke.py`` holds
+each against ``flash_fwd_plain``, ``flash_bwd_plain_dkv`` and
+``flash_bwd_plain_dq``. Here those plain versions are held against the real
+Pallas bodies (``_flash_fwd_kernel``, ``_flash_bwd_dkv_kernel``,
 ``_flash_bwd_dq_kernel``) run in interpret mode at D640: two q and two kv
-blocks of 128, so every causal block class, on the Pallas forward's O and
-LSE.
+blocks of 128, so every causal block class; the backward on the Pallas
+forward's O and LSE.
 
 Tolerances as ``test_torch_flash_d256.py`` sets them: f32 is f32 on both
-sides, only the summation order differs, so 1e-5 absolute; in bf16 both
-round P and dS before the backward's products, so an output moves by a bf16
-step where an f32 sum in another order lands on the other side of a
-rounding: 2 bf16 steps at the output's magnitude, and at most 1% of the
-outputs not bit-equal. A wrong mask, block or head moves an output by its
-own order.
+sides, only the summation order differs, so 1e-5 absolute (LSE too, in
+both dtypes); in bf16 both round P before P·V (the Pallas forward against
+its running max, the plain one against the final max) and P and dS before
+the backward's products, so an output moves by a bf16 step where an f32
+sum in another order lands on the other side of a rounding: 2 bf16 steps at
+the output's magnitude, and for the backward at most 1% of the outputs not
+bit-equal. A wrong mask, block or head moves an output by its own order.
 """
 
 import jax.numpy as jnp
@@ -84,6 +90,41 @@ def _close(got, want, dt, differ=1.0):
     err = np.abs(g - w).max()
     assert err <= BF16_STEPS * step, f"{err} > {BF16_STEPS} x {step}"
     assert (g != w).mean() <= differ, f"{(g != w).mean()} differ"
+
+
+def _close_lse(got, want):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL_F32,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_fwd_plain_d640_matches_pallas_kernel_interpret(dt, causal):
+    """B1 H2 S256 D640: ``flash_fwd_plain`` (and ``flash_fwd`` on CPU
+    tensors, which runs it) against ``_flash_fwd_pallas``."""
+    q, k, v, _ = _inputs(dt, 2, 2, seed=80)
+    want_o, want_lse = _pallas_fwd(q, k, v, causal)
+    tq, tk, tv = (_torch(x, dt) for x in (q, k, v))
+    o, lse = tatt.flash_fwd_plain(tq, tk, tv, causal, SCALE)
+    _close(o, want_o, dt)
+    _close_lse(lse, want_lse)
+    o2, lse2 = tatt.flash_fwd(tq, tk, tv, causal)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_fwd_d640_gqa_reads_kv_heads_like_repeat_kv(dt, causal):
+    """H4 KVH2 S256 D640: the plain forward reads kv head h // 2 in place,
+    equal to the Pallas kernel on repeat_kv'd K and V."""
+    q, k, v, _ = _inputs(dt, 4, 2, seed=90)
+    kr, vr = (jnp.repeat(x, 2, axis=1) for x in (k, v))
+    want_o, want_lse = _pallas_fwd(q, kr, vr, causal)
+    tq, tk, tv = (_torch(x, dt) for x in (q, k, v))
+    o, lse = tatt.flash_fwd_plain(tq, tk, tv, causal, SCALE)
+    assert o.shape == (1, 4, S, D) and lse.shape == (1, 4, S)
+    _close(o, want_o, dt)
+    _close_lse(lse, want_lse)
 
 
 @pytest.mark.parametrize("causal", [True, False])
