@@ -18,12 +18,13 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    S4096 (both layouts), and at the bench configuration's B8 H16 KVH16
    S2048; the other variants (f32 at head_dim 128 to 1024, bf16 at 256
    to 1024; bf16 256 on the wgmma kernels, at 640 the f32 forward and the
-   f32 and bf16 dK/dV on the cluster kernels, the rest generic, tiled
-   over D from 640) at B1 H8 KVH2 S2048 and the ragged S1000, causal and
-   not, and at the shapes of their train-parity runs, bf16 256 also at
-   ``llama3_8b(n_heads=16)``'s training length, B1 H16 KVH8 S8192 causal,
-   and D896 (f32 and bf16, B1 H8 KVH2 S2048 causal: the generic chunked
-   instances of 128 columns that the cluster kernels took D640 from) (no
+   f32 and bf16 dK/dV on the cluster kernels of 5 CTAs, f32 1024's dK/dV
+   and dQ on clusters of 8, the rest generic, tiled over D from 640) at B1
+   H8 KVH2 S2048 and the ragged S1000, causal and not, and at the shapes
+   of their train-parity runs, bf16 256 also at ``llama3_8b(n_heads=16)``'s
+   training length, B1 H16 KVH8 S8192 causal, and D896 (f32 and bf16) and
+   f32 D768, B1 H8 KVH2 S2048 causal: the generic chunked instances of 128
+   and 256 columns that the cluster kernels took D640 and D1024 from (no
    ptxas spill allowed in any generic instance, wgmma kernel or cluster
    kernel, and no serialized wgmma); time kernel, plain version, SDPA (the library
    yardstick, never called by the port) and the roofline bound. Then head_dim 64 on the card: ``flash_fwd`` and ``flash_bwd``
@@ -220,8 +221,9 @@ Details go to ``chiprun_out/chip_smoke.json``.
 builds the kernels and runs phase 2 alone (a quick check after a kernel
 edit), ``--only-bwd`` runs phase 5 alone in the same way, ``--only-times``
 times the bf16 wgmma kernels alone at head_dim 256 and 128, S2048 and
-S8192, and the three D640 cluster kernels (the f32 forward and dK/dV, the
-bf16 dK/dV) at their parity shape, in 3 rounds, and checks
+S8192, the three D640 cluster kernels (the f32 forward and dK/dV, the
+bf16 dK/dV) and the two f32 D1024 ones (dK/dV, dQ) at their parity
+shapes, in 3 rounds, and checks
 nothing of the build (run it from two trees' roots in turns to compare
 them), ``--only-moe``
 phase 9, ``--only-ckpt`` phases 4 and 10, ``--only-runtime`` phase 11,
@@ -351,10 +353,11 @@ FWD_CASES += SERVE_FWD_CASES
 # D512 and D640, B1 H4 KVH2 D1024, S2048 causal); bf16 D256 also at phase
 # 7's training length, B1 H16 KVH8 S8192 causal (``llama3_8b(n_heads=16)``
 # at S8192). The generic D640 and D1024 instances are tiled over D (5 chunks
-# of 128 and 4 of 256); the cluster kernels split D640 over 5 CTAs. D896
-# (f32 and bf16, B1 H8 KVH2 S2048 causal) keeps the generic chunked
-# instances of 128 columns checked and timed: no parity run reaches them,
-# and since the cluster kernels took D640 they serve only D896, 1152, ...
+# of 128 and 4 of 256); the cluster kernels split D640 over 5 CTAs and f32
+# D1024 over 8. D896 (f32 and bf16) and f32 D768 (B1 H8 KVH2 S2048 causal)
+# keep the generic chunked instances of 128 and 256 columns checked and
+# timed: no parity run reaches them, and since the cluster kernels took
+# D640 and f32 D1024 they serve only D896, 1152, ... and f32 D768, 1280, ...
 VARIANTS = (("f32_d128", 128, F32), ("f32_d256", 256, F32),
             ("bf16_d256", 256, BF16), ("f32_d384", 384, F32),
             ("bf16_d384", 384, BF16), ("f32_d512", 512, F32),
@@ -371,17 +374,18 @@ VARIANT_CASES = [(name, D, dt, 1, 8, 2, S, causal)
     (name, D, dt, *VARIANT_MAIN[D], 2048, True) for name, D, dt in VARIANTS
 ] + [("bf16_d256", 256, BF16, *VARIANT_MAIN[256], TRAIN_SEQ, True)] + [
     (f"{dt_name}_d896", 896, dt, 1, 8, 2, 2048, True)
-    for dt_name, dt in (("f32", F32), ("bf16", BF16))]
+    for dt_name, dt in (("f32", F32), ("bf16", BF16))] + [
+    ("f32_d768", 768, F32, 1, 8, 2, 2048, True)]
 # The variants that run wgmma kernels besides bf16 D128, by kernel: bf16
 # D256 (all three); and those that run the cluster kernels: f32 D640's
-# forward, f32 and bf16 D640's dK/dV. Every other variant runs a generic
-# instance.
+# forward, f32 and bf16 D640's dK/dV, f32 D1024's dK/dV and dQ. Every other
+# variant runs a generic instance.
 WGMMA_VARIANTS = {"flash_fwd": ("bf16_d256",),
                   "flash_bwd_dkv": ("bf16_d256",),
                   "flash_bwd_dq": ("bf16_d256",)}
 CLUSTER_VARIANTS = {"flash_fwd": ("f32_d640",),
-                    "flash_bwd_dkv": ("f32_d640", "bf16_d640"),
-                    "flash_bwd_dq": ()}
+                    "flash_bwd_dkv": ("f32_d640", "bf16_d640", "f32_d1024"),
+                    "flash_bwd_dq": ("f32_d1024",)}
 PROMPT_LENS = (17, 100, 300, 700, 1500, 3000, 5000, 8000)
 SAMPLED = {1: dict(temperature=0.8, top_k=40, seed=1234),
            6: dict(temperature=1.0, top_k=0, seed=5678)}
@@ -502,14 +506,18 @@ BUILD_REPORT = ("registers", "spill", "smem", "arning", "wgmma",
 # (f32 and bf16, chunks of 128 and 256). D640 is the cluster kernels' for
 # the f32 forward and both dK/dVs, so the forward's f32 and the dK/dV's f32
 # and bf16 instances of 128-column chunks serve only D896, 1152, ... (D
-# above 512 with D % 256 != 0; the D896 cases of VARIANT_CASES run them)
+# above 512 with D % 256 != 0; the D896 cases of VARIANT_CASES run them).
+# f32 D1024 is the cluster kernels' for dK/dV and dQ, so their f32
+# instances of 256-column chunks serve only D768, 1280, ... (the f32 D768
+# case runs them)
 GENERIC_INSTANCES = 30
 # wgmma kernels: each of the three at D128 and D256 (the forward's two from
 # one template)
 WGMMA_INSTANCES = 6
-# 5-CTA cluster kernels at D640: the f32 forward and the f32 dK/dV on the
-# FMA units, the bf16 dK/dV on wgmma
-CLUSTER_INSTANCES = 3
+# Cluster kernels: of 5 CTAs at D640, the f32 forward and the f32 dK/dV on
+# the FMA units and the bf16 dK/dV on wgmma; of 8 CTAs at f32 D1024, the
+# dK/dV (the D640 one's template) and the dQ on the FMA units
+CLUSTER_INSTANCES = 5
 
 
 def log(*a):
@@ -1032,19 +1040,22 @@ def _bwd_case(gen, card, B, H, KVH, S, causal, layout, D=128, dt=BF16):
 # --only-times: the bf16 wgmma kernels alone at the training shapes of
 # head_dim 256 and 128 (D, H, KVH; B1, causal), each timed in 3 rounds in
 # turn, medians printed: the quick A/B of two trees in one call (run it
-# from each root in turns). Then the D640 cluster kernels at their parity
-# run's shape, S2048 only: in f32 the forward and dK/dV, in bf16 the dK/dV.
+# from each root in turns). Then the cluster kernels at their parity runs'
+# shapes, S2048 only: at D640 in f32 the forward and dK/dV, in bf16 the
+# dK/dV; at f32 D1024 the dK/dV and dQ.
 TIME_SHAPES = ((256, 16, 8), (128, 32, 8))
 TIME_SEQS = (2048, TRAIN_SEQ)
 TIME_ROUNDS = 3
 TIME_CLUSTER = (640, 8, 4, 2048)  # D, H, KVH, S; B1, causal
+TIME_CLUSTER_1024 = (1024, 4, 2, 2048)
 
 
 def phase_kernel_times(card: str) -> list:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     cases = [(D, H, KVH, S, BF16) for S in TIME_SEQS
              for D, H, KVH in TIME_SHAPES] + [
-        (*TIME_CLUSTER, F32), (*TIME_CLUSTER, BF16)]
+        (*TIME_CLUSTER, F32), (*TIME_CLUSTER, BF16),
+        (*TIME_CLUSTER_1024, F32)]
     rows = []
     for D, H, KVH, S, dt in cases:
         q, k, v, do = (_attn_input(1, h, S, D, gen, dt, "dense")
@@ -1052,7 +1063,10 @@ def phase_kernel_times(card: str) -> list:
         o, lse = flash_fwd(q, k, v, True)
         delta = (do.float() * o.float()).sum(-1)
         args = (q, k, v, do, lse, delta, True, D ** -0.5)
-        if dt == F32:
+        if D == TIME_CLUSTER_1024[0]:
+            fns = dict(flash_bwd_dkv=lambda: flash_bwd_dkv(*args),
+                       flash_bwd_dq=lambda: flash_bwd_dq(*args))
+        elif dt == F32:
             fns = dict(flash_fwd=lambda: flash_fwd(q, k, v, True),
                        flash_bwd_dkv=lambda: flash_bwd_dkv(*args))
         elif D == TIME_CLUSTER[0]:
@@ -1078,21 +1092,27 @@ def phase_kernel_times(card: str) -> list:
 
 
 # The cluster kernels by kernel-line entry: (library, its max-clusters
-# entry point).
+# entry point, CTAs a cluster).
 CLUSTER_FIT = {
-    "flash_fwd.f32_d640": ("flash_fwd", "ray_flash_fwd_max_clusters"),
+    "flash_fwd.f32_d640": ("flash_fwd", "ray_flash_fwd_max_clusters", 5),
     "flash_bwd_dkv.f32_d640": ("flash_bwd_dkv",
-                               "ray_flash_bwd_dkv_max_clusters"),
+                               "ray_flash_bwd_dkv_max_clusters", 5),
     "flash_bwd_dkv.bf16_d640": ("flash_bwd_dkv",
-                                "ray_flash_bwd_dkv_bf16_max_clusters")}
+                                "ray_flash_bwd_dkv_bf16_max_clusters", 5),
+    "flash_bwd_dkv.f32_d1024": ("flash_bwd_dkv",
+                                "ray_flash_bwd_dkv_f32_d1024_max_clusters",
+                                8),
+    "flash_bwd_dq.f32_d1024": ("flash_bwd_dq",
+                               "ray_flash_bwd_dq_max_clusters", 8)}
 
 
 def cluster_fit() -> dict:
-    """{kernel-line entry: how many of its 5-CTA clusters the card holds at
-    once} for each cluster kernel (``cudaOccupancyMaxActiveClusters`` at
-    its shared memory); at least one each, or that kernel cannot launch."""
+    """{kernel-line entry: how many of its clusters (``CLUSTER_FIT``'s
+    size) the card holds at once} for each cluster kernel
+    (``cudaOccupancyMaxActiveClusters`` at its shared memory); at least one
+    each, or that kernel cannot launch."""
     out = {}
-    for name, (lib, fn) in CLUSTER_FIT.items():
+    for name, (lib, fn, _) in CLUSTER_FIT.items():
         f = getattr(_build.load(lib), fn)
         f.argtypes, f.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
         n = ctypes.c_int(0)
@@ -1105,8 +1125,10 @@ def cluster_fit() -> dict:
 
 
 def phase_bwd_kernels(card: str):
-    log(f"CLUSTER the D640 cluster kernels, clusters of 5 CTAs at once: "
-        f"{json.dumps(cluster_fit())}  [{card}]")
+    fit = cluster_fit()
+    log("CLUSTER the cluster kernels, clusters at once (CTAs a cluster): "
+        + json.dumps({n: f"{c} ({CLUSTER_FIT[n][2]})"
+                      for n, c in fit.items()}) + f"  [{card}]")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows = [_bwd_case(gen, card, B, H, KVH, S, causal, layout)
             for B, H, KVH, S, causal, layout in BWD_CASES]
@@ -4436,9 +4458,9 @@ def main() -> int:
     # stop at 256 for that reason); the wgmma kernels hold 64 or 128 (D128:
     # O, or dK and dV, or dQ; D256: O, or a half of dK and dV, or of dQ)
     # beside their scores under setmaxnreg 240, the f32 cluster kernels 64
-    # dK, dV or O accumulators beside an 8 x 8 score tile, the bf16 one 64
-    # dK or dV beside 32 of scores. A spill in any instance is a defect, not
-    # a slowdown to accept.
+    # dK, dV or O accumulators (32 of dQ) beside an 8 x 8 score tile, the
+    # bf16 one 64 dK or dV beside 32 of scores. A spill in any instance is a
+    # defect, not a slowdown to accept.
     spills = {k: v for text in _build.build_log.values()
               for k, v in ptxas_spills(text).items()}
     generic = {k: v for k, v in spills.items() if "generic" in k}

@@ -35,11 +35,14 @@ Which code runs is picked inside its C entry point by (dtype, head_dim):
     (``flash_fwd_f32_cluster_kernel``) and the f32 dK/dV
     (``flash_bwd_dkv_f32_cluster_kernel``) on the FMA units, the bf16
     dK/dV (``flash_bwd_dkv_bf16_cluster_kernel``) on wgmma;
+  * f32 at 1024: clusters of 8 CTAs in the same way, on the FMA units,
+    for dK/dV (``flash_bwd_dkv_f32_d1024_cluster_kernel``, the f32 D640
+    dK/dV's template) and dQ (``flash_bwd_dq_f32_cluster_kernel``);
   * every other case (f32 at any multiple of 128, bf16 from 384 up, the
-    bf16 forward and both dQs at 640): the generic variant on the CUDA
-    cores, which from 640 up tiles over D (chunks of 256 or 128 columns,
-    the scores summed over the chunks; ``ops/csrc/flash_common.cuh``
-    ``gen_chunk``).
+    bf16 forward and both dQs at 640, the f32 forward at 1024): the
+    generic variant on the CUDA cores, which from 640 up tiles over D
+    (chunks of 256 or 128 columns, the scores summed over the chunks;
+    ``ops/csrc/flash_common.cuh`` ``gen_chunk``).
 Sequence lengths are not routed: the kernels take any S (TMA zero-fills,
 the stores are guarded), where the JAX package sends S % 128 != 0 to its
 jnp branch.
@@ -226,8 +229,8 @@ def kernel_variant(q: torch.Tensor) -> str:
     "bf16_d128" and "bf16_d256" (the wgmma kernels), "f32_d128",
     "f32_d256", ..., "bf16_d384", ... (the generic ones; "f32_d640" runs
     the cluster kernels of the forward and dK/dV, "bf16_d640" that of
-    dK/dV). The wrappers count launches by it in
-    ``launches_by_variant`` beside ``launches``."""
+    dK/dV, "f32_d1024" those of dK/dV and dQ). The wrappers count
+    launches by it in ``launches_by_variant`` beside ``launches``."""
     dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
     return f"{dt}_d{q.shape[-1]}"
 
@@ -457,9 +460,9 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) [b, kvh, skv, d] in k's dtype. CUDA tensors launch
     ``csrc/flash_bwd_dkv.cu`` (a wgmma kernel for bf16 at 128 and 256, a
-    cluster kernel for f32 and bf16 at 640, the generic variant otherwise;
-    counted in ``flash_bwd_dkv.launches``); CPU tensors run
-    ``flash_bwd_plain_dkv``."""
+    cluster kernel for f32 and bf16 at 640 (5 CTAs) and f32 at 1024 (8),
+    the generic variant otherwise; counted in ``flash_bwd_dkv.launches``);
+    CPU tensors run ``flash_bwd_plain_dkv``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if _bwd_device("flash_bwd_dkv", q, k, v, dout, lse, delta) == "cpu":
         return flash_bwd_plain_dkv(q, k, v, dout, lse, delta, causal, scale)
@@ -475,9 +478,10 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
                  sm_scale: Optional[float] = None) -> torch.Tensor:
     """dQ [b, h, sq, d] in q's dtype. CUDA tensors launch
-    ``csrc/flash_bwd_dq.cu`` (a wgmma kernel for bf16 at 128 and 256, the
-    generic variant otherwise; counted in ``flash_bwd_dq.launches``); CPU
-    tensors run ``flash_bwd_plain_dq``."""
+    ``csrc/flash_bwd_dq.cu`` (a wgmma kernel for bf16 at 128 and 256, a
+    cluster kernel of 8 CTAs for f32 at 1024, the generic variant
+    otherwise; counted in ``flash_bwd_dq.launches``); CPU tensors run
+    ``flash_bwd_plain_dq``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if _bwd_device("flash_bwd_dq", q, k, v, dout, lse, delta) == "cpu":
         return flash_bwd_plain_dq(q, k, v, dout, lse, delta, causal, scale)

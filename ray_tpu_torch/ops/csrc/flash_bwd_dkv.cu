@@ -131,6 +131,13 @@
 //     scope.
 //   * 226 KB of shared memory: one CTA an SM, and a cluster takes 5 SMs of
 //     one GPC (22 clusters fit on the H100).
+// f32 at 1024 runs the same kernel at 8 CTAs a cluster
+// (flash_bwd_dkv_f32_d1024_cluster_kernel): the body is a template over the
+// number of 128-column chunks, and each instance gives its cluster's size
+// as a literal. At 8 chunks each CTA owns 8 of the 64 KV rows in the
+// exchange and moves about 28 KB a tile through the cluster; 8 is the
+// largest portable cluster. Chunks of 256 columns would not fit: K, V and
+// the Q/dO ring alone would take 320 KB a CTA.
 // bf16 at 640 runs flash_bwd_dkv_bf16_cluster_kernel (after that): the same
 // cluster with each CTA's products on the tensor cores. The generic chunked
 // instance ran all four products as scalar FMAs, and its 5 chunk blocks each
@@ -160,7 +167,7 @@
 //     partials and of P^T and dS^T): one CTA an SM, 22 clusters at once.
 // A generic variant (at the end of this file) serves f32 at any other
 // head_dim that is a multiple of 128 and bf16 at those from 384 up but 640
-// (tiled over D from 896 up), with P and dS rounded to the input dtype as the
+// (tiled over D from 768 up), with P and dS rounded to the input dtype as the
 // Pallas kernel rounds them.
 
 #include <math.h>
@@ -661,15 +668,13 @@ flash_bwd_dkv_d256_kernel(const __grid_constant__ CUtensorMap tq,
 }  // namespace d256
 
 // ---------------------------------------------------------------------------
-// f32 at D = 640: one cluster of 5 CTAs per (b, KV head, 32 KV rows), one
-// CTA per 128-column chunk of D; the scores summed over the cluster (see the
-// top of this file).
+// f32 at D = 640 and 1024: one cluster of 5 or 8 CTAs per (b, KV head, 64 KV
+// rows), one CTA per 128-column chunk of D; the scores summed over the
+// cluster (see the top of this file).
 // ---------------------------------------------------------------------------
 
 namespace f32c {
 
-constexpr int kChunks = 5;              // CTAs of a cluster = chunks of D
-constexpr int kDW = kChunks * kD;       // head_dim
 constexpr int kBKV = 64;                // KV rows per cluster
 constexpr int kBQ = 32;                 // q rows per tile
 constexpr int kStages = 3;              // Q/dO ring depth
@@ -709,22 +714,19 @@ struct __align__(1024) Smem {
 constexpr int kSmemBytes = static_cast<int>(sizeof(Smem)) + 1024;
 static_assert(kSmemBytes <= 232448, "over the H100's 227 KB per block");
 
-// A [kv][q] partials tile: 8 16-byte columns a row, column c of row r at c
-// ^ (r % 8), so 8 consecutive rows' stores of one column fall in 8 banks.
-__device__ __forceinline__ int swz(int row, int col4) {
-  return row * kBQ + ((col4 ^ (row & 7)) << 2);
-}
+using flash::f4;
+using flash::swz32;  // the [kv][q] partials
+static_assert(kBQ == 32, "swz32's rows are 32 floats");
 
-__device__ __forceinline__ float4 f4(const float* x) {
-  return make_float4(x[0], x[1], x[2], x[3]);
-}
-
-__global__ void __cluster_dims__(kChunks, 1, 1) __launch_bounds__(kThreads, 1)
-flash_bwd_dkv_f32_cluster_kernel(const __grid_constant__ CUtensorMap tq,
-                                 const __grid_constant__ CUtensorMap tk,
-                                 const __grid_constant__ CUtensorMap tv,
-                                 const __grid_constant__ CUtensorMap tdo,
-                                 const flash::BwdParams p) {
+// The kernel over kChunks CTAs a cluster (D = kChunks kD); the kernels
+// after it give the cluster's size as a literal.
+template <int kChunks>
+__device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
+                                            const CUtensorMap& tk,
+                                            const CUtensorMap& tv,
+                                            const CUtensorMap& tdo,
+                                            const flash::BwdParams& p) {
+  constexpr int kDW = kChunks * kD;  // head_dim
   extern __shared__ unsigned char cluster_smem[];
   const uint32_t raw = hopper::smem_u32(cluster_smem);
   Smem& sm = *reinterpret_cast<Smem*>(cluster_smem +
@@ -819,12 +821,12 @@ flash_bwd_dkv_f32_cluster_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
 
-    // This CTA's slice of the KV rows, [r0, r1): thread xt sums one 16-byte
-    // column of one row over the 5 chunks, in chunk order 0 to 4 in every
-    // CTA, so that all five hold the same P^T and dS^T bits, forms P^T =
-    // exp(S^T scale - LSE) and dS^T = P^T (dP^T - delta) scale in f32 (the
-    // Pallas kernel's casts round nothing in f32), and stores them into
-    // every CTA's pd.
+    // This CTA's slice of the KV rows (12 or 13 of 64 at 5 chunks, 8 at 8):
+    // thread xt sums one 16-byte column of one row over the chunks, in
+    // chunk order 0 to kChunks - 1 in every CTA, so that all hold the same
+    // P^T and dS^T bits, forms P^T = exp(S^T scale - LSE) and dS^T = P^T
+    // (dP^T - delta) scale in f32 (the Pallas kernel's casts round nothing
+    // in f32), and stores them into every CTA's pd.
     const int xt = tid - 32 * kMathWarps;
     const int row = c * kBKV / kChunks + xt / 8;
     const int col4 = xt % 8;
@@ -840,9 +842,9 @@ flash_bwd_dkv_f32_cluster_kernel(const __grid_constant__ CUtensorMap tq,
       float4 st = make_float4(0.f, 0.f, 0.f, 0.f), dpt = st;
       if (mine) {
         const uint32_t s_at =
-            hopper::smem_u32(sm.part[buf][0] + swz(row, col4));
+            hopper::smem_u32(sm.part[buf][0] + swz32(row, col4));
         const uint32_t p_at =
-            hopper::smem_u32(sm.part[buf][1] + swz(row, col4));
+            hopper::smem_u32(sm.part[buf][1] + swz32(row, col4));
 #pragma unroll
         for (int r = 0; r < kChunks; ++r) {
           const float4 x = hopper::ld_cluster_f4(hopper::map_rank(s_at, r));
@@ -995,14 +997,14 @@ flash_bwd_dkv_f32_cluster_kernel(const __grid_constant__ CUtensorMap tq,
             z[e] = keep + __shfl_xor_sync(0xffffffffu, give, 16);
           }
           *reinterpret_cast<float4*>(
-              out + swz(l8 + 8 * (i + 4 * hi_kv), 2 * w4 + hi_q)) = f4(z);
+              out + swz32(l8 + 8 * (i + 4 * hi_kv), 2 * w4 + hi_q)) = f4(z);
         }
         // One warp, another each tile, waits at a named barrier for all
         // eight warps' partials and arrives at each CTA's parts_ready
-        // (lanes 0-4 in one instruction): the release at cluster scope is
-        // a GPU-wide memory barrier that stalls the warp, so the other
-        // warps only arrive at the named barrier and go on. Its id
-        // alternates by tile, and no warp runs two tiles ahead of the
+        // (lanes 0 to kChunks - 1 in one instruction): the release at
+        // cluster scope is a GPU-wide memory barrier that stalls the warp,
+        // so the other warps only arrive at the named barrier and go on. Its
+        // id alternates by tile, and no warp runs two tiles ahead of the
         // signalling one (its phase B waits for the next tile's exchange).
         if (warp == it % kMathWarps) {
           hopper::named_bar_sync(1 + buf, 32 * kMathWarps);
@@ -1067,6 +1069,26 @@ flash_bwd_dkv_f32_cluster_kernel(const __grid_constant__ CUtensorMap tq,
   }
   // No CTA leaves while a peer may still touch its shared memory.
   hopper::cluster_sync();
+}
+
+// f32 at D = 640: clusters of 5 CTAs.
+__global__ void __cluster_dims__(5, 1, 1) __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_f32_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 const __grid_constant__ CUtensorMap tdo,
+                                 const flash::BwdParams p) {
+  dkv_cluster<5>(tq, tk, tv, tdo, p);
+}
+
+// f32 at D = 1024: clusters of 8 CTAs, the largest portable cluster.
+__global__ void __cluster_dims__(8, 1, 1) __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_f32_d1024_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                       const __grid_constant__ CUtensorMap tk,
+                                       const __grid_constant__ CUtensorMap tv,
+                                       const __grid_constant__ CUtensorMap tdo,
+                                       const flash::BwdParams p) {
+  dkv_cluster<8>(tq, tk, tv, tdo, p);
 }
 
 }  // namespace f32c
@@ -1416,9 +1438,10 @@ flash_bwd_dkv_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ---------------------------------------------------------------------------
 // Generic variant: every dtype and head_dim (a multiple of 128) but bf16 D =
-// 128 and 256 and D = 640, which the kernels above serve. The same function
-// on the CUDA cores: one block of 128 threads per (b, KV head, 16 KV rows, chunk of
-// D), walking the group's query heads and their 32-row q tiles as the wgmma
+// 128 and 256, D = 640 and f32 D = 1024, which the kernels above serve. The
+// same function on the CUDA cores: one block of 128 threads per (b, KV head,
+// 16 KV rows, chunk of D), walking the group's query heads and their 32-row
+// q tiles as the wgmma
 // kernels do, with K, V, Q, dO as f32 tiles in dynamic shared memory (104 KB at
 // DC = 256, 198 KB at 512). D up to 512 runs in one chunk (DC = D); above, D is
 // cut into chunks of DC = 256 or 128 columns (flash::gen_chunk; the chunked
@@ -1624,8 +1647,8 @@ int launch_generic(const flash::BwdParams& p, int D, int B, cudaStream_t st) {
 
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
 // and dtype: D itself up to 4 kD (bf16 at D = kD and 2 kD is the wgmma
-// kernels'), above that a chunk of flash::gen_chunk(D) columns (D = 5 kD is
-// the cluster kernels').
+// kernels'), above that a chunk of flash::gen_chunk(D) columns (D = 5 kD and
+// f32 at 8 kD are the cluster kernels').
 int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -1646,12 +1669,15 @@ int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
   return launch_generic<float, 4 * kD, false>(p, D, B, st);
 }
 
-// f32 at D = 5 kD: one cluster of f32c::kChunks CTAs per 64 KV rows. A
-// launch the card refuses (no room for a cluster) returns its error. The
-// shared-memory opt-in is set at every launch, as for the generic variants.
-int launch_cluster(const flash::BwdParams& p, int B, cudaStream_t st) {
+// f32 at D = kChunks kD (5 or 8): one cluster of kChunks CTAs per 64 KV
+// rows, on `kernel`, the instance of that size. A launch the card refuses
+// (no room for a cluster) returns its error. The shared-memory opt-in is set
+// at every launch, as for the generic variants.
+template <int kChunks, typename Kernel>
+int launch_cluster(Kernel kernel, const flash::BwdParams& p, int B,
+                   cudaStream_t st) {
   CUtensorMap tq, tk, tv, tdo;
-  constexpr int D = f32c::kDW;
+  constexpr int D = kChunks * kD;
   if (!flash::make_f32_map(&tq, p.q, B, p.H, p.Sq, p.q_sb, p.q_sh, p.q_ss,
                            f32c::kBQ, D, CU_TENSOR_MAP_SWIZZLE_NONE) ||
       !flash::make_f32_map(&tk, p.k, B, p.KVH, p.Skv, p.k_sb, p.k_sh,
@@ -1663,13 +1689,11 @@ int launch_cluster(const flash::BwdParams& p, int B, cudaStream_t st) {
       !flash::make_f32_map(&tdo, p.dout, B, p.H, p.Sq, p.o_sb, p.o_sh,
                            p.o_ss, f32c::kBQ, D, CU_TENSOR_MAP_SWIZZLE_NONE))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = flash::allow_smem(
-      f32c::flash_bwd_dkv_f32_cluster_kernel, f32c::kSmemBytes);
+  const cudaError_t err = flash::allow_smem(kernel, f32c::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_kvt = (p.Skv + f32c::kBKV - 1) / f32c::kBKV;
-  f32c::flash_bwd_dkv_f32_cluster_kernel<<<B * p.KVH * n_kvt * f32c::kChunks,
-                                           f32c::kThreads, f32c::kSmemBytes,
-                                           st>>>(tq, tk, tv, tdo, p);
+  kernel<<<B * p.KVH * n_kvt * kChunks, f32c::kThreads, f32c::kSmemBytes,
+           st>>>(tq, tk, tv, tdo, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1707,9 +1731,14 @@ int launch_bf16_cluster(const flash::BwdParams& p, int B, cudaStream_t st) {
 // once (cudaOccupancyMaxActiveClusters at its shared memory), into
 // *clusters. Returns the CUDA error.
 extern "C" int ray_flash_bwd_dkv_max_clusters(int* clusters) {
-  return flash::max_clusters(f32c::flash_bwd_dkv_f32_cluster_kernel,
-                             f32c::kChunks, f32c::kThreads, f32c::kSmemBytes,
-                             clusters);
+  return flash::max_clusters(f32c::flash_bwd_dkv_f32_cluster_kernel, 5,
+                             f32c::kThreads, f32c::kSmemBytes, clusters);
+}
+
+// The same for the f32 D = 1024 kernel (clusters of 8).
+extern "C" int ray_flash_bwd_dkv_f32_d1024_max_clusters(int* clusters) {
+  return flash::max_clusters(f32c::flash_bwd_dkv_f32_d1024_cluster_kernel, 8,
+                             f32c::kThreads, f32c::kSmemBytes, clusters);
 }
 
 // The same for the bf16 D = 640 kernel.
@@ -1724,9 +1753,10 @@ extern "C" int ray_flash_bwd_dkv_bf16_max_clusters(int* clusters) {
 // bytes, as TMA and the 16-byte loads require); lse and delta [B, H, Sq] f32
 // and dk/dv [B, KVH, Skv, D] dense, in the inputs' dtype. D is a multiple of
 // 128; dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 and 256 runs a wgmma
-// kernel, D = 640 a cluster kernel (f32 or bf16), every other case the
-// generic variant. Returns cudaGetLastError() after the launch (cudaErrorInvalidValue
-// for a shape or layout the kernels do not take).
+// kernel, D = 640 a cluster kernel (f32 or bf16), f32 at D = 1024 a cluster
+// kernel of 8 CTAs, every other case the generic variant. Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape or
+// layout the kernels do not take).
 extern "C" int ray_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, long long q_sb,
@@ -1745,9 +1775,13 @@ extern "C" int ray_flash_bwd_dkv(
         static_cast<const float*>(delta), dk, dv,
         q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
         o_sb, o_sh, o_ss, H,    KVH,  Sq,   Skv,  scale, causal};
-    if (D == f32c::kDW)
-      return dtype == 0 ? launch_cluster(p, B, st)
-                        : launch_bf16_cluster(p, B, st);
+    if (dtype == 0 && D == 5 * kD)
+      return launch_cluster<5>(f32c::flash_bwd_dkv_f32_cluster_kernel, p, B,
+                               st);
+    if (dtype == 0 && D == 8 * kD)
+      return launch_cluster<8>(f32c::flash_bwd_dkv_f32_d1024_cluster_kernel,
+                               p, B, st);
+    if (D == bf16c::kDW) return launch_bf16_cluster(p, B, st);
     return launch_generic_d(p, D, dtype, B, st);
   }
   // bf16 at D = 128 (128 KV rows a block) or 256 (64)

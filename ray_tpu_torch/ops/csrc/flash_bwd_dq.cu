@@ -72,10 +72,44 @@
 //     products: the N = 32 score products read more shared memory than it
 //     gives the tensor cores, and the consumers meet at the barrier with
 //     the tensor cores idle while both compute P and dS.
-// A generic variant (at the end of this file) serves f32 at any head_dim
-// that is a multiple of 128 and bf16 at those from 384 up (tiled over D
-// from 640 up), with P and dS rounded to the input dtype as the Pallas
-// kernel rounds them.
+// f32 at 1024 runs flash_bwd_dq_f32_cluster_kernel (after that). The
+// generic variant's chunked instance computed S and dP over all of D in each
+// of its 4 chunk blocks, and its inner loops read one shared-memory word per
+// FMA or two (32 words a clock against the FMA units' 128). This kernel is
+// bound by the FMA units: f32 has no exact tensor-core input (TF32 rounds,
+// and the f32 variants are held to 1e-4), 3 products of 64 * 32 * 1024 FMAs
+// per (64 q rows, 32 KV rows) pair. It is the f32 dK/dV cluster
+// (flash_bwd_dkv.cu) with (Q, dO) and (K, V) in each other's places and one
+// product fewer:
+//   * One cluster of 8 CTAs per (b, head, 64 q rows), one CTA per
+//     128-column chunk of D (8 is the largest portable cluster). A CTA
+//     loads its chunk of Q and dO once (128B-swizzled f32 boxes of 32
+//     columns, since they are read down 8 rows of one column at once) and
+//     streams its chunk of K and V per 32-row KV tile through a 3-stage
+//     ring (not swizzled: read along rows). The group's query heads run
+//     next to each other and the heaviest causal q tiles first, as above.
+//   * Warpgroup 0 computes S = Q K^T, warpgroup 1 dP = dO V^T (64 x 32)
+//     over the CTA's 128 columns into its shared memory. Then each CTA sums
+//     8 of the 64 q rows over the 8 chunks through distributed shared
+//     memory (ld.shared::cluster), in chunk order 0 to 7, masks KV columns
+//     past Skv (TMA zero-filled their K rows, so S is 0 there and exp(0 -
+//     LSE) is not) and after the row (causal), forms P and dS = P (dP -
+//     delta) scale in f32 (rounding nothing, as the Pallas kernel's cast
+//     does not in f32) and stores dS into every CTA (st.shared::cluster).
+//     Only dS crosses back: one 64 x 32 buffer a tile.
+//   * dQ[:, chunk] += dS K_chunk, split over both math warpgroups by q
+//     rows: 32 f32 registers a thread for the whole loop. A ring stage is
+//     released after it, since it reads K.
+//   * Roles and hand-overs as in the dK/dV cluster: two math warpgroups
+//     (setmaxnreg 224) run phase A of tile t, then phase B of tile t - 1,
+//     beside the exchange of tile t in the third (56 registers), through
+//     mbarriers the peers arrive at (parts_ready, parts_free, ds_ready,
+//     ds_free), with double buffers; 8 x 8 register tiles in phase A.
+//   * About 209 KB of shared memory: one CTA an SM.
+// A generic variant (at the end of this file) serves f32 at any other
+// head_dim that is a multiple of 128 and bf16 at those from 384 up (tiled
+// over D from 640 up), with P and dS rounded to the input dtype as the
+// Pallas kernel rounds them.
 
 #include <math.h>
 
@@ -542,9 +576,409 @@ flash_bwd_dq_d256_kernel(const __grid_constant__ CUtensorMap tq,
 }  // namespace d256
 
 // ---------------------------------------------------------------------------
+// f32 at D = 1024: one cluster of 8 CTAs per (b, head, 64 q rows), one CTA
+// per 128-column chunk of D, the scores summed over the cluster; the f32
+// dK/dV cluster (flash_bwd_dkv.cu) with Q, dO and K, V in each other's
+// places (see the top of this file).
+// ---------------------------------------------------------------------------
+
+namespace f32c {
+
+constexpr int kBQ = 64;                 // q rows per cluster
+constexpr int kBN = 32;                 // KV rows per tile
+constexpr int kStages = 3;              // K/V ring depth
+constexpr int kBox = 32;                // f32 columns of a 128-byte box
+constexpr int kBoxes = kD / kBox;       // boxes of a chunk's row
+constexpr int kMathWarps = 8;           // two warpgroups: the products
+constexpr int kXWarps = 4;              // one warpgroup: the exchange, loads
+constexpr int kThreads = 32 * (kMathWarps + kXWarps);
+constexpr int kMathRegs = 224;          // setmaxnreg of the math warpgroups
+constexpr int kXRegs = 56;              // and of the exchange warpgroup
+constexpr uint32_t kRowBytes = kD * 4;  // one row of a chunk
+
+// Q, dO, K and V chunks as TMA writes them: 4 boxes of 32 columns, each
+// `rows` x 128 bytes. Q and dO are read down 8 rows of one 16-byte column at
+// once, so their 16-byte column c of row r sits at c ^ (r % 8) within its
+// box (CU_TENSOR_MAP_SWIZZLE_128B) and those 8 words fall in 8 distinct
+// banks; K and V are read along a row, in place.
+struct __align__(1024) Smem {
+  float q[kBoxes][kBQ * kBox];
+  float dout[kBoxes][kBQ * kBox];
+  float k[kStages][kBoxes][kBN * kBox];
+  float v[kStages][kBoxes][kBN * kBox];
+  float part[2][2][kBQ * kBN];  // [buffer][S, dP] over this chunk, [q][kv]
+  float ds[2][kBQ * kBN];       // [buffer] dS over all of D, [q][kv]
+  uint64_t q_full;
+  uint64_t full[kStages];     // K, V landed (TMA bytes)
+  uint64_t empty[kStages];    // this CTA's math warps are done with a stage
+  uint64_t parts_ready[2];    // every CTA's math warps wrote part[buffer]
+  uint64_t parts_free[2];     // every CTA's exchange warps read their slice
+  uint64_t ds_ready[2];       // every CTA stored its rows of ds[buffer]
+  uint64_t ds_free[2];        // every CTA's math warps are done with it
+};
+
+// + slack to align the base to 1024 bytes.
+constexpr int kSmemBytes = static_cast<int>(sizeof(Smem)) + 1024;
+static_assert(kSmemBytes <= 232448, "over the H100's 227 KB per block");
+
+using flash::f4;
+using flash::swz32;  // the [q][kv] partials
+static_assert(kBN == 32, "swz32's rows are 32 floats");
+
+// dS's 16-byte column c of row r sits at c ^ (r % 2): the two rows a warp
+// reads at once in phase B fall in other banks.
+__device__ __forceinline__ int ds_at(int row, int col4) {
+  return row * kBN + ((col4 ^ (row & 1)) << 2);
+}
+
+// The kernel over kChunks CTAs a cluster (D = kChunks kD); the kernel after
+// it gives the cluster's size as a literal.
+template <int kChunks>
+__device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
+                                           const CUtensorMap& tk,
+                                           const CUtensorMap& tv,
+                                           const CUtensorMap& tdo,
+                                           const flash::BwdParams& p) {
+  constexpr int kDW = kChunks * kD;  // head_dim
+  extern __shared__ unsigned char cluster_smem[];
+  const uint32_t raw = hopper::smem_u32(cluster_smem);
+  Smem& sm = *reinterpret_cast<Smem*>(cluster_smem +
+                                      (((raw + 1023) & ~1023u) - raw));
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int c = static_cast<int>(hopper::cluster_ctarank());  // D chunk
+
+  // Cluster -> (q tile, b, KV head, head in the group), the group fastest,
+  // the q tile slowest: causal, the heaviest (last) q tiles start first, and
+  // the query heads of one KV head run next to each other, so they read its
+  // K and V from L2.
+  const int G = p.H / p.KVH;
+  const int n_qt = (p.Sq + kBQ - 1) / kBQ;
+  const int n_bk = gridDim.x / kChunks / (G * n_qt);  // B * KVH
+  int id = blockIdx.x / kChunks;
+  const int g = id % G;
+  id /= G;
+  const int bk = id % n_bk;
+  const int rank = id / n_bk;
+  const int kvh = bk % p.KVH;
+  const int b = bk / p.KVH;
+  const int h = kvh * G + g;
+  const int qt = p.causal ? n_qt - 1 - rank : rank;
+  const int q0 = qt * kBQ;
+  // Causal: KV tiles wholly after the q tile are never loaded.
+  const int kv_end = p.causal ? min(p.Skv, q0 + kBQ) : p.Skv;
+  const int n_kt = (kv_end + kBN - 1) / kBN;
+
+  if (tid == 0) {
+    hopper::mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&sm.full[s], 1);
+      hopper::mbar_init(&sm.empty[s], kMathWarps);
+    }
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(&sm.parts_ready[i], kChunks);
+      hopper::mbar_init(&sm.parts_free[i], kChunks * kXWarps);
+      hopper::mbar_init(&sm.ds_ready[i], kChunks * kXWarps);
+      hopper::mbar_init(&sm.ds_free[i], kChunks * kMathWarps);
+    }
+    hopper::fence_barrier_init();
+  }
+  // The barriers are set up, and every CTA of the cluster runs, before a
+  // copy lands or a peer touches this CTA's shared memory.
+  hopper::cluster_sync();
+
+  if (warp >= kMathWarps) {
+    // ---------------- exchange warpgroup --------------------------------
+    // Its first warp's lane 0 loads (TMA, 4 boxes each; rows past Sq and
+    // Skv are zero-filled): Q and dO once, K and V per tile of KV head kvh.
+    hopper::reg_dealloc<kXRegs>();
+    const bool loader = warp == kMathWarps && lane == 0;
+    auto load_tile = [&](int kt) {
+      const int s = kt % kStages;
+      hopper::mbar_expect_tx(&sm.full[s], 2 * kBN * kRowBytes);
+      for (int x = 0; x < kBoxes; ++x) {
+        hopper::tma_load_4d(sm.k[s][x], &tk, &sm.full[s], c * kD + x * kBox,
+                            kt * kBN, kvh, b);
+        hopper::tma_load_4d(sm.v[s][x], &tv, &sm.full[s], c * kD + x * kBox,
+                            kt * kBN, kvh, b);
+      }
+    };
+    if (loader) {
+      hopper::mbar_expect_tx(&sm.q_full, 2 * kBQ * kRowBytes);
+      for (int x = 0; x < kBoxes; ++x) {
+        hopper::tma_load_4d(sm.q[x], &tq, &sm.q_full, c * kD + x * kBox, q0,
+                            h, b);
+        hopper::tma_load_4d(sm.dout[x], &tdo, &sm.q_full, c * kD + x * kBox,
+                            q0, h, b);
+      }
+      for (int kt = 0; kt < min(n_kt, kStages - 1); ++kt) load_tile(kt);
+    }
+
+    // This CTA's q rows, 8 of 64 at 8 chunks, for the whole loop: thread xt
+    // sums one 16-byte column (4 KV columns) of one row over the chunks, in
+    // chunk order 0 to kChunks - 1 in every CTA, so that all hold the same
+    // dS bits; applies scale and the mask (KV columns past Skv, whose K rows
+    // TMA zero-filled, and after the row, causal), forms P = exp(S scale -
+    // LSE) and dS = P (dP - delta) scale in f32 (the Pallas kernel's cast
+    // rounds nothing in f32) and stores dS into every CTA's ds. The row's
+    // LSE and delta are read once (+inf and 0 past Sq: P and dS are 0 on
+    // such a row).
+    const int xt = tid - 32 * kMathWarps;
+    const int row = c * kBQ / kChunks + xt / 8;
+    const int col4 = xt % 8;
+    const bool mine = row < (c + 1) * kBQ / kChunks;
+    const int qrow = q0 + row;
+    const long long at = (static_cast<long long>(b) * p.H + h) * p.Sq + qrow;
+    const float lse = mine && qrow < p.Sq ? p.lse[at] : INFINITY;
+    const float delta = mine && qrow < p.Sq ? p.delta[at] : 0.f;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int buf = kt & 1;
+      const int k0 = kt * kBN;
+      const int nx = kt + kStages - 1;  // the tile the loader loads next
+      hopper::mbar_wait_cluster(&sm.parts_ready[buf], (kt >> 1) & 1);
+      float4 sv = make_float4(0.f, 0.f, 0.f, 0.f), dpv = sv;
+      if (mine) {
+        const uint32_t s_at =
+            hopper::smem_u32(sm.part[buf][0] + swz32(row, col4));
+        const uint32_t p_at =
+            hopper::smem_u32(sm.part[buf][1] + swz32(row, col4));
+#pragma unroll
+        for (int r = 0; r < kChunks; ++r) {
+          const float4 x = hopper::ld_cluster_f4(hopper::map_rank(s_at, r));
+          const float4 y = hopper::ld_cluster_f4(hopper::map_rank(p_at, r));
+          sv = r == 0 ? x : flash::add4(sv, x);
+          dpv = r == 0 ? y : flash::add4(dpv, y);
+        }
+      }
+      __syncwarp();
+      if (lane < kChunks) hopper::mbar_signal_rank(&sm.parts_free[buf], lane);
+      if (mine) {
+        const float sx[4] = {sv.x, sv.y, sv.z, sv.w};
+        float dx[4] = {dpv.x, dpv.y, dpv.z, dpv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 4 * col4 + e;
+          float x = sx[e] * p.scale;
+          if (col >= p.Skv || (p.causal && col > qrow)) x = flash::kMaskValue;
+          const float pr = expf(x - lse);
+          dx[e] = (dx[e] - delta) * pr * p.scale;
+        }
+        dpv = f4(dx);
+      }
+      // Every CTA's math warps are done with this buffer's tile before.
+      if (kt >= 2)
+        hopper::mbar_wait(&sm.ds_free[buf], ((kt - 2) >> 1) & 1);
+      if (mine) {
+        const uint32_t d_at = hopper::smem_u32(sm.ds[buf] + ds_at(row, col4));
+#pragma unroll
+        for (int r = 0; r < kChunks; ++r)
+          hopper::st_cluster_f4(hopper::map_rank(d_at, r), dpv);
+      }
+      __syncwarp();
+      if (lane < kChunks) hopper::mbar_arrive_rank(&sm.ds_ready[buf], lane);
+      // The tile two ahead goes into the stage of the one before this,
+      // once this CTA's math warps are done with it.
+      if (loader && nx < n_kt) {
+        if (nx >= kStages)
+          hopper::mbar_wait(&sm.empty[nx % kStages], (nx / kStages - 1) & 1);
+        load_tile(nx);
+      }
+    }
+  } else {
+    // ---------------- math warpgroups -----------------------------------
+    // Phase A of tile kt (S or dP over this chunk), then phase B of tile kt
+    // - 1 (dQ += dS K), so the exchange of tile kt runs beside phase B.
+    // Warps 0-3 compute S = Q K^T, warps 4-7 dP = dO V^T; all eight share
+    // phase B by q rows. Every inner loop runs on register tiles in which
+    // each word read from shared memory feeds 8 FMAs (shared memory gives
+    // 32 words a clock, the FMA units take 128).
+    hopper::reg_alloc<kMathRegs>();
+    const int half = warp / 4;
+    const int w4 = warp % 4;
+    // Phase A, the dK/dV cluster's with Q and dO as the stationary tiles (a
+    // copy: one helper shared by the two changed the D640 dK/dV's register
+    // allocation): q rows l8 + 8i by KV rows 8 w4 + i' (i, i' < 8) over the
+    // 16-byte columns cq + 4j (j < 8) of the chunk, cq = lane / 8: the four
+    // lanes of a tile take a quarter of the columns each and are summed by
+    // shuffles. A quarter warp reads 8 q rows of one column and one K word.
+    const int l8 = lane % 8;
+    const int cq = lane / 8;
+    // Phase B: q rows qg + 16i (i < 4) by columns 4 dg + 64m + e (m < 2, e
+    // < 4): a half warp reads one dS word and 16 consecutive 16-byte columns
+    // of K, and each K word feeds the 4 rows, each dS word 8 columns.
+    const int dg = lane % 16;
+    const int qg = 2 * warp + lane / 16;
+    float acc[4][2][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][m][e] = 0.f;
+
+    hopper::mbar_wait(&sm.q_full, 0);
+    for (int kt = 0; kt <= n_kt; ++kt) {
+      if (kt < n_kt) {
+        const int s = kt % kStages;
+        const int buf = kt & 1;
+        hopper::mbar_wait(&sm.full[s], (kt / kStages) & 1);
+        // Every CTA's exchange warps are done with this buffer's tile.
+        if (kt >= 2)
+          hopper::mbar_wait(&sm.parts_free[buf], ((kt - 2) >> 1) & 1);
+        // Step j reads 16-byte column g = cq + 4j: box j / 2, column cq +
+        // 4 (j % 2) in it, at (cq + 4 (j % 2)) ^ l8 in Q's and dO's rows.
+        const float* a0 = (half ? sm.dout[0] : sm.q[0]) + l8 * kBox +
+                          ((cq ^ l8) << 2);
+        const float* a1 = (half ? sm.dout[0] : sm.q[0]) + l8 * kBox +
+                          ((cq ^ l8 ^ 4) << 2);
+        const float* b0 =
+            (half ? sm.v[s][0] : sm.k[s][0]) + 8 * w4 * kBox + 4 * cq;
+        float x[8][8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int i2 = 0; i2 < 8; ++i2) x[i][i2] = 0.f;
+#pragma unroll 1
+        for (int j = 0; j < kD / 16; ++j) {
+          const float* ak = ((j & 1) ? a1 : a0) + (j >> 1) * kBQ * kBox;
+          const float* bk = b0 + (j >> 1) * kBN * kBox + (j & 1) * 16;
+          float4 bq[8];
+#pragma unroll
+          for (int i2 = 0; i2 < 8; ++i2) bq[i2] = flash::ld4(bk + i2 * kBox);
+          // Consecutive FMAs go to 8 different accumulators.
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float4 a = flash::ld4(ak + 8 * i * kBox);
+#pragma unroll
+            for (int i2 = 0; i2 < 8; ++i2)
+              x[i][i2] = fmaf(a.x, bq[i2].x, x[i][i2]);
+#pragma unroll
+            for (int i2 = 0; i2 < 8; ++i2)
+              x[i][i2] = fmaf(a.y, bq[i2].y, x[i][i2]);
+#pragma unroll
+            for (int i2 = 0; i2 < 8; ++i2)
+              x[i][i2] = fmaf(a.z, bq[i2].z, x[i][i2]);
+#pragma unroll
+            for (int i2 = 0; i2 < 8; ++i2)
+              x[i][i2] = fmaf(a.w, bq[i2].w, x[i][i2]);
+          }
+        }
+        // The four column quarters' sums: lanes 8 apart trade q rows (each
+        // keeps 4 of its 8), then lanes 16 apart trade KV rows (each keeps
+        // 4).
+        const bool hi_q = cq & 1, hi_kv = cq & 2;
+        float y[4][8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int i2 = 0; i2 < 8; ++i2) {
+            const float keep = hi_q ? x[i + 4][i2] : x[i][i2];
+            const float give = hi_q ? x[i][i2] : x[i + 4][i2];
+            y[i][i2] = keep + __shfl_xor_sync(0xffffffffu, give, 8);
+          }
+        float* out = sm.part[buf][half];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float z[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float keep = hi_kv ? y[i][e + 4] : y[i][e];
+            const float give = hi_kv ? y[i][e] : y[i][e + 4];
+            z[e] = keep + __shfl_xor_sync(0xffffffffu, give, 16);
+          }
+          *reinterpret_cast<float4*>(
+              out + swz32(l8 + 8 * (i + 4 * hi_q), 2 * w4 + hi_kv)) = f4(z);
+        }
+        // One warp, another each tile, waits at a named barrier for all
+        // eight warps' partials and arrives at each CTA's parts_ready
+        // (lanes 0 to kChunks - 1 in one instruction): the release at
+        // cluster scope is a GPU-wide memory barrier that stalls the warp,
+        // so the other warps only arrive at the named barrier and go on. Its
+        // id alternates by tile, and no warp runs two tiles ahead of the
+        // signalling one (its phase B waits for the next tile's exchange).
+        if (warp == kt % kMathWarps) {
+          hopper::named_bar_sync(1 + buf, 32 * kMathWarps);
+          if (lane < kChunks)
+            hopper::mbar_arrive_rank(&sm.parts_ready[buf], lane);
+        } else {
+          hopper::named_bar_arrive(1 + buf, 32 * kMathWarps);
+        }
+      }
+      if (kt >= 1) {
+        // dQ += dS K over tile kt - 1's KV rows, this chunk's columns; the
+        // stage is released after it, since K is read here.
+        const int t = kt - 1;
+        const int s = t % kStages;
+        const int buf = t & 1;
+        hopper::mbar_wait_cluster(&sm.ds_ready[buf], (t >> 1) & 1);
+        const float* Dm = sm.ds[buf] + qg * kBN;
+        // 16-byte column dg + 16m of a row: box dg / 8 + 2m, column dg % 8.
+        const float* Kt = sm.k[s][0] + (dg >> 3) * kBN * kBox + 4 * (dg & 7);
+#pragma unroll 2
+        for (int jj = 0; jj < kBN; jj += 4) {
+          // dS's 16-byte column jj / 4 of rows qg + 16i, at (jj / 4) ^ (qg %
+          // 2) (ds_at).
+          const int pc = ((jj >> 2) ^ (qg & 1)) << 2;
+          float4 w[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) w[i] = flash::ld4(Dm + 16 * i * kBN + pc);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+              const float4 o =
+                  flash::ld4(Kt + 2 * m * kBN * kBox + (jj + e) * kBox);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const float wi = e == 0   ? w[i].x
+                                 : e == 1 ? w[i].y
+                                 : e == 2 ? w[i].z
+                                          : w[i].w;
+                flash::fma4(acc[i][m], wi, o);
+              }
+            }
+          }
+        }
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&sm.empty[s]);
+        if (lane < kChunks) hopper::mbar_signal_rank(&sm.ds_free[buf], lane);
+      }
+    }
+
+    float* dQ = static_cast<float*>(p.out0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = q0 + qg + 16 * i;
+      if (r >= p.Sq) continue;
+      float* o = dQ + ((static_cast<long long>(b) * p.H + h) * p.Sq + r) * kDW +
+                 c * kD + 4 * dg;
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+        *reinterpret_cast<float4*>(o + 64 * m) = f4(acc[i][m]);
+    }
+  }
+  // No CTA leaves while a peer may still touch its shared memory.
+  hopper::cluster_sync();
+}
+
+// f32 at D = 1024: clusters of 8 CTAs, the largest portable cluster.
+__global__ void __cluster_dims__(8, 1, 1) __launch_bounds__(kThreads, 1)
+flash_bwd_dq_f32_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tdo,
+                                const flash::BwdParams p) {
+  dq_cluster<8>(tq, tk, tv, tdo, p);
+}
+
+}  // namespace f32c
+
+// ---------------------------------------------------------------------------
 // Generic variant: every dtype and head_dim (a multiple of 128) but bf16
-// D = 128 and 256, which the wgmma kernels above serve. The same function on the CUDA
-// cores: one block of 128 threads per (b, h, 16 q rows, chunk of D), walking
+// D = 128 and 256 and f32 D = 1024, which the kernels above serve. The same
+// function on the CUDA cores: one block of 128 threads per (b, h, 16 q
+// rows, chunk of D), walking
 // the visible 32-row KV tiles, with Q, dO, K, V as f32 tiles in dynamic
 // shared memory (102 KB at DC = 256, 196 KB at 512). D up to 512 runs in one
 // chunk (DC = D); above, D is cut into chunks of DC = 256 or 128 columns
@@ -713,7 +1147,8 @@ int launch_generic(const flash::BwdParams& p, int D, int B, cudaStream_t st) {
 
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
 // and dtype: D itself up to 4 kD (bf16 at D = kD and 2 kD is the wgmma
-// kernels'), above that a chunk of flash::gen_chunk(D) columns.
+// kernels'), above that a chunk of flash::gen_chunk(D) columns (f32 at D =
+// 8 kD is the cluster kernel's).
 int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -734,14 +1169,49 @@ int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
   return launch_generic<float, 4 * kD, false>(p, D, B, st);
 }
 
+// f32 at D = 8 kD: one cluster of 8 CTAs per 64 q rows. A launch the card
+// refuses (no room for a cluster) returns its error. The shared-memory
+// opt-in is set at every launch, as for the generic variants.
+int launch_cluster(const flash::BwdParams& p, int B, cudaStream_t st) {
+  constexpr int kChunks = 8;
+  constexpr int D = kChunks * kD;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!flash::make_f32_map(&tq, p.q, B, p.H, p.Sq, p.q_sb, p.q_sh, p.q_ss,
+                           f32c::kBQ, D, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !flash::make_f32_map(&tk, p.k, B, p.KVH, p.Skv, p.k_sb, p.k_sh,
+                           p.k_ss, f32c::kBN, D, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !flash::make_f32_map(&tv, p.v, B, p.KVH, p.Skv, p.v_sb, p.v_sh,
+                           p.v_ss, f32c::kBN, D, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !flash::make_f32_map(&tdo, p.dout, B, p.H, p.Sq, p.o_sb, p.o_sh,
+                           p.o_ss, f32c::kBQ, D, CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = flash::allow_smem(
+      f32c::flash_bwd_dq_f32_cluster_kernel, f32c::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_qt = (p.Sq + f32c::kBQ - 1) / f32c::kBQ;
+  f32c::flash_bwd_dq_f32_cluster_kernel<<<B * p.H * n_qt * kChunks,
+                                          f32c::kThreads, f32c::kSmemBytes,
+                                          st>>>(tq, tk, tv, tdo, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// How many clusters of the f32 D = 1024 kernel (8 CTAs each) the current
+// device holds at once (cudaOccupancyMaxActiveClusters at its shared
+// memory), into *clusters. Returns the CUDA error.
+extern "C" int ray_flash_bwd_dq_max_clusters(int* clusters) {
+  return flash::max_clusters(f32c::flash_bwd_dq_f32_cluster_kernel, 8,
+                             f32c::kThreads, f32c::kSmemBytes, clusters);
+}
 
 // q/dO [B, H, Sq, D] and k/v [B, KVH, Skv, D] given by element strides (batch,
 // head, seq; the last dim dense, every stride and base address a multiple of 16
 // bytes, as TMA and the 16-byte loads require); lse and delta [B, H, Sq] f32
 // and dq [B, H, Sq, D] dense, in the inputs' dtype. D is a multiple of 128;
 // dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 and 256 runs a wgmma
-// kernel, every other case the generic variant. Returns cudaGetLastError()
+// kernel, f32 at D = 1024 a cluster kernel of 8 CTAs, every other case the
+// generic variant. Returns cudaGetLastError()
 // after the launch (cudaErrorInvalidValue for a shape or layout the kernels do
 // not take).
 extern "C" int ray_flash_bwd_dq(
@@ -762,6 +1232,7 @@ extern "C" int ray_flash_bwd_dq(
         static_cast<const float*>(delta), dq, nullptr,
         q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
         o_sb, o_sh, o_ss, H,    KVH,  Sq,   Skv,  scale, causal};
+    if (dtype == 0 && D == 8 * kD) return launch_cluster(p, B, st);
     return launch_generic_d(p, D, dtype, B, st);
   }
   // bf16 at D = 128 (128 q rows a block, 128-row KV tiles) or 256 (64, 64)

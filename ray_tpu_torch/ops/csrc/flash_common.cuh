@@ -208,8 +208,8 @@ __device__ __forceinline__ void fma4(float4& a, float4 b, float4 c) {
   a.w = fmaf(b.w, c.w, a.w);
 }
 
-// acc += w * b, elementwise: a row of the 5-CTA cluster kernels' 8 x 8
-// register tiles
+// acc += w * b, elementwise: a row of the f32 cluster kernels' register
+// tiles
 __device__ __forceinline__ void fma4(float (&acc)[4], float w, float4 b) {
   acc[0] = fmaf(w, b.x, acc[0]);
   acc[1] = fmaf(w, b.y, acc[1]);
@@ -223,6 +223,18 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 
 __device__ __forceinline__ float hsum(float4 a) {
   return (a.x + a.y) + (a.z + a.w);
+}
+
+__device__ __forceinline__ float4 f4(const float* x) {
+  return make_float4(x[0], x[1], x[2], x[3]);
+}
+
+// The f32 cluster backward kernels' [64][32] f32 score tiles (dK/dV at D =
+// 640 and 1024, dQ at 1024) in shared memory: 8 16-byte columns a row,
+// column c of row r at c ^ (r % 8), so 8 consecutive rows' stores of one
+// column fall in 8 banks.
+__device__ __forceinline__ int swz32(int row, int col4) {
+  return row * 32 + ((col4 ^ (row & 7)) << 2);
 }
 
 // Rows [r0, r0 + rows) of an [S, D] matrix (row stride `ss` elements, the

@@ -1,0 +1,176 @@
+"""The port's plain flash forward and backward at head_dim 1024 against the
+Pallas TPU kernels, on the CPU, with inputs made from a numpy seed.
+
+On the card, f32 at head_dim 1024 runs 8-CTA cluster kernels for the
+backward, one CTA per 128 columns of D, that sum the scores over D through
+each other's shared memory: dK/dV (``csrc/flash_bwd_dkv.cu``
+``flash_bwd_dkv_f32_d1024_cluster_kernel``) and dQ (``csrc/flash_bwd_dq.cu``
+``flash_bwd_dq_f32_cluster_kernel``), both on the FMA units; the f32 forward
+and every bf16 kernel at 1024 run the generic variants, tiled over D.
+``chip_smoke.py`` holds each against ``flash_fwd_plain``,
+``flash_bwd_plain_dkv`` and ``flash_bwd_plain_dq``. Here those plain
+versions are held against the real Pallas bodies (``_flash_fwd_kernel``,
+``_flash_bwd_dkv_kernel``, ``_flash_bwd_dq_kernel``) run in interpret mode
+at D1024: two q and two kv blocks of 128, so every causal block class; the
+backward on the Pallas forward's O and LSE. The GQA cases take the f32
+D1024 parity run's group of 2 (``llama3_8b(n_heads=4, n_kv_heads=2)``).
+
+Tolerances as ``test_torch_flash_d1024.py`` sets them: f32 is f32 on both
+sides, only the summation order differs, so 1e-5 absolute (LSE too, in
+both dtypes); in bf16 both round P before P·V (the Pallas forward against
+its running max, the plain one against the final max) and P and dS before
+the backward's products, so an output moves by a bf16 step where an f32
+sum in another order lands on the other side of a rounding: 2 bf16 steps at
+the output's magnitude, and for the backward at most 1% of the outputs not
+bit-equal. A wrong mask, block or head moves an output by its own order.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from ray_tpu.ops import attention as jatt
+from ray_tpu_torch.ops import attention as tatt
+
+D = 1024
+S = 256
+BLOCK = 128  # two q and two kv blocks: above, on and below the diagonal
+SCALE = D ** -0.5
+ATOL_F32 = 1e-5
+BF16_STEPS = 2
+BF16_BWD_DIFFER = 1e-2  # share of the backward's bf16 outputs not bit-equal
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _rand(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _inputs(dt, h, kvh, seed):
+    """q, k, v, dO in the JAX dtype (numpy f32 rounded by JAX)."""
+    jdt = DTYPES[dt][0]
+    return [jnp.asarray(_rand(shape, seed + i), jdt) for i, shape in enumerate(
+        ((1, h, S, D), (1, kvh, S, D), (1, kvh, S, D), (1, h, S, D)))]
+
+
+def _torch(x, dt):
+    """The same values as a torch tensor of the dtype (bf16 exactly)."""
+    return torch.from_numpy(np.array(jnp.asarray(x, jnp.float32))).to(
+        DTYPES[dt][1])
+
+
+def _pallas_fwd(q, k, v, causal):
+    with pltpu.force_tpu_interpret_mode():
+        return jatt._flash_fwd_pallas(q, k, v, causal=causal, sm_scale=SCALE,
+                                      block_q=BLOCK, block_k=BLOCK)
+
+
+def _pallas_bwd(q, k, v, o, lse, do, causal):
+    with pltpu.force_tpu_interpret_mode():
+        return jatt._flash_bwd_pallas(q, k, v, o, lse, do, causal=causal,
+                                      sm_scale=SCALE, block_q=BLOCK,
+                                      block_k=BLOCK)
+
+
+def _close(got, want, dt, differ=1.0):
+    """f32: 1e-5 absolute; bf16: BF16_STEPS steps at want's magnitude, and
+    at most a share ``differ`` of the elements not bit-equal."""
+    assert got.dtype == DTYPES[dt][1]
+    g = got.float().numpy()
+    w = np.asarray(jnp.asarray(want, jnp.float32))
+    assert g.shape == w.shape
+    if dt == "f32":
+        np.testing.assert_allclose(g, w, atol=ATOL_F32, rtol=0)
+        return
+    step = 2.0 ** (np.floor(np.log2(np.abs(w).max())) - 7)
+    err = np.abs(g - w).max()
+    assert err <= BF16_STEPS * step, f"{err} > {BF16_STEPS} x {step}"
+    assert (g != w).mean() <= differ, f"{(g != w).mean()} differ"
+
+
+def _close_lse(got, want):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL_F32,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_fwd_plain_d1024_matches_pallas_kernel_interpret(dt, causal):
+    """B1 H2 S256 D1024: ``flash_fwd_plain`` (and ``flash_fwd`` on CPU
+    tensors, which runs it) against ``_flash_fwd_pallas``."""
+    q, k, v, _ = _inputs(dt, 2, 2, seed=80)
+    want_o, want_lse = _pallas_fwd(q, k, v, causal)
+    tq, tk, tv = (_torch(x, dt) for x in (q, k, v))
+    o, lse = tatt.flash_fwd_plain(tq, tk, tv, causal, SCALE)
+    _close(o, want_o, dt)
+    _close_lse(lse, want_lse)
+    o2, lse2 = tatt.flash_fwd(tq, tk, tv, causal)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_fwd_d1024_gqa_reads_kv_heads_like_repeat_kv(dt, causal):
+    """H4 KVH2 S256 D1024: the plain forward reads kv head h // 2 in place,
+    equal to the Pallas kernel on repeat_kv'd K and V."""
+    q, k, v, _ = _inputs(dt, 4, 2, seed=90)
+    kr, vr = (jnp.repeat(x, 2, axis=1) for x in (k, v))
+    want_o, want_lse = _pallas_fwd(q, kr, vr, causal)
+    tq, tk, tv = (_torch(x, dt) for x in (q, k, v))
+    o, lse = tatt.flash_fwd_plain(tq, tk, tv, causal, SCALE)
+    assert o.shape == (1, 4, S, D) and lse.shape == (1, 4, S)
+    _close(o, want_o, dt)
+    _close_lse(lse, want_lse)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_bwd_plain_d1024_matches_pallas_kernels_interpret(dt, causal):
+    """B1 H2 S256 D1024: ``flash_bwd_plain`` and its halves
+    ``flash_bwd_plain_dkv`` and ``flash_bwd_plain_dq`` against
+    ``_flash_bwd_pallas``, on the Pallas forward's O and LSE."""
+    q, k, v, do = _inputs(dt, 2, 2, seed=60)
+    o, lse = _pallas_fwd(q, k, v, causal)
+    want_dq, want_dk, want_dv = _pallas_bwd(q, k, v, o, lse, do, causal)
+    tq, tk, tv, to, tdo = (_torch(x, dt) for x in (q, k, v, o, do))
+    tlse = torch.from_numpy(np.array(lse))
+    dq, dk, dv = tatt.flash_bwd_plain(tq, tk, tv, to, tlse, tdo, causal,
+                                      SCALE)
+    delta = tatt._delta(to, tdo)
+    dk2, dv2 = tatt.flash_bwd_plain_dkv(tq, tk, tv, tdo, tlse, delta, causal,
+                                        SCALE)
+    dq2 = tatt.flash_bwd_plain_dq(tq, tk, tv, tdo, tlse, delta, causal, SCALE)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv),
+                      (dk2, want_dk), (dv2, want_dv), (dq2, want_dq)):
+        _close(got, want, dt, BF16_BWD_DIFFER)
+    # The CPU wrappers run the plain versions themselves.
+    dk3, dv3 = tatt.flash_bwd_dkv(tq, tk, tv, tdo, tlse, delta, causal, SCALE)
+    dq3 = tatt.flash_bwd_dq(tq, tk, tv, tdo, tlse, delta, causal, SCALE)
+    assert torch.equal(dk3, dk2) and torch.equal(dv3, dv2)
+    assert torch.equal(dq3, dq2)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_bwd_d1024_gqa_sums_query_heads_like_repeat_kv(dt):
+    """H4 KVH2 S256 D1024 causal: the plain backward reads kv head h // 2 in
+    place and gives dK/dV with 2 heads, equal to the Pallas kernels on
+    repeat_kv'd K and V followed by the VJP of repeat_kv (each kv head's
+    two query heads summed, here in f32)."""
+    q, k, v, do = _inputs(dt, 4, 2, seed=70)
+    kr, vr = (jnp.repeat(x, 2, axis=1) for x in (k, v))
+    o, lse = _pallas_fwd(q, kr, vr, True)
+    want_dq, want_dk, want_dv = _pallas_bwd(q, kr, vr, o, lse, do, True)
+    tq, tk, tv, tdo = (_torch(x, dt) for x in (q, k, v, do))
+    dq, dk, dv = tatt.flash_bwd_plain(tq, tk, tv, _torch(o, dt),
+                                      torch.from_numpy(np.array(lse)), tdo,
+                                      True, SCALE)
+    assert dk.shape == dv.shape == (1, 2, S, D)
+    _close(dq, want_dq, dt)
+    for got, want in ((dk, want_dk), (dv, want_dv)):
+        summed = np.asarray(jnp.asarray(want, jnp.float32)).reshape(
+            1, 2, 2, S, D).sum(axis=2)
+        _close(got, summed, dt)
