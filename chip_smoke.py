@@ -17,9 +17,10 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    lengths 100 and 8000 (TMA zero-fills past the end), at the MoE step's
    S4096 (both layouts), and at the bench configuration's B8 H16 KVH16
    S2048; the other variants (f32 at head_dim 128 to 1024, bf16 at 256
-   to 1024; bf16 256 on the wgmma kernels, at 640 the f32 forward and the
-   f32 and bf16 dK/dV on the cluster kernels of 5 CTAs, f32 1024's dK/dV
-   and dQ on clusters of 8, the rest generic, tiled over D from 640) at B1
+   to 1024; bf16 256 on the wgmma kernels, at 640 the f32 forward, dK/dV
+   and dQ and the bf16 dK/dV on the cluster kernels of 5 CTAs, f32 1024's
+   forward, dK/dV and dQ on clusters of 8, the rest generic, tiled over D
+   from 640) at B1
    H8 KVH2 S2048 and the ragged S1000, causal and not, and at the shapes
    of their train-parity runs, bf16 256 also at ``llama3_8b(n_heads=16)``'s
    training length, B1 H16 KVH8 S8192 causal, and D896 (f32 and bf16) and
@@ -221,9 +222,9 @@ Details go to ``chiprun_out/chip_smoke.json``.
 builds the kernels and runs phase 2 alone (a quick check after a kernel
 edit), ``--only-bwd`` runs phase 5 alone in the same way, ``--only-times``
 times the bf16 wgmma kernels alone at head_dim 256 and 128, S2048 and
-S8192, the three D640 cluster kernels (the f32 forward and dK/dV, the
-bf16 dK/dV) and the two f32 D1024 ones (dK/dV, dQ) at their parity
-shapes, in 3 rounds, and checks
+S8192, the four D640 cluster kernels (the f32 forward, dK/dV and dQ, the
+bf16 dK/dV) and the three f32 D1024 ones (forward, dK/dV, dQ) at their
+parity shapes, in 3 rounds, and checks
 nothing of the build (run it from two trees' roots in turns to compare
 them), ``--only-moe``
 phase 9, ``--only-ckpt`` phases 4 and 10, ``--only-runtime`` phase 11,
@@ -345,8 +346,9 @@ SERVE_FWD_CASES = [(1, 32, 16, S, True, BF16, "model")
                    for S in (32, 512, 2048, 8192)]
 FWD_CASES += SERVE_FWD_CASES
 # The kernel variants other than bf16 D128 (bf16 D256 on the wgmma kernels,
-# at D640 the f32 forward and the f32 and bf16 dK/dV on the cluster kernels,
-# every other one generic), in phases 2 and 5: at B1 H8 KVH2, S2048 and the
+# at D640 the f32 forward, dK/dV and dQ and the bf16 dK/dV and at f32 D1024
+# all three on the cluster kernels, every other one generic), in phases 2 and
+# 5: at B1 H8 KVH2, S2048 and the
 # ragged S1000, causal and not, and at the shape
 # the train-parity path of their dtype and head_dim gives them
 # (``PARITY_RUNS``: B1 H32 KVH8 D128, B1 H16 KVH8 D256, B1 H8 KVH4 D384,
@@ -354,7 +356,8 @@ FWD_CASES += SERVE_FWD_CASES
 # 7's training length, B1 H16 KVH8 S8192 causal (``llama3_8b(n_heads=16)``
 # at S8192). The generic D640 and D1024 instances are tiled over D (5 chunks
 # of 128 and 4 of 256); the cluster kernels split D640 over 5 CTAs and f32
-# D1024 over 8. D896 (f32 and bf16) and f32 D768 (B1 H8 KVH2 S2048 causal)
+# D1024 over 8 (the q rows of a dQ cluster's 64 unevenly over 5: 12 or 13 a
+# CTA, the ragged S1000 ending in a tile of 40). D896 (f32 and bf16) and f32 D768 (B1 H8 KVH2 S2048 causal)
 # keep the generic chunked instances of 128 and 256 columns checked and
 # timed: no parity run reaches them, and since the cluster kernels took
 # D640 and f32 D1024 they serve only D896, 1152, ... and f32 D768, 1280, ...
@@ -377,15 +380,15 @@ VARIANT_CASES = [(name, D, dt, 1, 8, 2, S, causal)
     for dt_name, dt in (("f32", F32), ("bf16", BF16))] + [
     ("f32_d768", 768, F32, 1, 8, 2, 2048, True)]
 # The variants that run wgmma kernels besides bf16 D128, by kernel: bf16
-# D256 (all three); and those that run the cluster kernels: f32 D640's
-# forward, f32 and bf16 D640's dK/dV, f32 D1024's dK/dV and dQ. Every other
+# D256 (all three); and those that run the cluster kernels: f32 D640's and
+# f32 D1024's forward, dK/dV and dQ, and bf16 D640's dK/dV. Every other
 # variant runs a generic instance.
 WGMMA_VARIANTS = {"flash_fwd": ("bf16_d256",),
                   "flash_bwd_dkv": ("bf16_d256",),
                   "flash_bwd_dq": ("bf16_d256",)}
-CLUSTER_VARIANTS = {"flash_fwd": ("f32_d640",),
+CLUSTER_VARIANTS = {"flash_fwd": ("f32_d640", "f32_d1024"),
                     "flash_bwd_dkv": ("f32_d640", "bf16_d640", "f32_d1024"),
-                    "flash_bwd_dq": ("f32_d1024",)}
+                    "flash_bwd_dq": ("f32_d640", "f32_d1024")}
 PROMPT_LENS = (17, 100, 300, 700, 1500, 3000, 5000, 8000)
 SAMPLED = {1: dict(temperature=0.8, top_k=40, seed=1234),
            6: dict(temperature=1.0, top_k=0, seed=5678)}
@@ -504,20 +507,20 @@ BUILD_REPORT = ("registers", "spill", "smem", "arning", "wgmma",
 # Generic instances: 6 one-chunk ones in each kernel (f32 D128-512, bf16
 # D384-512; bf16 D256 is the wgmma kernels'), and each kernel 4 chunked ones
 # (f32 and bf16, chunks of 128 and 256). D640 is the cluster kernels' for
-# the f32 forward and both dK/dVs, so the forward's f32 and the dK/dV's f32
-# and bf16 instances of 128-column chunks serve only D896, 1152, ... (D
-# above 512 with D % 256 != 0; the D896 cases of VARIANT_CASES run them).
-# f32 D1024 is the cluster kernels' for dK/dV and dQ, so their f32
-# instances of 256-column chunks serve only D768, 1280, ... (the f32 D768
-# case runs them)
+# all three in f32 and for the bf16 dK/dV, so the f32 instances of
+# 128-column chunks and the bf16 dK/dV's serve only D896, 1152, ... (D above
+# 512 with D % 256 != 0; the D896 cases of VARIANT_CASES run them). f32
+# D1024 is the cluster kernels' for all three, so the f32 instances of
+# 256-column chunks serve only D768, 1280, ... (the f32 D768 case runs them)
 GENERIC_INSTANCES = 30
 # wgmma kernels: each of the three at D128 and D256 (the forward's two from
 # one template)
 WGMMA_INSTANCES = 6
-# Cluster kernels: of 5 CTAs at D640, the f32 forward and the f32 dK/dV on
-# the FMA units and the bf16 dK/dV on wgmma; of 8 CTAs at f32 D1024, the
-# dK/dV (the D640 one's template) and the dQ on the FMA units
-CLUSTER_INSTANCES = 5
+# Cluster kernels: of 5 CTAs at D640, the f32 forward, dK/dV and dQ on the
+# FMA units and the bf16 dK/dV on wgmma; of 8 CTAs at f32 D1024, the
+# forward, dK/dV and dQ on the FMA units (each f32 one its D640 instance's
+# template)
+CLUSTER_INSTANCES = 7
 
 
 def log(*a):
@@ -1041,8 +1044,8 @@ def _bwd_case(gen, card, B, H, KVH, S, causal, layout, D=128, dt=BF16):
 # head_dim 256 and 128 (D, H, KVH; B1, causal), each timed in 3 rounds in
 # turn, medians printed: the quick A/B of two trees in one call (run it
 # from each root in turns). Then the cluster kernels at their parity runs'
-# shapes, S2048 only: at D640 in f32 the forward and dK/dV, in bf16 the
-# dK/dV; at f32 D1024 the dK/dV and dQ.
+# shapes, S2048 only: in f32 at D640 and D1024 the forward, dK/dV and dQ;
+# at bf16 D640 the dK/dV.
 TIME_SHAPES = ((256, 16, 8), (128, 32, 8))
 TIME_SEQS = (2048, TRAIN_SEQ)
 TIME_ROUNDS = 3
@@ -1063,13 +1066,7 @@ def phase_kernel_times(card: str) -> list:
         o, lse = flash_fwd(q, k, v, True)
         delta = (do.float() * o.float()).sum(-1)
         args = (q, k, v, do, lse, delta, True, D ** -0.5)
-        if D == TIME_CLUSTER_1024[0]:
-            fns = dict(flash_bwd_dkv=lambda: flash_bwd_dkv(*args),
-                       flash_bwd_dq=lambda: flash_bwd_dq(*args))
-        elif dt == F32:
-            fns = dict(flash_fwd=lambda: flash_fwd(q, k, v, True),
-                       flash_bwd_dkv=lambda: flash_bwd_dkv(*args))
-        elif D == TIME_CLUSTER[0]:
+        if D == TIME_CLUSTER[0] and dt == BF16:
             fns = dict(flash_bwd_dkv=lambda: flash_bwd_dkv(*args))
         else:
             fns = dict(flash_fwd=lambda: flash_fwd(q, k, v, True),
@@ -1095,6 +1092,8 @@ def phase_kernel_times(card: str) -> list:
 # entry point, CTAs a cluster).
 CLUSTER_FIT = {
     "flash_fwd.f32_d640": ("flash_fwd", "ray_flash_fwd_max_clusters", 5),
+    "flash_fwd.f32_d1024": ("flash_fwd",
+                            "ray_flash_fwd_f32_d1024_max_clusters", 8),
     "flash_bwd_dkv.f32_d640": ("flash_bwd_dkv",
                                "ray_flash_bwd_dkv_max_clusters", 5),
     "flash_bwd_dkv.bf16_d640": ("flash_bwd_dkv",
@@ -1102,6 +1101,8 @@ CLUSTER_FIT = {
     "flash_bwd_dkv.f32_d1024": ("flash_bwd_dkv",
                                 "ray_flash_bwd_dkv_f32_d1024_max_clusters",
                                 8),
+    "flash_bwd_dq.f32_d640": ("flash_bwd_dq",
+                              "ray_flash_bwd_dq_f32_d640_max_clusters", 5),
     "flash_bwd_dq.f32_d1024": ("flash_bwd_dq",
                                "ray_flash_bwd_dq_max_clusters", 8)}
 

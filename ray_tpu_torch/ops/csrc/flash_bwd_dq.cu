@@ -72,26 +72,28 @@
 //     products: the N = 32 score products read more shared memory than it
 //     gives the tensor cores, and the consumers meet at the barrier with
 //     the tensor cores idle while both compute P and dS.
-// f32 at 1024 runs flash_bwd_dq_f32_cluster_kernel (after that). The
-// generic variant's chunked instance computed S and dP over all of D in each
-// of its 4 chunk blocks, and its inner loops read one shared-memory word per
-// FMA or two (32 words a clock against the FMA units' 128). This kernel is
-// bound by the FMA units: f32 has no exact tensor-core input (TF32 rounds,
-// and the f32 variants are held to 1e-4), 3 products of 64 * 32 * 1024 FMAs
-// per (64 q rows, 32 KV rows) pair. It is the f32 dK/dV cluster
-// (flash_bwd_dkv.cu) with (Q, dO) and (K, V) in each other's places and one
-// product fewer:
-//   * One cluster of 8 CTAs per (b, head, 64 q rows), one CTA per
-//     128-column chunk of D (8 is the largest portable cluster). A CTA
-//     loads its chunk of Q and dO once (128B-swizzled f32 boxes of 32
+// f32 at 640 and 1024 runs flash_bwd_dq_f32_d640_cluster_kernel and
+// flash_bwd_dq_f32_cluster_kernel (after that), one body, dq_cluster<kChunks>,
+// at 5 and 8 CTAs. The generic variant's chunked instances computed S and dP
+// over all of D in each of their 5 or 4 chunk blocks, and their inner loops
+// read one shared-memory word per FMA or two (32 words a clock against the
+// FMA units' 128). These kernels are bound by the FMA units: f32 has no exact
+// tensor-core input (TF32 rounds, and the f32 variants are held to 1e-4), 3
+// products of 64 * 32 * D FMAs per (64 q rows, 32 KV rows) pair. They are the
+// f32 dK/dV cluster (flash_bwd_dkv.cu) with (Q, dO) and (K, V) in each
+// other's places and one product fewer:
+//   * One cluster of D / 128 CTAs (5 or 8; 8 is the largest portable
+//     cluster) per (b, head, 64 q rows), one CTA per 128-column chunk of D.
+//     A CTA loads its chunk of Q and dO once (128B-swizzled f32 boxes of 32
 //     columns, since they are read down 8 rows of one column at once) and
-//     streams its chunk of K and V per 32-row KV tile through a 3-stage
-//     ring (not swizzled: read along rows). The group's query heads run
+//     streams its chunk of K and V per 32-row KV tile through a 3-stage ring
+//     (not swizzled: read along rows). The group's query heads run
 //     next to each other and the heaviest causal q tiles first, as above.
 //   * Warpgroup 0 computes S = Q K^T, warpgroup 1 dP = dO V^T (64 x 32)
 //     over the CTA's 128 columns into its shared memory. Then each CTA sums
-//     8 of the 64 q rows over the 8 chunks through distributed shared
-//     memory (ld.shared::cluster), in chunk order 0 to 7, masks KV columns
+//     its share of the 64 q rows (8 at D1024; 12 or 13 at D640, which
+//     splits them unevenly) over the chunks through distributed shared
+//     memory (ld.shared::cluster), in chunk order from 0, masks KV columns
 //     past Skv (TMA zero-filled their K rows, so S is 0 there and exp(0 -
 //     LSE) is not) and after the row (causal), forms P and dS = P (dP -
 //     delta) scale in f32 (rounding nothing, as the Pallas kernel's cast
@@ -576,10 +578,10 @@ flash_bwd_dq_d256_kernel(const __grid_constant__ CUtensorMap tq,
 }  // namespace d256
 
 // ---------------------------------------------------------------------------
-// f32 at D = 1024: one cluster of 8 CTAs per (b, head, 64 q rows), one CTA
-// per 128-column chunk of D, the scores summed over the cluster; the f32
-// dK/dV cluster (flash_bwd_dkv.cu) with Q, dO and K, V in each other's
-// places (see the top of this file).
+// f32 at D = 640 and 1024: one cluster of 5 or 8 CTAs per (b, head, 64 q
+// rows), one CTA per 128-column chunk of D, the scores summed over the
+// cluster; the f32 dK/dV cluster (flash_bwd_dkv.cu) with Q, dO and K, V in
+// each other's places (see the top of this file).
 // ---------------------------------------------------------------------------
 
 namespace f32c {
@@ -631,8 +633,8 @@ __device__ __forceinline__ int ds_at(int row, int col4) {
   return row * kBN + ((col4 ^ (row & 1)) << 2);
 }
 
-// The kernel over kChunks CTAs a cluster (D = kChunks kD); the kernel after
-// it gives the cluster's size as a literal.
+// The kernel over kChunks CTAs a cluster (D = kChunks kD); the two kernels
+// after it give the cluster's size as a literal.
 template <int kChunks>
 __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
                                            const CUtensorMap& tk,
@@ -715,7 +717,8 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
       for (int kt = 0; kt < min(n_kt, kStages - 1); ++kt) load_tile(kt);
     }
 
-    // This CTA's q rows, 8 of 64 at 8 chunks, for the whole loop: thread xt
+    // This CTA's q rows, [c 64 / kChunks, (c + 1) 64 / kChunks) (8 of 64 at 8
+    // chunks, 12 or 13 at 5), for the whole loop: thread xt
     // sums one 16-byte column (4 KV columns) of one row over the chunks, in
     // chunk order 0 to kChunks - 1 in every CTA, so that all hold the same
     // dS bits; applies scale and the mask (KV columns past Skv, whose K rows
@@ -778,8 +781,10 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
       __syncwarp();
       if (lane < kChunks) hopper::mbar_arrive_rank(&sm.ds_ready[buf], lane);
       // The tile two ahead goes into the stage of the one before this,
-      // once this CTA's math warps are done with it.
-      if (loader && nx < n_kt) {
+      // once this CTA's math warps are done with it. The loader is xt == 0:
+      // at 5 chunks ptxas spilled the flag (8 bytes) and tests xt afresh
+      // without a spill; at 8 the flag keeps that instance's machine code.
+      if ((kChunks == 8 ? loader : xt == 0) && nx < n_kt) {
         if (nx >= kStages)
           hopper::mbar_wait(&sm.empty[nx % kStages], (nx / kStages - 1) & 1);
         load_tile(nx);
@@ -972,25 +977,37 @@ flash_bwd_dq_f32_cluster_kernel(const __grid_constant__ CUtensorMap tq,
   dq_cluster<8>(tq, tk, tv, tdo, p);
 }
 
+// f32 at D = 640: clusters of 5 CTAs. Each CTA's exchange owns 12 or 13 of
+// the 64 q rows (c * 64 / 5 to (c + 1) * 64 / 5).
+__global__ void __cluster_dims__(5, 1, 1) __launch_bounds__(kThreads, 1)
+flash_bwd_dq_f32_d640_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                     const __grid_constant__ CUtensorMap tk,
+                                     const __grid_constant__ CUtensorMap tv,
+                                     const __grid_constant__ CUtensorMap tdo,
+                                     const flash::BwdParams p) {
+  dq_cluster<5>(tq, tk, tv, tdo, p);
+}
+
 }  // namespace f32c
 
 // ---------------------------------------------------------------------------
 // Generic variant: every dtype and head_dim (a multiple of 128) but bf16
-// D = 128 and 256 and f32 D = 1024, which the kernels above serve. The same
-// function on the CUDA cores: one block of 128 threads per (b, h, 16 q
-// rows, chunk of D), walking
-// the visible 32-row KV tiles, with Q, dO, K, V as f32 tiles in dynamic
-// shared memory (102 KB at DC = 256, 196 KB at 512). D up to 512 runs in one
-// chunk (DC = D); above, D is cut into chunks of DC = 256 or 128 columns
-// (flash::gen_chunk; the chunked instances): each block writes one chunk of
-// dQ, and the contractions over D (S = Q K^T and dP = dO V^T) are
-// summed over the chunks staged one at a time, in the order that ends with
-// the block's own chunk, so K's columns for dQ are the ones left in shared
-// memory. With more than one chunk Q and dO are reloaded per chunk and every
-// block recomputes the scores (D / DC times their work; right and slow
-// first). Each thread computes 4 entries of dS (q row tid / 8, KV columns
-// tid % 8 + 8i; rounded to q's dtype) and holds an eighth of its row's dQ
-// chunk as interleaved float4s in f32 registers for the whole KV loop. Bound
+// D = 128 and 256 and f32 D = 640 and 1024, which the kernels above serve.
+// The same function on the CUDA cores: one block of 128 threads per (b, h, 16
+// q rows, chunk of D), walking the visible 32-row KV tiles, with Q, dO, K, V
+// as f32 tiles in dynamic shared memory (102 KB at DC = 256, 196 KB at 512).
+// D up to 512 runs in one chunk (DC = D); above, D is cut into chunks of DC =
+// 256 or 128 columns (flash::gen_chunk; the chunked instances): each block
+// writes one chunk of dQ, and the contractions over D (S = Q K^T and dP = dO
+// V^T) are summed over the chunks staged one at a time, in the order that
+// ends with the block's own chunk, so K's columns for dQ are the ones left in
+// shared memory. The f32 instances of 256- and 128-column chunks serve only
+// D768, 1280, ... and D896, 1152, ... (f32 D640 and 1024 are the cluster
+// kernels'). With more than one chunk Q and dO are reloaded per chunk and
+// every block recomputes the scores (D / DC times their work; right and slow
+// first). Each thread computes 4 entries of dS (q row tid / 8, KV columns tid
+// % 8 + 8i; rounded to q's dtype) and holds an eighth of its row's dQ chunk
+// as interleaved float4s in f32 registers for the whole KV loop. Bound
 // by shared-memory reads, not by the FMA rate; simple first.
 // ---------------------------------------------------------------------------
 
@@ -1148,7 +1165,7 @@ int launch_generic(const flash::BwdParams& p, int D, int B, cudaStream_t st) {
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
 // and dtype: D itself up to 4 kD (bf16 at D = kD and 2 kD is the wgmma
 // kernels'), above that a chunk of flash::gen_chunk(D) columns (f32 at D =
-// 8 kD is the cluster kernel's).
+// 5 kD and 8 kD is the cluster kernels').
 int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -1169,11 +1186,13 @@ int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
   return launch_generic<float, 4 * kD, false>(p, D, B, st);
 }
 
-// f32 at D = 8 kD: one cluster of 8 CTAs per 64 q rows. A launch the card
-// refuses (no room for a cluster) returns its error. The shared-memory
-// opt-in is set at every launch, as for the generic variants.
-int launch_cluster(const flash::BwdParams& p, int B, cudaStream_t st) {
-  constexpr int kChunks = 8;
+// f32 at D = kChunks kD (5 or 8): one cluster of kChunks CTAs per 64 q
+// rows, on `kernel`, the instance of that size. A launch the card refuses
+// (no room for a cluster) returns its error. The shared-memory opt-in is set
+// at every launch, as for the generic variants.
+template <int kChunks, typename Kernel>
+int launch_cluster(Kernel kernel, const flash::BwdParams& p, int B,
+                   cudaStream_t st) {
   constexpr int D = kChunks * kD;
   CUtensorMap tq, tk, tv, tdo;
   if (!flash::make_f32_map(&tq, p.q, B, p.H, p.Sq, p.q_sb, p.q_sh, p.q_ss,
@@ -1185,13 +1204,11 @@ int launch_cluster(const flash::BwdParams& p, int B, cudaStream_t st) {
       !flash::make_f32_map(&tdo, p.dout, B, p.H, p.Sq, p.o_sb, p.o_sh,
                            p.o_ss, f32c::kBQ, D, CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = flash::allow_smem(
-      f32c::flash_bwd_dq_f32_cluster_kernel, f32c::kSmemBytes);
+  const cudaError_t err = flash::allow_smem(kernel, f32c::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qt = (p.Sq + f32c::kBQ - 1) / f32c::kBQ;
-  f32c::flash_bwd_dq_f32_cluster_kernel<<<B * p.H * n_qt * kChunks,
-                                          f32c::kThreads, f32c::kSmemBytes,
-                                          st>>>(tq, tk, tv, tdo, p);
+  kernel<<<B * p.H * n_qt * kChunks, f32c::kThreads, f32c::kSmemBytes, st>>>(
+      tq, tk, tv, tdo, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1205,13 +1222,19 @@ extern "C" int ray_flash_bwd_dq_max_clusters(int* clusters) {
                              f32c::kThreads, f32c::kSmemBytes, clusters);
 }
 
+// The same for the f32 D = 640 kernel (clusters of 5).
+extern "C" int ray_flash_bwd_dq_f32_d640_max_clusters(int* clusters) {
+  return flash::max_clusters(f32c::flash_bwd_dq_f32_d640_cluster_kernel, 5,
+                             f32c::kThreads, f32c::kSmemBytes, clusters);
+}
+
 // q/dO [B, H, Sq, D] and k/v [B, KVH, Skv, D] given by element strides (batch,
 // head, seq; the last dim dense, every stride and base address a multiple of 16
 // bytes, as TMA and the 16-byte loads require); lse and delta [B, H, Sq] f32
 // and dq [B, H, Sq, D] dense, in the inputs' dtype. D is a multiple of 128;
 // dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 and 256 runs a wgmma
-// kernel, f32 at D = 1024 a cluster kernel of 8 CTAs, every other case the
-// generic variant. Returns cudaGetLastError()
+// kernel, f32 at D = 640 and 1024 a cluster kernel of 5 and 8 CTAs, every
+// other case the generic variant. Returns cudaGetLastError()
 // after the launch (cudaErrorInvalidValue for a shape or layout the kernels do
 // not take).
 extern "C" int ray_flash_bwd_dq(
@@ -1232,7 +1255,12 @@ extern "C" int ray_flash_bwd_dq(
         static_cast<const float*>(delta), dq, nullptr,
         q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
         o_sb, o_sh, o_ss, H,    KVH,  Sq,   Skv,  scale, causal};
-    if (dtype == 0 && D == 8 * kD) return launch_cluster(p, B, st);
+    if (dtype == 0 && D == 5 * kD)
+      return launch_cluster<5>(f32c::flash_bwd_dq_f32_d640_cluster_kernel, p,
+                               B, st);
+    if (dtype == 0 && D == 8 * kD)
+      return launch_cluster<8>(f32c::flash_bwd_dq_f32_cluster_kernel, p, B,
+                               st);
     return launch_generic_d(p, D, dtype, B, st);
   }
   // bf16 at D = 128 (128 q rows a block, 128-row KV tiles) or 256 (64, 64)

@@ -70,33 +70,36 @@
 //     place, any S. With 64-row tiles the block's last causal tile lies
 //     wholly above consumer 0's rows: it runs that tile masked to zeros
 //     (turns stay balanced), 1 / (2 (qt + 1)) of its work.
-// f32 at head_dim 640 runs flash_fwd_f32_cluster_kernel (after it): the
-// f32 D640 dK/dV's cluster (flash_bwd_dkv.cu) carried over to the forward,
-// which has no dP. The generic chunked instance computed S over all of D in
-// each of its 5 chunk blocks and read one shared-memory word per 1 to 4
-// FMAs. This kernel is bound by the FMA units: f32 has no exact tensor-core
-// input (TF32 rounds, and the f32 forward is held to 1e-5), 2 products of
-// 128 x 32 x 640 FMAs per (q, KV) tile pair.
-//   * One cluster of 5 CTAs per (b, head, 128 q rows), one CTA per
-//     128-column chunk of D, the heaviest causal q tiles first. A CTA loads
-//     its chunk of Q once (f32 TMA boxes of 32 columns, 128B-swizzled since
-//     it is read down 8 rows of one column at once) and streams its chunk of
-//     K and V of the KV head per 32-row tile through a 3-stage ring.
+// f32 at head_dim 640 and 1024 runs flash_fwd_f32_cluster_kernel and
+// flash_fwd_f32_d1024_cluster_kernel (after it), one body at 5 and 8 CTAs
+// (fwd_cluster<kChunks>): the f32 dK/dV's cluster (flash_bwd_dkv.cu)
+// carried over to the forward, which has no dP. The generic chunked instances
+// computed S over all of D in each of their 5 or 4 chunk blocks and read one
+// shared-memory word per 1 to 4 FMAs. These kernels are bound by the FMA
+// units: f32 has no exact tensor-core input (TF32 rounds, and the f32 forward
+// is held to 1e-5), 2 products of 128 x 32 x D FMAs per (q, KV) tile pair.
+//   * One cluster of D / 128 CTAs (5 or 8; 8 is the largest portable
+//     cluster) per (b, head, 128 q rows), one CTA per 128-column chunk of D,
+//     the heaviest causal q tiles first. A CTA loads its chunk of Q once (f32
+//     TMA boxes of 32 columns, 128B-swizzled since it is read down 8 rows of
+//     one column at once) and streams its chunk of K and V of the KV head per
+//     32-row tile through a 3-stage ring.
 //   * The product over D is split across the cluster, not repeated: each CTA
 //     computes S (128 x 32) over its own 128 columns into its shared memory.
-//     The exchange warpgroup owns a fifth of the q rows for the whole loop:
-//     it sums their partials over the 5 chunks through distributed shared
-//     memory in chunk order 0 to 4, scales and masks them, keeps each row's
-//     running max m and sum l, and stores P = exp(S - m) (f32: nothing
-//     rounds) and the row's correction exp(m_old - m_new) into every CTA.
-//     O = O corr + P V follows, O (64 f32 a thread) in registers for the
-//     whole loop; at the end the owners store l into every CTA and write
-//     LSE = m + log(l).
+//     The exchange warpgroup owns 128 / (D / 128) of the q rows (25 or 26 at
+//     D640, 16 at D1024) for the whole loop: it sums their partials over the
+//     chunks through distributed shared memory in chunk order from 0, scales
+//     and masks them, keeps each row's running max m and sum l, and stores P
+//     = exp(S - m) (f32: nothing rounds) and the row's correction exp(m_old -
+//     m_new) into every CTA. O = O corr + P V follows, O (64 f32 a thread) in
+//     registers for the whole loop; at the end the owners store l into every
+//     CTA and write LSE = m + log(l).
 //   * Roles, hand-overs and 8 x 8 register tiles as in that dK/dV: two math
 //     warpgroups (S of tile t, then O of tile t - 1) and one exchange and
-//     load warpgroup. The exchange does not bound it: on the card, keeping
-//     its loads or its stores within the CTA left its time as it was.
-//   * 232,448 bytes of shared memory: one CTA an SM, 22 clusters at once.
+//     load warpgroup. The exchange does not bound it at D640: on the card,
+//     keeping its loads or its stores within the CTA left its time as it was.
+//   * 232,448 bytes of shared memory: one CTA an SM, 22 clusters of 5 or 15
+//     of 8 at once.
 // A generic scalar-FMA variant serves f32 at any other head_dim that is a
 // multiple of 128 and bf16 at those from 384 up, tiled over D from 640 up.
 
@@ -520,15 +523,13 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// f32 at D = 640: one cluster of 5 CTAs per (b, head, 128 q rows), one CTA
-// per 128-column chunk of D, the scores summed over the cluster (see the top
-// of this file).
+// f32 at D = 640 and 1024: one cluster of 5 or 8 CTAs per (b, head, 128 q
+// rows), one CTA per 128-column chunk of D, the scores summed over the
+// cluster (see the top of this file).
 // ---------------------------------------------------------------------------
 
 namespace f32c {
 
-constexpr int kChunks = 5;              // CTAs of a cluster = chunks of D
-constexpr int kDW = kChunks * kD;       // head_dim
 constexpr int kBM = 128;                // q rows per cluster
 constexpr int kBN = 32;                 // KV rows per tile
 constexpr int kStages = 3;              // K/V ring depth
@@ -580,11 +581,14 @@ __device__ __forceinline__ int pm_at(int row, int col4) {
   return row * kBN + ((col4 ^ (row & 1)) << 2);
 }
 
-__global__ void __cluster_dims__(kChunks, 1, 1) __launch_bounds__(kThreads, 1)
-flash_fwd_f32_cluster_kernel(const __grid_constant__ CUtensorMap tq,
-                             const __grid_constant__ CUtensorMap tk,
-                             const __grid_constant__ CUtensorMap tv,
-                             const Params p) {
+// The kernel over kChunks CTAs a cluster (D = kChunks kD); the two kernels
+// after it give the cluster's size as a literal.
+template <int kChunks>
+__device__ __forceinline__ void fwd_cluster(const CUtensorMap& tq,
+                                            const CUtensorMap& tk,
+                                            const CUtensorMap& tv,
+                                            const Params& p) {
+  constexpr int kDW = kChunks * kD;  // head_dim
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
   Smem& sm =
@@ -651,13 +655,14 @@ flash_fwd_f32_cluster_kernel(const __grid_constant__ CUtensorMap tq,
       for (int kt = 0; kt < min(n_kt, kStages - 1); ++kt) load_tile(kt);
     }
 
-    // This CTA's q rows, [r0, r1), for the whole loop: 8 lanes a row, lane
-    // col4 of row r0 + xt / 8 + 16 i (i < 2) sums 16-byte column col4 (4
-    // KV columns) over the 5 chunks, in chunk order 0 to 4 in every CTA,
-    // applies scale and the mask, keeps the row's running max m and sum l
-    // (the same in its 8 lanes), and stores P = exp(S - m_new) in f32 (the
-    // Pallas kernel's cast to V's dtype rounds nothing in f32) and the
-    // row's correction exp(m_old - m_new) into every CTA.
+    // This CTA's q rows, [r0, r1) (25 or 26 of 128 at 5 chunks, 16 at 8),
+    // for the whole loop: 8 lanes a row, lane col4 of row r0 + xt / 8 + 16 i
+    // (i < 2; at 8 chunks i = 1 is never this CTA's) sums 16-byte column
+    // col4 (4 KV columns) over the chunks, in chunk order from 0 in every
+    // CTA, applies scale and the mask, keeps the row's running max m and sum
+    // l (the same in its 8 lanes), and stores P = exp(S - m_new) in f32 (the
+    // Pallas kernel's cast to V's dtype rounds nothing in f32) and the row's
+    // correction exp(m_old - m_new) into every CTA.
     const int xt = tid - 32 * kMathWarps;
     const int r0 = c * kBM / kChunks;
     const int r1 = (c + 1) * kBM / kChunks;
@@ -871,9 +876,9 @@ flash_fwd_f32_cluster_kernel(const __grid_constant__ CUtensorMap tq,
         }
         // One warp, another each tile, waits at a named barrier for all
         // eight warps' partials and arrives at each CTA's parts_ready
-        // (lanes 0-4 in one instruction): the release at cluster scope is a
-        // GPU-wide memory barrier that stalls the warp, so the other warps
-        // only arrive at the named barrier and go on.
+        // (lanes 0 to kChunks - 1 in one instruction): the release at
+        // cluster scope is a GPU-wide memory barrier that stalls the warp, so
+        // the other warps only arrive at the named barrier and go on.
         if (warp == kt % kMathWarps) {
           hopper::named_bar_sync(1 + buf, 32 * kMathWarps);
           if (lane < kChunks)
@@ -951,19 +956,40 @@ flash_fwd_f32_cluster_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// f32 at D = 640: clusters of 5 CTAs.
+__global__ void __cluster_dims__(5, 1, 1) __launch_bounds__(kThreads, 1)
+flash_fwd_f32_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const Params p) {
+  fwd_cluster<5>(tq, tk, tv, p);
+}
+
+// f32 at D = 1024: clusters of 8 CTAs, the largest portable cluster.
+__global__ void __cluster_dims__(8, 1, 1) __launch_bounds__(kThreads, 1)
+flash_fwd_f32_d1024_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                   const __grid_constant__ CUtensorMap tk,
+                                   const __grid_constant__ CUtensorMap tv,
+                                   const Params p) {
+  fwd_cluster<8>(tq, tk, tv, p);
+}
+
 }  // namespace f32c
 
 // ---------------------------------------------------------------------------
 // Generic variant: every dtype and head_dim (a multiple of 128) but bf16 D =
-// 128 and 256 and f32 D = 640, which the kernels above serve. Scalar FMAs on
-// the CUDA cores over f32 tiles in dynamic shared memory: 32 q rows per block,
-// 4 threads per row, 16-row KV tiles, the same online softmax with P rounded to the input
-// dtype before P V. D up to 512 runs in one chunk (DC = D). Above, D is cut
+// 128 and 256 and f32 D = 640 and 1024, which the kernels above serve. Scalar
+// FMAs on the CUDA cores over f32 tiles in dynamic shared memory: 32 q rows
+// per block, 4 threads per row, 16-row KV tiles, the same online softmax with
+// P rounded to the input dtype before P V. D up to 512 runs in one chunk (DC =
+// D). Above, D is cut
 // into chunks of DC = 256 or 128 columns (flash::gen_chunk; the chunked
 // instances): the grid's z axis gives each block one chunk of O's columns, held
 // in registers (acc[DC / 4]), and the scores S = Q K^T are summed over the
 // chunks staged one at a time through shared memory. So shared memory (131 KB
-// at most, DC = 512) and registers stay bounded at any D. With more than one
+// at most, DC = 512) and registers stay bounded at any D. The f32 instances of
+// 256- and 128-column chunks serve only D768, 1280, ... and D896, 1152, ...
+// (f32 D640 and 1024 are the cluster kernels'). With more than one
 // chunk a block reloads Q's chunks for every KV tile, and every block
 // recomputes the scores: D / DC times the score work of one chunk, right and
 // slow first. Each thread takes 4 scores of its row (columns c, c + 4, ...) and
@@ -1131,7 +1157,7 @@ int launch_generic(const Params& p, int D, int B, cudaStream_t st) {
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
 // and dtype: D itself up to 4 kD (bf16 at D = kD and 2 kD is the wgmma
 // kernel's), above that a chunk of flash::gen_chunk(D) columns (f32 at D =
-// 5 kD is the cluster kernel's).
+// 5 kD and 8 kD is the cluster kernels').
 int launch_generic_d(const Params& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -1152,11 +1178,13 @@ int launch_generic_d(const Params& p, int D, int dtype, int B,
   return launch_generic<float, 4 * kD, false>(p, D, B, st);
 }
 
-// f32 at D = 5 kD: one cluster of f32c::kChunks CTAs per 128 q rows. A
-// launch the card refuses (no room for a cluster) returns its error. The
-// shared-memory opt-in is set at every launch, as for the generic variants.
-int launch_cluster(const Params& p, int B, cudaStream_t st) {
-  constexpr int D = f32c::kDW;
+// f32 at D = kChunks kD (5 or 8): one cluster of kChunks CTAs per 128 q
+// rows, on `kernel`, the instance of that size. A launch the card refuses (no
+// room for a cluster) returns its error. The shared-memory opt-in is set at
+// every launch, as for the generic variants.
+template <int kChunks, typename Kernel>
+int launch_cluster(Kernel kernel, const Params& p, int B, cudaStream_t st) {
+  constexpr int D = kChunks * kD;
   CUtensorMap tq, tk, tv;
   if (!flash::make_f32_map(&tq, p.q, B, p.H, p.Sq, p.q_sb, p.q_sh, p.q_ss,
                            f32c::kBM, D, CU_TENSOR_MAP_SWIZZLE_128B) ||
@@ -1165,13 +1193,11 @@ int launch_cluster(const Params& p, int B, cudaStream_t st) {
       !flash::make_f32_map(&tv, p.v, B, p.KVH, p.Skv, p.v_sb, p.v_sh,
                            p.v_ss, f32c::kBN, D, CU_TENSOR_MAP_SWIZZLE_NONE))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = flash::allow_smem(
-      f32c::flash_fwd_f32_cluster_kernel, f32c::kSmemBytes);
+  const cudaError_t err = flash::allow_smem(kernel, f32c::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qt = (p.Sq + f32c::kBM - 1) / f32c::kBM;
-  f32c::flash_fwd_f32_cluster_kernel<<<B * p.H * n_qt * f32c::kChunks,
-                                       f32c::kThreads, f32c::kSmemBytes,
-                                       st>>>(tq, tk, tv, p);
+  kernel<<<B * p.H * n_qt * kChunks, f32c::kThreads, f32c::kSmemBytes, st>>>(
+      tq, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1181,9 +1207,14 @@ int launch_cluster(const Params& p, int B, cudaStream_t st) {
 // once (cudaOccupancyMaxActiveClusters at its shared memory), into
 // *clusters. Returns the CUDA error.
 extern "C" int ray_flash_fwd_max_clusters(int* clusters) {
-  return flash::max_clusters(f32c::flash_fwd_f32_cluster_kernel,
-                             f32c::kChunks, f32c::kThreads, f32c::kSmemBytes,
-                             clusters);
+  return flash::max_clusters(f32c::flash_fwd_f32_cluster_kernel, 5,
+                             f32c::kThreads, f32c::kSmemBytes, clusters);
+}
+
+// The same for the f32 D = 1024 kernel (clusters of 8).
+extern "C" int ray_flash_fwd_f32_d1024_max_clusters(int* clusters) {
+  return flash::max_clusters(f32c::flash_fwd_f32_d1024_cluster_kernel, 8,
+                             f32c::kThreads, f32c::kSmemBytes, clusters);
 }
 
 // The bf16 launch at D = 128 or 256: tensor maps over q, k, v (4-D {D, S,
@@ -1216,8 +1247,8 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* o,
 // q [B, H, Sq, D], k/v [B, KVH, Skv, D] given by element strides (batch,
 // head, seq; the last dim dense); o [B, H, Sq, D] and lse [B, H, Sq] dense.
 // D is a multiple of 128; dtype: 0 = float32, 1 = bfloat16. bf16 at
-// D = 128 and 256 runs the wgmma kernel, f32 at 640 the cluster kernel,
-// every other case the generic variant. Returns
+// D = 128 and 256 runs the wgmma kernel, f32 at 640 and 1024 a cluster
+// kernel of 5 and 8 CTAs, every other case the generic variant. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape or
 // layout the kernels do not take: every stride and the base addresses must
 // be multiples of 16 bytes, as TMA and the 16-byte loads require).
@@ -1244,6 +1275,10 @@ extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
   const Params p{q,    k,    v,    o,    static_cast<float*>(lse),
                  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                  H,    KVH,  Sq,   Skv,  scale, causal};
-  if (dtype == 0 && D == f32c::kDW) return launch_cluster(p, B, st);
+  if (dtype == 0 && D == 5 * kD)
+    return launch_cluster<5>(f32c::flash_fwd_f32_cluster_kernel, p, B, st);
+  if (dtype == 0 && D == 8 * kD)
+    return launch_cluster<8>(f32c::flash_fwd_f32_d1024_cluster_kernel, p, B,
+                             st);
   return launch_generic_d(p, D, dtype, B, st);
 }

@@ -1,12 +1,13 @@
 """The port's plain flash forward and backward at head_dim 1024 against the
 Pallas TPU kernels, on the CPU, with inputs made from a numpy seed.
 
-On the card, f32 at head_dim 1024 runs 8-CTA cluster kernels for the
-backward, one CTA per 128 columns of D, that sum the scores over D through
-each other's shared memory: dK/dV (``csrc/flash_bwd_dkv.cu``
+On the card, f32 at head_dim 1024 runs 8-CTA cluster kernels, one CTA per
+128 columns of D, that sum the scores over D through each other's shared
+memory: the forward (``csrc/flash_fwd.cu``
+``flash_fwd_f32_d1024_cluster_kernel``), dK/dV (``csrc/flash_bwd_dkv.cu``
 ``flash_bwd_dkv_f32_d1024_cluster_kernel``) and dQ (``csrc/flash_bwd_dq.cu``
-``flash_bwd_dq_f32_cluster_kernel``), both on the FMA units; the f32 forward
-and every bf16 kernel at 1024 run the generic variants, tiled over D.
+``flash_bwd_dq_f32_cluster_kernel``), all on the FMA units; every bf16
+kernel at 1024 runs the generic variant, tiled over D.
 ``chip_smoke.py`` holds each against ``flash_fwd_plain``,
 ``flash_bwd_plain_dkv`` and ``flash_bwd_plain_dq``. Here those plain
 versions are held against the real Pallas bodies (``_flash_fwd_kernel``,
@@ -15,7 +16,7 @@ at D1024: two q and two kv blocks of 128, so every causal block class; the
 backward on the Pallas forward's O and LSE. The GQA cases take the f32
 D1024 parity run's group of 2 (``llama3_8b(n_heads=4, n_kv_heads=2)``).
 
-Tolerances as ``test_torch_flash_d1024.py`` sets them: f32 is f32 on both
+Tolerances as ``test_torch_flash_d256.py`` sets them: f32 is f32 on both
 sides, only the summation order differs, so 1e-5 absolute (LSE too, in
 both dtypes); in bf16 both round P before P·V (the Pallas forward against
 its running max, the plain one against the final max) and P and dS before

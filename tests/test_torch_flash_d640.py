@@ -4,10 +4,11 @@ Pallas TPU kernels, on the CPU, with inputs made from a numpy seed.
 On the card, head_dim 640 runs 5-CTA cluster kernels, one CTA per 128
 columns of D, that sum the scores over D through each other's shared
 memory: the f32 forward (``csrc/flash_fwd.cu``
-``flash_fwd_f32_cluster_kernel``, on the FMA units), the f32 dK/dV
-(``csrc/flash_bwd_dkv.cu`` ``flash_bwd_dkv_f32_cluster_kernel``) and the
+``flash_fwd_f32_cluster_kernel``), the f32 dK/dV (``csrc/flash_bwd_dkv.cu``
+``flash_bwd_dkv_f32_cluster_kernel``) and the f32 dQ (``csrc/flash_bwd_dq.cu``
+``flash_bwd_dq_f32_d640_cluster_kernel``), all on the FMA units, and the
 bf16 dK/dV (``flash_bwd_dkv_bf16_cluster_kernel``, wgmma in each CTA); the
-bf16 forward and both dQs run the generic variants. ``chip_smoke.py`` holds
+bf16 forward and dQ run the generic variants. ``chip_smoke.py`` holds
 each against ``flash_fwd_plain``, ``flash_bwd_plain_dkv`` and
 ``flash_bwd_plain_dq``. Here those plain versions are held against the real
 Pallas bodies (``_flash_fwd_kernel``, ``_flash_bwd_dkv_kernel``,

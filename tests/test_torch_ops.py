@@ -469,17 +469,19 @@ def test_attention_route_follows_the_reference_dispatch():
             tatt.flash_bwd_reference.calls) == calls
 
 
+@pytest.mark.parametrize("s", [40, 200])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [640, 1024])
-def test_flash_attention_wide_head_dims_match_jax(d, causal):
-    """head_dim 640 and 1024 (the generic variants' D-tiled widths; on the
-    CPU their plain versions) in f32 against the JAX package's
+def test_flash_attention_wide_head_dims_match_jax(d, causal, s):
+    """head_dim 640 and 1024 (the f32 cluster kernels on the card, their
+    plain versions on the CPU) in f32 against the JAX package's
     flash_attention and jax.grad on the CPU (its jnp branch): output and
     dQ, dK, dV to 1e-5 of the largest element (f32 on both sides,
     summation order alone). Grouped-query heads on the JAX side through
-    repeat_kv."""
-    q, k, v = _qkv(1, 4, 40, d, kvh=2, seed=50 + d)
-    g = _rand((1, 4, 40, d), 51)
+    repeat_kv. S200 spans four 64-row dQ tiles and two 128-row forward
+    tiles on the card, the last of each ragged."""
+    q, k, v = _qkv(1, 4, s, d, kvh=2, seed=50 + d)
+    g = _rand((1, 4, s, d), 51)
 
     def loss(q, k, v):
         out = jatt.flash_attention(q, jatt.repeat_kv(k, 2),
@@ -491,7 +493,7 @@ def test_flash_attention_wide_head_dims_match_jax(d, causal):
     tq, tk, tv = [t.requires_grad_() for t in _t(q, k, v)]
     out = tatt.flash_attention(tq, tk, tv, causal)
     (out * torch.from_numpy(g)).sum().backward()
-    assert out.shape == (1, 4, 40, d) and tk.grad.shape == (1, 2, 40, d)
+    assert out.shape == (1, 4, s, d) and tk.grad.shape == (1, 2, s, d)
     assert _rel(out, want_o) <= 1e-5
     for got, w in zip((tq.grad, tk.grad, tv.grad), want):
         assert _rel(got, w) <= 1e-5
