@@ -346,8 +346,8 @@ SERVE_FWD_CASES = [(1, 32, 16, S, True, BF16, "model")
                    for S in (32, 512, 2048, 8192)]
 FWD_CASES += SERVE_FWD_CASES
 # The kernel variants other than bf16 D128 (bf16 D256 on the wgmma kernels,
-# at D640 the f32 forward, dK/dV and dQ and the bf16 dK/dV and at f32 D1024
-# all three on the cluster kernels, every other one generic), in phases 2 and
+# at D640 the forward, dK/dV and dQ in f32 and in bf16 and at f32 D1024 all
+# three on the cluster kernels, every other one generic), in phases 2 and
 # 5: at B1 H8 KVH2, S2048 and the
 # ragged S1000, causal and not, and at the shape
 # the train-parity path of their dtype and head_dim gives them
@@ -357,10 +357,12 @@ FWD_CASES += SERVE_FWD_CASES
 # at S8192). The generic D640 and D1024 instances are tiled over D (5 chunks
 # of 128 and 4 of 256); the cluster kernels split D640 over 5 CTAs and f32
 # D1024 over 8 (the q rows of a dQ cluster's 64 unevenly over 5: 12 or 13 a
-# CTA, the ragged S1000 ending in a tile of 40). D896 (f32 and bf16) and f32 D768 (B1 H8 KVH2 S2048 causal)
-# keep the generic chunked instances of 128 and 256 columns checked and
-# timed: no parity run reaches them, and since the cluster kernels took
-# D640 and f32 D1024 they serve only D896, 1152, ... and f32 D768, 1280, ...
+# CTA, the ragged S1000 ending in a tile of 40; the bf16 forward's 128-row
+# q tiles end in one of 104). D896 (f32 and bf16) and f32 D768 (B1 H8 KVH2
+# S2048 causal) keep the generic chunked instances of 128 and 256 columns
+# checked and timed: no parity run reaches them, and since the cluster
+# kernels took D640 and f32 D1024 they serve only D896, 1152, ... and f32
+# D768, 1280, ...
 VARIANTS = (("f32_d128", 128, F32), ("f32_d256", 256, F32),
             ("bf16_d256", 256, BF16), ("f32_d384", 384, F32),
             ("bf16_d384", 384, BF16), ("f32_d512", 512, F32),
@@ -380,15 +382,15 @@ VARIANT_CASES = [(name, D, dt, 1, 8, 2, S, causal)
     for dt_name, dt in (("f32", F32), ("bf16", BF16))] + [
     ("f32_d768", 768, F32, 1, 8, 2, 2048, True)]
 # The variants that run wgmma kernels besides bf16 D128, by kernel: bf16
-# D256 (all three); and those that run the cluster kernels: f32 D640's and
-# f32 D1024's forward, dK/dV and dQ, and bf16 D640's dK/dV. Every other
-# variant runs a generic instance.
+# D256 (all three); and those that run the cluster kernels: the forward,
+# dK/dV and dQ at f32 D640, bf16 D640 and f32 D1024. Every other variant
+# runs a generic instance.
 WGMMA_VARIANTS = {"flash_fwd": ("bf16_d256",),
                   "flash_bwd_dkv": ("bf16_d256",),
                   "flash_bwd_dq": ("bf16_d256",)}
-CLUSTER_VARIANTS = {"flash_fwd": ("f32_d640", "f32_d1024"),
+CLUSTER_VARIANTS = {"flash_fwd": ("f32_d640", "bf16_d640", "f32_d1024"),
                     "flash_bwd_dkv": ("f32_d640", "bf16_d640", "f32_d1024"),
-                    "flash_bwd_dq": ("f32_d640", "f32_d1024")}
+                    "flash_bwd_dq": ("f32_d640", "bf16_d640", "f32_d1024")}
 PROMPT_LENS = (17, 100, 300, 700, 1500, 3000, 5000, 8000)
 SAMPLED = {1: dict(temperature=0.8, top_k=40, seed=1234),
            6: dict(temperature=1.0, top_k=0, seed=5678)}
@@ -507,20 +509,20 @@ BUILD_REPORT = ("registers", "spill", "smem", "arning", "wgmma",
 # Generic instances: 6 one-chunk ones in each kernel (f32 D128-512, bf16
 # D384-512; bf16 D256 is the wgmma kernels'), and each kernel 4 chunked ones
 # (f32 and bf16, chunks of 128 and 256). D640 is the cluster kernels' for
-# all three in f32 and for the bf16 dK/dV, so the f32 instances of
-# 128-column chunks and the bf16 dK/dV's serve only D896, 1152, ... (D above
-# 512 with D % 256 != 0; the D896 cases of VARIANT_CASES run them). f32
-# D1024 is the cluster kernels' for all three, so the f32 instances of
-# 256-column chunks serve only D768, 1280, ... (the f32 D768 case runs them)
+# all three in f32 and in bf16, so the instances of 128-column chunks serve
+# only D896, 1152, ... (D above 512 with D % 256 != 0; the D896 cases of
+# VARIANT_CASES run them). f32 D1024 is the cluster kernels' for all three,
+# so the f32 instances of 256-column chunks serve only D768, 1280, ... (the
+# f32 D768 case runs them)
 GENERIC_INSTANCES = 30
 # wgmma kernels: each of the three at D128 and D256 (the forward's two from
 # one template)
 WGMMA_INSTANCES = 6
 # Cluster kernels: of 5 CTAs at D640, the f32 forward, dK/dV and dQ on the
-# FMA units and the bf16 dK/dV on wgmma; of 8 CTAs at f32 D1024, the
-# forward, dK/dV and dQ on the FMA units (each f32 one its D640 instance's
-# template)
-CLUSTER_INSTANCES = 7
+# FMA units and the bf16 forward, dK/dV and dQ on wgmma; of 8 CTAs at f32
+# D1024, the forward, dK/dV and dQ on the FMA units (each f32 one its D640
+# instance's template)
+CLUSTER_INSTANCES = 9
 
 
 def log(*a):
@@ -1044,8 +1046,8 @@ def _bwd_case(gen, card, B, H, KVH, S, causal, layout, D=128, dt=BF16):
 # head_dim 256 and 128 (D, H, KVH; B1, causal), each timed in 3 rounds in
 # turn, medians printed: the quick A/B of two trees in one call (run it
 # from each root in turns). Then the cluster kernels at their parity runs'
-# shapes, S2048 only: in f32 at D640 and D1024 the forward, dK/dV and dQ;
-# at bf16 D640 the dK/dV.
+# shapes, S2048 only: the forward, dK/dV and dQ in f32 at D640 and D1024
+# and in bf16 at D640.
 TIME_SHAPES = ((256, 16, 8), (128, 32, 8))
 TIME_SEQS = (2048, TRAIN_SEQ)
 TIME_ROUNDS = 3
@@ -1066,12 +1068,9 @@ def phase_kernel_times(card: str) -> list:
         o, lse = flash_fwd(q, k, v, True)
         delta = (do.float() * o.float()).sum(-1)
         args = (q, k, v, do, lse, delta, True, D ** -0.5)
-        if D == TIME_CLUSTER[0] and dt == BF16:
-            fns = dict(flash_bwd_dkv=lambda: flash_bwd_dkv(*args))
-        else:
-            fns = dict(flash_fwd=lambda: flash_fwd(q, k, v, True),
-                       flash_bwd_dkv=lambda: flash_bwd_dkv(*args),
-                       flash_bwd_dq=lambda: flash_bwd_dq(*args))
+        fns = dict(flash_fwd=lambda: flash_fwd(q, k, v, True),
+                   flash_bwd_dkv=lambda: flash_bwd_dkv(*args),
+                   flash_bwd_dq=lambda: flash_bwd_dq(*args))
         iters = 20 if S <= 2048 else 10
         times = {n: [] for n in fns}
         for _ in range(TIME_ROUNDS):
@@ -1092,6 +1091,8 @@ def phase_kernel_times(card: str) -> list:
 # entry point, CTAs a cluster).
 CLUSTER_FIT = {
     "flash_fwd.f32_d640": ("flash_fwd", "ray_flash_fwd_max_clusters", 5),
+    "flash_fwd.bf16_d640": ("flash_fwd", "ray_flash_fwd_bf16_max_clusters",
+                            5),
     "flash_fwd.f32_d1024": ("flash_fwd",
                             "ray_flash_fwd_f32_d1024_max_clusters", 8),
     "flash_bwd_dkv.f32_d640": ("flash_bwd_dkv",
@@ -1103,6 +1104,8 @@ CLUSTER_FIT = {
                                 8),
     "flash_bwd_dq.f32_d640": ("flash_bwd_dq",
                               "ray_flash_bwd_dq_f32_d640_max_clusters", 5),
+    "flash_bwd_dq.bf16_d640": ("flash_bwd_dq",
+                               "ray_flash_bwd_dq_bf16_max_clusters", 5),
     "flash_bwd_dq.f32_d1024": ("flash_bwd_dq",
                                "ray_flash_bwd_dq_max_clusters", 8)}
 
@@ -4393,7 +4396,8 @@ def main() -> int:
                     help="build the kernels and run phase 5 only")
     ap.add_argument("--only-times", action="store_true",
                     help="build the kernels and time the bf16 wgmma "
-                    "kernels alone, 3 rounds each (no check of the build)")
+                    "kernels and the cluster kernels alone, 3 rounds each "
+                    "(no check of the build)")
     ap.add_argument("--only-ttft", type=int, default=0, metavar="N",
                     help="build the kernels and measure idle TTFT only, N "
                     "requests per prompt length")
@@ -4460,8 +4464,8 @@ def main() -> int:
     # O, or dK and dV, or dQ; D256: O, or a half of dK and dV, or of dQ)
     # beside their scores under setmaxnreg 240, the f32 cluster kernels 64
     # dK, dV or O accumulators (32 of dQ) beside an 8 x 8 score tile, the
-    # bf16 one 64 dK or dV beside 32 of scores. A spill in any instance is a
-    # defect, not a slowdown to accept.
+    # bf16 ones 64 dK, dV or O (32 of dQ) beside 32 of scores. A spill in
+    # any instance is a defect, not a slowdown to accept.
     spills = {k: v for text in _build.build_log.values()
               for k, v in ptxas_spills(text).items()}
     generic = {k: v for k, v in spills.items() if "generic" in k}

@@ -31,19 +31,21 @@ Which code runs is picked inside its C entry point by (dtype, head_dim):
     (``flash_fwd_bf16_kernel<256, 64>``, ``flash_bwd_dkv_d256_kernel``,
     ``flash_bwd_dq_d256_kernel``);
   * 640: clusters of 5 CTAs, one per 128 columns of D, that sum the
-    scores over D through each other's shared memory: the f32 forward
+    scores over D through each other's shared memory: in f32 the forward
     (``flash_fwd_f32_cluster_kernel``), dK/dV
     (``flash_bwd_dkv_f32_cluster_kernel``) and dQ
-    (``flash_bwd_dq_f32_d640_cluster_kernel``) on the FMA units, the bf16
-    dK/dV (``flash_bwd_dkv_bf16_cluster_kernel``) on wgmma;
+    (``flash_bwd_dq_f32_d640_cluster_kernel``) on the FMA units, in bf16
+    the forward (``flash_fwd_bf16_cluster_kernel``), dK/dV
+    (``flash_bwd_dkv_bf16_cluster_kernel``) and dQ
+    (``flash_bwd_dq_bf16_cluster_kernel``) on wgmma;
   * f32 at 1024: clusters of 8 CTAs in the same way, on the FMA units,
     each f32 D640 kernel's template at 8: the forward
     (``flash_fwd_f32_d1024_cluster_kernel``), dK/dV
     (``flash_bwd_dkv_f32_d1024_cluster_kernel``) and dQ
     (``flash_bwd_dq_f32_cluster_kernel``);
-  * every other case (f32 at any other multiple of 128, bf16 from 384 up,
-    the bf16 forward and dQ at 640, all three in bf16 at 1024): the
-    generic variant on the CUDA cores, which from 640 up tiles over D
+  * every other case (f32 at any other multiple of 128, bf16 at 384, 512
+    and from 768 up): the generic variant on the CUDA cores, which from
+    768 up tiles over D
     (chunks of 256 or 128 columns, the scores summed over the chunks;
     ``ops/csrc/flash_common.cuh`` ``gen_chunk``).
 Sequence lengths are not routed: the kernels take any S (TMA zero-fills,
@@ -230,9 +232,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def kernel_variant(q: torch.Tensor) -> str:
     """The name of the kernel variant that q's dtype and head_dim launch:
     "bf16_d128" and "bf16_d256" (the wgmma kernels), "f32_d128",
-    "f32_d256", ..., "bf16_d384", ... (the generic ones; "f32_d640" and
-    "f32_d1024" run the cluster kernels of all three, "bf16_d640" that of
-    dK/dV). The wrappers count
+    "f32_d256", ..., "bf16_d384", ... (the generic ones; "f32_d640",
+    "bf16_d640" and "f32_d1024" run the cluster kernels of all three).
+    The wrappers count
     launches by it in ``launches_by_variant`` beside ``launches``."""
     dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
     return f"{dt}_d{q.shape[-1]}"
@@ -315,7 +317,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [b, h, sq] f32). Routed by ``attention_route``: at the kernels'
     head_dims (multiples of 128) CUDA tensors launch ``csrc/flash_fwd.cu``
     (its wgmma kernel for bf16 at 128 and 256, a cluster kernel for f32
-    at 640 (5 CTAs) and 1024 (8), its generic variant otherwise; counted in
+    and bf16 at 640 (5 CTAs) and f32 at 1024 (8), its generic variant
+    otherwise; counted in
     ``flash_fwd.launches``) and CPU tensors run
     ``flash_fwd_plain``; a head_dim that is not a multiple of 128 runs
     ``flash_fwd_reference``."""
@@ -482,8 +485,9 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
                  sm_scale: Optional[float] = None) -> torch.Tensor:
     """dQ [b, h, sq, d] in q's dtype. CUDA tensors launch
     ``csrc/flash_bwd_dq.cu`` (a wgmma kernel for bf16 at 128 and 256, a
-    cluster kernel for f32 at 640 (5 CTAs) and 1024 (8), the generic variant
-    otherwise; counted in ``flash_bwd_dq.launches``); CPU tensors run
+    cluster kernel for f32 and bf16 at 640 (5 CTAs) and f32 at 1024 (8),
+    the generic variant otherwise; counted in ``flash_bwd_dq.launches``);
+    CPU tensors run
     ``flash_bwd_plain_dq``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if _bwd_device("flash_bwd_dq", q, k, v, dout, lse, delta) == "cpu":

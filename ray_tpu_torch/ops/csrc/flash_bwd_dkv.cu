@@ -1139,19 +1139,10 @@ struct __align__(1024) Smem {
 constexpr int kSmemBytes = static_cast<int>(sizeof(Smem)) + 1024;
 static_assert(kSmemBytes <= 232448, "over the H100's 227 KB per block");
 
-// Float offset of the 16-byte column col4 of row `row` in a [kv][q] f32
-// partials tile (16 such columns a row): col4 ^ (row % 8), so the 8 rows
-// a warp's accumulator store covers fall in distinct banks.
-__device__ __forceinline__ int swz(int row, int col4) {
-  return row * kBQ + ((col4 ^ (row & 7)) << 2);
-}
-
-// Byte offset of q columns 4 col4.. of KV row `row` in a P^T or dS^T box,
-// where the 16-byte chunk c of a row sits at c ^ (row % 8) (flash::store_t's
-// layout).
-__device__ __forceinline__ uint32_t box_at(int row, int col4) {
-  return row * 128 + ((((col4 >> 1) ^ (row & 7))) << 4) + (col4 & 1) * 8;
-}
+// The [kv][q] f32 partials and the bf16 boxes.
+using flash::box_at;
+using flash::swz64;
+static_assert(kBQ == 64, "swz64's rows are 64 floats");
 
 __global__ void __cluster_dims__(kChunks, 1, 1) __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
@@ -1284,9 +1275,9 @@ flash_bwd_dkv_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
         st[i] = dpt[i] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (!mine[i]) continue;
         const uint32_t s_at =
-            hopper::smem_u32(sm.part[buf][0] + swz(row[i], col4));
+            hopper::smem_u32(sm.part[buf][0] + swz64(row[i], col4));
         const uint32_t p_at =
-            hopper::smem_u32(sm.part[buf][1] + swz(row[i], col4));
+            hopper::smem_u32(sm.part[buf][1] + swz64(row[i], col4));
 #pragma unroll
         for (int r = 0; r < kChunks; ++r) {
           const float4 x = hopper::ld_cluster_f4(hopper::map_rank(s_at, r));
@@ -1379,7 +1370,7 @@ flash_bwd_dkv_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
           for (int a = 0; a < 2; ++a) {
             const int r = 16 * w4 + lane / 4 + 8 * a;
-            *reinterpret_cast<float2*>(out + swz(r, 2 * j + (lane % 4) / 2) +
+            *reinterpret_cast<float2*>(out + swz64(r, 2 * j + (lane % 4) / 2) +
                                        2 * (lane & 1)) =
                 make_float2(sc[4 * j + 2 * a], sc[4 * j + 2 * a + 1]);
           }

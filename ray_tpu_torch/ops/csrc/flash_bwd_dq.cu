@@ -108,10 +108,36 @@
 //     mbarriers the peers arrive at (parts_ready, parts_free, ds_ready,
 //     ds_free), with double buffers; 8 x 8 register tiles in phase A.
 //   * About 209 KB of shared memory: one CTA an SM.
+// bf16 at 640 runs flash_bwd_dq_bf16_cluster_kernel (after those): the f32
+// dQ's dataflow with each CTA's three products on the tensor cores. The
+// generic chunked instance it replaces did scalar FMAs and computed S and dP
+// over all of D in each of its 5 chunk blocks. On wgmma the products are a
+// small share of the work; what the design has to hide is the exchange (two
+// f32 partials of 64 x 64 a tile pair, summed over the 5 CTAs) and the
+// hand-overs between the roles.
+//   * One cluster of 5 CTAs per (b, head, 64 q rows), one CTA per 128
+//     columns of D, ordered as the f32 one. A CTA loads its chunk of Q and
+//     dO once and streams its chunk of K and V per 64-row tile through a
+//     3-stage ring, all as 128B-swizzled 64-column TMA boxes.
+//   * Phase A: warpgroup 0 computes S = Q_c K_c^T, warpgroup 1 dP = dO_c
+//     V_c^T (wgmma.m64n64k16, both operands K-major, 32 f32 registers).
+//     Phase B: warpgroup h computes dQ[:, 64 h..] += dS K_c[:, 64 h..]
+//     (wgmma.m64n64k16 with A = the dS box and B = K's box h read MN-major
+//     through the transpose bit), 32 f32 registers for the whole loop.
+//   * The exchange warpgroup owns 12 or 13 of the 64 q rows (16 lanes a
+//     row), as the f32 D640 dQ does: it sums S and dP over the 5 CTAs in
+//     chunk order from 0, forms P = 2^(S scale log2 e - LSE log2 e), zero on
+//     KV columns past Skv and after the row, and dS = P (dP - delta) scale
+//     rounded to bf16, and stores dS into every CTA as a swizzled [q][kv]
+//     box (K-major for phase B); the reader fences the async proxy after
+//     its acquire of the peers' stores.
+//   * Shared memory: Q and dO 32 KB, the ring 96 KB, dS 2 x 8 KB, the
+//     partials 2 x 2 x 16 KB: 215,040 bytes with the alignment slack, one
+//     CTA an SM.
 // A generic variant (at the end of this file) serves f32 at any other
-// head_dim that is a multiple of 128 and bf16 at those from 384 up (tiled
-// over D from 640 up), with P and dS rounded to the input dtype as the
-// Pallas kernel rounds them.
+// head_dim that is a multiple of 128 and bf16 at 384, 512 and from 768 up
+// (tiled over D from 768 up), with P and dS rounded to the input dtype as
+// the Pallas kernel rounds them.
 
 #include <math.h>
 
@@ -991,8 +1017,323 @@ flash_bwd_dq_f32_d640_cluster_kernel(const __grid_constant__ CUtensorMap tq,
 }  // namespace f32c
 
 // ---------------------------------------------------------------------------
+// bf16 at D = 640: f32c's dataflow (a cluster of 5 CTAs per (b, head, 64 q
+// rows), the scores summed through distributed shared memory) with each
+// CTA's three products on the tensor cores (see the top of this file).
+// ---------------------------------------------------------------------------
+
+namespace bf16c {
+
+using flash::kBoxBytes;  // 8 KB: a 64-row [row][64 col] bf16 box
+
+constexpr int kChunks = 5;              // CTAs of a cluster = chunks of D
+constexpr int kDW = kChunks * kD;       // head_dim
+constexpr int kBQ = 64;                 // q rows per cluster
+constexpr int kBN = 64;                 // KV rows per tile
+constexpr int kStages = 3;              // K/V ring depth
+constexpr int kMathWarps = 8;           // two warpgroups: the products
+constexpr int kXWarps = 4;              // one warpgroup: the exchange, loads
+constexpr int kThreads = 32 * (kMathWarps + kXWarps);
+constexpr uint32_t kTileBytes = 64 * kD * 2;  // a chunk of Q, dO, K or V
+
+// Q, dO, K and V chunks as TMA writes them (two 128B-swizzled 64-column
+// boxes each), dS as one such box ([q][kv], K-major for the wgmma that
+// reads it), the score partials in f32: 32 + 96 (the ring) + 16 + 64 KB.
+struct __align__(1024) Smem {
+  bf16 q[2][kBQ * kHalf];
+  bf16 dout[2][kBQ * kHalf];
+  bf16 k[kStages][2][kBN * kHalf];
+  bf16 v[kStages][2][kBN * kHalf];
+  bf16 ds[2][kBQ * kBN];          // [buffer] dS over all of D
+  float part[2][2][kBQ * kBN];    // [buffer][S, dP] over this chunk
+  uint64_t q_full;            // Q and dO
+  uint64_t full[kStages];     // K, V landed (TMA bytes)
+  uint64_t empty[kStages];    // this CTA's math warps are done with a stage
+  uint64_t parts_ready[2];    // every CTA's math warps wrote part[buffer]
+  uint64_t parts_free[2];     // every CTA's exchange warps read their slice
+  uint64_t ds_ready[2];       // every CTA stored its rows of ds[buffer]
+  uint64_t ds_free[2];        // every CTA's math warps are done with it
+};
+
+// + slack to align the base to 1024 bytes: 215,040 bytes, one CTA an SM.
+constexpr int kSmemBytes = static_cast<int>(sizeof(Smem)) + 1024;
+static_assert(kSmemBytes <= 232448, "over the H100's 227 KB per block");
+
+// The [q][kv] f32 partials and the bf16 boxes.
+using flash::box_at;
+using flash::swz64;
+static_assert(kBN == 64, "swz64's rows are 64 floats");
+
+__global__ void __cluster_dims__(kChunks, 1, 1) __launch_bounds__(kThreads, 1)
+flash_bwd_dq_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 const __grid_constant__ CUtensorMap tdo,
+                                 const DqArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  Smem& sm =
+      *reinterpret_cast<Smem*>(smem_raw + (((raw + 1023) & ~1023u) - raw));
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int c = static_cast<int>(hopper::cluster_ctarank());  // D chunk
+
+  // Cluster -> (q tile, b, KV head, head in the group), the group fastest,
+  // the q tile slowest: causal, the heaviest (last) q tiles start first, and
+  // the query heads of one KV head run next to each other, so they read its
+  // K and V from L2.
+  const int G = p.H / p.KVH;
+  const int n_bk = gridDim.x / kChunks / (G * p.n_qt);  // B * KVH
+  int id = blockIdx.x / kChunks;
+  const int g = id % G;
+  id /= G;
+  const int bk = id % n_bk;
+  const int rank = id / n_bk;
+  const int kvh = bk % p.KVH;
+  const int b = bk / p.KVH;
+  const int h = kvh * G + g;
+  const int qt = p.causal ? p.n_qt - 1 - rank : rank;
+  const int q0 = qt * kBQ;
+  const long long bh = static_cast<long long>(b) * p.H + h;
+  // Causal: KV tiles wholly after the q tile are never loaded.
+  const int kv_end = p.causal ? min(p.Skv, q0 + kBQ) : p.Skv;
+  const int n_kt = (kv_end + kBN - 1) / kBN;
+
+  if (tid == 0) {
+    hopper::mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&sm.full[s], 1);
+      hopper::mbar_init(&sm.empty[s], kMathWarps);
+    }
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(&sm.parts_ready[i], kChunks);
+      hopper::mbar_init(&sm.parts_free[i], kChunks * kXWarps);
+      hopper::mbar_init(&sm.ds_ready[i], kChunks * kXWarps);
+      hopper::mbar_init(&sm.ds_free[i], kChunks * kMathWarps);
+    }
+    hopper::fence_barrier_init();
+  }
+  // The barriers are set up, and every CTA of the cluster runs, before a
+  // copy lands or a peer touches this CTA's shared memory.
+  hopper::cluster_sync();
+
+  if (warp >= kMathWarps) {
+    // ---------------- exchange warpgroup --------------------------------
+    // Its first warp's lane 0 loads (TMA, two boxes each; rows past Sq and
+    // Skv are zero-filled): Q and dO once, K and V per tile of KV head kvh.
+    const bool loader = warp == kMathWarps && lane == 0;
+    auto load_tile = [&](int kt) {
+      const int s = kt % kStages;
+      hopper::mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
+      for (int x = 0; x < 2; ++x) {
+        hopper::tma_load_4d(sm.k[s][x], &tk, &sm.full[s], c * kD + x * kHalf,
+                            kt * kBN, kvh, b);
+        hopper::tma_load_4d(sm.v[s][x], &tv, &sm.full[s], c * kD + x * kHalf,
+                            kt * kBN, kvh, b);
+      }
+    };
+    if (loader) {
+      hopper::mbar_expect_tx(&sm.q_full, 2 * kTileBytes);
+      for (int x = 0; x < 2; ++x) {
+        hopper::tma_load_4d(sm.q[x], &tq, &sm.q_full, c * kD + x * kHalf, q0,
+                            h, b);
+        hopper::tma_load_4d(sm.dout[x], &tdo, &sm.q_full, c * kD + x * kHalf,
+                            q0, h, b);
+      }
+      for (int kt = 0; kt < min(n_kt, kStages - 1); ++kt) load_tile(kt);
+    }
+
+    // This CTA's q rows, [c 64 / 5, (c + 1) 64 / 5) (12 or 13), for the
+    // whole loop: 16 lanes a row, lane col4 of row r0 + xt / 16 + 8 i (i <
+    // 2) sums 16-byte column col4 (4 KV columns) of S and dP over the 5
+    // chunks, in chunk order from 0, forms P = 2^(S scale log2 e - LSE log2
+    // e), zero on KV columns past Skv (TMA zero-filled their K rows, so S
+    // is 0 there and P would not be) and after the row (causal), and dS = P
+    // (dP - delta) scale rounded to bf16 (where the Pallas kernel rounds
+    // it), and stores dS into every CTA's box. The rows' LSE and delta are
+    // read once (+inf and 0 past Sq: P and dS are 0 on such a row).
+    const int xt = tid - 32 * kMathWarps;
+    const int r0 = c * kBQ / kChunks;
+    const int r1 = (c + 1) * kBQ / kChunks;
+    const int col4 = xt % 16;
+    int row[2];
+    bool mine[2];
+    float lse[2], delta[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      row[i] = r0 + xt / 16 + 8 * i;
+      mine[i] = row[i] < r1;
+      const bool live = mine[i] && q0 + row[i] < p.Sq;
+      lse[i] = live ? p.lse[bh * p.Sq + q0 + row[i]] * kLog2e : INFINITY;
+      delta[i] = live ? p.delta[bh * p.Sq + q0 + row[i]] : 0.f;
+    }
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int buf = kt & 1;
+      const int k0 = kt * kBN;
+      const int nx = kt + kStages - 1;  // the tile the loader loads next
+      hopper::mbar_wait_cluster(&sm.parts_ready[buf], (kt >> 1) & 1);
+      float4 sv[2], dpv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sv[i] = dpv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (!mine[i]) continue;
+        const uint32_t s_at =
+            hopper::smem_u32(sm.part[buf][0] + swz64(row[i], col4));
+        const uint32_t p_at =
+            hopper::smem_u32(sm.part[buf][1] + swz64(row[i], col4));
+#pragma unroll
+        for (int r = 0; r < kChunks; ++r) {
+          const float4 x = hopper::ld_cluster_f4(hopper::map_rank(s_at, r));
+          const float4 y = hopper::ld_cluster_f4(hopper::map_rank(p_at, r));
+          sv[i] = r == 0 ? x : flash::add4(sv[i], x);
+          dpv[i] = r == 0 ? y : flash::add4(dpv[i], y);
+        }
+      }
+      __syncwarp();
+      if (lane < kChunks) hopper::mbar_signal_rank(&sm.parts_free[buf], lane);
+      uint2 dw[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float sx[4] = {sv[i].x, sv[i].y, sv[i].z, sv[i].w};
+        const float dx[4] = {dpv[i].x, dpv[i].y, dpv[i].z, dpv[i].w};
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 4 * col4 + e;
+          float pr = fast_exp2(fmaf(sx[e], p.scale_log2, -lse[i]));
+          if (col >= p.Skv || (p.causal && col > q0 + row[i])) pr = 0.f;
+          ds[e] = pr * (dx[e] - delta[i]) * p.scale;
+        }
+        dw[i] = make_uint2(pack_bf16(ds[0], ds[1]), pack_bf16(ds[2], ds[3]));
+      }
+      // Every CTA's math warps are done with this buffer's tile before.
+      if (kt >= 2)
+        hopper::mbar_wait(&sm.ds_free[buf], ((kt - 2) >> 1) & 1);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (!mine[i]) continue;
+        const uint32_t at =
+            hopper::smem_u32(sm.ds[buf]) + box_at(row[i], col4);
+#pragma unroll
+        for (int r = 0; r < kChunks; ++r)
+          hopper::st_cluster_u2(hopper::map_rank(at, r), dw[i]);
+      }
+      __syncwarp();
+      if (lane < kChunks) hopper::mbar_arrive_rank(&sm.ds_ready[buf], lane);
+      // The tile two ahead goes into the stage of the one before this,
+      // once this CTA's math warps are done with it.
+      if (loader && nx < n_kt) {
+        if (nx >= kStages)
+          hopper::mbar_wait(&sm.empty[nx % kStages], (nx / kStages - 1) & 1);
+        load_tile(nx);
+      }
+    }
+  } else {
+    // ---------------- math warpgroups -----------------------------------
+    // Phase A of tile kt, then phase B of tile kt - 1, so the exchange of
+    // tile kt runs beside phase B. Phase A: warpgroup 0 computes S = Q K^T,
+    // warpgroup 1 dP = dO V^T over this chunk (wgmma.m64n64k16, both
+    // operands K-major, 8 k-steps, 32 f32 registers). Phase B: warpgroup
+    // `half` computes dQ[:, 64 half..] += dS K[:, 64 half..]
+    // (wgmma.m64n64k16 with A = the dS box and B = K's box `half` read
+    // MN-major through the transpose bit, 4 k-steps), 32 f32 registers for
+    // the whole loop. A ring stage is released after phase B, since it
+    // reads K.
+    const int half = warp / 4;
+    const int w4 = warp % 4;
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    float sc[32];
+    // acc[4j + 2a + e] and sc[4j + 2a + e]: q row r_lo + 8a of the tile.
+    const int r_lo = 16 * w4 + lane / 4;
+
+    hopper::mbar_wait(&sm.q_full, 0);
+    for (int kt = 0; kt <= n_kt; ++kt) {
+      if (kt < n_kt) {
+        const int s = kt % kStages;
+        const int buf = kt & 1;
+        hopper::mbar_wait(&sm.full[s], (kt / kStages) & 1);
+        // Every CTA's exchange warps are done with this buffer's tile.
+        if (kt >= 2)
+          hopper::mbar_wait(&sm.parts_free[buf], ((kt - 2) >> 1) & 1);
+        flash::issue_abt<kBN>(
+            sc, hopper::smem_u32(half ? sm.dout[0] : sm.q[0]), kBoxBytes,
+            hopper::smem_u32(half ? sm.v[s][0] : sm.k[s][0]), kBoxBytes);
+        hopper::wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 32; ++i) hopper::fence_reg(sc[i]);
+        // sc[4j + 2a + e]: KV column 8j + 2 (lane % 4) + e, in 16-byte
+        // column 2j + (lane % 4) / 2.
+        float* out = sm.part[buf][half];
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+          for (int a = 0; a < 2; ++a)
+            *reinterpret_cast<float2*>(
+                out + swz64(r_lo + 8 * a, 2 * j + (lane % 4) / 2) +
+                2 * (lane & 1)) =
+                make_float2(sc[4 * j + 2 * a], sc[4 * j + 2 * a + 1]);
+        // One warp, another each tile, releases the partials to every CTA
+        // once all eight warps have stored theirs, as in f32c.
+        if (warp == kt % kMathWarps) {
+          hopper::named_bar_sync(1 + buf, 32 * kMathWarps);
+          if (lane < kChunks)
+            hopper::mbar_arrive_rank(&sm.parts_ready[buf], lane);
+        } else {
+          hopper::named_bar_arrive(1 + buf, 32 * kMathWarps);
+        }
+      }
+      if (kt >= 1) {
+        // dQ += dS K over tile kt - 1's KV rows, this warpgroup's 64 of
+        // the chunk's columns.
+        const int t = kt - 1;
+        const int s = t % kStages;
+        const int buf = t & 1;
+        hopper::mbar_wait_cluster(&sm.ds_ready[buf], (t >> 1) & 1);
+        hopper::fence_proxy_async_cluster();  // peers' stores, then wgmma
+        const uint32_t a_base = hopper::smem_u32(sm.ds[buf]);
+        const uint32_t b_base = hopper::smem_u32(sm.k[s][half]);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk)
+          hopper::wgmma_m64n64k16_ss_mn(
+              acc, hopper::desc_sw128(a_base + kk * 32, 16, 1024),
+              hopper::desc_sw128(b_base + kk * 16 * 128, kBoxBytes, 1024), 1);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 32; ++i) hopper::fence_reg(acc[i]);
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&sm.empty[s]);
+        if (lane < kChunks) hopper::mbar_signal_rank(&sm.ds_free[buf], lane);
+      }
+    }
+
+    // acc[4j + 2a + e]: q row q0 + r_lo + 8a, column c kD + 64 half + 8j +
+    // 2 (lane % 4) + e.
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int r = r_lo + 8 * a;
+      if (q0 + r >= p.Sq) continue;
+      bf16* o = p.dq + (bh * p.Sq + q0 + r) * kDW + c * kD + 64 * half +
+                2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < kHalf / 8; ++j)
+        *reinterpret_cast<uint32_t*>(o + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * a], acc[4 * j + 2 * a + 1]);
+    }
+  }
+  // No CTA leaves while a peer may still touch its shared memory.
+  hopper::cluster_sync();
+}
+
+}  // namespace bf16c
+
+// ---------------------------------------------------------------------------
 // Generic variant: every dtype and head_dim (a multiple of 128) but bf16
-// D = 128 and 256 and f32 D = 640 and 1024, which the kernels above serve.
+// D = 128 and 256, D = 640 and f32 D = 1024, which the kernels above serve.
 // The same function on the CUDA cores: one block of 128 threads per (b, h, 16
 // q rows, chunk of D), walking the visible 32-row KV tiles, with Q, dO, K, V
 // as f32 tiles in dynamic shared memory (102 KB at DC = 256, 196 KB at 512).
@@ -1003,7 +1344,9 @@ flash_bwd_dq_f32_d640_cluster_kernel(const __grid_constant__ CUtensorMap tq,
 // ends with the block's own chunk, so K's columns for dQ are the ones left in
 // shared memory. The f32 instances of 256- and 128-column chunks serve only
 // D768, 1280, ... and D896, 1152, ... (f32 D640 and 1024 are the cluster
-// kernels'). With more than one chunk Q and dO are reloaded per chunk and
+// kernels'), the bf16 one of 128-column chunks only D896, 1152, ... (bf16
+// D640 is the cluster kernel's). With more than one chunk Q and dO are
+// reloaded per chunk and
 // every block recomputes the scores (D / DC times their work; right and slow
 // first). Each thread computes 4 entries of dS (q row tid / 8, KV columns tid
 // % 8 + 8i; rounded to q's dtype) and holds an eighth of its row's dQ chunk
@@ -1164,8 +1507,8 @@ int launch_generic(const flash::BwdParams& p, int D, int B, cudaStream_t st) {
 
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
 // and dtype: D itself up to 4 kD (bf16 at D = kD and 2 kD is the wgmma
-// kernels'), above that a chunk of flash::gen_chunk(D) columns (f32 at D =
-// 5 kD and 8 kD is the cluster kernels').
+// kernels'), above that a chunk of flash::gen_chunk(D) columns (D = 5 kD
+// and f32 at 8 kD are the cluster kernels').
 int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -1212,6 +1555,33 @@ int launch_cluster(Kernel kernel, const flash::BwdParams& p, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 at D = 5 kD: one cluster of bf16c::kChunks CTAs per 64 q rows, on
+// 128B-swizzled 64-column boxes of every input. A launch the card refuses
+// returns its error. The shared-memory opt-in is set at every launch.
+int launch_bf16_cluster(const flash::BwdParams& p, int B, cudaStream_t st) {
+  constexpr int D = bf16c::kDW;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!flash::make_bhsd_map(&tq, p.q, B, p.H, p.Sq, p.q_sb, p.q_sh, p.q_ss,
+                            bf16c::kBQ, D) ||
+      !flash::make_bhsd_map(&tk, p.k, B, p.KVH, p.Skv, p.k_sb, p.k_sh,
+                            p.k_ss, bf16c::kBN, D) ||
+      !flash::make_bhsd_map(&tv, p.v, B, p.KVH, p.Skv, p.v_sb, p.v_sh,
+                            p.v_ss, bf16c::kBN, D) ||
+      !flash::make_bhsd_map(&tdo, p.dout, B, p.H, p.Sq, p.o_sb, p.o_sh,
+                            p.o_ss, bf16c::kBQ, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = flash::allow_smem(
+      bf16c::flash_bwd_dq_bf16_cluster_kernel, bf16c::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_qt = (p.Sq + bf16c::kBQ - 1) / bf16c::kBQ;
+  const DqArgs a{p.lse, p.delta, static_cast<bf16*>(p.out0), p.H, p.KVH,
+                 p.Sq, p.Skv, n_qt, p.scale * kLog2e, p.scale, p.causal};
+  bf16c::flash_bwd_dq_bf16_cluster_kernel<<<
+      B * p.H * n_qt * bf16c::kChunks, bf16c::kThreads, bf16c::kSmemBytes,
+      st>>>(tq, tk, tv, tdo, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // How many clusters of the f32 D = 1024 kernel (8 CTAs each) the current
@@ -1228,13 +1598,20 @@ extern "C" int ray_flash_bwd_dq_f32_d640_max_clusters(int* clusters) {
                              f32c::kThreads, f32c::kSmemBytes, clusters);
 }
 
+// The same for the bf16 D = 640 kernel (clusters of 5).
+extern "C" int ray_flash_bwd_dq_bf16_max_clusters(int* clusters) {
+  return flash::max_clusters(bf16c::flash_bwd_dq_bf16_cluster_kernel,
+                             bf16c::kChunks, bf16c::kThreads,
+                             bf16c::kSmemBytes, clusters);
+}
+
 // q/dO [B, H, Sq, D] and k/v [B, KVH, Skv, D] given by element strides (batch,
 // head, seq; the last dim dense, every stride and base address a multiple of 16
 // bytes, as TMA and the 16-byte loads require); lse and delta [B, H, Sq] f32
 // and dq [B, H, Sq, D] dense, in the inputs' dtype. D is a multiple of 128;
 // dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 and 256 runs a wgmma
-// kernel, f32 at D = 640 and 1024 a cluster kernel of 5 and 8 CTAs, every
-// other case the generic variant. Returns cudaGetLastError()
+// kernel, D = 640 a cluster kernel of 5 CTAs (f32 or bf16), f32 at D = 1024
+// one of 8, every other case the generic variant. Returns cudaGetLastError()
 // after the launch (cudaErrorInvalidValue for a shape or layout the kernels do
 // not take).
 extern "C" int ray_flash_bwd_dq(
@@ -1261,6 +1638,7 @@ extern "C" int ray_flash_bwd_dq(
     if (dtype == 0 && D == 8 * kD)
       return launch_cluster<8>(f32c::flash_bwd_dq_f32_cluster_kernel, p, B,
                                st);
+    if (D == bf16c::kDW) return launch_bf16_cluster(p, B, st);
     return launch_generic_d(p, D, dtype, B, st);
   }
   // bf16 at D = 128 (128 q rows a block, 128-row KV tiles) or 256 (64, 64)

@@ -11,9 +11,11 @@
 // memory), and what the generic variants (f32, and bf16 from head_dim 384
 // up) share: loads and stores by element type, rounding to it, f32 tiles
 // in shared memory, the chunk of D they tile by, the backward's
-// parameters. Last, on the host: the shared-memory opt-in, the tensor maps
-// (bf16, and f32 for the 5-CTA cluster kernels at D = 640) and how many
-// clusters of a kernel fit.
+// parameters; the cluster kernels' swizzled f32 score partials (32 columns
+// a row in f32, 64 in bf16) and the bf16 ones' offsets into their P, P^T,
+// dS and dS^T boxes. Last, on the host: the shared-memory opt-in, the
+// tensor maps (bf16, and f32 for the 5-CTA cluster kernels at D = 640) and
+// how many clusters of a kernel fit.
 
 #pragma once
 
@@ -235,6 +237,20 @@ __device__ __forceinline__ float4 f4(const float* x) {
 // column fall in 8 banks.
 __device__ __forceinline__ int swz32(int row, int col4) {
   return row * 32 + ((col4 ^ (row & 7)) << 2);
+}
+
+// The bf16 cluster kernels' (D = 640) [row][64] f32 score partials: 16
+// 16-byte columns a row, column c of row r at c ^ (r % 8), so the 8 rows a
+// warp's accumulator store covers fall in distinct banks.
+__device__ __forceinline__ int swz64(int row, int col4) {
+  return row * 64 + ((col4 ^ (row & 7)) << 2);
+}
+
+// Byte offset of columns 4 col4.. of row `row` in their bf16 [row][64]
+// boxes of P, P^T or dS^T, whose 16-byte chunk c of a row sits at c ^ (row %
+// 8) (store_t's layout, as wgmma reads a K-major operand).
+__device__ __forceinline__ uint32_t box_at(int row, int col4) {
+  return row * 128 + ((((col4 >> 1) ^ (row & 7))) << 4) + (col4 & 1) * 8;
 }
 
 // Rows [r0, r0 + rows) of an [S, D] matrix (row stride `ss` elements, the

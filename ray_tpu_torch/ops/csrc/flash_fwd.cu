@@ -100,8 +100,43 @@
 //     keeping its loads or its stores within the CTA left its time as it was.
 //   * 232,448 bytes of shared memory: one CTA an SM, 22 clusters of 5 or 15
 //     of 8 at once.
+// bf16 at head_dim 640 runs flash_fwd_bf16_cluster_kernel (after those):
+// the f32 forward's cluster with each CTA's two products on the tensor
+// cores, as the bf16 dK/dV's cluster (flash_bwd_dkv.cu bf16c) runs its four.
+// The generic chunked instance it replaces did scalar FMAs and computed S
+// over all of D in each of its 5 chunk blocks. On wgmma the products are a
+// small share of the work; what the design has to hide is the exchange (one
+// f32 partial of 128 x 64 a tile pair, summed over the 5 CTAs through
+// distributed shared memory) and the hand-overs between the roles.
+//   * One cluster of 5 CTAs per (b, head, 128 q rows), one CTA per 128
+//     columns of D, the heaviest causal q tiles first, KV tiles above the
+//     diagonal never loaded, GQA in place. A CTA loads its chunk of Q once
+//     and streams its chunk of K and V per 64-row tile through a 3-stage
+//     ring, all as 128B-swizzled 64-column TMA boxes.
+//   * Each math warpgroup owns 64 q rows: S = Q_c K_c^T is
+//     wgmma.m64n64k16 with both operands K-major (32 f32 registers), and O_c
+//     = O_c corr + P V_c is wgmma.m64n128k16 with A = its 64 rows of the P
+//     box and B = V read MN-major (flash::mma_t), O_c in 64 f32 registers
+//     for the whole loop.
+//   * The exchange warpgroup owns 25 or 26 of the 128 q rows for the whole
+//     loop (16 lanes a row): it sums their S partials over the 5 CTAs in
+//     chunk order from 0, scales them to log2 units, masks KV columns past
+//     Skv by hand (TMA zero-fills K, so S = 0 there and 2^(0 - m) would
+//     not be 0) and after the row, keeps m and l per row and stores P =
+//     2^(S - m_new) rounded to bf16 (the Pallas kernel's cast to V's dtype;
+//     l sums it unrounded) as a swizzled [q][kv] box, and the row's
+//     correction, into every CTA. At the end the owners store l into every
+//     CTA and write LSE = m ln 2 + log(l).
+//   * Roles and hand-overs as in the f32 forward: phase A of tile t, then
+//     phase B of tile t - 1, through mbarriers the peers arrive at, with
+//     double buffers; the reader of P fences the async proxy after its
+//     acquire of the peers' stores.
+//   * Shared memory: Q 32 KB, the ring 96 KB, P 2 x 16 KB, the partials 2
+//     x 32 KB, the rows' corrections and sums: 232,448 bytes with the
+//     alignment slack, the whole opt-in (a 2-stage ring would free 32 KB).
 // A generic scalar-FMA variant serves f32 at any other head_dim that is a
-// multiple of 128 and bf16 at those from 384 up, tiled over D from 640 up.
+// multiple of 128 and bf16 at 384, 512 and from 768 up, tiled over D from
+// 768 up.
 
 #include <math.h>
 
@@ -977,8 +1012,354 @@ flash_fwd_f32_d1024_cluster_kernel(const __grid_constant__ CUtensorMap tq,
 }  // namespace f32c
 
 // ---------------------------------------------------------------------------
+// bf16 at D = 640: one cluster of 5 CTAs per (b, head, 128 q rows), one CTA
+// per 128 columns of D, the scores summed over the cluster and each CTA's
+// two products on the tensor cores (see the top of this file).
+// ---------------------------------------------------------------------------
+
+namespace bf16c {
+
+constexpr int kChunks = 5;               // CTAs of a cluster = chunks of D
+constexpr int kDW = kChunks * kD;        // head_dim
+constexpr int kBM = 128;                 // q rows per cluster
+constexpr int kBN = 64;                  // KV rows per tile
+constexpr int kStages = 3;               // K/V ring depth
+constexpr int kMathWarps = 8;            // two warpgroups, 64 q rows each
+constexpr int kXWarps = 4;               // one warpgroup: the exchange, loads
+constexpr int kThreads = 32 * (kMathWarps + kXWarps);
+constexpr uint32_t kQBoxBytes = kBM * kHalf * 2;   // a 64-column box of Q
+constexpr uint32_t kKvBoxBytes = kBN * kHalf * 2;  // and of a K or V tile
+constexpr uint32_t kTileBytes = kBN * kD * 2;      // a chunk of a K or V tile
+
+// Q, K and V chunks as TMA writes them (two 128B-swizzled 64-column boxes
+// each), P as one such box of 128 q rows by the tile's 64 KV columns
+// ([q][kv], K-major for the wgmma that reads it), the score partials in
+// f32. 32 + 96 (the ring) + 32 + 64 KB and the rows' corrections and sums:
+// with the alignment slack, the whole 227 KB a block may opt in to.
+struct __align__(1024) Smem {
+  bf16 q[2][kBM * kHalf];
+  bf16 k[kStages][2][kBN * kHalf];
+  bf16 v[kStages][2][kBN * kHalf];
+  bf16 p[2][kBM * kBN];          // [buffer] P over all of D
+  float part[2][kBM * kBN];      // [buffer] S over this chunk, [q][kv]
+  float corr[2][kBM];            // [buffer] 2^(m_old - m_new) of each q row
+  float lsum[kBM];               // the row sums l after the last tile
+  uint64_t q_full;
+  uint64_t full[kStages];     // K, V landed (TMA bytes)
+  uint64_t empty[kStages];    // this CTA's math warps are done with a stage
+  uint64_t parts_ready[2];    // every CTA's math warps wrote part[buffer]
+  uint64_t parts_free[2];     // every CTA's exchange warps read their slice
+  uint64_t pd_ready[2];       // every CTA stored its rows of p, corr
+  uint64_t pd_free[2];        // every CTA's math warps are done with them
+};
+
+constexpr int kSmemBytes = static_cast<int>(sizeof(Smem)) + 1024;
+static_assert(kSmemBytes <= 232448, "over the H100's 227 KB per block");
+
+// The [q][kv] f32 partials and the bf16 boxes.
+using flash::box_at;
+using flash::swz64;
+static_assert(kBN == 64, "swz64's rows are 64 floats");
+
+__global__ void __cluster_dims__(kChunks, 1, 1) __launch_bounds__(kThreads, 1)
+flash_fwd_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const FwdArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  Smem& sm =
+      *reinterpret_cast<Smem*>(smem_raw + (((raw + 1023) & ~1023u) - raw));
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int c = static_cast<int>(hopper::cluster_ctarank());  // D chunk
+
+  // Cluster -> (q tile, b, head), the q tile slowest, heaviest causal tile
+  // first; the query heads of one KV head run next to each other, so they
+  // read its K and V from L2.
+  const int n_bh = gridDim.x / kChunks / p.n_qt;  // B * H
+  const int cl = blockIdx.x / kChunks;
+  const int bh = cl % n_bh;
+  const int rank = cl / n_bh;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int kvh = h / (p.H / p.KVH);
+  const int qt = p.causal ? p.n_qt - 1 - rank : rank;
+  const int q0 = qt * kBM;
+  // Causal: KV tiles wholly after the q tile are never loaded.
+  const int kv_end = p.causal ? min(p.Skv, q0 + kBM) : p.Skv;
+  const int n_kt = (kv_end + kBN - 1) / kBN;
+
+  if (tid == 0) {
+    hopper::mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&sm.full[s], 1);
+      hopper::mbar_init(&sm.empty[s], kMathWarps);
+    }
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(&sm.parts_ready[i], kChunks);
+      hopper::mbar_init(&sm.parts_free[i], kChunks * kXWarps);
+      hopper::mbar_init(&sm.pd_ready[i], kChunks * kXWarps);
+      hopper::mbar_init(&sm.pd_free[i], kChunks * kMathWarps);
+    }
+    hopper::fence_barrier_init();
+  }
+  // The barriers are set up, and every CTA of the cluster runs, before a
+  // copy lands or a peer touches this CTA's shared memory.
+  hopper::cluster_sync();
+
+  if (warp >= kMathWarps) {
+    // ---------------- exchange warpgroup --------------------------------
+    // Its first warp's lane 0 loads (TMA, two boxes each; rows past Sq and
+    // Skv are zero-filled): Q once, K and V per tile of KV head kvh.
+    const bool loader = warp == kMathWarps && lane == 0;
+    auto load_tile = [&](int kt) {
+      const int s = kt % kStages;
+      hopper::mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
+      for (int x = 0; x < 2; ++x) {
+        hopper::tma_load_4d(sm.k[s][x], &tk, &sm.full[s], c * kD + x * kHalf,
+                            kt * kBN, kvh, b);
+        hopper::tma_load_4d(sm.v[s][x], &tv, &sm.full[s], c * kD + x * kHalf,
+                            kt * kBN, kvh, b);
+      }
+    };
+    if (loader) {
+      hopper::mbar_expect_tx(&sm.q_full, kBM * kD * 2);
+      for (int x = 0; x < 2; ++x)
+        hopper::tma_load_4d(sm.q[x], &tq, &sm.q_full, c * kD + x * kHalf, q0,
+                            h, b);
+      for (int kt = 0; kt < min(n_kt, kStages - 1); ++kt) load_tile(kt);
+    }
+
+    // This CTA's q rows, [r0, r1) (25 or 26 of the 128), for the whole
+    // loop: 16 lanes a row, lane col4 of row r0 + xt / 16 + 8 i (i < 4)
+    // sums 16-byte column col4 (4 KV columns) over the 5 chunks, in chunk
+    // order from 0, scales it to log2 units, masks KV columns past Skv
+    // (TMA zero-filled their K rows, so S is 0 there and 2^(0 - m) is not)
+    // and after the row (causal), keeps the row's running max m and sum l
+    // (the same in its 16 lanes), and stores P = 2^(S - m_new) rounded to
+    // bf16 (where the Pallas kernel casts P to V's dtype; l sums it
+    // unrounded, as there) and the row's correction 2^(m_old - m_new) into
+    // every CTA.
+    const int xt = tid - 32 * kMathWarps;
+    const int r0 = c * kBM / kChunks;
+    const int r1 = (c + 1) * kBM / kChunks;
+    const int col4 = xt % 16;
+    int row[4];
+    bool mine[4];
+    float m[4], l[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      row[i] = r0 + xt / 16 + 8 * i;
+      mine[i] = row[i] < r1;  // the same in a row's 16 lanes
+      m[i] = -INFINITY;
+      l[i] = 0.f;
+    }
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int buf = kt & 1;
+      const int k0 = kt * kBN;
+      const int nx = kt + kStages - 1;  // the tile the loader loads next
+      hopper::mbar_wait_cluster(&sm.parts_ready[buf], (kt >> 1) & 1);
+      float4 sv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        sv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (!mine[i]) continue;
+        const uint32_t at =
+            hopper::smem_u32(sm.part[buf] + swz64(row[i], col4));
+#pragma unroll
+        for (int r = 0; r < kChunks; ++r) {
+          const float4 x = hopper::ld_cluster_f4(hopper::map_rank(at, r));
+          sv[i] = r == 0 ? x : flash::add4(sv[i], x);
+        }
+      }
+      __syncwarp();
+      if (lane < kChunks) hopper::mbar_signal_rank(&sm.parts_free[buf], lane);
+      uint2 pw[4];
+      float corr[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x[4] = {sv[i].x, sv[i].y, sv[i].z, sv[i].w};
+        float mx = -INFINITY;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 4 * col4 + e;
+          x[e] *= p.scale_log2;
+          if (col >= p.Skv || (p.causal && col > q0 + row[i]))
+            x[e] = kMaskValue;
+          mx = fmaxf(mx, x[e]);
+        }
+#pragma unroll
+        for (int off = 1; off < 16; off <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float mn = fmaxf(m[i], mx);
+        corr[i] = fast_exp2(m[i] - mn);
+        m[i] = mn;
+        float sum = 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          x[e] = fast_exp2(x[e] - mn);
+          sum += x[e];
+        }
+#pragma unroll
+        for (int off = 1; off < 16; off <<= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        l[i] = l[i] * corr[i] + sum;
+        pw[i] = make_uint2(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]));
+      }
+      // Every CTA's math warps are done with this buffer's tile before.
+      if (kt >= 2)
+        hopper::mbar_wait(&sm.pd_free[buf], ((kt - 2) >> 1) & 1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (!mine[i]) continue;
+        const uint32_t p_at =
+            hopper::smem_u32(sm.p[buf]) + box_at(row[i], col4);
+        const uint32_t c_at = hopper::smem_u32(sm.corr[buf] + row[i]);
+#pragma unroll
+        for (int r = 0; r < kChunks; ++r) {
+          hopper::st_cluster_u2(hopper::map_rank(p_at, r), pw[i]);
+          if (col4 == 0)
+            hopper::st_cluster_f32(hopper::map_rank(c_at, r), corr[i]);
+        }
+      }
+      __syncwarp();
+      if (lane < kChunks) hopper::mbar_arrive_rank(&sm.pd_ready[buf], lane);
+      // The tile two ahead goes into the stage of the one before this,
+      // once this CTA's math warps are done with it.
+      if (loader && nx < n_kt) {
+        if (nx >= kStages)
+          hopper::mbar_wait(&sm.empty[nx % kStages], (nx / kStages - 1) & 1);
+        load_tile(nx);
+      }
+    }
+    // The row sums into every CTA (published by the cluster barrier
+    // below), and LSE = m ln 2 + log(l) in natural-log units, which the
+    // backward reads.
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (!mine[i] || col4 != 0) continue;
+      const float lf = fmaxf(l[i], 1e-30f);
+      const uint32_t at = hopper::smem_u32(sm.lsum + row[i]);
+      for (int r = 0; r < kChunks; ++r)
+        hopper::st_cluster_f32(hopper::map_rank(at, r), lf);
+      if (q0 + row[i] < p.Sq)
+        p.lse[static_cast<long long>(bh) * p.Sq + q0 + row[i]] =
+            m[i] * kLn2 + logf(lf);
+    }
+    // Publishes lsum to the math warps; no CTA leaves while a peer may
+    // still touch its shared memory.
+    hopper::cluster_sync();
+  } else {
+    // ---------------- math warpgroups -----------------------------------
+    // Warpgroup `half` owns q rows 64 half.. of the tile: phase A of tile
+    // kt (S = Q K^T over this chunk, wgmma.m64n64k16 with both operands
+    // K-major, 8 k-steps, 32 f32 registers), then phase B of tile kt - 1
+    // (O = O corr + P V: wgmma.m64n128k16 with A = its 64 rows of the P
+    // box and B = V MN-major through the transpose bit, flash::mma_t, 4
+    // k-steps; O is 64 f32 registers for the whole loop), so the exchange
+    // of tile kt runs beside phase B.
+    const int half = warp / 4;
+    const int w4 = warp % 4;
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    float sc[32];
+    const uint32_t q_base = hopper::smem_u32(sm.q[0]) + half * 64 * 128;
+    // acc[4j + 2a + e] and sc[4j + 2a + e]: q row r_lo + 8a of the tile.
+    const int r_lo = 64 * half + 16 * w4 + lane / 4;
+
+    hopper::mbar_wait(&sm.q_full, 0);
+    for (int kt = 0; kt <= n_kt; ++kt) {
+      if (kt < n_kt) {
+        const int s = kt % kStages;
+        const int buf = kt & 1;
+        hopper::mbar_wait(&sm.full[s], (kt / kStages) & 1);
+        // Every CTA's exchange warps are done with this buffer's tile.
+        if (kt >= 2)
+          hopper::mbar_wait(&sm.parts_free[buf], ((kt - 2) >> 1) & 1);
+        flash::issue_abt<kBN>(sc, q_base, kQBoxBytes,
+                              hopper::smem_u32(sm.k[s][0]), kKvBoxBytes);
+        hopper::wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 32; ++i) hopper::fence_reg(sc[i]);
+        // sc[4j + 2a + e]: KV column 8j + 2 (lane % 4) + e, in 16-byte
+        // column 2j + (lane % 4) / 2.
+        float* out = sm.part[buf];
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+          for (int a = 0; a < 2; ++a)
+            *reinterpret_cast<float2*>(
+                out + swz64(r_lo + 8 * a, 2 * j + (lane % 4) / 2) +
+                2 * (lane & 1)) =
+                make_float2(sc[4 * j + 2 * a], sc[4 * j + 2 * a + 1]);
+        // One warp, another each tile, releases the partials to every CTA
+        // once all eight warps have stored theirs, as in f32c.
+        if (warp == kt % kMathWarps) {
+          hopper::named_bar_sync(1 + buf, 32 * kMathWarps);
+          if (lane < kChunks)
+            hopper::mbar_arrive_rank(&sm.parts_ready[buf], lane);
+        } else {
+          hopper::named_bar_arrive(1 + buf, 32 * kMathWarps);
+        }
+      }
+      if (kt >= 1) {
+        // O = O corr + P V over tile kt - 1's KV rows, this chunk's
+        // columns.
+        const int t = kt - 1;
+        const int s = t % kStages;
+        const int buf = t & 1;
+        hopper::mbar_wait_cluster(&sm.pd_ready[buf], (t >> 1) & 1);
+        hopper::fence_proxy_async_cluster();  // peers' stores, then wgmma
+        const float c_lo = sm.corr[buf][r_lo];
+        const float c_hi = sm.corr[buf][r_lo + 8];
+#pragma unroll
+        for (int j = 0; j < kD / 8; ++j) {
+          acc[4 * j] *= c_lo;
+          acc[4 * j + 1] *= c_lo;
+          acc[4 * j + 2] *= c_hi;
+          acc[4 * j + 3] *= c_hi;
+        }
+        hopper::wgmma_fence();
+        flash::mma_t(acc, hopper::smem_u32(sm.p[buf]) + half * 64 * 128,
+                     hopper::smem_u32(sm.v[s][0]));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 64; ++i) hopper::fence_reg(acc[i]);
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&sm.empty[s]);
+        if (lane < kChunks) hopper::mbar_signal_rank(&sm.pd_free[buf], lane);
+      }
+    }
+    // Every CTA's row sums have arrived (the exchange warps' stores before
+    // the cluster barrier); after it no peer touches this CTA's memory.
+    hopper::cluster_sync();
+    // acc[4j + 2a + e]: q row q0 + r_lo + 8a, column c kD + 8j + 2 (lane
+    // % 4) + e.
+    bf16* O = static_cast<bf16*>(p.o);
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int r = r_lo + 8 * a;
+      if (q0 + r >= p.Sq) continue;
+      const float lf = sm.lsum[r];
+      bf16* o = O + (static_cast<long long>(bh) * p.Sq + q0 + r) * kDW +
+                c * kD + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j)
+        *reinterpret_cast<uint32_t*>(o + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * a] / lf, acc[4 * j + 2 * a + 1] / lf);
+    }
+  }
+}
+
+}  // namespace bf16c
+
+// ---------------------------------------------------------------------------
 // Generic variant: every dtype and head_dim (a multiple of 128) but bf16 D =
-// 128 and 256 and f32 D = 640 and 1024, which the kernels above serve. Scalar
+// 128 and 256, D = 640 and f32 D = 1024, which the kernels above serve. Scalar
 // FMAs on the CUDA cores over f32 tiles in dynamic shared memory: 32 q rows
 // per block, 4 threads per row, 16-row KV tiles, the same online softmax with
 // P rounded to the input dtype before P V. D up to 512 runs in one chunk (DC =
@@ -989,7 +1370,9 @@ flash_fwd_f32_d1024_cluster_kernel(const __grid_constant__ CUtensorMap tq,
 // chunks staged one at a time through shared memory. So shared memory (131 KB
 // at most, DC = 512) and registers stay bounded at any D. The f32 instances of
 // 256- and 128-column chunks serve only D768, 1280, ... and D896, 1152, ...
-// (f32 D640 and 1024 are the cluster kernels'). With more than one
+// (f32 D640 and 1024 are the cluster kernels'), the bf16 one of 128-column
+// chunks only D896, 1152, ... (bf16 D640 is the cluster kernel's). With more
+// than one
 // chunk a block reloads Q's chunks for every KV tile, and every block
 // recomputes the scores: D / DC times the score work of one chunk, right and
 // slow first. Each thread takes 4 scores of its row (columns c, c + 4, ...) and
@@ -1156,8 +1539,8 @@ int launch_generic(const Params& p, int D, int B, cudaStream_t st) {
 
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
 // and dtype: D itself up to 4 kD (bf16 at D = kD and 2 kD is the wgmma
-// kernel's), above that a chunk of flash::gen_chunk(D) columns (f32 at D =
-// 5 kD and 8 kD is the cluster kernels').
+// kernel's), above that a chunk of flash::gen_chunk(D) columns (D = 5 kD
+// and f32 at 8 kD are the cluster kernels').
 int launch_generic_d(const Params& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -1201,6 +1584,31 @@ int launch_cluster(Kernel kernel, const Params& p, int B, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 at D = 5 kD: one cluster of bf16c::kChunks CTAs per 128 q rows, on
+// 128B-swizzled 64-column boxes of q, k and v. A launch the card refuses
+// returns its error. The shared-memory opt-in is set at every launch.
+int launch_bf16_cluster(const Params& p, int B, cudaStream_t st) {
+  constexpr int D = bf16c::kDW;
+  CUtensorMap tq, tk, tv;
+  if (!flash::make_bhsd_map(&tq, p.q, B, p.H, p.Sq, p.q_sb, p.q_sh, p.q_ss,
+                            bf16c::kBM, D) ||
+      !flash::make_bhsd_map(&tk, p.k, B, p.KVH, p.Skv, p.k_sb, p.k_sh,
+                            p.k_ss, bf16c::kBN, D) ||
+      !flash::make_bhsd_map(&tv, p.v, B, p.KVH, p.Skv, p.v_sb, p.v_sh,
+                            p.v_ss, bf16c::kBN, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = flash::allow_smem(
+      bf16c::flash_fwd_bf16_cluster_kernel, bf16c::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_qt = (p.Sq + bf16c::kBM - 1) / bf16c::kBM;
+  const FwdArgs a{p.o, p.lse, p.H, p.KVH, p.Sq, p.Skv, n_qt,
+                  p.scale * kLog2e, p.causal};
+  bf16c::flash_fwd_bf16_cluster_kernel<<<B * p.H * n_qt * bf16c::kChunks,
+                                         bf16c::kThreads, bf16c::kSmemBytes,
+                                         st>>>(tq, tk, tv, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // How many clusters of the f32 D = 640 kernel the current device holds at
@@ -1215,6 +1623,13 @@ extern "C" int ray_flash_fwd_max_clusters(int* clusters) {
 extern "C" int ray_flash_fwd_f32_d1024_max_clusters(int* clusters) {
   return flash::max_clusters(f32c::flash_fwd_f32_d1024_cluster_kernel, 8,
                              f32c::kThreads, f32c::kSmemBytes, clusters);
+}
+
+// The same for the bf16 D = 640 kernel (clusters of 5).
+extern "C" int ray_flash_fwd_bf16_max_clusters(int* clusters) {
+  return flash::max_clusters(bf16c::flash_fwd_bf16_cluster_kernel,
+                             bf16c::kChunks, bf16c::kThreads,
+                             bf16c::kSmemBytes, clusters);
 }
 
 // The bf16 launch at D = 128 or 256: tensor maps over q, k, v (4-D {D, S,
@@ -1247,8 +1662,9 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* o,
 // q [B, H, Sq, D], k/v [B, KVH, Skv, D] given by element strides (batch,
 // head, seq; the last dim dense); o [B, H, Sq, D] and lse [B, H, Sq] dense.
 // D is a multiple of 128; dtype: 0 = float32, 1 = bfloat16. bf16 at
-// D = 128 and 256 runs the wgmma kernel, f32 at 640 and 1024 a cluster
-// kernel of 5 and 8 CTAs, every other case the generic variant. Returns
+// D = 128 and 256 runs the wgmma kernel, 640 a cluster kernel of 5 CTAs
+// (f32 or bf16), f32 at 1024 one of 8, every other case the generic
+// variant. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape or
 // layout the kernels do not take: every stride and the base addresses must
 // be multiples of 16 bytes, as TMA and the 16-byte loads require).
@@ -1280,5 +1696,6 @@ extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 8 * kD)
     return launch_cluster<8>(f32c::flash_fwd_f32_d1024_cluster_kernel, p, B,
                              st);
+  if (dtype == 1 && D == bf16c::kDW) return launch_bf16_cluster(p, B, st);
   return launch_generic_d(p, D, dtype, B, st);
 }

@@ -4,10 +4,10 @@
 // cluster peer's shared memory, wgmma descriptors for 128-byte-swizzled
 // tiles, wgmma.m64n128k16 (bf16 in, f32 accumulate) with A from shared
 // memory or from registers,
-// wgmma.m64n64k16 and wgmma.m64n32k16 with both operands in shared memory,
-// the fences around them (and the proxy fence that makes shared-memory
-// stores visible to wgmma), named barriers, setmaxnreg and the
-// once-per-device shared-memory opt-in.
+// wgmma.m64n64k16 and wgmma.m64n32k16 with both operands in shared memory
+// (m64n64k16 also with B MN-major), the fences around them (and the proxy
+// fence that makes shared-memory stores visible to wgmma), named barriers,
+// setmaxnreg and the once-per-device shared-memory opt-in.
 //
 // Shared-memory tiles are written by TMA with CU_TENSOR_MAP_SWIZZLE_128B: a
 // box is at most 64 bf16 (128 bytes) wide, so a 128-column tile is stored as
@@ -350,6 +350,24 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
       "setp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
       ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_D32_OPERANDS(d)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[32] (+)= A (64 x 16, shared memory, K-major) * B (16 x 64, shared
+// memory) read MN-major through the transpose bit: one 64-wide MN block,
+// so the descriptor's LBO is unused.
+__device__ __forceinline__ void wgmma_m64n64k16_ss_mn(float (&d)[32],
+                                                      uint64_t desc_a,
+                                                      uint64_t desc_b,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
+      ", %32, %33, p, 1, 1, 0, 1;\n"
       "}\n"
       : HOPPER_D32_OPERANDS(d)
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
