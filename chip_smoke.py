@@ -17,14 +17,14 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    lengths 100 and 8000 (TMA zero-fills past the end), at the MoE step's
    S4096 (both layouts), and at the bench configuration's B8 H16 KVH16
    S2048; the other variants (f32 at head_dim 128 to 1024, bf16 at 256
-   to 1024; bf16 256 on the wgmma kernels, at 640 the f32 forward, dK/dV
-   and dQ and the bf16 dK/dV on the cluster kernels of 5 CTAs, f32 1024's
-   forward, dK/dV and dQ on clusters of 8, the rest generic, tiled over D
-   from 640) at B1
+   to 1024; bf16 256 on the wgmma kernels, at 640 the forward, dK/dV and
+   dQ in f32 and in bf16 on the cluster kernels of 5 CTAs, at 1024 f32's
+   forward, dK/dV and dQ and bf16's dK/dV and dQ on clusters of 8, the
+   rest generic, tiled over D from 768) at B1
    H8 KVH2 S2048 and the ragged S1000, causal and not, and at the shapes
    of their train-parity runs, bf16 256 also at ``llama3_8b(n_heads=16)``'s
-   training length, B1 H16 KVH8 S8192 causal, and D896 (f32 and bf16) and
-   f32 D768, B1 H8 KVH2 S2048 causal: the generic chunked instances of 128
+   training length, B1 H16 KVH8 S8192 causal, and D896 and D768 (f32 and
+   bf16), B1 H8 KVH2 S2048 causal: the generic chunked instances of 128
    and 256 columns that the cluster kernels took D640 and D1024 from (no
    ptxas spill allowed in any generic instance, wgmma kernel or cluster
    kernel, and no serialized wgmma); time kernel, plain version, SDPA (the library
@@ -222,9 +222,10 @@ Details go to ``chiprun_out/chip_smoke.json``.
 builds the kernels and runs phase 2 alone (a quick check after a kernel
 edit), ``--only-bwd`` runs phase 5 alone in the same way, ``--only-times``
 times the bf16 wgmma kernels alone at head_dim 256 and 128, S2048 and
-S8192, the four D640 cluster kernels (the f32 forward, dK/dV and dQ, the
-bf16 dK/dV) and the three f32 D1024 ones (forward, dK/dV, dQ) at their
-parity shapes, in 3 rounds, and checks
+S8192, the six D640 cluster kernels (forward, dK/dV and dQ, f32 and
+bf16) and the D1024 ones (forward, dK/dV and dQ in f32; dK/dV and dQ in
+bf16, beside its generic forward) at their parity shapes, in 3 rounds,
+and checks
 nothing of the build (run it from two trees' roots in turns to compare
 them), ``--only-moe``
 phase 9, ``--only-ckpt`` phases 4 and 10, ``--only-runtime`` phase 11,
@@ -346,23 +347,24 @@ SERVE_FWD_CASES = [(1, 32, 16, S, True, BF16, "model")
                    for S in (32, 512, 2048, 8192)]
 FWD_CASES += SERVE_FWD_CASES
 # The kernel variants other than bf16 D128 (bf16 D256 on the wgmma kernels,
-# at D640 the forward, dK/dV and dQ in f32 and in bf16 and at f32 D1024 all
-# three on the cluster kernels, every other one generic), in phases 2 and
-# 5: at B1 H8 KVH2, S2048 and the
+# at D640 the forward, dK/dV and dQ in f32 and in bf16, at f32 D1024 all
+# three and at bf16 D1024 dK/dV and dQ on the cluster kernels, every other
+# one generic), in phases 2 and 5: at B1 H8 KVH2, S2048 and the
 # ragged S1000, causal and not, and at the shape
 # the train-parity path of their dtype and head_dim gives them
 # (``PARITY_RUNS``: B1 H32 KVH8 D128, B1 H16 KVH8 D256, B1 H8 KVH4 D384,
 # D512 and D640, B1 H4 KVH2 D1024, S2048 causal); bf16 D256 also at phase
 # 7's training length, B1 H16 KVH8 S8192 causal (``llama3_8b(n_heads=16)``
 # at S8192). The generic D640 and D1024 instances are tiled over D (5 chunks
-# of 128 and 4 of 256); the cluster kernels split D640 over 5 CTAs and f32
-# D1024 over 8 (the q rows of a dQ cluster's 64 unevenly over 5: 12 or 13 a
-# CTA, the ragged S1000 ending in a tile of 40; the bf16 forward's 128-row
-# q tiles end in one of 104). D896 (f32 and bf16) and f32 D768 (B1 H8 KVH2
-# S2048 causal) keep the generic chunked instances of 128 and 256 columns
-# checked and timed: no parity run reaches them, and since the cluster
-# kernels took D640 and f32 D1024 they serve only D896, 1152, ... and f32
-# D768, 1280, ...
+# of 128 and 4 of 256); the cluster kernels split D640 over 5 CTAs and D1024
+# over 8 (the rows of a dK/dV or dQ cluster's 64 unevenly over 5: 12 or 13
+# a CTA, 8 each over 8; the ragged S1000 ending in a tile of 40; the bf16
+# forward's 128-row q tiles end in one of 104). D896 and D768 (f32 and
+# bf16; B1 H8 KVH2 S2048 causal) keep the generic chunked instances of 128
+# and 256 columns checked and timed: no parity run reaches them, and since
+# the cluster kernels took D640 and D1024 they serve only D896, 1152, ...
+# and D768, 1280, ... (the bf16 forward at D1024 still runs the 256-column
+# one)
 VARIANTS = (("f32_d128", 128, F32), ("f32_d256", 256, F32),
             ("bf16_d256", 256, BF16), ("f32_d384", 384, F32),
             ("bf16_d384", 384, BF16), ("f32_d512", 512, F32),
@@ -380,17 +382,20 @@ VARIANT_CASES = [(name, D, dt, 1, 8, 2, S, causal)
 ] + [("bf16_d256", 256, BF16, *VARIANT_MAIN[256], TRAIN_SEQ, True)] + [
     (f"{dt_name}_d896", 896, dt, 1, 8, 2, 2048, True)
     for dt_name, dt in (("f32", F32), ("bf16", BF16))] + [
-    ("f32_d768", 768, F32, 1, 8, 2, 2048, True)]
+    ("f32_d768", 768, F32, 1, 8, 2, 2048, True),
+    ("bf16_d768", 768, BF16, 1, 8, 2, 2048, True)]
 # The variants that run wgmma kernels besides bf16 D128, by kernel: bf16
 # D256 (all three); and those that run the cluster kernels: the forward,
-# dK/dV and dQ at f32 D640, bf16 D640 and f32 D1024. Every other variant
-# runs a generic instance.
+# dK/dV and dQ at f32 D640, bf16 D640 and f32 D1024, and dK/dV and dQ at
+# bf16 D1024. Every other variant runs a generic instance.
 WGMMA_VARIANTS = {"flash_fwd": ("bf16_d256",),
                   "flash_bwd_dkv": ("bf16_d256",),
                   "flash_bwd_dq": ("bf16_d256",)}
 CLUSTER_VARIANTS = {"flash_fwd": ("f32_d640", "bf16_d640", "f32_d1024"),
-                    "flash_bwd_dkv": ("f32_d640", "bf16_d640", "f32_d1024"),
-                    "flash_bwd_dq": ("f32_d640", "bf16_d640", "f32_d1024")}
+                    "flash_bwd_dkv": ("f32_d640", "bf16_d640", "f32_d1024",
+                                      "bf16_d1024"),
+                    "flash_bwd_dq": ("f32_d640", "bf16_d640", "f32_d1024",
+                                     "bf16_d1024")}
 PROMPT_LENS = (17, 100, 300, 700, 1500, 3000, 5000, 8000)
 SAMPLED = {1: dict(temperature=0.8, top_k=40, seed=1234),
            6: dict(temperature=1.0, top_k=0, seed=5678)}
@@ -511,18 +516,19 @@ BUILD_REPORT = ("registers", "spill", "smem", "arning", "wgmma",
 # (f32 and bf16, chunks of 128 and 256). D640 is the cluster kernels' for
 # all three in f32 and in bf16, so the instances of 128-column chunks serve
 # only D896, 1152, ... (D above 512 with D % 256 != 0; the D896 cases of
-# VARIANT_CASES run them). f32 D1024 is the cluster kernels' for all three,
-# so the f32 instances of 256-column chunks serve only D768, 1280, ... (the
-# f32 D768 case runs them)
+# VARIANT_CASES run them). D1024 is the cluster kernels' for all three in
+# f32 and for dK/dV and dQ in bf16, so the instances of 256-column chunks
+# serve only D768, 1280, ... and the bf16 forward at D1024 (the D768 cases
+# run them)
 GENERIC_INSTANCES = 30
 # wgmma kernels: each of the three at D128 and D256 (the forward's two from
 # one template)
 WGMMA_INSTANCES = 6
 # Cluster kernels: of 5 CTAs at D640, the f32 forward, dK/dV and dQ on the
-# FMA units and the bf16 forward, dK/dV and dQ on wgmma; of 8 CTAs at f32
-# D1024, the forward, dK/dV and dQ on the FMA units (each f32 one its D640
-# instance's template)
-CLUSTER_INSTANCES = 9
+# FMA units and the bf16 forward, dK/dV and dQ on wgmma; of 8 CTAs at
+# D1024, the f32 forward, dK/dV and dQ on the FMA units and the bf16 dK/dV
+# and dQ on wgmma (each its D640 instance's template)
+CLUSTER_INSTANCES = 11
 
 
 def log(*a):
@@ -1046,8 +1052,8 @@ def _bwd_case(gen, card, B, H, KVH, S, causal, layout, D=128, dt=BF16):
 # head_dim 256 and 128 (D, H, KVH; B1, causal), each timed in 3 rounds in
 # turn, medians printed: the quick A/B of two trees in one call (run it
 # from each root in turns). Then the cluster kernels at their parity runs'
-# shapes, S2048 only: the forward, dK/dV and dQ in f32 at D640 and D1024
-# and in bf16 at D640.
+# shapes, S2048 only: the forward, dK/dV and dQ in f32 and bf16 at D640 and
+# D1024 (the bf16 D1024 forward generic).
 TIME_SHAPES = ((256, 16, 8), (128, 32, 8))
 TIME_SEQS = (2048, TRAIN_SEQ)
 TIME_ROUNDS = 3
@@ -1060,7 +1066,7 @@ def phase_kernel_times(card: str) -> list:
     cases = [(D, H, KVH, S, BF16) for S in TIME_SEQS
              for D, H, KVH in TIME_SHAPES] + [
         (*TIME_CLUSTER, F32), (*TIME_CLUSTER, BF16),
-        (*TIME_CLUSTER_1024, F32)]
+        (*TIME_CLUSTER_1024, F32), (*TIME_CLUSTER_1024, BF16)]
     rows = []
     for D, H, KVH, S, dt in cases:
         q, k, v, do = (_attn_input(1, h, S, D, gen, dt, "dense")
@@ -1102,12 +1108,18 @@ CLUSTER_FIT = {
     "flash_bwd_dkv.f32_d1024": ("flash_bwd_dkv",
                                 "ray_flash_bwd_dkv_f32_d1024_max_clusters",
                                 8),
+    "flash_bwd_dkv.bf16_d1024": ("flash_bwd_dkv",
+                                 "ray_flash_bwd_dkv_bf16_d1024_max_clusters",
+                                 8),
     "flash_bwd_dq.f32_d640": ("flash_bwd_dq",
                               "ray_flash_bwd_dq_f32_d640_max_clusters", 5),
     "flash_bwd_dq.bf16_d640": ("flash_bwd_dq",
                                "ray_flash_bwd_dq_bf16_max_clusters", 5),
     "flash_bwd_dq.f32_d1024": ("flash_bwd_dq",
-                               "ray_flash_bwd_dq_max_clusters", 8)}
+                               "ray_flash_bwd_dq_max_clusters", 8),
+    "flash_bwd_dq.bf16_d1024": ("flash_bwd_dq",
+                                "ray_flash_bwd_dq_bf16_d1024_max_clusters",
+                                8)}
 
 
 def cluster_fit() -> dict:

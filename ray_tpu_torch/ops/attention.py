@@ -43,9 +43,12 @@ Which code runs is picked inside its C entry point by (dtype, head_dim):
     (``flash_fwd_f32_d1024_cluster_kernel``), dK/dV
     (``flash_bwd_dkv_f32_d1024_cluster_kernel``) and dQ
     (``flash_bwd_dq_f32_cluster_kernel``);
+  * bf16 at 1024: the bf16 D640 dK/dV and dQ templates at 8 CTAs, on
+    wgmma (``flash_bwd_dkv_bf16_d1024_cluster_kernel``,
+    ``flash_bwd_dq_bf16_d1024_cluster_kernel``); its forward is generic;
   * every other case (f32 at any other multiple of 128, bf16 at 384, 512
-    and from 768 up): the generic variant on the CUDA cores, which from
-    768 up tiles over D
+    and from 768 up, and the bf16 forward at 1024): the generic variant on
+    the CUDA cores, which from 768 up tiles over D
     (chunks of 256 or 128 columns, the scores summed over the chunks;
     ``ops/csrc/flash_common.cuh`` ``gen_chunk``).
 Sequence lengths are not routed: the kernels take any S (TMA zero-fills,
@@ -233,7 +236,8 @@ def kernel_variant(q: torch.Tensor) -> str:
     """The name of the kernel variant that q's dtype and head_dim launch:
     "bf16_d128" and "bf16_d256" (the wgmma kernels), "f32_d128",
     "f32_d256", ..., "bf16_d384", ... (the generic ones; "f32_d640",
-    "bf16_d640" and "f32_d1024" run the cluster kernels of all three).
+    "bf16_d640" and "f32_d1024" run the cluster kernels of all three,
+    "bf16_d1024" those of dK/dV and dQ and the generic forward).
     The wrappers count
     launches by it in ``launches_by_variant`` beside ``launches``."""
     dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
@@ -318,7 +322,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     head_dims (multiples of 128) CUDA tensors launch ``csrc/flash_fwd.cu``
     (its wgmma kernel for bf16 at 128 and 256, a cluster kernel for f32
     and bf16 at 640 (5 CTAs) and f32 at 1024 (8), its generic variant
-    otherwise; counted in
+    otherwise, bf16 at 1024 among them; counted in
     ``flash_fwd.launches``) and CPU tensors run
     ``flash_fwd_plain``; a head_dim that is not a multiple of 128 runs
     ``flash_fwd_reference``."""
@@ -466,8 +470,8 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) [b, kvh, skv, d] in k's dtype. CUDA tensors launch
     ``csrc/flash_bwd_dkv.cu`` (a wgmma kernel for bf16 at 128 and 256, a
-    cluster kernel for f32 and bf16 at 640 (5 CTAs) and f32 at 1024 (8),
-    the generic variant otherwise; counted in ``flash_bwd_dkv.launches``);
+    cluster kernel for f32 and bf16 at 640 (5 CTAs) and 1024 (8), the
+    generic variant otherwise; counted in ``flash_bwd_dkv.launches``);
     CPU tensors run ``flash_bwd_plain_dkv``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if _bwd_device("flash_bwd_dkv", q, k, v, dout, lse, delta) == "cpu":
@@ -485,8 +489,8 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
                  sm_scale: Optional[float] = None) -> torch.Tensor:
     """dQ [b, h, sq, d] in q's dtype. CUDA tensors launch
     ``csrc/flash_bwd_dq.cu`` (a wgmma kernel for bf16 at 128 and 256, a
-    cluster kernel for f32 and bf16 at 640 (5 CTAs) and f32 at 1024 (8),
-    the generic variant otherwise; counted in ``flash_bwd_dq.launches``);
+    cluster kernel for f32 and bf16 at 640 (5 CTAs) and 1024 (8), the
+    generic variant otherwise; counted in ``flash_bwd_dq.launches``);
     CPU tensors run
     ``flash_bwd_plain_dq``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5

@@ -165,10 +165,16 @@
 //     faster on the card than each writer fencing before its release.
 //   * 232,448 bytes of shared memory (3 ring stages, two buffers of the
 //     partials and of P^T and dS^T): one CTA an SM, 22 clusters at once.
+// bf16 at 1024 runs the same kernel at 8 CTAs a cluster
+// (flash_bwd_dkv_bf16_d1024_cluster_kernel), as f32 does: the body is a
+// template over the chunk count, each instance gives its cluster's size as a
+// literal, and the shared memory is the 5-CTA one's. Each CTA's exchange
+// owns 8 of the 64 KV rows (one row a 16-lane group) and sums 8 partials a
+// row in place of 5.
 // A generic variant (at the end of this file) serves f32 at any other
 // head_dim that is a multiple of 128 and bf16 at those from 384 up but 640
-// (tiled over D from 768 up), with P and dS rounded to the input dtype as the
-// Pallas kernel rounds them.
+// and 1024 (tiled over D from 768 up), with P and dS rounded to the input
+// dtype as the Pallas kernel rounds them.
 
 #include <math.h>
 
@@ -1094,17 +1100,16 @@ flash_bwd_dkv_f32_d1024_cluster_kernel(const __grid_constant__ CUtensorMap tq,
 }  // namespace f32c
 
 // ---------------------------------------------------------------------------
-// bf16 at D = 640: f32c's cluster (5 CTAs per 64 KV rows, one per 128
-// columns of D, the scores summed through distributed shared memory) with
-// each CTA's four products on the tensor cores (see the top of this file).
+// bf16 at D = 640 and 1024: f32c's cluster (5 or 8 CTAs per 64 KV rows, one
+// per 128 columns of D, the scores summed through distributed shared memory)
+// with each CTA's four products on the tensor cores (see the top of this
+// file).
 // ---------------------------------------------------------------------------
 
 namespace bf16c {
 
 using flash::kBoxBytes;  // 8 KB: a 64-row [row][64 col] bf16 box
 
-constexpr int kChunks = 5;              // CTAs of a cluster = chunks of D
-constexpr int kDW = kChunks * kD;       // head_dim
 constexpr int kBKV = 64;                // KV rows per cluster
 constexpr int kBQ = 64;                 // q rows per tile
 constexpr int kStages = 3;              // Q/dO ring depth
@@ -1144,12 +1149,17 @@ using flash::box_at;
 using flash::swz64;
 static_assert(kBQ == 64, "swz64's rows are 64 floats");
 
-__global__ void __cluster_dims__(kChunks, 1, 1) __launch_bounds__(kThreads, 1)
-flash_bwd_dkv_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
-                                  const __grid_constant__ CUtensorMap tk,
-                                  const __grid_constant__ CUtensorMap tv,
-                                  const __grid_constant__ CUtensorMap tdo,
-                                  const DkvArgs p) {
+// The kernel over kChunks CTAs a cluster (D = kChunks kD), as f32c's; the
+// kernels after it give the cluster's size as a literal.
+template <int kChunks>
+__device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
+                                            const CUtensorMap& tk,
+                                            const CUtensorMap& tv,
+                                            const CUtensorMap& tdo,
+                                            const DkvArgs& p) {
+  constexpr int kDW = kChunks * kD;  // head_dim
+  // KV rows a CTA's exchange owns at most (13 of 5 CTAs, 8 of 8), 8 a slot
+  constexpr int kSlots = ((kBKV + kChunks - 1) / kChunks + 7) / 8;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
   Smem& sm =
@@ -1245,20 +1255,20 @@ flash_bwd_dkv_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
 
-    // This CTA's slice of the KV rows, [r0, r1): thread xt sums 16-byte
-    // column col4 (4 q columns) of rows r0 + xt / 16 and r0 + xt / 16 + 8
-    // over the 5 chunks, in chunk order 0 to 4, forms P^T = exp(S^T scale
-    // - LSE) and from that f32 P^T dS^T = P^T (dP^T - delta) scale, rounds
-    // both to bf16 (where the Pallas kernel rounds them) and stores them
-    // into every CTA's pd.
+    // This CTA's slice of the KV rows, [r0, r1) (12 or 13 of 5 CTAs, 8 of
+    // 8): thread xt sums 16-byte column col4 (4 q columns) of rows r0 + xt
+    // / 16 + 8 i (i < kSlots) over the kChunks chunks, in chunk order from
+    // 0 in every CTA, forms P^T = exp(S^T scale - LSE) and from that f32
+    // P^T dS^T = P^T (dP^T - delta) scale, rounds both to bf16 (where the
+    // Pallas kernel rounds them) and stores them into every CTA's pd.
     const int xt = tid - 32 * kMathWarps;
     const int r0 = c * kBKV / kChunks;
     const int r1 = (c + 1) * kBKV / kChunks;
     const int col4 = xt % 16;
-    int row[2];
-    bool mine[2];
+    int row[kSlots];
+    bool mine[kSlots];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < kSlots; ++i) {
       row[i] = r0 + xt / 16 + 8 * i;
       mine[i] = row[i] < r1;
     }
@@ -1269,9 +1279,9 @@ flash_bwd_dkv_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
       const int nx = it + kStages - 1;  // the tile the loader loads next
       if (loader && nx < n_it) fetch_rows(nx);
       hopper::mbar_wait_cluster(&sm.parts_ready[buf], (it >> 1) & 1);
-      float4 st[2], dpt[2];
+      float4 st[kSlots], dpt[kSlots];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
+      for (int i = 0; i < kSlots; ++i) {
         st[i] = dpt[i] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (!mine[i]) continue;
         const uint32_t s_at =
@@ -1289,9 +1299,9 @@ flash_bwd_dkv_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
       __syncwarp();
       if (lane < kChunks) hopper::mbar_signal_rank(&sm.parts_free[buf], lane);
       hopper::mbar_wait(&sm.full[s], (it / kStages) & 1);  // LSE, delta
-      uint2 pw[2], dw[2];
+      uint2 pw[kSlots], dw[kSlots];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
+      for (int i = 0; i < kSlots; ++i) {
         const float sv[4] = {st[i].x, st[i].y, st[i].z, st[i].w};
         const float dv[4] = {dpt[i].x, dpt[i].y, dpt[i].z, dpt[i].w};
         float pr[4], ds[4];
@@ -1309,7 +1319,7 @@ flash_bwd_dkv_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
       if (it >= 2)
         hopper::mbar_wait(&sm.pd_free[buf], ((it - 2) >> 1) & 1);
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
+      for (int i = 0; i < kSlots; ++i) {
         if (!mine[i]) continue;
         const uint32_t at = box_at(row[i], col4);
         const uint32_t p_at = hopper::smem_u32(sm.pd[buf][0]) + at;
@@ -1425,11 +1435,31 @@ flash_bwd_dkv_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
   hopper::cluster_sync();
 }
 
+// bf16 at D = 640: clusters of 5 CTAs.
+__global__ void __cluster_dims__(5, 1, 1) __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                  const __grid_constant__ CUtensorMap tk,
+                                  const __grid_constant__ CUtensorMap tv,
+                                  const __grid_constant__ CUtensorMap tdo,
+                                  const DkvArgs p) {
+  dkv_cluster<5>(tq, tk, tv, tdo, p);
+}
+
+// bf16 at D = 1024: clusters of 8 CTAs, the largest portable cluster.
+__global__ void __cluster_dims__(8, 1, 1) __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_bf16_d1024_cluster_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tdo, const DkvArgs p) {
+  dkv_cluster<8>(tq, tk, tv, tdo, p);
+}
+
 }  // namespace bf16c
 
 // ---------------------------------------------------------------------------
 // Generic variant: every dtype and head_dim (a multiple of 128) but bf16 D =
-// 128 and 256, D = 640 and f32 D = 1024, which the kernels above serve. The
+// 128 and 256, D = 640 and D = 1024, which the kernels above serve. The
 // same function on the CUDA cores: one block of 128 threads per (b, KV head,
 // 16 KV rows, chunk of D), walking the group's query heads and their 32-row
 // q tiles as the wgmma
@@ -1639,7 +1669,7 @@ int launch_generic(const flash::BwdParams& p, int D, int B, cudaStream_t st) {
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
 // and dtype: D itself up to 4 kD (bf16 at D = kD and 2 kD is the wgmma
 // kernels'), above that a chunk of flash::gen_chunk(D) columns (D = 5 kD and
-// f32 at 8 kD are the cluster kernels').
+// 8 kD are the cluster kernels').
 int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -1688,11 +1718,14 @@ int launch_cluster(Kernel kernel, const flash::BwdParams& p, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 at D = 5 kD: one cluster of bf16c::kChunks CTAs per 64 KV rows, on
-// 128B-swizzled 64-column boxes of every input. A launch the card refuses
-// returns its error.
-int launch_bf16_cluster(const flash::BwdParams& p, int B, cudaStream_t st) {
-  constexpr int D = bf16c::kDW;
+// bf16 at D = kChunks kD (5 or 8): one cluster of kChunks CTAs per 64 KV
+// rows, on `kernel`, the instance of that size, with 128B-swizzled
+// 64-column boxes of every input. A launch the card refuses returns its
+// error.
+template <int kChunks, typename Kernel>
+int launch_bf16_cluster(Kernel kernel, const flash::BwdParams& p, int B,
+                        cudaStream_t st) {
+  constexpr int D = kChunks * kD;
   CUtensorMap tq, tk, tv, tdo;
   if (!flash::make_bhsd_map(&tq, p.q, B, p.H, p.Sq, p.q_sb, p.q_sh, p.q_ss,
                             bf16c::kBQ, D) ||
@@ -1703,16 +1736,14 @@ int launch_bf16_cluster(const flash::BwdParams& p, int B, cudaStream_t st) {
       !flash::make_bhsd_map(&tdo, p.dout, B, p.H, p.Sq, p.o_sb, p.o_sh,
                             p.o_ss, bf16c::kBQ, D))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = flash::allow_smem(
-      bf16c::flash_bwd_dkv_bf16_cluster_kernel, bf16c::kSmemBytes);
+  const cudaError_t err = flash::allow_smem(kernel, bf16c::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_kvt = (p.Skv + bf16c::kBKV - 1) / bf16c::kBKV;
   const DkvArgs a{p.lse, p.delta, static_cast<bf16*>(p.out0),
                   static_cast<bf16*>(p.out1), p.H, p.KVH, p.Sq, p.Skv, n_kvt,
                   p.scale * kLog2e, p.scale, p.causal};
-  bf16c::flash_bwd_dkv_bf16_cluster_kernel<<<
-      B * p.KVH * n_kvt * bf16c::kChunks, bf16c::kThreads, bf16c::kSmemBytes,
-      st>>>(tq, tk, tv, tdo, a);
+  kernel<<<B * p.KVH * n_kvt * kChunks, bf16c::kThreads, bf16c::kSmemBytes,
+           st>>>(tq, tk, tv, tdo, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1732,11 +1763,16 @@ extern "C" int ray_flash_bwd_dkv_f32_d1024_max_clusters(int* clusters) {
                              f32c::kThreads, f32c::kSmemBytes, clusters);
 }
 
-// The same for the bf16 D = 640 kernel.
+// The same for the bf16 D = 640 kernel (clusters of 5).
 extern "C" int ray_flash_bwd_dkv_bf16_max_clusters(int* clusters) {
-  return flash::max_clusters(bf16c::flash_bwd_dkv_bf16_cluster_kernel,
-                             bf16c::kChunks, bf16c::kThreads,
-                             bf16c::kSmemBytes, clusters);
+  return flash::max_clusters(bf16c::flash_bwd_dkv_bf16_cluster_kernel, 5,
+                             bf16c::kThreads, bf16c::kSmemBytes, clusters);
+}
+
+// The same for the bf16 D = 1024 kernel (clusters of 8).
+extern "C" int ray_flash_bwd_dkv_bf16_d1024_max_clusters(int* clusters) {
+  return flash::max_clusters(bf16c::flash_bwd_dkv_bf16_d1024_cluster_kernel,
+                             8, bf16c::kThreads, bf16c::kSmemBytes, clusters);
 }
 
 // q/dO [B, H, Sq, D] and k/v [B, KVH, Skv, D] given by element strides (batch,
@@ -1744,8 +1780,8 @@ extern "C" int ray_flash_bwd_dkv_bf16_max_clusters(int* clusters) {
 // bytes, as TMA and the 16-byte loads require); lse and delta [B, H, Sq] f32
 // and dk/dv [B, KVH, Skv, D] dense, in the inputs' dtype. D is a multiple of
 // 128; dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 and 256 runs a wgmma
-// kernel, D = 640 a cluster kernel (f32 or bf16), f32 at D = 1024 a cluster
-// kernel of 8 CTAs, every other case the generic variant. Returns
+// kernel, D = 640 a cluster kernel of 5 CTAs and D = 1024 one of 8 (f32 or
+// bf16), every other case the generic variant. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape or
 // layout the kernels do not take).
 extern "C" int ray_flash_bwd_dkv(
@@ -1772,7 +1808,12 @@ extern "C" int ray_flash_bwd_dkv(
     if (dtype == 0 && D == 8 * kD)
       return launch_cluster<8>(f32c::flash_bwd_dkv_f32_d1024_cluster_kernel,
                                p, B, st);
-    if (D == bf16c::kDW) return launch_bf16_cluster(p, B, st);
+    if (D == 5 * kD)
+      return launch_bf16_cluster<5>(bf16c::flash_bwd_dkv_bf16_cluster_kernel,
+                                    p, B, st);
+    if (D == 8 * kD)
+      return launch_bf16_cluster<8>(
+          bf16c::flash_bwd_dkv_bf16_d1024_cluster_kernel, p, B, st);
     return launch_generic_d(p, D, dtype, B, st);
   }
   // bf16 at D = 128 (128 KV rows a block) or 256 (64)

@@ -134,10 +134,16 @@
 //   * Shared memory: Q and dO 32 KB, the ring 96 KB, dS 2 x 8 KB, the
 //     partials 2 x 2 x 16 KB: 215,040 bytes with the alignment slack, one
 //     CTA an SM.
+// bf16 at 1024 runs the same kernel at 8 CTAs a cluster
+// (flash_bwd_dq_bf16_d1024_cluster_kernel), as f32 does: the body is a
+// template over the chunk count, each instance gives its cluster's size as a
+// literal, and the shared memory is the 5-CTA one's. Each CTA's exchange
+// owns 8 of the 64 q rows (one row a 16-lane group) and sums 8 partials a
+// row in place of 5.
 // A generic variant (at the end of this file) serves f32 at any other
 // head_dim that is a multiple of 128 and bf16 at 384, 512 and from 768 up
-// (tiled over D from 768 up), with P and dS rounded to the input dtype as
-// the Pallas kernel rounds them.
+// but 1024 (tiled over D from 768 up), with P and dS rounded to the input
+// dtype as the Pallas kernel rounds them.
 
 #include <math.h>
 
@@ -1017,17 +1023,16 @@ flash_bwd_dq_f32_d640_cluster_kernel(const __grid_constant__ CUtensorMap tq,
 }  // namespace f32c
 
 // ---------------------------------------------------------------------------
-// bf16 at D = 640: f32c's dataflow (a cluster of 5 CTAs per (b, head, 64 q
-// rows), the scores summed through distributed shared memory) with each
-// CTA's three products on the tensor cores (see the top of this file).
+// bf16 at D = 640 and 1024: f32c's dataflow (a cluster of 5 or 8 CTAs per
+// (b, head, 64 q rows), the scores summed through distributed shared memory)
+// with each CTA's three products on the tensor cores (see the top of this
+// file).
 // ---------------------------------------------------------------------------
 
 namespace bf16c {
 
 using flash::kBoxBytes;  // 8 KB: a 64-row [row][64 col] bf16 box
 
-constexpr int kChunks = 5;              // CTAs of a cluster = chunks of D
-constexpr int kDW = kChunks * kD;       // head_dim
 constexpr int kBQ = 64;                 // q rows per cluster
 constexpr int kBN = 64;                 // KV rows per tile
 constexpr int kStages = 3;              // K/V ring depth
@@ -1064,12 +1069,17 @@ using flash::box_at;
 using flash::swz64;
 static_assert(kBN == 64, "swz64's rows are 64 floats");
 
-__global__ void __cluster_dims__(kChunks, 1, 1) __launch_bounds__(kThreads, 1)
-flash_bwd_dq_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
-                                 const __grid_constant__ CUtensorMap tk,
-                                 const __grid_constant__ CUtensorMap tv,
-                                 const __grid_constant__ CUtensorMap tdo,
-                                 const DqArgs p) {
+// The kernel over kChunks CTAs a cluster (D = kChunks kD), as f32c's; the
+// kernels after it give the cluster's size as a literal.
+template <int kChunks>
+__device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
+                                           const CUtensorMap& tk,
+                                           const CUtensorMap& tv,
+                                           const CUtensorMap& tdo,
+                                           const DqArgs& p) {
+  constexpr int kDW = kChunks * kD;  // head_dim
+  // q rows a CTA's exchange owns at most (13 of 5 CTAs, 8 of 8), 8 a slot
+  constexpr int kSlots = ((kBQ + kChunks - 1) / kChunks + 7) / 8;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
   Smem& sm =
@@ -1144,10 +1154,11 @@ flash_bwd_dq_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
       for (int kt = 0; kt < min(n_kt, kStages - 1); ++kt) load_tile(kt);
     }
 
-    // This CTA's q rows, [c 64 / 5, (c + 1) 64 / 5) (12 or 13), for the
-    // whole loop: 16 lanes a row, lane col4 of row r0 + xt / 16 + 8 i (i <
-    // 2) sums 16-byte column col4 (4 KV columns) of S and dP over the 5
-    // chunks, in chunk order from 0, forms P = 2^(S scale log2 e - LSE log2
+    // This CTA's q rows, [c 64 / kChunks, (c + 1) 64 / kChunks) (12 or 13
+    // of 5 CTAs, 8 of 8), for the whole loop: 16 lanes a row, lane col4 of
+    // row r0 + xt / 16 + 8 i (i < kSlots) sums 16-byte column col4 (4 KV
+    // columns) of S and dP over the kChunks chunks, in chunk order from 0 in
+    // every CTA, forms P = 2^(S scale log2 e - LSE log2
     // e), zero on KV columns past Skv (TMA zero-filled their K rows, so S
     // is 0 there and P would not be) and after the row (causal), and dS = P
     // (dP - delta) scale rounded to bf16 (where the Pallas kernel rounds
@@ -1157,11 +1168,11 @@ flash_bwd_dq_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
     const int r0 = c * kBQ / kChunks;
     const int r1 = (c + 1) * kBQ / kChunks;
     const int col4 = xt % 16;
-    int row[2];
-    bool mine[2];
-    float lse[2], delta[2];
+    int row[kSlots];
+    bool mine[kSlots];
+    float lse[kSlots], delta[kSlots];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < kSlots; ++i) {
       row[i] = r0 + xt / 16 + 8 * i;
       mine[i] = row[i] < r1;
       const bool live = mine[i] && q0 + row[i] < p.Sq;
@@ -1173,9 +1184,9 @@ flash_bwd_dq_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
       const int k0 = kt * kBN;
       const int nx = kt + kStages - 1;  // the tile the loader loads next
       hopper::mbar_wait_cluster(&sm.parts_ready[buf], (kt >> 1) & 1);
-      float4 sv[2], dpv[2];
+      float4 sv[kSlots], dpv[kSlots];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
+      for (int i = 0; i < kSlots; ++i) {
         sv[i] = dpv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (!mine[i]) continue;
         const uint32_t s_at =
@@ -1192,9 +1203,9 @@ flash_bwd_dq_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
       }
       __syncwarp();
       if (lane < kChunks) hopper::mbar_signal_rank(&sm.parts_free[buf], lane);
-      uint2 dw[2];
+      uint2 dw[kSlots];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
+      for (int i = 0; i < kSlots; ++i) {
         const float sx[4] = {sv[i].x, sv[i].y, sv[i].z, sv[i].w};
         const float dx[4] = {dpv[i].x, dpv[i].y, dpv[i].z, dpv[i].w};
         float ds[4];
@@ -1211,7 +1222,7 @@ flash_bwd_dq_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
       if (kt >= 2)
         hopper::mbar_wait(&sm.ds_free[buf], ((kt - 2) >> 1) & 1);
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
+      for (int i = 0; i < kSlots; ++i) {
         if (!mine[i]) continue;
         const uint32_t at =
             hopper::smem_u32(sm.ds[buf]) + box_at(row[i], col4);
@@ -1329,11 +1340,31 @@ flash_bwd_dq_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
   hopper::cluster_sync();
 }
 
+// bf16 at D = 640: clusters of 5 CTAs.
+__global__ void __cluster_dims__(5, 1, 1) __launch_bounds__(kThreads, 1)
+flash_bwd_dq_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 const __grid_constant__ CUtensorMap tdo,
+                                 const DqArgs p) {
+  dq_cluster<5>(tq, tk, tv, tdo, p);
+}
+
+// bf16 at D = 1024: clusters of 8 CTAs, the largest portable cluster.
+__global__ void __cluster_dims__(8, 1, 1) __launch_bounds__(kThreads, 1)
+flash_bwd_dq_bf16_d1024_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                       const __grid_constant__ CUtensorMap tk,
+                                       const __grid_constant__ CUtensorMap tv,
+                                       const __grid_constant__ CUtensorMap tdo,
+                                       const DqArgs p) {
+  dq_cluster<8>(tq, tk, tv, tdo, p);
+}
+
 }  // namespace bf16c
 
 // ---------------------------------------------------------------------------
 // Generic variant: every dtype and head_dim (a multiple of 128) but bf16
-// D = 128 and 256, D = 640 and f32 D = 1024, which the kernels above serve.
+// D = 128 and 256, D = 640 and D = 1024, which the kernels above serve.
 // The same function on the CUDA cores: one block of 128 threads per (b, h, 16
 // q rows, chunk of D), walking the visible 32-row KV tiles, with Q, dO, K, V
 // as f32 tiles in dynamic shared memory (102 KB at DC = 256, 196 KB at 512).
@@ -1508,7 +1539,7 @@ int launch_generic(const flash::BwdParams& p, int D, int B, cudaStream_t st) {
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
 // and dtype: D itself up to 4 kD (bf16 at D = kD and 2 kD is the wgmma
 // kernels'), above that a chunk of flash::gen_chunk(D) columns (D = 5 kD
-// and f32 at 8 kD are the cluster kernels').
+// and 8 kD are the cluster kernels').
 int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -1555,11 +1586,14 @@ int launch_cluster(Kernel kernel, const flash::BwdParams& p, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 at D = 5 kD: one cluster of bf16c::kChunks CTAs per 64 q rows, on
-// 128B-swizzled 64-column boxes of every input. A launch the card refuses
-// returns its error. The shared-memory opt-in is set at every launch.
-int launch_bf16_cluster(const flash::BwdParams& p, int B, cudaStream_t st) {
-  constexpr int D = bf16c::kDW;
+// bf16 at D = kChunks kD (5 or 8): one cluster of kChunks CTAs per 64 q
+// rows, on `kernel`, the instance of that size, with 128B-swizzled
+// 64-column boxes of every input. A launch the card refuses returns its
+// error. The shared-memory opt-in is set at every launch.
+template <int kChunks, typename Kernel>
+int launch_bf16_cluster(Kernel kernel, const flash::BwdParams& p, int B,
+                        cudaStream_t st) {
+  constexpr int D = kChunks * kD;
   CUtensorMap tq, tk, tv, tdo;
   if (!flash::make_bhsd_map(&tq, p.q, B, p.H, p.Sq, p.q_sb, p.q_sh, p.q_ss,
                             bf16c::kBQ, D) ||
@@ -1570,15 +1604,13 @@ int launch_bf16_cluster(const flash::BwdParams& p, int B, cudaStream_t st) {
       !flash::make_bhsd_map(&tdo, p.dout, B, p.H, p.Sq, p.o_sb, p.o_sh,
                             p.o_ss, bf16c::kBQ, D))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = flash::allow_smem(
-      bf16c::flash_bwd_dq_bf16_cluster_kernel, bf16c::kSmemBytes);
+  const cudaError_t err = flash::allow_smem(kernel, bf16c::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qt = (p.Sq + bf16c::kBQ - 1) / bf16c::kBQ;
   const DqArgs a{p.lse, p.delta, static_cast<bf16*>(p.out0), p.H, p.KVH,
                  p.Sq, p.Skv, n_qt, p.scale * kLog2e, p.scale, p.causal};
-  bf16c::flash_bwd_dq_bf16_cluster_kernel<<<
-      B * p.H * n_qt * bf16c::kChunks, bf16c::kThreads, bf16c::kSmemBytes,
-      st>>>(tq, tk, tv, tdo, a);
+  kernel<<<B * p.H * n_qt * kChunks, bf16c::kThreads, bf16c::kSmemBytes,
+           st>>>(tq, tk, tv, tdo, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1600,9 +1632,14 @@ extern "C" int ray_flash_bwd_dq_f32_d640_max_clusters(int* clusters) {
 
 // The same for the bf16 D = 640 kernel (clusters of 5).
 extern "C" int ray_flash_bwd_dq_bf16_max_clusters(int* clusters) {
-  return flash::max_clusters(bf16c::flash_bwd_dq_bf16_cluster_kernel,
-                             bf16c::kChunks, bf16c::kThreads,
-                             bf16c::kSmemBytes, clusters);
+  return flash::max_clusters(bf16c::flash_bwd_dq_bf16_cluster_kernel, 5,
+                             bf16c::kThreads, bf16c::kSmemBytes, clusters);
+}
+
+// The same for the bf16 D = 1024 kernel (clusters of 8).
+extern "C" int ray_flash_bwd_dq_bf16_d1024_max_clusters(int* clusters) {
+  return flash::max_clusters(bf16c::flash_bwd_dq_bf16_d1024_cluster_kernel,
+                             8, bf16c::kThreads, bf16c::kSmemBytes, clusters);
 }
 
 // q/dO [B, H, Sq, D] and k/v [B, KVH, Skv, D] given by element strides (batch,
@@ -1610,8 +1647,8 @@ extern "C" int ray_flash_bwd_dq_bf16_max_clusters(int* clusters) {
 // bytes, as TMA and the 16-byte loads require); lse and delta [B, H, Sq] f32
 // and dq [B, H, Sq, D] dense, in the inputs' dtype. D is a multiple of 128;
 // dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 and 256 runs a wgmma
-// kernel, D = 640 a cluster kernel of 5 CTAs (f32 or bf16), f32 at D = 1024
-// one of 8, every other case the generic variant. Returns cudaGetLastError()
+// kernel, D = 640 a cluster kernel of 5 CTAs and D = 1024 one of 8 (f32 or
+// bf16), every other case the generic variant. Returns cudaGetLastError()
 // after the launch (cudaErrorInvalidValue for a shape or layout the kernels do
 // not take).
 extern "C" int ray_flash_bwd_dq(
@@ -1638,7 +1675,12 @@ extern "C" int ray_flash_bwd_dq(
     if (dtype == 0 && D == 8 * kD)
       return launch_cluster<8>(f32c::flash_bwd_dq_f32_cluster_kernel, p, B,
                                st);
-    if (D == bf16c::kDW) return launch_bf16_cluster(p, B, st);
+    if (D == 5 * kD)
+      return launch_bf16_cluster<5>(bf16c::flash_bwd_dq_bf16_cluster_kernel, p,
+                                    B, st);
+    if (D == 8 * kD)
+      return launch_bf16_cluster<8>(
+          bf16c::flash_bwd_dq_bf16_d1024_cluster_kernel, p, B, st);
     return launch_generic_d(p, D, dtype, B, st);
   }
   // bf16 at D = 128 (128 q rows a block, 128-row KV tiles) or 256 (64, 64)

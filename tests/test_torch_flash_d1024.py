@@ -6,15 +6,19 @@ On the card, f32 at head_dim 1024 runs 8-CTA cluster kernels, one CTA per
 memory: the forward (``csrc/flash_fwd.cu``
 ``flash_fwd_f32_d1024_cluster_kernel``), dK/dV (``csrc/flash_bwd_dkv.cu``
 ``flash_bwd_dkv_f32_d1024_cluster_kernel``) and dQ (``csrc/flash_bwd_dq.cu``
-``flash_bwd_dq_f32_cluster_kernel``), all on the FMA units; every bf16
-kernel at 1024 runs the generic variant, tiled over D.
-``chip_smoke.py`` holds each against ``flash_fwd_plain``,
+``flash_bwd_dq_f32_cluster_kernel``), all on the FMA units. bf16 at 1024
+runs the bf16 D640 dK/dV and dQ at 8 CTAs in the same way, on wgmma
+(``flash_bwd_dkv_bf16_d1024_cluster_kernel``,
+``flash_bwd_dq_bf16_d1024_cluster_kernel``), and the generic forward, tiled
+over D. ``chip_smoke.py`` holds each against ``flash_fwd_plain``,
 ``flash_bwd_plain_dkv`` and ``flash_bwd_plain_dq``. Here those plain
 versions are held against the real Pallas bodies (``_flash_fwd_kernel``,
 ``_flash_bwd_dkv_kernel``, ``_flash_bwd_dq_kernel``) run in interpret mode
 at D1024: two q and two kv blocks of 128, so every causal block class; the
 backward on the Pallas forward's O and LSE. The GQA cases take the f32
-D1024 parity run's group of 2 (``llama3_8b(n_heads=4, n_kv_heads=2)``).
+D1024 parity run's group of 2 (``llama3_8b(n_heads=4, n_kv_heads=2)``),
+and the whole bf16 ``flash_attention`` and its gradients are held against
+the JAX package's at that group, at S40 and S200.
 
 Tolerances as ``test_torch_flash_d256.py`` sets them: f32 is f32 on both
 sides, only the summation order differs, so 1e-5 absolute (LSE too, in
@@ -26,6 +30,7 @@ the output's magnitude, and for the backward at most 1% of the outputs not
 bit-equal. A wrong mask, block or head moves an output by its own order.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -175,3 +180,36 @@ def test_flash_bwd_d1024_gqa_sums_query_heads_like_repeat_kv(dt):
         summed = np.asarray(jnp.asarray(want, jnp.float32)).reshape(
             1, 2, 2, S, D).sum(axis=2)
         _close(got, summed, dt)
+
+
+@pytest.mark.parametrize("s", [40, 200])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_d1024_matches_jax(causal, s):
+    """B1 H4 KVH2 D1024 in bf16, the bf16 D1024 parity run's heads: the
+    whole ``flash_attention`` and its backward against the JAX package's
+    ``flash_attention`` and ``jax.grad`` on the CPU (its jnp branch),
+    grouped-query heads on the JAX side through ``repeat_kv``. On the card
+    S200 ends in a ragged last tile of both bf16 cluster kernels (the dQ's
+    64 q rows and the dK/dV's 64 KV rows) and of the generic forward.
+    Output and dQ, dK, dV to 2 bf16 steps at their magnitude (``_close``):
+    the port rounds P and dS to bf16 before the products where the jnp
+    branch keeps them in f32 (it rounds P / l in the forward), and the JAX
+    side sums each kv head's query heads in bf16, the port in f32."""
+    q, k, v, g = (jnp.asarray(_rand(shape, 110 + i), jnp.bfloat16)
+                  for i, shape in enumerate(((1, 4, s, D), (1, 2, s, D),
+                                             (1, 2, s, D), (1, 4, s, D))))
+
+    def loss(q, k, v):
+        out = jatt.flash_attention(q, jatt.repeat_kv(k, 2),
+                                   jatt.repeat_kv(v, 2), causal)
+        return jnp.sum((out * g).astype(jnp.float32)), out
+
+    (_, want_o), want = jax.value_and_grad(loss, argnums=(0, 1, 2),
+                                           has_aux=True)(q, k, v)
+    tq, tk, tv = (_torch(x, "bf16").requires_grad_() for x in (q, k, v))
+    out = tatt.flash_attention(tq, tk, tv, causal)
+    (out * _torch(g, "bf16")).float().sum().backward()
+    assert out.shape == (1, 4, s, D) and tk.grad.shape == (1, 2, s, D)
+    _close(out.detach(), want_o, "bf16")
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        _close(got, w, "bf16")
