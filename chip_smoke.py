@@ -18,9 +18,9 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    S4096 (both layouts), and at the bench configuration's B8 H16 KVH16
    S2048; the other variants (f32 at head_dim 128 to 1024, bf16 at 256
    to 1024; bf16 256 on the wgmma kernels, at 640 the forward, dK/dV and
-   dQ in f32 and in bf16 on the cluster kernels of 5 CTAs, at 1024 f32's
-   forward, dK/dV and dQ and bf16's dK/dV and dQ on clusters of 8, the
-   rest generic, tiled over D from 768) at B1
+   dQ in f32 and in bf16 on the cluster kernels of 5 CTAs, at 1024 the
+   same on clusters of 8, f32 512's dQ on clusters of 4, the rest
+   generic, tiled over D from 768) at B1
    H8 KVH2 S2048 and the ragged S1000, causal and not, and at the shapes
    of their train-parity runs, bf16 256 also at ``llama3_8b(n_heads=16)``'s
    training length, B1 H16 KVH8 S8192 causal, and D896 and D768 (f32 and
@@ -223,9 +223,8 @@ builds the kernels and runs phase 2 alone (a quick check after a kernel
 edit), ``--only-bwd`` runs phase 5 alone in the same way, ``--only-times``
 times the bf16 wgmma kernels alone at head_dim 256 and 128, S2048 and
 S8192, the six D640 cluster kernels (forward, dK/dV and dQ, f32 and
-bf16) and the D1024 ones (forward, dK/dV and dQ in f32; dK/dV and dQ in
-bf16, beside its generic forward) at their parity shapes, in 3 rounds,
-and checks
+bf16), the six D1024 ones and the f32 D512 dQ (beside the generic f32
+D512 forward and dK/dV) at their parity shapes, in 3 rounds, and checks
 nothing of the build (run it from two trees' roots in turns to compare
 them), ``--only-moe``
 phase 9, ``--only-ckpt`` phases 4 and 10, ``--only-runtime`` phase 11,
@@ -347,24 +346,23 @@ SERVE_FWD_CASES = [(1, 32, 16, S, True, BF16, "model")
                    for S in (32, 512, 2048, 8192)]
 FWD_CASES += SERVE_FWD_CASES
 # The kernel variants other than bf16 D128 (bf16 D256 on the wgmma kernels,
-# at D640 the forward, dK/dV and dQ in f32 and in bf16, at f32 D1024 all
-# three and at bf16 D1024 dK/dV and dQ on the cluster kernels, every other
-# one generic), in phases 2 and 5: at B1 H8 KVH2, S2048 and the
+# at D640 and D1024 the forward, dK/dV and dQ in f32 and in bf16 and at f32
+# D512 the dQ on the cluster kernels, every other one generic), in phases 2
+# and 5: at B1 H8 KVH2, S2048 and the
 # ragged S1000, causal and not, and at the shape
 # the train-parity path of their dtype and head_dim gives them
 # (``PARITY_RUNS``: B1 H32 KVH8 D128, B1 H16 KVH8 D256, B1 H8 KVH4 D384,
 # D512 and D640, B1 H4 KVH2 D1024, S2048 causal); bf16 D256 also at phase
 # 7's training length, B1 H16 KVH8 S8192 causal (``llama3_8b(n_heads=16)``
-# at S8192). The generic D640 and D1024 instances are tiled over D (5 chunks
-# of 128 and 4 of 256); the cluster kernels split D640 over 5 CTAs and D1024
-# over 8 (the rows of a dK/dV or dQ cluster's 64 unevenly over 5: 12 or 13
-# a CTA, 8 each over 8; the ragged S1000 ending in a tile of 40; the bf16
-# forward's 128-row q tiles end in one of 104). D896 and D768 (f32 and
+# at S8192). The cluster kernels split D640 over 5 CTAs, D1024 over 8 and
+# f32 D512's dQ over 4 (the rows of a dK/dV or dQ cluster's 64
+# unevenly over 5: 12 or 13 a CTA, 8 each over 8, 16 over 4; the ragged
+# S1000 ending in a tile of 40; the forward's 128-row q tiles, 25 or 26 rows
+# a CTA over 5 and 16 over 8, end in one of 104). D896 and D768 (f32 and
 # bf16; B1 H8 KVH2 S2048 causal) keep the generic chunked instances of 128
 # and 256 columns checked and timed: no parity run reaches them, and since
 # the cluster kernels took D640 and D1024 they serve only D896, 1152, ...
-# and D768, 1280, ... (the bf16 forward at D1024 still runs the 256-column
-# one)
+# and D768, 1280, ...
 VARIANTS = (("f32_d128", 128, F32), ("f32_d256", 256, F32),
             ("bf16_d256", 256, BF16), ("f32_d384", 384, F32),
             ("bf16_d384", 384, BF16), ("f32_d512", 512, F32),
@@ -386,16 +384,17 @@ VARIANT_CASES = [(name, D, dt, 1, 8, 2, S, causal)
     ("bf16_d768", 768, BF16, 1, 8, 2, 2048, True)]
 # The variants that run wgmma kernels besides bf16 D128, by kernel: bf16
 # D256 (all three); and those that run the cluster kernels: the forward,
-# dK/dV and dQ at f32 D640, bf16 D640 and f32 D1024, and dK/dV and dQ at
-# bf16 D1024. Every other variant runs a generic instance.
+# dK/dV and dQ at D640 and D1024 in f32 and in bf16, and the dQ at f32
+# D512. Every other variant runs a generic instance.
 WGMMA_VARIANTS = {"flash_fwd": ("bf16_d256",),
                   "flash_bwd_dkv": ("bf16_d256",),
                   "flash_bwd_dq": ("bf16_d256",)}
-CLUSTER_VARIANTS = {"flash_fwd": ("f32_d640", "bf16_d640", "f32_d1024"),
+CLUSTER_VARIANTS = {"flash_fwd": ("f32_d640", "bf16_d640", "f32_d1024",
+                                  "bf16_d1024"),
                     "flash_bwd_dkv": ("f32_d640", "bf16_d640", "f32_d1024",
                                       "bf16_d1024"),
-                    "flash_bwd_dq": ("f32_d640", "bf16_d640", "f32_d1024",
-                                     "bf16_d1024")}
+                    "flash_bwd_dq": ("f32_d512", "f32_d640", "bf16_d640",
+                                     "f32_d1024", "bf16_d1024")}
 PROMPT_LENS = (17, 100, 300, 700, 1500, 3000, 5000, 8000)
 SAMPLED = {1: dict(temperature=0.8, top_k=40, seed=1234),
            6: dict(temperature=1.0, top_k=0, seed=5678)}
@@ -511,24 +510,24 @@ OUT_DIR = "chiprun_out"
 # any warning (setmaxnreg ignored, wgmma serialized).
 BUILD_REPORT = ("registers", "spill", "smem", "arning", "wgmma",
                 "setmaxnreg")
-# Generic instances: 6 one-chunk ones in each kernel (f32 D128-512, bf16
-# D384-512; bf16 D256 is the wgmma kernels'), and each kernel 4 chunked ones
-# (f32 and bf16, chunks of 128 and 256). D640 is the cluster kernels' for
+# Generic instances: 6 one-chunk ones in the forward and the dK/dV (f32
+# D128-512, bf16 D384-512; bf16 D256 is the wgmma kernels'), 5 in the dQ
+# (f32 D512 is a cluster kernel's), and each kernel 4 chunked ones (f32 and
+# bf16, chunks of 128 and 256). D640 and D1024 are the cluster kernels' for
 # all three in f32 and in bf16, so the instances of 128-column chunks serve
 # only D896, 1152, ... (D above 512 with D % 256 != 0; the D896 cases of
-# VARIANT_CASES run them). D1024 is the cluster kernels' for all three in
-# f32 and for dK/dV and dQ in bf16, so the instances of 256-column chunks
-# serve only D768, 1280, ... and the bf16 forward at D1024 (the D768 cases
-# run them)
-GENERIC_INSTANCES = 30
+# VARIANT_CASES run them) and those of 256-column chunks only D768, 1280,
+# ... (the D768 cases run them)
+GENERIC_INSTANCES = 29
 # wgmma kernels: each of the three at D128 and D256 (the forward's two from
 # one template)
 WGMMA_INSTANCES = 6
 # Cluster kernels: of 5 CTAs at D640, the f32 forward, dK/dV and dQ on the
 # FMA units and the bf16 forward, dK/dV and dQ on wgmma; of 8 CTAs at
-# D1024, the f32 forward, dK/dV and dQ on the FMA units and the bf16 dK/dV
-# and dQ on wgmma (each its D640 instance's template)
-CLUSTER_INSTANCES = 11
+# D1024, the f32 forward, dK/dV and dQ on the FMA units and the bf16
+# forward, dK/dV and dQ on wgmma (each its D640 instance's template); of 4
+# CTAs at f32 D512, the dQ (the f32 dQ's template)
+CLUSTER_INSTANCES = 13
 
 
 def log(*a):
@@ -1053,12 +1052,14 @@ def _bwd_case(gen, card, B, H, KVH, S, causal, layout, D=128, dt=BF16):
 # turn, medians printed: the quick A/B of two trees in one call (run it
 # from each root in turns). Then the cluster kernels at their parity runs'
 # shapes, S2048 only: the forward, dK/dV and dQ in f32 and bf16 at D640 and
-# D1024 (the bf16 D1024 forward generic).
+# D1024, and f32 D512 (its dQ a cluster kernel, its forward and dK/dV
+# generic).
 TIME_SHAPES = ((256, 16, 8), (128, 32, 8))
 TIME_SEQS = (2048, TRAIN_SEQ)
 TIME_ROUNDS = 3
 TIME_CLUSTER = (640, 8, 4, 2048)  # D, H, KVH, S; B1, causal
 TIME_CLUSTER_1024 = (1024, 4, 2, 2048)
+TIME_CLUSTER_512 = (512, 8, 4, 2048)
 
 
 def phase_kernel_times(card: str) -> list:
@@ -1066,7 +1067,8 @@ def phase_kernel_times(card: str) -> list:
     cases = [(D, H, KVH, S, BF16) for S in TIME_SEQS
              for D, H, KVH in TIME_SHAPES] + [
         (*TIME_CLUSTER, F32), (*TIME_CLUSTER, BF16),
-        (*TIME_CLUSTER_1024, F32), (*TIME_CLUSTER_1024, BF16)]
+        (*TIME_CLUSTER_1024, F32), (*TIME_CLUSTER_1024, BF16),
+        (*TIME_CLUSTER_512, F32)]
     rows = []
     for D, H, KVH, S, dt in cases:
         q, k, v, do = (_attn_input(1, h, S, D, gen, dt, "dense")
@@ -1101,6 +1103,8 @@ CLUSTER_FIT = {
                             5),
     "flash_fwd.f32_d1024": ("flash_fwd",
                             "ray_flash_fwd_f32_d1024_max_clusters", 8),
+    "flash_fwd.bf16_d1024": ("flash_fwd",
+                             "ray_flash_fwd_bf16_d1024_max_clusters", 8),
     "flash_bwd_dkv.f32_d640": ("flash_bwd_dkv",
                                "ray_flash_bwd_dkv_max_clusters", 5),
     "flash_bwd_dkv.bf16_d640": ("flash_bwd_dkv",
@@ -1111,6 +1115,8 @@ CLUSTER_FIT = {
     "flash_bwd_dkv.bf16_d1024": ("flash_bwd_dkv",
                                  "ray_flash_bwd_dkv_bf16_d1024_max_clusters",
                                  8),
+    "flash_bwd_dq.f32_d512": ("flash_bwd_dq",
+                              "ray_flash_bwd_dq_f32_d512_max_clusters", 4),
     "flash_bwd_dq.f32_d640": ("flash_bwd_dq",
                               "ray_flash_bwd_dq_f32_d640_max_clusters", 5),
     "flash_bwd_dq.bf16_d640": ("flash_bwd_dq",
@@ -4128,10 +4134,13 @@ def _scale(card: str) -> dict:
                        pulse_fold_p99_us=r["pulse_fold_p99_us"],
                        loop_lag_p99_ms=r["loop_lag_p99_ms"])
                   for r in levels]
+    drop = by_check["meta_ingest_drop"]
     log(f"SCALE levels {json.dumps(level_rows)}; kill_detected detect_s "
-        f"{kill['detect_s']}; passed in {wall_s:.1f} s  [{card}]")
+        f"{kill['detect_s']}; pulse records/s {drop['pulse_rps_before']} "
+        f"before the kill, {drop['pulse_rps_after']} after (at most "
+        f"{drop['expected_max']}); passed in {wall_s:.1f} s  [{card}]")
     return dict(wall_s=wall_s, levels=level_rows,
-                kill_detect_s=kill["detect_s"], rows=rows)
+                kill_detect_s=kill["detect_s"], ingest_drop=drop, rows=rows)
 
 
 def phase_autoscale(card: str, runtime: dict = None) -> dict:

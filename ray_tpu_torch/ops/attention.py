@@ -43,12 +43,16 @@ Which code runs is picked inside its C entry point by (dtype, head_dim):
     (``flash_fwd_f32_d1024_cluster_kernel``), dK/dV
     (``flash_bwd_dkv_f32_d1024_cluster_kernel``) and dQ
     (``flash_bwd_dq_f32_cluster_kernel``);
-  * bf16 at 1024: the bf16 D640 dK/dV and dQ templates at 8 CTAs, on
-    wgmma (``flash_bwd_dkv_bf16_d1024_cluster_kernel``,
-    ``flash_bwd_dq_bf16_d1024_cluster_kernel``); its forward is generic;
-  * every other case (f32 at any other multiple of 128, bf16 at 384, 512
-    and from 768 up, and the bf16 forward at 1024): the generic variant on
-    the CUDA cores, which from 768 up tiles over D
+  * bf16 at 1024: the bf16 D640 templates at 8 CTAs, on wgmma: the
+    forward (``flash_fwd_bf16_d1024_cluster_kernel``), dK/dV
+    (``flash_bwd_dkv_bf16_d1024_cluster_kernel``) and dQ
+    (``flash_bwd_dq_bf16_d1024_cluster_kernel``);
+  * f32 at 512: the dQ on the f32 dQ's template at 4 CTAs
+    (``flash_bwd_dq_f32_d512_cluster_kernel``); its forward and dK/dV are
+    generic;
+  * every other case (f32 at any other multiple of 128 and the f32
+    forward and dK/dV at 512, bf16 at 384, 512 and from 768 up but 1024):
+    the generic variant on the CUDA cores, which from 768 up tiles over D
     (chunks of 256 or 128 columns, the scores summed over the chunks;
     ``ops/csrc/flash_common.cuh`` ``gen_chunk``).
 Sequence lengths are not routed: the kernels take any S (TMA zero-fills,
@@ -236,8 +240,8 @@ def kernel_variant(q: torch.Tensor) -> str:
     """The name of the kernel variant that q's dtype and head_dim launch:
     "bf16_d128" and "bf16_d256" (the wgmma kernels), "f32_d128",
     "f32_d256", ..., "bf16_d384", ... (the generic ones; "f32_d640",
-    "bf16_d640" and "f32_d1024" run the cluster kernels of all three,
-    "bf16_d1024" those of dK/dV and dQ and the generic forward).
+    "bf16_d640", "f32_d1024" and "bf16_d1024" run the cluster kernels of
+    all three, "f32_d512" that of dQ and the generic forward and dK/dV).
     The wrappers count
     launches by it in ``launches_by_variant`` beside ``launches``."""
     dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
@@ -321,8 +325,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [b, h, sq] f32). Routed by ``attention_route``: at the kernels'
     head_dims (multiples of 128) CUDA tensors launch ``csrc/flash_fwd.cu``
     (its wgmma kernel for bf16 at 128 and 256, a cluster kernel for f32
-    and bf16 at 640 (5 CTAs) and f32 at 1024 (8), its generic variant
-    otherwise, bf16 at 1024 among them; counted in
+    and bf16 at 640 (5 CTAs) and 1024 (8), its generic variant otherwise;
+    counted in
     ``flash_fwd.launches``) and CPU tensors run
     ``flash_fwd_plain``; a head_dim that is not a multiple of 128 runs
     ``flash_fwd_reference``."""
@@ -489,10 +493,9 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
                  sm_scale: Optional[float] = None) -> torch.Tensor:
     """dQ [b, h, sq, d] in q's dtype. CUDA tensors launch
     ``csrc/flash_bwd_dq.cu`` (a wgmma kernel for bf16 at 128 and 256, a
-    cluster kernel for f32 and bf16 at 640 (5 CTAs) and 1024 (8), the
-    generic variant otherwise; counted in ``flash_bwd_dq.launches``);
-    CPU tensors run
-    ``flash_bwd_plain_dq``."""
+    cluster kernel for f32 and bf16 at 640 (5 CTAs) and 1024 (8) and for
+    f32 at 512 (4), the generic variant otherwise; counted in
+    ``flash_bwd_dq.launches``); CPU tensors run ``flash_bwd_plain_dq``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if _bwd_device("flash_bwd_dq", q, k, v, dout, lse, delta) == "cpu":
         return flash_bwd_plain_dq(q, k, v, dout, lse, delta, causal, scale)

@@ -72,17 +72,18 @@
 //     products: the N = 32 score products read more shared memory than it
 //     gives the tensor cores, and the consumers meet at the barrier with
 //     the tensor cores idle while both compute P and dS.
-// f32 at 640 and 1024 runs flash_bwd_dq_f32_d640_cluster_kernel and
-// flash_bwd_dq_f32_cluster_kernel (after that), one body, dq_cluster<kChunks>,
-// at 5 and 8 CTAs. The generic variant's chunked instances computed S and dP
-// over all of D in each of their 5 or 4 chunk blocks, and their inner loops
-// read one shared-memory word per FMA or two (32 words a clock against the
-// FMA units' 128). These kernels are bound by the FMA units: f32 has no exact
-// tensor-core input (TF32 rounds, and the f32 variants are held to 1e-4), 3
-// products of 64 * 32 * D FMAs per (64 q rows, 32 KV rows) pair. They are the
-// f32 dK/dV cluster (flash_bwd_dkv.cu) with (Q, dO) and (K, V) in each
-// other's places and one product fewer:
-//   * One cluster of D / 128 CTAs (5 or 8; 8 is the largest portable
+// f32 at 512, 640 and 1024 runs flash_bwd_dq_f32_d512_cluster_kernel,
+// flash_bwd_dq_f32_d640_cluster_kernel and flash_bwd_dq_f32_cluster_kernel
+// (after those), one body, dq_cluster<kChunks>, at 4, 5 and 8 CTAs. The
+// generic variant's chunked instances computed S and dP over all of D in
+// each of their 5 or 4 chunk blocks, and its instances (the one-chunk one at
+// 512 too) read one shared-memory word per FMA or two in their inner loops
+// (32 words a clock against the FMA units' 128). These kernels are bound by
+// the FMA units: f32 has no exact tensor-core input (TF32 rounds, and the f32
+// variants are held to 1e-4), 3 products of 64 * 32 * D FMAs per (64 q rows,
+// 32 KV rows) pair. They are the f32 dK/dV cluster (flash_bwd_dkv.cu) with
+// (Q, dO) and (K, V) in each other's places and one product fewer:
+//   * One cluster of D / 128 CTAs (4, 5 or 8; 8 is the largest portable
 //     cluster) per (b, head, 64 q rows), one CTA per 128-column chunk of D.
 //     A CTA loads its chunk of Q and dO once (128B-swizzled f32 boxes of 32
 //     columns, since they are read down 8 rows of one column at once) and
@@ -92,7 +93,9 @@
 //   * Warpgroup 0 computes S = Q K^T, warpgroup 1 dP = dO V^T (64 x 32)
 //     over the CTA's 128 columns into its shared memory. Then each CTA sums
 //     its share of the 64 q rows (8 at D1024; 12 or 13 at D640, which
-//     splits them unevenly) over the chunks through distributed shared
+//     splits them unevenly; 16 at D512, 8 threads a row, so every thread
+//     of the exchange sums 4 partials of S and of dP where at D1024 half
+//     the threads sum 8) over the chunks through distributed shared
 //     memory (ld.shared::cluster), in chunk order from 0, masks KV columns
 //     past Skv (TMA zero-filled their K rows, so S is 0 there and exp(0 -
 //     LSE) is not) and after the row (causal), forms P and dS = P (dP -
@@ -141,9 +144,11 @@
 // owns 8 of the 64 q rows (one row a 16-lane group) and sums 8 partials a
 // row in place of 5.
 // A generic variant (at the end of this file) serves f32 at any other
-// head_dim that is a multiple of 128 and bf16 at 384, 512 and from 768 up
-// but 1024 (tiled over D from 768 up), with P and dS rounded to the input
-// dtype as the Pallas kernel rounds them.
+// head_dim that is a multiple of 128 (128, 256, 384 and from 768 up but
+// 1024) and bf16 at 384, 512 and from 768 up but 1024 (tiled over D from
+// 768 up: chunks of 256 columns for D768, 1280, ..., of 128 for D896, 1152,
+// ...), with P and dS rounded to the input dtype as the Pallas kernel rounds
+// them.
 
 #include <math.h>
 
@@ -750,15 +755,15 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
     }
 
     // This CTA's q rows, [c 64 / kChunks, (c + 1) 64 / kChunks) (8 of 64 at 8
-    // chunks, 12 or 13 at 5), for the whole loop: thread xt
-    // sums one 16-byte column (4 KV columns) of one row over the chunks, in
-    // chunk order 0 to kChunks - 1 in every CTA, so that all hold the same
-    // dS bits; applies scale and the mask (KV columns past Skv, whose K rows
-    // TMA zero-filled, and after the row, causal), forms P = exp(S scale -
-    // LSE) and dS = P (dP - delta) scale in f32 (the Pallas kernel's cast
-    // rounds nothing in f32) and stores dS into every CTA's ds. The row's
-    // LSE and delta are read once (+inf and 0 past Sq: P and dS are 0 on
-    // such a row).
+    // chunks, 12 or 13 at 5, 16 at 4: every thread), for the whole loop:
+    // thread xt sums one 16-byte column (4 KV columns) of one row over the
+    // chunks, in chunk order 0 to kChunks - 1 in every CTA, so that all hold
+    // the same dS bits; applies scale and the mask (KV columns past Skv,
+    // whose K rows TMA zero-filled, and after the row, causal), forms P =
+    // exp(S scale - LSE) and dS = P (dP - delta) scale in f32 (the Pallas
+    // kernel's cast rounds nothing in f32) and stores dS into every CTA's
+    // ds. The row's LSE and delta are read once (+inf and 0 past Sq: P and
+    // dS are 0 on such a row).
     const int xt = tid - 32 * kMathWarps;
     const int row = c * kBQ / kChunks + xt / 8;
     const int col4 = xt % 8;
@@ -815,7 +820,8 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
       // The tile two ahead goes into the stage of the one before this,
       // once this CTA's math warps are done with it. The loader is xt == 0:
       // at 5 chunks ptxas spilled the flag (8 bytes) and tests xt afresh
-      // without a spill; at 8 the flag keeps that instance's machine code.
+      // without a spill; at 4 neither form spills (168 registers either
+      // way); at 8 the flag keeps that instance's machine code.
       if ((kChunks == 8 ? loader : xt == 0) && nx < n_kt) {
         if (nx >= kStages)
           hopper::mbar_wait(&sm.empty[nx % kStages], (nx / kStages - 1) & 1);
@@ -1018,6 +1024,17 @@ flash_bwd_dq_f32_d640_cluster_kernel(const __grid_constant__ CUtensorMap tq,
                                      const __grid_constant__ CUtensorMap tdo,
                                      const flash::BwdParams p) {
   dq_cluster<5>(tq, tk, tv, tdo, p);
+}
+
+// f32 at D = 512: clusters of 4 CTAs. Each CTA's exchange owns 16 of the 64
+// q rows, 8 threads a row.
+__global__ void __cluster_dims__(4, 1, 1) __launch_bounds__(kThreads, 1)
+flash_bwd_dq_f32_d512_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                     const __grid_constant__ CUtensorMap tk,
+                                     const __grid_constant__ CUtensorMap tv,
+                                     const __grid_constant__ CUtensorMap tdo,
+                                     const flash::BwdParams p) {
+  dq_cluster<4>(tq, tk, tv, tdo, p);
 }
 
 }  // namespace f32c
@@ -1364,10 +1381,12 @@ flash_bwd_dq_bf16_d1024_cluster_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ---------------------------------------------------------------------------
 // Generic variant: every dtype and head_dim (a multiple of 128) but bf16
-// D = 128 and 256, D = 640 and D = 1024, which the kernels above serve.
+// D = 128 and 256, f32 D = 512, D = 640 and D = 1024, which the kernels
+// above serve.
 // The same function on the CUDA cores: one block of 128 threads per (b, h, 16
 // q rows, chunk of D), walking the visible 32-row KV tiles, with Q, dO, K, V
-// as f32 tiles in dynamic shared memory (102 KB at DC = 256, 196 KB at 512).
+// as f32 tiles in dynamic shared memory (102 KB at DC = 256, 196 KB at 512,
+// which only bf16 runs).
 // D up to 512 runs in one chunk (DC = D); above, D is cut into chunks of DC =
 // 256 or 128 columns (flash::gen_chunk; the chunked instances): each block
 // writes one chunk of dQ, and the contractions over D (S = Q K^T and dP = dO
@@ -1375,9 +1394,8 @@ flash_bwd_dq_bf16_d1024_cluster_kernel(const __grid_constant__ CUtensorMap tq,
 // ends with the block's own chunk, so K's columns for dQ are the ones left in
 // shared memory. The f32 instances of 256- and 128-column chunks serve only
 // D768, 1280, ... and D896, 1152, ... (f32 D640 and 1024 are the cluster
-// kernels'), the bf16 one of 128-column chunks only D896, 1152, ... (bf16
-// D640 is the cluster kernel's). With more than one chunk Q and dO are
-// reloaded per chunk and
+// kernels'), and so do the bf16 ones (bf16 D640 and 1024 are the cluster
+// kernels'). With more than one chunk Q and dO are reloaded per chunk and
 // every block recomputes the scores (D / DC times their work; right and slow
 // first). Each thread computes 4 entries of dS (q row tid / 8, KV columns tid
 // % 8 + 8i; rounded to q's dtype) and holds an eighth of its row's dQ chunk
@@ -1538,8 +1556,8 @@ int launch_generic(const flash::BwdParams& p, int D, int B, cudaStream_t st) {
 
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
 // and dtype: D itself up to 4 kD (bf16 at D = kD and 2 kD is the wgmma
-// kernels'), above that a chunk of flash::gen_chunk(D) columns (D = 5 kD
-// and 8 kD are the cluster kernels').
+// kernels', f32 at 4 kD a cluster kernel's), above that a chunk of
+// flash::gen_chunk(D) columns (D = 5 kD and 8 kD are the cluster kernels').
 int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -1556,11 +1574,10 @@ int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
   }
   if (D == kD) return launch_generic<float, kD, false>(p, D, B, st);
   if (D == 2 * kD) return launch_generic<float, 2 * kD, false>(p, D, B, st);
-  if (D == 3 * kD) return launch_generic<float, 3 * kD, false>(p, D, B, st);
-  return launch_generic<float, 4 * kD, false>(p, D, B, st);
+  return launch_generic<float, 3 * kD, false>(p, D, B, st);
 }
 
-// f32 at D = kChunks kD (5 or 8): one cluster of kChunks CTAs per 64 q
+// f32 at D = kChunks kD (4, 5 or 8): one cluster of kChunks CTAs per 64 q
 // rows, on `kernel`, the instance of that size. A launch the card refuses
 // (no room for a cluster) returns its error. The shared-memory opt-in is set
 // at every launch, as for the generic variants.
@@ -1630,6 +1647,12 @@ extern "C" int ray_flash_bwd_dq_f32_d640_max_clusters(int* clusters) {
                              f32c::kThreads, f32c::kSmemBytes, clusters);
 }
 
+// The same for the f32 D = 512 kernel (clusters of 4).
+extern "C" int ray_flash_bwd_dq_f32_d512_max_clusters(int* clusters) {
+  return flash::max_clusters(f32c::flash_bwd_dq_f32_d512_cluster_kernel, 4,
+                             f32c::kThreads, f32c::kSmemBytes, clusters);
+}
+
 // The same for the bf16 D = 640 kernel (clusters of 5).
 extern "C" int ray_flash_bwd_dq_bf16_max_clusters(int* clusters) {
   return flash::max_clusters(bf16c::flash_bwd_dq_bf16_cluster_kernel, 5,
@@ -1648,9 +1671,9 @@ extern "C" int ray_flash_bwd_dq_bf16_d1024_max_clusters(int* clusters) {
 // and dq [B, H, Sq, D] dense, in the inputs' dtype. D is a multiple of 128;
 // dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 and 256 runs a wgmma
 // kernel, D = 640 a cluster kernel of 5 CTAs and D = 1024 one of 8 (f32 or
-// bf16), every other case the generic variant. Returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for a shape or layout the kernels do
-// not take).
+// bf16), f32 at D = 512 one of 4, every other case the generic variant.
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
+// shape or layout the kernels do not take).
 extern "C" int ray_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, long long q_sb,
@@ -1669,6 +1692,9 @@ extern "C" int ray_flash_bwd_dq(
         static_cast<const float*>(delta), dq, nullptr,
         q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
         o_sb, o_sh, o_ss, H,    KVH,  Sq,   Skv,  scale, causal};
+    if (dtype == 0 && D == 4 * kD)
+      return launch_cluster<4>(f32c::flash_bwd_dq_f32_d512_cluster_kernel, p,
+                               B, st);
     if (dtype == 0 && D == 5 * kD)
       return launch_cluster<5>(f32c::flash_bwd_dq_f32_d640_cluster_kernel, p,
                                B, st);

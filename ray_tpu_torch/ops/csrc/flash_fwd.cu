@@ -134,9 +134,18 @@
 //   * Shared memory: Q 32 KB, the ring 96 KB, P 2 x 16 KB, the partials 2
 //     x 32 KB, the rows' corrections and sums: 232,448 bytes with the
 //     alignment slack, the whole opt-in (a 2-stage ring would free 32 KB).
+// bf16 at 1024 runs the same kernel at 8 CTAs a cluster
+// (flash_fwd_bf16_d1024_cluster_kernel), as f32 does: the body is a template
+// over the chunk count (fwd_cluster<kChunks>), each instance gives its
+// cluster's size as a literal, and each CTA keeps its 128 columns, so the
+// shared memory is the 5-CTA one's. Each CTA's exchange owns 16 of the 128 q
+// rows (one row a 16-lane group, every lane used) and sums 8 partials a row
+// in place of 5. It replaces the generic instance of 256-column chunks, which
+// computed S over all of D in each of its 4 chunk blocks.
 // A generic scalar-FMA variant serves f32 at any other head_dim that is a
-// multiple of 128 and bf16 at 384, 512 and from 768 up, tiled over D from
-// 768 up.
+// multiple of 128 and bf16 at 384, 512 and from 768 up but 1024, tiled over
+// D from 768 up: its instance of 256-column chunks serves D768, 1280, ...,
+// that of 128-column chunks D896, 1152, ...
 
 #include <math.h>
 
@@ -1012,15 +1021,14 @@ flash_fwd_f32_d1024_cluster_kernel(const __grid_constant__ CUtensorMap tq,
 }  // namespace f32c
 
 // ---------------------------------------------------------------------------
-// bf16 at D = 640: one cluster of 5 CTAs per (b, head, 128 q rows), one CTA
-// per 128 columns of D, the scores summed over the cluster and each CTA's
-// two products on the tensor cores (see the top of this file).
+// bf16 at D = 640 and 1024: one cluster of 5 or 8 CTAs per (b, head, 128 q
+// rows), one CTA per 128 columns of D, the scores summed over the cluster
+// and each CTA's two products on the tensor cores (see the top of this
+// file).
 // ---------------------------------------------------------------------------
 
 namespace bf16c {
 
-constexpr int kChunks = 5;               // CTAs of a cluster = chunks of D
-constexpr int kDW = kChunks * kD;        // head_dim
 constexpr int kBM = 128;                 // q rows per cluster
 constexpr int kBN = 64;                  // KV rows per tile
 constexpr int kStages = 3;               // K/V ring depth
@@ -1061,11 +1069,16 @@ using flash::box_at;
 using flash::swz64;
 static_assert(kBN == 64, "swz64's rows are 64 floats");
 
-__global__ void __cluster_dims__(kChunks, 1, 1) __launch_bounds__(kThreads, 1)
-flash_fwd_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
-                              const __grid_constant__ CUtensorMap tk,
-                              const __grid_constant__ CUtensorMap tv,
-                              const FwdArgs p) {
+// The kernel over kChunks CTAs a cluster (D = kChunks kD), as f32c's; the
+// two kernels after it give the cluster's size as a literal.
+template <int kChunks>
+__device__ __forceinline__ void fwd_cluster(const CUtensorMap& tq,
+                                            const CUtensorMap& tk,
+                                            const CUtensorMap& tv,
+                                            const FwdArgs& p) {
+  constexpr int kDW = kChunks * kD;  // head_dim
+  // q rows a CTA's exchange owns at most (26 of 5 CTAs, 16 of 8), 8 a slot
+  constexpr int kSlots = ((kBM + kChunks - 1) / kChunks + 7) / 8;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
   Smem& sm =
@@ -1132,25 +1145,25 @@ flash_fwd_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
       for (int kt = 0; kt < min(n_kt, kStages - 1); ++kt) load_tile(kt);
     }
 
-    // This CTA's q rows, [r0, r1) (25 or 26 of the 128), for the whole
-    // loop: 16 lanes a row, lane col4 of row r0 + xt / 16 + 8 i (i < 4)
-    // sums 16-byte column col4 (4 KV columns) over the 5 chunks, in chunk
-    // order from 0, scales it to log2 units, masks KV columns past Skv
-    // (TMA zero-filled their K rows, so S is 0 there and 2^(0 - m) is not)
-    // and after the row (causal), keeps the row's running max m and sum l
-    // (the same in its 16 lanes), and stores P = 2^(S - m_new) rounded to
-    // bf16 (where the Pallas kernel casts P to V's dtype; l sums it
-    // unrounded, as there) and the row's correction 2^(m_old - m_new) into
-    // every CTA.
+    // This CTA's q rows, [r0, r1) (25 or 26 of the 128 at 5 CTAs, 16 at
+    // 8), for the whole loop: 16 lanes a row, lane col4 of row r0 + xt / 16
+    // + 8 i (i < kSlots) sums 16-byte column col4 (4 KV columns) over the
+    // kChunks chunks, in chunk order from 0 in every CTA, scales it to log2
+    // units, masks KV columns past Skv (TMA zero-filled their K rows, so S
+    // is 0 there and 2^(0 - m) is not) and after the row (causal), keeps
+    // the row's running max m and sum l (the same in its 16 lanes), and
+    // stores P = 2^(S - m_new) rounded to bf16 (where the Pallas kernel
+    // casts P to V's dtype; l sums it unrounded, as there) and the row's
+    // correction 2^(m_old - m_new) into every CTA.
     const int xt = tid - 32 * kMathWarps;
     const int r0 = c * kBM / kChunks;
     const int r1 = (c + 1) * kBM / kChunks;
     const int col4 = xt % 16;
-    int row[4];
-    bool mine[4];
-    float m[4], l[4];
+    int row[kSlots];
+    bool mine[kSlots];
+    float m[kSlots], l[kSlots];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kSlots; ++i) {
       row[i] = r0 + xt / 16 + 8 * i;
       mine[i] = row[i] < r1;  // the same in a row's 16 lanes
       m[i] = -INFINITY;
@@ -1161,9 +1174,9 @@ flash_fwd_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
       const int k0 = kt * kBN;
       const int nx = kt + kStages - 1;  // the tile the loader loads next
       hopper::mbar_wait_cluster(&sm.parts_ready[buf], (kt >> 1) & 1);
-      float4 sv[4];
+      float4 sv[kSlots];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < kSlots; ++i) {
         sv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (!mine[i]) continue;
         const uint32_t at =
@@ -1176,10 +1189,10 @@ flash_fwd_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
       }
       __syncwarp();
       if (lane < kChunks) hopper::mbar_signal_rank(&sm.parts_free[buf], lane);
-      uint2 pw[4];
-      float corr[4];
+      uint2 pw[kSlots];
+      float corr[kSlots];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < kSlots; ++i) {
         float x[4] = {sv[i].x, sv[i].y, sv[i].z, sv[i].w};
         float mx = -INFINITY;
 #pragma unroll
@@ -1212,7 +1225,7 @@ flash_fwd_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
       if (kt >= 2)
         hopper::mbar_wait(&sm.pd_free[buf], ((kt - 2) >> 1) & 1);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < kSlots; ++i) {
         if (!mine[i]) continue;
         const uint32_t p_at =
             hopper::smem_u32(sm.p[buf]) + box_at(row[i], col4);
@@ -1238,7 +1251,7 @@ flash_fwd_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
     // below), and LSE = m ln 2 + log(l) in natural-log units, which the
     // backward reads.
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kSlots; ++i) {
       if (!mine[i] || col4 != 0) continue;
       const float lf = fmaxf(l[i], 1e-30f);
       const uint32_t at = hopper::smem_u32(sm.lsum + row[i]);
@@ -1355,11 +1368,30 @@ flash_fwd_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// bf16 at D = 640: clusters of 5 CTAs.
+__global__ void __cluster_dims__(5, 1, 1) __launch_bounds__(kThreads, 1)
+flash_fwd_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const FwdArgs p) {
+  fwd_cluster<5>(tq, tk, tv, p);
+}
+
+// bf16 at D = 1024: clusters of 8 CTAs, the largest portable cluster. Each
+// CTA's exchange owns 16 of the 128 q rows.
+__global__ void __cluster_dims__(8, 1, 1) __launch_bounds__(kThreads, 1)
+flash_fwd_bf16_d1024_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                    const __grid_constant__ CUtensorMap tk,
+                                    const __grid_constant__ CUtensorMap tv,
+                                    const FwdArgs p) {
+  fwd_cluster<8>(tq, tk, tv, p);
+}
+
 }  // namespace bf16c
 
 // ---------------------------------------------------------------------------
 // Generic variant: every dtype and head_dim (a multiple of 128) but bf16 D =
-// 128 and 256, D = 640 and f32 D = 1024, which the kernels above serve. Scalar
+// 128 and 256, D = 640 and D = 1024, which the kernels above serve. Scalar
 // FMAs on the CUDA cores over f32 tiles in dynamic shared memory: 32 q rows
 // per block, 4 threads per row, 16-row KV tiles, the same online softmax with
 // P rounded to the input dtype before P V. D up to 512 runs in one chunk (DC =
@@ -1370,9 +1402,8 @@ flash_fwd_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
 // chunks staged one at a time through shared memory. So shared memory (131 KB
 // at most, DC = 512) and registers stay bounded at any D. The f32 instances of
 // 256- and 128-column chunks serve only D768, 1280, ... and D896, 1152, ...
-// (f32 D640 and 1024 are the cluster kernels'), the bf16 one of 128-column
-// chunks only D896, 1152, ... (bf16 D640 is the cluster kernel's). With more
-// than one
+// (f32 D640 and 1024 are the cluster kernels'), and so do the bf16 ones (bf16
+// D640 and 1024 are the cluster kernels'). With more than one
 // chunk a block reloads Q's chunks for every KV tile, and every block
 // recomputes the scores: D / DC times the score work of one chunk, right and
 // slow first. Each thread takes 4 scores of its row (columns c, c + 4, ...) and
@@ -1540,7 +1571,7 @@ int launch_generic(const Params& p, int D, int B, cudaStream_t st) {
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
 // and dtype: D itself up to 4 kD (bf16 at D = kD and 2 kD is the wgmma
 // kernel's), above that a chunk of flash::gen_chunk(D) columns (D = 5 kD
-// and f32 at 8 kD are the cluster kernels').
+// and 8 kD are the cluster kernels').
 int launch_generic_d(const Params& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -1584,11 +1615,14 @@ int launch_cluster(Kernel kernel, const Params& p, int B, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 at D = 5 kD: one cluster of bf16c::kChunks CTAs per 128 q rows, on
-// 128B-swizzled 64-column boxes of q, k and v. A launch the card refuses
-// returns its error. The shared-memory opt-in is set at every launch.
-int launch_bf16_cluster(const Params& p, int B, cudaStream_t st) {
-  constexpr int D = bf16c::kDW;
+// bf16 at D = kChunks kD (5 or 8): one cluster of kChunks CTAs per 128 q
+// rows, on `kernel`, the instance of that size, with 128B-swizzled 64-column
+// boxes of q, k and v. A launch the card refuses returns its error. The
+// shared-memory opt-in is set at every launch.
+template <int kChunks, typename Kernel>
+int launch_bf16_cluster(Kernel kernel, const Params& p, int B,
+                        cudaStream_t st) {
+  constexpr int D = kChunks * kD;
   CUtensorMap tq, tk, tv;
   if (!flash::make_bhsd_map(&tq, p.q, B, p.H, p.Sq, p.q_sb, p.q_sh, p.q_ss,
                             bf16c::kBM, D) ||
@@ -1597,15 +1631,13 @@ int launch_bf16_cluster(const Params& p, int B, cudaStream_t st) {
       !flash::make_bhsd_map(&tv, p.v, B, p.KVH, p.Skv, p.v_sb, p.v_sh,
                             p.v_ss, bf16c::kBN, D))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = flash::allow_smem(
-      bf16c::flash_fwd_bf16_cluster_kernel, bf16c::kSmemBytes);
+  const cudaError_t err = flash::allow_smem(kernel, bf16c::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qt = (p.Sq + bf16c::kBM - 1) / bf16c::kBM;
   const FwdArgs a{p.o, p.lse, p.H, p.KVH, p.Sq, p.Skv, n_qt,
                   p.scale * kLog2e, p.causal};
-  bf16c::flash_fwd_bf16_cluster_kernel<<<B * p.H * n_qt * bf16c::kChunks,
-                                         bf16c::kThreads, bf16c::kSmemBytes,
-                                         st>>>(tq, tk, tv, a);
+  kernel<<<B * p.H * n_qt * kChunks, bf16c::kThreads, bf16c::kSmemBytes,
+           st>>>(tq, tk, tv, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1627,9 +1659,14 @@ extern "C" int ray_flash_fwd_f32_d1024_max_clusters(int* clusters) {
 
 // The same for the bf16 D = 640 kernel (clusters of 5).
 extern "C" int ray_flash_fwd_bf16_max_clusters(int* clusters) {
-  return flash::max_clusters(bf16c::flash_fwd_bf16_cluster_kernel,
-                             bf16c::kChunks, bf16c::kThreads,
-                             bf16c::kSmemBytes, clusters);
+  return flash::max_clusters(bf16c::flash_fwd_bf16_cluster_kernel, 5,
+                             bf16c::kThreads, bf16c::kSmemBytes, clusters);
+}
+
+// The same for the bf16 D = 1024 kernel (clusters of 8).
+extern "C" int ray_flash_fwd_bf16_d1024_max_clusters(int* clusters) {
+  return flash::max_clusters(bf16c::flash_fwd_bf16_d1024_cluster_kernel, 8,
+                             bf16c::kThreads, bf16c::kSmemBytes, clusters);
 }
 
 // The bf16 launch at D = 128 or 256: tensor maps over q, k, v (4-D {D, S,
@@ -1663,8 +1700,8 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* o,
 // head, seq; the last dim dense); o [B, H, Sq, D] and lse [B, H, Sq] dense.
 // D is a multiple of 128; dtype: 0 = float32, 1 = bfloat16. bf16 at
 // D = 128 and 256 runs the wgmma kernel, 640 a cluster kernel of 5 CTAs
-// (f32 or bf16), f32 at 1024 one of 8, every other case the generic
-// variant. Returns
+// and 1024 one of 8 (f32 or bf16), every other case the generic variant.
+// Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape or
 // layout the kernels do not take: every stride and the base addresses must
 // be multiples of 16 bytes, as TMA and the 16-byte loads require).
@@ -1696,6 +1733,11 @@ extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 8 * kD)
     return launch_cluster<8>(f32c::flash_fwd_f32_d1024_cluster_kernel, p, B,
                              st);
-  if (dtype == 1 && D == bf16c::kDW) return launch_bf16_cluster(p, B, st);
+  if (dtype == 1 && D == 5 * kD)
+    return launch_bf16_cluster<5>(bf16c::flash_fwd_bf16_cluster_kernel, p, B,
+                                  st);
+  if (dtype == 1 && D == 8 * kD)
+    return launch_bf16_cluster<8>(bf16c::flash_fwd_bf16_d1024_cluster_kernel,
+                                  p, B, st);
   return launch_generic_d(p, D, dtype, B, st);
 }

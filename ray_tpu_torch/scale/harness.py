@@ -178,7 +178,21 @@ class ScaleHarness:
         controller's cadence FSM to declare them DEAD. Returns kill/
         verdict rows; the trail audit must stay clean afterwards."""
         assert self.ctl is not None
-        before = await self.sample(max(2, int(self.spec.hold_s)))
+        # The windows before and after the kill span the same seconds,
+        # counted in meta ticks: a window of a fraction of a second
+        # holds a handful of pulses, and where it falls among the
+        # nodes' phases outweighs the drop it is meant to show. The
+        # one before opens only after the youngest node's first pulse
+        # (up to two pulse ticks after it starts), so the ramp's
+        # lead-in does not read as a lower rate.
+        window_s = 3.0
+        ticks = int(window_s / _meta_tick_s(self.spec))
+        youngest = max(n.t_start for n in self.nodes)
+        lead_in = youngest + 2 * self.spec.tick_s + window_s \
+            - time.monotonic()
+        if lead_in > 0:
+            await asyncio.sleep(lead_in)
+        before = await self.sample(ticks)
         victims = [n for n in self.nodes if not n.killed][-k:]
         t0 = time.monotonic()
         for n in victims:
@@ -194,8 +208,8 @@ class ScaleHarness:
             await asyncio.sleep(0.5)
         # Post-kill window: only ticks after the deaths, so the meter
         # shows the ingest drop rather than averaging over the kill.
-        await asyncio.sleep(3.0)
-        after = await self.sample(3)
+        await asyncio.sleep(window_s)
+        after = await self.sample(ticks)
         audit = await self.ctl.call("trail_audit", None)
         rate = lambda s: (s.get("planes", {}).get("pulse", {})  # noqa: E731
                           .get("records_per_s", 0.0))
@@ -309,8 +323,7 @@ async def _run(spec: ScaleSpec) -> List[dict]:
         for level in spec.levels:
             await h.add_nodes(level)
             await asyncio.sleep(spec.hold_s)
-            snap = await h.sample(int(spec.hold_s / max(
-                0.05, _meta_tick_s(spec))))
+            snap = await h.sample(int(spec.hold_s / _meta_tick_s(spec)))
             states = await h.node_states()
             rows.append(_level_row(level, snap, states, rss_base,
                                    h.node_seconds()))
