@@ -46,9 +46,9 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
-    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):  # shared device helpers
+def _target(name: str, csrc: Path = CSRC) -> Path:
+    h = hashlib.sha1((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):  # shared device helpers
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
@@ -58,18 +58,20 @@ def sources() -> List[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
+def build_all(names: Optional[List[str]] = None,
+              csrc: Path = CSRC) -> Dict[str, Path]:
     """Compile every named source (default: all) that has no current
-    library, one ``nvcc`` process per source, started together."""
+    library, one ``nvcc`` process per source, started together. ``csrc``
+    may name another tree's source directory (its libraries hash apart)."""
     names = sources() if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = _target(name)
+        out = _target(name, csrc)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -83,7 +85,7 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return {name: _target(name) for name in names}
+    return {name: _target(name, csrc) for name in names}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -47,12 +47,16 @@ Which code runs is picked inside its C entry point by (dtype, head_dim):
     forward (``flash_fwd_bf16_d1024_cluster_kernel``), dK/dV
     (``flash_bwd_dkv_bf16_d1024_cluster_kernel``) and dQ
     (``flash_bwd_dq_bf16_d1024_cluster_kernel``);
-  * f32 at 512: the dQ on the f32 dQ's template at 4 CTAs
-    (``flash_bwd_dq_f32_d512_cluster_kernel``); its forward and dK/dV are
-    generic;
-  * every other case (f32 at any other multiple of 128 and the f32
-    forward and dK/dV at 512, bf16 at 384, 512 and from 768 up but 1024):
-    the generic variant on the CUDA cores, which from 768 up tiles over D
+  * 512: the dQ at 4 CTAs, on the f32 dQ's template on the FMA units
+    (``flash_bwd_dq_f32_d512_cluster_kernel``) and on the bf16 dQ's on
+    wgmma (``flash_bwd_dq_bf16_d512_cluster_kernel``); its forward and
+    dK/dV are generic;
+  * f32 at 384: the dQ on the f32 dQ's template at 3 CTAs
+    (``flash_bwd_dq_f32_d384_cluster_kernel``, its exchange in two row
+    slots); its forward and dK/dV are generic;
+  * every other case (f32 at any other multiple of 128 and the forward
+    and dK/dV at 384 and 512, bf16 at 384 and from 768 up but 1024): the
+    generic variant on the CUDA cores, which from 768 up tiles over D
     (chunks of 256 or 128 columns, the scores summed over the chunks;
     ``ops/csrc/flash_common.cuh`` ``gen_chunk``).
 Sequence lengths are not routed: the kernels take any S (TMA zero-fills,
@@ -241,7 +245,8 @@ def kernel_variant(q: torch.Tensor) -> str:
     "bf16_d128" and "bf16_d256" (the wgmma kernels), "f32_d128",
     "f32_d256", ..., "bf16_d384", ... (the generic ones; "f32_d640",
     "bf16_d640", "f32_d1024" and "bf16_d1024" run the cluster kernels of
-    all three, "f32_d512" that of dQ and the generic forward and dK/dV).
+    all three, "f32_d384", "f32_d512" and "bf16_d512" that of dQ and the
+    generic forward and dK/dV).
     The wrappers count
     launches by it in ``launches_by_variant`` beside ``launches``."""
     dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
@@ -412,10 +417,12 @@ def flash_bwd_plain(q, k, v, out, lse, dout, causal: bool, sm_scale: float
     return dq, dk, dv
 
 
-def _bwd_kernel_fn(name: str):
+def _bwd_kernel_fn(name: str, lib=None):
+    """The library's ``ray_<name>`` entry point, typed; ``lib`` defaults to
+    this tree's build of ``csrc/<name>.cu``."""
     from ray_tpu_torch.ops._build import load
 
-    fn = getattr(load(name), f"ray_{name}")
+    fn = getattr(lib or load(name), f"ray_{name}")
     if fn.argtypes is None:
         n_out = 2 if name == "flash_bwd_dkv" else 1
         fn.argtypes = ([ctypes.c_void_p] * (6 + n_out)
@@ -447,11 +454,12 @@ def _bwd_check(q, k, v, dout, lse, delta):
                              f"{tuple(t.shape)} {t.dtype}")
 
 
-def _bwd_launch(name, outs, q, k, v, dout, lse, delta, causal, scale):
+def _bwd_launch(name, outs, q, k, v, dout, lse, delta, causal, scale,
+                lib=None):
     B, H, Sq, D = q.shape
     _, KVH, Skv, _ = k.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _bwd_kernel_fn(name)(
+    err = _bwd_kernel_fn(name, lib)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *[o.data_ptr() for o in outs],
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -493,8 +501,8 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
                  sm_scale: Optional[float] = None) -> torch.Tensor:
     """dQ [b, h, sq, d] in q's dtype. CUDA tensors launch
     ``csrc/flash_bwd_dq.cu`` (a wgmma kernel for bf16 at 128 and 256, a
-    cluster kernel for f32 and bf16 at 640 (5 CTAs) and 1024 (8) and for
-    f32 at 512 (4), the generic variant otherwise; counted in
+    cluster kernel for f32 and bf16 at 512 (4 CTAs), 640 (5) and 1024 (8)
+    and for f32 at 384 (3), the generic variant otherwise; counted in
     ``flash_bwd_dq.launches``); CPU tensors run ``flash_bwd_plain_dq``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if _bwd_device("flash_bwd_dq", q, k, v, dout, lse, delta) == "cpu":

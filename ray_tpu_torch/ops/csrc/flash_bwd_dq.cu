@@ -72,18 +72,19 @@
 //     products: the N = 32 score products read more shared memory than it
 //     gives the tensor cores, and the consumers meet at the barrier with
 //     the tensor cores idle while both compute P and dS.
-// f32 at 512, 640 and 1024 runs flash_bwd_dq_f32_d512_cluster_kernel,
-// flash_bwd_dq_f32_d640_cluster_kernel and flash_bwd_dq_f32_cluster_kernel
-// (after those), one body, dq_cluster<kChunks>, at 4, 5 and 8 CTAs. The
-// generic variant's chunked instances computed S and dP over all of D in
-// each of their 5 or 4 chunk blocks, and its instances (the one-chunk one at
-// 512 too) read one shared-memory word per FMA or two in their inner loops
+// f32 at 384, 512, 640 and 1024 runs flash_bwd_dq_f32_d384_cluster_kernel,
+// flash_bwd_dq_f32_d512_cluster_kernel, flash_bwd_dq_f32_d640_cluster_kernel
+// and flash_bwd_dq_f32_cluster_kernel (after those), one body,
+// dq_cluster<kChunks>, at 3, 4, 5 and 8 CTAs. The generic variant's chunked
+// instances computed S and dP over all of D in each of their 5 or 4 chunk
+// blocks, and its instances (the one-chunk ones at 384 and 512 too) read one
+// shared-memory word per FMA or two in their inner loops
 // (32 words a clock against the FMA units' 128). These kernels are bound by
 // the FMA units: f32 has no exact tensor-core input (TF32 rounds, and the f32
 // variants are held to 1e-4), 3 products of 64 * 32 * D FMAs per (64 q rows,
 // 32 KV rows) pair. They are the f32 dK/dV cluster (flash_bwd_dkv.cu) with
 // (Q, dO) and (K, V) in each other's places and one product fewer:
-//   * One cluster of D / 128 CTAs (4, 5 or 8; 8 is the largest portable
+//   * One cluster of D / 128 CTAs (3, 4, 5 or 8; 8 is the largest portable
 //     cluster) per (b, head, 64 q rows), one CTA per 128-column chunk of D.
 //     A CTA loads its chunk of Q and dO once (128B-swizzled f32 boxes of 32
 //     columns, since they are read down 8 rows of one column at once) and
@@ -95,7 +96,9 @@
 //     its share of the 64 q rows (8 at D1024; 12 or 13 at D640, which
 //     splits them unevenly; 16 at D512, 8 threads a row, so every thread
 //     of the exchange sums 4 partials of S and of dP where at D1024 half
-//     the threads sum 8) over the chunks through distributed shared
+//     the threads sum 8; 21 or 22 at D384, more than the 16 rows its 128
+//     threads cover at once, so a thread takes a row in each of two row
+//     slots, 16 rows apart) over the chunks through distributed shared
 //     memory (ld.shared::cluster), in chunk order from 0, masks KV columns
 //     past Skv (TMA zero-filled their K rows, so S is 0 there and exp(0 -
 //     LSE) is not) and after the row (causal), forms P and dS = P (dP -
@@ -137,15 +140,17 @@
 //   * Shared memory: Q and dO 32 KB, the ring 96 KB, dS 2 x 8 KB, the
 //     partials 2 x 2 x 16 KB: 215,040 bytes with the alignment slack, one
 //     CTA an SM.
-// bf16 at 1024 runs the same kernel at 8 CTAs a cluster
-// (flash_bwd_dq_bf16_d1024_cluster_kernel), as f32 does: the body is a
+// bf16 at 1024 and 512 runs the same kernel at 8 and 4 CTAs a cluster
+// (flash_bwd_dq_bf16_d1024_cluster_kernel,
+// flash_bwd_dq_bf16_d512_cluster_kernel), as f32 does: the body is a
 // template over the chunk count, each instance gives its cluster's size as a
-// literal, and the shared memory is the 5-CTA one's. Each CTA's exchange
-// owns 8 of the 64 q rows (one row a 16-lane group) and sums 8 partials a
-// row in place of 5.
+// literal, and the shared memory is the 5-CTA one's. At 8 CTAs each CTA's
+// exchange owns 8 of the 64 q rows (one row a 16-lane group, one row slot)
+// and sums 8 partials a row in place of 5; at 4 it owns 16 rows in two
+// slots and sums 4 partials a row.
 // A generic variant (at the end of this file) serves f32 at any other
-// head_dim that is a multiple of 128 (128, 256, 384 and from 768 up but
-// 1024) and bf16 at 384, 512 and from 768 up but 1024 (tiled over D from
+// head_dim that is a multiple of 128 (128, 256 and from 768 up but 1024)
+// and bf16 at 384 and from 768 up but 1024 (tiled over D from
 // 768 up: chunks of 256 columns for D768, 1280, ..., of 128 for D896, 1152,
 // ...), with P and dS rounded to the input dtype as the Pallas kernel rounds
 // them.
@@ -615,10 +620,10 @@ flash_bwd_dq_d256_kernel(const __grid_constant__ CUtensorMap tq,
 }  // namespace d256
 
 // ---------------------------------------------------------------------------
-// f32 at D = 640 and 1024: one cluster of 5 or 8 CTAs per (b, head, 64 q
-// rows), one CTA per 128-column chunk of D, the scores summed over the
-// cluster; the f32 dK/dV cluster (flash_bwd_dkv.cu) with Q, dO and K, V in
-// each other's places (see the top of this file).
+// f32 at D = 384, 512, 640 and 1024: one cluster of 3, 4, 5 or 8 CTAs per
+// (b, head, 64 q rows), one CTA per 128-column chunk of D, the scores summed
+// over the cluster; the f32 dK/dV cluster (flash_bwd_dkv.cu) with Q, dO and
+// K, V in each other's places (see the top of this file).
 // ---------------------------------------------------------------------------
 
 namespace f32c {
@@ -670,7 +675,7 @@ __device__ __forceinline__ int ds_at(int row, int col4) {
   return row * kBN + ((col4 ^ (row & 1)) << 2);
 }
 
-// The kernel over kChunks CTAs a cluster (D = kChunks kD); the two kernels
+// The kernel over kChunks CTAs a cluster (D = kChunks kD); the kernels
 // after it give the cluster's size as a literal.
 template <int kChunks>
 __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
@@ -679,6 +684,9 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
                                            const CUtensorMap& tdo,
                                            const flash::BwdParams& p) {
   constexpr int kDW = kChunks * kD;  // head_dim
+  // q rows a CTA's exchange owns at most (22 of 3 CTAs, 16 of 4, 13 of 5, 8
+  // of 8), 16 a slot
+  constexpr int kSlots = ((kBQ + kChunks - 1) / kChunks + 15) / 16;
   extern __shared__ unsigned char cluster_smem[];
   const uint32_t raw = hopper::smem_u32(cluster_smem);
   Smem& sm = *reinterpret_cast<Smem*>(cluster_smem +
@@ -755,74 +763,87 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
     }
 
     // This CTA's q rows, [c 64 / kChunks, (c + 1) 64 / kChunks) (8 of 64 at 8
-    // chunks, 12 or 13 at 5, 16 at 4: every thread), for the whole loop:
-    // thread xt sums one 16-byte column (4 KV columns) of one row over the
-    // chunks, in chunk order 0 to kChunks - 1 in every CTA, so that all hold
-    // the same dS bits; applies scale and the mask (KV columns past Skv,
-    // whose K rows TMA zero-filled, and after the row, causal), forms P =
-    // exp(S scale - LSE) and dS = P (dP - delta) scale in f32 (the Pallas
+    // chunks, 12 or 13 at 5, 16 at 4: every thread; 21 or 22 at 3), for the
+    // whole loop: thread xt takes row c 64 / kChunks + xt / 8 + 16 i of each
+    // row slot i < kSlots and sums one 16-byte column (4 KV columns) of it
+    // over the chunks, in chunk order 0 to kChunks - 1 in every CTA, so that
+    // all hold the same dS bits; applies scale and the mask (KV columns past
+    // Skv, whose K rows TMA zero-filled, and after the row, causal), forms P
+    // = exp(S scale - LSE) and dS = P (dP - delta) scale in f32 (the Pallas
     // kernel's cast rounds nothing in f32) and stores dS into every CTA's
-    // ds. The row's LSE and delta are read once (+inf and 0 past Sq: P and
+    // ds. The rows' LSE and delta are read once (+inf and 0 past Sq: P and
     // dS are 0 on such a row).
     const int xt = tid - 32 * kMathWarps;
-    const int row = c * kBQ / kChunks + xt / 8;
     const int col4 = xt % 8;
-    const bool mine = row < (c + 1) * kBQ / kChunks;
-    const int qrow = q0 + row;
-    const long long at = (static_cast<long long>(b) * p.H + h) * p.Sq + qrow;
-    const float lse = mine && qrow < p.Sq ? p.lse[at] : INFINITY;
-    const float delta = mine && qrow < p.Sq ? p.delta[at] : 0.f;
+    int row[kSlots];
+    bool mine[kSlots];
+    float lse[kSlots], delta[kSlots];
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      row[i] = c * kBQ / kChunks + xt / 8 + 16 * i;
+      mine[i] = row[i] < (c + 1) * kBQ / kChunks;
+      const int qrow = q0 + row[i];
+      const long long at = (static_cast<long long>(b) * p.H + h) * p.Sq + qrow;
+      lse[i] = mine[i] && qrow < p.Sq ? p.lse[at] : INFINITY;
+      delta[i] = mine[i] && qrow < p.Sq ? p.delta[at] : 0.f;
+    }
     for (int kt = 0; kt < n_kt; ++kt) {
       const int buf = kt & 1;
       const int k0 = kt * kBN;
       const int nx = kt + kStages - 1;  // the tile the loader loads next
       hopper::mbar_wait_cluster(&sm.parts_ready[buf], (kt >> 1) & 1);
-      float4 sv = make_float4(0.f, 0.f, 0.f, 0.f), dpv = sv;
-      if (mine) {
+      float4 sv[kSlots], dpv[kSlots];
+#pragma unroll
+      for (int i = 0; i < kSlots; ++i) {
+        sv[i] = dpv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (!mine[i]) continue;
         const uint32_t s_at =
-            hopper::smem_u32(sm.part[buf][0] + swz32(row, col4));
+            hopper::smem_u32(sm.part[buf][0] + swz32(row[i], col4));
         const uint32_t p_at =
-            hopper::smem_u32(sm.part[buf][1] + swz32(row, col4));
+            hopper::smem_u32(sm.part[buf][1] + swz32(row[i], col4));
 #pragma unroll
         for (int r = 0; r < kChunks; ++r) {
           const float4 x = hopper::ld_cluster_f4(hopper::map_rank(s_at, r));
           const float4 y = hopper::ld_cluster_f4(hopper::map_rank(p_at, r));
-          sv = r == 0 ? x : flash::add4(sv, x);
-          dpv = r == 0 ? y : flash::add4(dpv, y);
+          sv[i] = r == 0 ? x : flash::add4(sv[i], x);
+          dpv[i] = r == 0 ? y : flash::add4(dpv[i], y);
         }
       }
       __syncwarp();
       if (lane < kChunks) hopper::mbar_signal_rank(&sm.parts_free[buf], lane);
-      if (mine) {
-        const float sx[4] = {sv.x, sv.y, sv.z, sv.w};
-        float dx[4] = {dpv.x, dpv.y, dpv.z, dpv.w};
+#pragma unroll
+      for (int i = 0; i < kSlots; ++i) {
+        if (!mine[i]) continue;
+        const float sx[4] = {sv[i].x, sv[i].y, sv[i].z, sv[i].w};
+        float dx[4] = {dpv[i].x, dpv[i].y, dpv[i].z, dpv[i].w};
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = k0 + 4 * col4 + e;
           float x = sx[e] * p.scale;
-          if (col >= p.Skv || (p.causal && col > qrow)) x = flash::kMaskValue;
-          const float pr = expf(x - lse);
-          dx[e] = (dx[e] - delta) * pr * p.scale;
+          if (col >= p.Skv || (p.causal && col > q0 + row[i]))
+            x = flash::kMaskValue;
+          const float pr = expf(x - lse[i]);
+          dx[e] = (dx[e] - delta[i]) * pr * p.scale;
         }
-        dpv = f4(dx);
+        dpv[i] = f4(dx);
       }
       // Every CTA's math warps are done with this buffer's tile before.
-      if (kt >= 2)
-        hopper::mbar_wait(&sm.ds_free[buf], ((kt - 2) >> 1) & 1);
-      if (mine) {
-        const uint32_t d_at = hopper::smem_u32(sm.ds[buf] + ds_at(row, col4));
+      if (kt >= 2) hopper::mbar_wait(&sm.ds_free[buf], ((kt - 2) >> 1) & 1);
+#pragma unroll
+      for (int i = 0; i < kSlots; ++i) {
+        if (!mine[i]) continue;
+        const uint32_t d_at =
+            hopper::smem_u32(sm.ds[buf] + ds_at(row[i], col4));
 #pragma unroll
         for (int r = 0; r < kChunks; ++r)
-          hopper::st_cluster_f4(hopper::map_rank(d_at, r), dpv);
+          hopper::st_cluster_f4(hopper::map_rank(d_at, r), dpv[i]);
       }
       __syncwarp();
       if (lane < kChunks) hopper::mbar_arrive_rank(&sm.ds_ready[buf], lane);
-      // The tile two ahead goes into the stage of the one before this,
-      // once this CTA's math warps are done with it. The loader is xt == 0:
-      // at 5 chunks ptxas spilled the flag (8 bytes) and tests xt afresh
-      // without a spill; at 4 neither form spills (168 registers either
-      // way); at 8 the flag keeps that instance's machine code.
-      if ((kChunks == 8 ? loader : xt == 0) && nx < n_kt) {
+      // The tile two ahead goes into the stage of the one before this, once
+      // this CTA's math warps are done with it. The loader is xt == 0,
+      // tested afresh: at 5 chunks ptxas spilled the flag (8 bytes).
+      if (xt == 0 && nx < n_kt) {
         if (nx >= kStages)
           hopper::mbar_wait(&sm.empty[nx % kStages], (nx / kStages - 1) & 1);
         load_tile(nx);
@@ -1037,13 +1058,25 @@ flash_bwd_dq_f32_d512_cluster_kernel(const __grid_constant__ CUtensorMap tq,
   dq_cluster<4>(tq, tk, tv, tdo, p);
 }
 
+// f32 at D = 384: clusters of 3 CTAs. Each CTA's exchange owns 21 or 22 of
+// the 64 q rows (c * 64 / 3 to (c + 1) * 64 / 3), 8 threads a row, in two
+// row slots.
+__global__ void __cluster_dims__(3, 1, 1) __launch_bounds__(kThreads, 1)
+flash_bwd_dq_f32_d384_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                     const __grid_constant__ CUtensorMap tk,
+                                     const __grid_constant__ CUtensorMap tv,
+                                     const __grid_constant__ CUtensorMap tdo,
+                                     const flash::BwdParams p) {
+  dq_cluster<3>(tq, tk, tv, tdo, p);
+}
+
 }  // namespace f32c
 
 // ---------------------------------------------------------------------------
-// bf16 at D = 640 and 1024: f32c's dataflow (a cluster of 5 or 8 CTAs per
-// (b, head, 64 q rows), the scores summed through distributed shared memory)
-// with each CTA's three products on the tensor cores (see the top of this
-// file).
+// bf16 at D = 512, 640 and 1024: f32c's dataflow (a cluster of 4, 5 or 8
+// CTAs per (b, head, 64 q rows), the scores summed through distributed shared
+// memory) with each CTA's three products on the tensor cores (see the top of
+// this file).
 // ---------------------------------------------------------------------------
 
 namespace bf16c {
@@ -1095,7 +1128,8 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
                                            const CUtensorMap& tdo,
                                            const DqArgs& p) {
   constexpr int kDW = kChunks * kD;  // head_dim
-  // q rows a CTA's exchange owns at most (13 of 5 CTAs, 8 of 8), 8 a slot
+  // q rows a CTA's exchange owns at most (16 of 4 CTAs, 13 of 5, 8 of 8), 8
+  // a slot
   constexpr int kSlots = ((kBQ + kChunks - 1) / kChunks + 7) / 8;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
@@ -1171,11 +1205,11 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
       for (int kt = 0; kt < min(n_kt, kStages - 1); ++kt) load_tile(kt);
     }
 
-    // This CTA's q rows, [c 64 / kChunks, (c + 1) 64 / kChunks) (12 or 13
-    // of 5 CTAs, 8 of 8), for the whole loop: 16 lanes a row, lane col4 of
-    // row r0 + xt / 16 + 8 i (i < kSlots) sums 16-byte column col4 (4 KV
-    // columns) of S and dP over the kChunks chunks, in chunk order from 0 in
-    // every CTA, forms P = 2^(S scale log2 e - LSE log2
+    // This CTA's q rows, [c 64 / kChunks, (c + 1) 64 / kChunks) (16 of 4
+    // CTAs, 12 or 13 of 5, 8 of 8), for the whole loop: 16 lanes a row, lane
+    // col4 of row r0 + xt / 16 + 8 i (i < kSlots) sums 16-byte column col4
+    // (4 KV columns) of S and dP over the kChunks chunks, in chunk order
+    // from 0 in every CTA, forms P = 2^(S scale log2 e - LSE log2
     // e), zero on KV columns past Skv (TMA zero-filled their K rows, so S
     // is 0 there and P would not be) and after the row (causal), and dS = P
     // (dP - delta) scale rounded to bf16 (where the Pallas kernel rounds
@@ -1377,18 +1411,28 @@ flash_bwd_dq_bf16_d1024_cluster_kernel(const __grid_constant__ CUtensorMap tq,
   dq_cluster<8>(tq, tk, tv, tdo, p);
 }
 
+// bf16 at D = 512: clusters of 4 CTAs. Each CTA's exchange owns 16 of the 64
+// q rows, 16 lanes a row, in two row slots.
+__global__ void __cluster_dims__(4, 1, 1) __launch_bounds__(kThreads, 1)
+flash_bwd_dq_bf16_d512_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                      const __grid_constant__ CUtensorMap tk,
+                                      const __grid_constant__ CUtensorMap tv,
+                                      const __grid_constant__ CUtensorMap tdo,
+                                      const DqArgs p) {
+  dq_cluster<4>(tq, tk, tv, tdo, p);
+}
+
 }  // namespace bf16c
 
 // ---------------------------------------------------------------------------
 // Generic variant: every dtype and head_dim (a multiple of 128) but bf16
-// D = 128 and 256, f32 D = 512, D = 640 and D = 1024, which the kernels
-// above serve.
+// D = 128, 256 and 512, f32 D = 384 and 512, D = 640 and D = 1024, which
+// the kernels above serve.
 // The same function on the CUDA cores: one block of 128 threads per (b, h, 16
 // q rows, chunk of D), walking the visible 32-row KV tiles, with Q, dO, K, V
-// as f32 tiles in dynamic shared memory (102 KB at DC = 256, 196 KB at 512,
-// which only bf16 runs).
-// D up to 512 runs in one chunk (DC = D); above, D is cut into chunks of DC =
-// 256 or 128 columns (flash::gen_chunk; the chunked instances): each block
+// as f32 tiles in dynamic shared memory (102 KB at DC = 256, 148 KB at 384).
+// D up to 384 runs in one chunk (DC = D); above 512, D is cut into chunks of
+// DC = 256 or 128 columns (flash::gen_chunk; the chunked instances): each block
 // writes one chunk of dQ, and the contractions over D (S = Q K^T and dP = dO
 // V^T) are summed over the chunks staged one at a time, in the order that
 // ends with the block's own chunk, so K's columns for dQ are the ones left in
@@ -1411,9 +1455,11 @@ constexpr int gen_smem_bytes() {
   return ((2 * kGBQ + 2 * kGBN) * (DC + 4) + kGBQ * (kGBN + 1)) * 4;
 }
 
+// p by value: the body taking the kernel's parameters by reference compiled
+// the one-chunk instance at bf16 D384 to code 1.45x slower on the H100.
 template <typename T, int DC, bool kChunked>
 __device__ __forceinline__ void flash_bwd_dq_generic_body(
-    const flash::BwdParams& p) {
+    const flash::BwdParams p) {
   extern __shared__ float4 gen_smem[];
   constexpr int kP = DC + 4;      // row pitch of the f32 tiles
   constexpr int kPS = kGBN + 1;   // row pitch of dS
@@ -1555,8 +1601,8 @@ int launch_generic(const flash::BwdParams& p, int D, int B, cudaStream_t st) {
 }
 
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
-// and dtype: D itself up to 4 kD (bf16 at D = kD and 2 kD is the wgmma
-// kernels', f32 at 4 kD a cluster kernel's), above that a chunk of
+// and dtype: D itself for bf16 at 3 kD and f32 at kD and 2 kD (the other D
+// up to 4 kD are the wgmma and cluster kernels'), above 4 kD a chunk of
 // flash::gen_chunk(D) columns (D = 5 kD and 8 kD are the cluster kernels').
 int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
                      cudaStream_t st) {
@@ -1568,16 +1614,12 @@ int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
     return wide ? launch_generic<float, 2 * kD, true>(p, D, B, st)
                 : launch_generic<float, kD, true>(p, D, B, st);
   }
-  if (dtype == 1) {
-    if (D == 3 * kD) return launch_generic<bf16, 3 * kD, false>(p, D, B, st);
-    return launch_generic<bf16, 4 * kD, false>(p, D, B, st);
-  }
+  if (dtype == 1) return launch_generic<bf16, 3 * kD, false>(p, D, B, st);
   if (D == kD) return launch_generic<float, kD, false>(p, D, B, st);
-  if (D == 2 * kD) return launch_generic<float, 2 * kD, false>(p, D, B, st);
-  return launch_generic<float, 3 * kD, false>(p, D, B, st);
+  return launch_generic<float, 2 * kD, false>(p, D, B, st);
 }
 
-// f32 at D = kChunks kD (4, 5 or 8): one cluster of kChunks CTAs per 64 q
+// f32 at D = kChunks kD (3, 4, 5 or 8): one cluster of kChunks CTAs per 64 q
 // rows, on `kernel`, the instance of that size. A launch the card refuses
 // (no room for a cluster) returns its error. The shared-memory opt-in is set
 // at every launch, as for the generic variants.
@@ -1603,7 +1645,7 @@ int launch_cluster(Kernel kernel, const flash::BwdParams& p, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 at D = kChunks kD (5 or 8): one cluster of kChunks CTAs per 64 q
+// bf16 at D = kChunks kD (4, 5 or 8): one cluster of kChunks CTAs per 64 q
 // rows, on `kernel`, the instance of that size, with 128B-swizzled
 // 64-column boxes of every input. A launch the card refuses returns its
 // error. The shared-memory opt-in is set at every launch.
@@ -1653,6 +1695,12 @@ extern "C" int ray_flash_bwd_dq_f32_d512_max_clusters(int* clusters) {
                              f32c::kThreads, f32c::kSmemBytes, clusters);
 }
 
+// The same for the f32 D = 384 kernel (clusters of 3).
+extern "C" int ray_flash_bwd_dq_f32_d384_max_clusters(int* clusters) {
+  return flash::max_clusters(f32c::flash_bwd_dq_f32_d384_cluster_kernel, 3,
+                             f32c::kThreads, f32c::kSmemBytes, clusters);
+}
+
 // The same for the bf16 D = 640 kernel (clusters of 5).
 extern "C" int ray_flash_bwd_dq_bf16_max_clusters(int* clusters) {
   return flash::max_clusters(bf16c::flash_bwd_dq_bf16_cluster_kernel, 5,
@@ -1665,13 +1713,20 @@ extern "C" int ray_flash_bwd_dq_bf16_d1024_max_clusters(int* clusters) {
                              8, bf16c::kThreads, bf16c::kSmemBytes, clusters);
 }
 
+// The same for the bf16 D = 512 kernel (clusters of 4).
+extern "C" int ray_flash_bwd_dq_bf16_d512_max_clusters(int* clusters) {
+  return flash::max_clusters(bf16c::flash_bwd_dq_bf16_d512_cluster_kernel, 4,
+                             bf16c::kThreads, bf16c::kSmemBytes, clusters);
+}
+
 // q/dO [B, H, Sq, D] and k/v [B, KVH, Skv, D] given by element strides (batch,
 // head, seq; the last dim dense, every stride and base address a multiple of 16
 // bytes, as TMA and the 16-byte loads require); lse and delta [B, H, Sq] f32
 // and dq [B, H, Sq, D] dense, in the inputs' dtype. D is a multiple of 128;
 // dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 and 256 runs a wgmma
-// kernel, D = 640 a cluster kernel of 5 CTAs and D = 1024 one of 8 (f32 or
-// bf16), f32 at D = 512 one of 4, every other case the generic variant.
+// kernel, D = 512 a cluster kernel of 4 CTAs, D = 640 one of 5 and D = 1024
+// one of 8 (f32 or bf16), f32 at D = 384 one of 3, every other case the
+// generic variant.
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
 // shape or layout the kernels do not take).
 extern "C" int ray_flash_bwd_dq(
@@ -1692,6 +1747,9 @@ extern "C" int ray_flash_bwd_dq(
         static_cast<const float*>(delta), dq, nullptr,
         q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
         o_sb, o_sh, o_ss, H,    KVH,  Sq,   Skv,  scale, causal};
+    if (dtype == 0 && D == 3 * kD)
+      return launch_cluster<3>(f32c::flash_bwd_dq_f32_d384_cluster_kernel, p,
+                               B, st);
     if (dtype == 0 && D == 4 * kD)
       return launch_cluster<4>(f32c::flash_bwd_dq_f32_d512_cluster_kernel, p,
                                B, st);
@@ -1701,6 +1759,9 @@ extern "C" int ray_flash_bwd_dq(
     if (dtype == 0 && D == 8 * kD)
       return launch_cluster<8>(f32c::flash_bwd_dq_f32_cluster_kernel, p, B,
                                st);
+    if (D == 4 * kD)
+      return launch_bf16_cluster<4>(
+          bf16c::flash_bwd_dq_bf16_d512_cluster_kernel, p, B, st);
     if (D == 5 * kD)
       return launch_bf16_cluster<5>(bf16c::flash_bwd_dq_bf16_cluster_kernel, p,
                                     B, st);

@@ -4,14 +4,16 @@ kernel by kernel.
     python3 -m ray_tpu_torch.ops.sass_diff BUILD_A BUILD_B [LINES]
 
 BUILD_A and BUILD_B are ``ray_tpu_torch/_build`` directories of two trees
-(``_build.build_all()`` fills them). For each of ``flash_fwd``,
-``flash_bwd_dkv`` and ``flash_bwd_dq`` it disassembles both libraries with
+(``_build.build_all()`` fills them), or two library files, compared as one
+pair. For each of ``flash_fwd``, ``flash_bwd_dkv`` and ``flash_bwd_dq`` (or
+the one pair) it disassembles both libraries with
 ``cuobjdump -sass`` and prints how many kernels the two share, how many of
 those are identical, and the names of the differing ones and of those only
 one build has, with the registers of each of those (``cuobjdump
 -res-usage``), and for each differing kernel its first LINES (default 0)
-differing lines. The anonymous namespace's per-build hash in the mangled
-names (``_GLOBAL__N__<8 hex>_``) is normalised away. Needs the CUDA
+differing lines. The anonymous namespace's per-build hashes in the mangled
+names (``_GLOBAL__N__<8 hex>_<n>_<file>_cu_<8 hex>``) are normalised away,
+so builds of a source from two paths compare too. Needs the CUDA
 toolkit (``$CUDA_HOME/bin/cuobjdump``, else ``/usr/local/cuda``).
 """
 
@@ -24,7 +26,8 @@ import sys
 from typing import Dict
 
 SOURCES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
-_ANON = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_")
+_ANON = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_(\d+_\w+?_cu_)[0-9a-f]{8}")
+_ANON_TO = r"_GLOBAL__N__X_\1X"
 
 
 def _cuobjdump() -> str:
@@ -36,7 +39,7 @@ def kernels(lib: str) -> Dict[str, str]:
     """{mangled kernel name: its SASS} of one library."""
     out = subprocess.run([_cuobjdump(), "-sass", lib], capture_output=True,
                          text=True, check=True).stdout
-    out = _ANON.sub("_GLOBAL__N__X_", out)
+    out = _ANON.sub(_ANON_TO, out)
     res, name, buf = {}, None, []
     for line in out.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
@@ -57,7 +60,7 @@ def registers(lib: str) -> Dict[str, str]:
     out = subprocess.run([_cuobjdump(), "-res-usage", lib],
                          capture_output=True, text=True, check=True).stdout
     res, name = {}, None
-    for line in _ANON.sub("_GLOBAL__N__X_", out).splitlines():
+    for line in _ANON.sub(_ANON_TO, out).splitlines():
         m = re.search(r"Function (\S+?):?$", line.strip())
         if m:
             name = m.group(1)
@@ -71,13 +74,21 @@ def registers(lib: str) -> Dict[str, str]:
 
 
 def _short(name: str) -> str:
-    return re.sub(r".*_cu_[0-9a-f]{8}", "", name)[:70]
+    return re.sub(r".*_cu_X", "", name)[:70]
+
+
+def _pairs(a: str, b: str):
+    """[(label, library A, library B)]: the two files, or each source's
+    library in the two build directories."""
+    if os.path.isfile(a) and os.path.isfile(b):
+        return [(os.path.basename(a), a, b)]
+    return [(src, glob.glob(os.path.join(a, f"{src}-*.so"))[0],
+             glob.glob(os.path.join(b, f"{src}-*.so"))[0])
+            for src in SOURCES]
 
 
 def main(a_dir: str, b_dir: str, lines: int = 0) -> int:
-    for src in SOURCES:
-        a_lib = glob.glob(os.path.join(a_dir, f"{src}-*.so"))[0]
-        b_lib = glob.glob(os.path.join(b_dir, f"{src}-*.so"))[0]
+    for src, a_lib, b_lib in _pairs(a_dir, b_dir):
         a, b = kernels(a_lib), kernels(b_lib)
         a_reg, b_reg = registers(a_lib), registers(b_lib)
         shared = sorted(set(a) & set(b))
