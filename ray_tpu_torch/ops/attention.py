@@ -47,15 +47,16 @@ Which code runs is picked inside its C entry point by (dtype, head_dim):
     forward (``flash_fwd_bf16_d1024_cluster_kernel``), dK/dV
     (``flash_bwd_dkv_bf16_d1024_cluster_kernel``) and dQ
     (``flash_bwd_dq_bf16_d1024_cluster_kernel``);
-  * 512: the dQ at 4 CTAs, on the f32 dQ's template on the FMA units
-    (``flash_bwd_dq_f32_d512_cluster_kernel``) and on the bf16 dQ's on
-    wgmma (``flash_bwd_dq_bf16_d512_cluster_kernel``); its forward and
-    dK/dV are generic;
+  * 512: dK/dV and dQ at 4 CTAs, in f32 on the f32 templates on the FMA
+    units (``flash_bwd_dkv_f32_d512_cluster_kernel``,
+    ``flash_bwd_dq_f32_d512_cluster_kernel``), in bf16 on the bf16 ones on
+    wgmma (``flash_bwd_dkv_bf16_d512_cluster_kernel``,
+    ``flash_bwd_dq_bf16_d512_cluster_kernel``); its forward is generic;
   * f32 at 384: the dQ on the f32 dQ's template at 3 CTAs
     (``flash_bwd_dq_f32_d384_cluster_kernel``, its exchange in two row
     slots); its forward and dK/dV are generic;
-  * every other case (f32 at any other multiple of 128 and the forward
-    and dK/dV at 384 and 512, bf16 at 384 and from 768 up but 1024): the
+  * every other case (f32 at any other multiple of 128, the forward at
+    384 and 512 and dK/dV at 384, bf16 at 384 and from 768 up but 1024): the
     generic variant on the CUDA cores, which from 768 up tiles over D
     (chunks of 256 or 128 columns, the scores summed over the chunks;
     ``ops/csrc/flash_common.cuh`` ``gen_chunk``).
@@ -245,8 +246,9 @@ def kernel_variant(q: torch.Tensor) -> str:
     "bf16_d128" and "bf16_d256" (the wgmma kernels), "f32_d128",
     "f32_d256", ..., "bf16_d384", ... (the generic ones; "f32_d640",
     "bf16_d640", "f32_d1024" and "bf16_d1024" run the cluster kernels of
-    all three, "f32_d384", "f32_d512" and "bf16_d512" that of dQ and the
-    generic forward and dK/dV).
+    all three, "f32_d512" and "bf16_d512" those of dK/dV and dQ and the
+    generic forward, "f32_d384" that of dQ and the generic forward and
+    dK/dV).
     The wrappers count
     launches by it in ``launches_by_variant`` beside ``launches``."""
     dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
@@ -482,8 +484,8 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) [b, kvh, skv, d] in k's dtype. CUDA tensors launch
     ``csrc/flash_bwd_dkv.cu`` (a wgmma kernel for bf16 at 128 and 256, a
-    cluster kernel for f32 and bf16 at 640 (5 CTAs) and 1024 (8), the
-    generic variant otherwise; counted in ``flash_bwd_dkv.launches``);
+    cluster kernel for f32 and bf16 at 512 (4 CTAs), 640 (5) and 1024 (8),
+    the generic variant otherwise; counted in ``flash_bwd_dkv.launches``);
     CPU tensors run ``flash_bwd_plain_dkv``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if _bwd_device("flash_bwd_dkv", q, k, v, dout, lse, delta) == "cpu":

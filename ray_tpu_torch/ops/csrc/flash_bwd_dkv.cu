@@ -131,13 +131,15 @@
 //     scope.
 //   * 226 KB of shared memory: one CTA an SM, and a cluster takes 5 SMs of
 //     one GPC (22 clusters fit on the H100).
-// f32 at 1024 runs the same kernel at 8 CTAs a cluster
-// (flash_bwd_dkv_f32_d1024_cluster_kernel): the body is a template over the
+// f32 at 512 and 1024 runs the same kernel at 4 and 8 CTAs a cluster
+// (flash_bwd_dkv_f32_d512_cluster_kernel,
+// flash_bwd_dkv_f32_d1024_cluster_kernel): the body is a template over the
 // number of 128-column chunks, and each instance gives its cluster's size
 // as a literal. At 8 chunks each CTA owns 8 of the 64 KV rows in the
 // exchange and moves about 28 KB a tile through the cluster; 8 is the
-// largest portable cluster. Chunks of 256 columns would not fit: K, V and
-// the Q/dO ring alone would take 320 KB a CTA.
+// largest portable cluster. At 4 chunks each CTA owns 16 rows, 8 threads a
+// row: every thread of the exchange. Chunks of 256 columns would not fit: K,
+// V and the Q/dO ring alone would take 320 KB a CTA.
 // bf16 at 640 runs flash_bwd_dkv_bf16_cluster_kernel (after that): the same
 // cluster with each CTA's products on the tensor cores. The generic chunked
 // instance ran all four products as scalar FMAs, and its 5 chunk blocks each
@@ -165,16 +167,19 @@
 //     faster on the card than each writer fencing before its release.
 //   * 232,448 bytes of shared memory (3 ring stages, two buffers of the
 //     partials and of P^T and dS^T): one CTA an SM, 22 clusters at once.
-// bf16 at 1024 runs the same kernel at 8 CTAs a cluster
-// (flash_bwd_dkv_bf16_d1024_cluster_kernel), as f32 does: the body is a
+// bf16 at 512 and 1024 runs the same kernel at 4 and 8 CTAs a cluster
+// (flash_bwd_dkv_bf16_d512_cluster_kernel,
+// flash_bwd_dkv_bf16_d1024_cluster_kernel), as f32 does: the body is a
 // template over the chunk count, each instance gives its cluster's size as a
-// literal, and the shared memory is the 5-CTA one's. Each CTA's exchange
-// owns 8 of the 64 KV rows (one row a 16-lane group) and sums 8 partials a
-// row in place of 5.
+// literal, and the shared memory is the 5-CTA one's. At 8 CTAs each CTA's
+// exchange owns 8 of the 64 KV rows (one row a 16-lane group, one row slot)
+// and sums 8 partials a row in place of 5; at 4 it owns 16 rows in two
+// slots and sums 4 partials a row.
 // A generic variant (at the end of this file) serves f32 at any other
-// head_dim that is a multiple of 128 and bf16 at those from 384 up but 640
-// and 1024 (tiled over D from 768 up), with P and dS rounded to the input
-// dtype as the Pallas kernel rounds them.
+// head_dim that is a multiple of 128 (128, 256, 384 and from 768 up but
+// 1024) and bf16 at 384 and from 768 up but 1024 (tiled over D from 768
+// up), with P and dS rounded to the input dtype as the Pallas kernel rounds
+// them.
 
 #include <math.h>
 
@@ -674,9 +679,9 @@ flash_bwd_dkv_d256_kernel(const __grid_constant__ CUtensorMap tq,
 }  // namespace d256
 
 // ---------------------------------------------------------------------------
-// f32 at D = 640 and 1024: one cluster of 5 or 8 CTAs per (b, KV head, 64 KV
-// rows), one CTA per 128-column chunk of D; the scores summed over the
-// cluster (see the top of this file).
+// f32 at D = 512, 640 and 1024: one cluster of 4, 5 or 8 CTAs per (b, KV
+// head, 64 KV rows), one CTA per 128-column chunk of D; the scores summed
+// over the cluster (see the top of this file).
 // ---------------------------------------------------------------------------
 
 namespace f32c {
@@ -827,12 +832,12 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
       }
     }
 
-    // This CTA's slice of the KV rows (12 or 13 of 64 at 5 chunks, 8 at 8):
-    // thread xt sums one 16-byte column of one row over the chunks, in
-    // chunk order 0 to kChunks - 1 in every CTA, so that all hold the same
-    // P^T and dS^T bits, forms P^T = exp(S^T scale - LSE) and dS^T = P^T
-    // (dP^T - delta) scale in f32 (the Pallas kernel's casts round nothing
-    // in f32), and stores them into every CTA's pd.
+    // This CTA's slice of the KV rows (12 or 13 of 64 at 5 chunks, 8 at 8,
+    // 16 at 4: every thread): thread xt sums one 16-byte column of one row
+    // over the chunks, in chunk order 0 to kChunks - 1 in every CTA, so
+    // that all hold the same P^T and dS^T bits, forms P^T = exp(S^T scale -
+    // LSE) and dS^T = P^T (dP^T - delta) scale in f32 (the Pallas kernel's
+    // casts round nothing in f32), and stores them into every CTA's pd.
     const int xt = tid - 32 * kMathWarps;
     const int row = c * kBKV / kChunks + xt / 8;
     const int col4 = xt % 8;
@@ -1097,13 +1102,24 @@ flash_bwd_dkv_f32_d1024_cluster_kernel(const __grid_constant__ CUtensorMap tq,
   dkv_cluster<8>(tq, tk, tv, tdo, p);
 }
 
+// f32 at D = 512: clusters of 4 CTAs. Each CTA's exchange owns 16 of the 64
+// KV rows, 8 threads a row: every thread of it.
+__global__ void __cluster_dims__(4, 1, 1) __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_f32_d512_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                      const __grid_constant__ CUtensorMap tk,
+                                      const __grid_constant__ CUtensorMap tv,
+                                      const __grid_constant__ CUtensorMap tdo,
+                                      const flash::BwdParams p) {
+  dkv_cluster<4>(tq, tk, tv, tdo, p);
+}
+
 }  // namespace f32c
 
 // ---------------------------------------------------------------------------
-// bf16 at D = 640 and 1024: f32c's cluster (5 or 8 CTAs per 64 KV rows, one
-// per 128 columns of D, the scores summed through distributed shared memory)
-// with each CTA's four products on the tensor cores (see the top of this
-// file).
+// bf16 at D = 512, 640 and 1024: f32c's cluster (4, 5 or 8 CTAs per 64 KV
+// rows, one per 128 columns of D, the scores summed through distributed
+// shared memory) with each CTA's four products on the tensor cores (see the
+// top of this file).
 // ---------------------------------------------------------------------------
 
 namespace bf16c {
@@ -1158,7 +1174,8 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
                                             const CUtensorMap& tdo,
                                             const DkvArgs& p) {
   constexpr int kDW = kChunks * kD;  // head_dim
-  // KV rows a CTA's exchange owns at most (13 of 5 CTAs, 8 of 8), 8 a slot
+  // KV rows a CTA's exchange owns at most (16 of 4 CTAs, 13 of 5, 8 of 8), 8
+  // a slot
   constexpr int kSlots = ((kBKV + kChunks - 1) / kChunks + 7) / 8;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
@@ -1255,12 +1272,13 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
       }
     }
 
-    // This CTA's slice of the KV rows, [r0, r1) (12 or 13 of 5 CTAs, 8 of
-    // 8): thread xt sums 16-byte column col4 (4 q columns) of rows r0 + xt
-    // / 16 + 8 i (i < kSlots) over the kChunks chunks, in chunk order from
-    // 0 in every CTA, forms P^T = exp(S^T scale - LSE) and from that f32
-    // P^T dS^T = P^T (dP^T - delta) scale, rounds both to bf16 (where the
-    // Pallas kernel rounds them) and stores them into every CTA's pd.
+    // This CTA's slice of the KV rows, [r0, r1) (16 of 4 CTAs, 12 or 13 of
+    // 5, 8 of 8): thread xt sums 16-byte column col4 (4 q columns) of rows
+    // r0 + xt / 16 + 8 i (i < kSlots) over the kChunks chunks, in chunk
+    // order from 0 in every CTA, forms P^T = exp(S^T scale - LSE) and from
+    // that f32 P^T dS^T = P^T (dP^T - delta) scale, rounds both to bf16
+    // (where the Pallas kernel rounds them) and stores them into every CTA's
+    // pd.
     const int xt = tid - 32 * kMathWarps;
     const int r0 = c * kBKV / kChunks;
     const int r1 = (c + 1) * kBKV / kChunks;
@@ -1455,28 +1473,38 @@ flash_bwd_dkv_bf16_d1024_cluster_kernel(
   dkv_cluster<8>(tq, tk, tv, tdo, p);
 }
 
+// bf16 at D = 512: clusters of 4 CTAs. Each CTA's exchange owns 16 of the 64
+// KV rows, 16 lanes a row, in two row slots.
+__global__ void __cluster_dims__(4, 1, 1) __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_bf16_d512_cluster_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tdo, const DkvArgs p) {
+  dkv_cluster<4>(tq, tk, tv, tdo, p);
+}
+
 }  // namespace bf16c
 
 // ---------------------------------------------------------------------------
 // Generic variant: every dtype and head_dim (a multiple of 128) but bf16 D =
-// 128 and 256, D = 640 and D = 1024, which the kernels above serve. The
-// same function on the CUDA cores: one block of 128 threads per (b, KV head,
-// 16 KV rows, chunk of D), walking the group's query heads and their 32-row
-// q tiles as the wgmma
-// kernels do, with K, V, Q, dO as f32 tiles in dynamic shared memory (104 KB at
-// DC = 256, 198 KB at 512). D up to 512 runs in one chunk (DC = D); above, D is
-// cut into chunks of DC = 256 or 128 columns (flash::gen_chunk; the chunked
-// instances): each block writes one chunk of dK and dV, and the contractions
-// over D (S^T = K Q^T and dP^T = V dO^T) are summed over the chunks staged one
-// at a time, in the order that ends with the block's own chunk, so Q's and dO's
-// columns for dK and dV are the ones left in shared memory. With more than one
-// chunk K and V are reloaded per chunk and every block recomputes the scores (D
-// / DC times their work; right and slow first). Each thread holds 4 entries of
-// P^T and dS^T (KV row tid / 8, q columns tid % 8 + 8i; P rounded to v's dtype,
-// dS to q's) and an eighth of its KV row's dK and dV chunk as interleaved
-// float4s, in f32 registers for the whole loop, so the group's query heads are
-// summed in f32 with no atomics. Bound by shared-memory reads, not by the FMA
-// rate; simple first.
+// 128 and 256, D = 512, D = 640 and D = 1024, which the kernels above serve.
+// The same function on the CUDA cores: one block of 128 threads per (b, KV
+// head, 16 KV rows, chunk of D), walking the group's query heads and their
+// 32-row q tiles as the wgmma kernels do, with K, V, Q, dO as f32 tiles in
+// dynamic shared memory (104 KB at DC = 256, 150 KB at 384). D up to 384 runs
+// in one chunk (DC = D); above 512, D is cut into chunks of DC = 256 or 128
+// columns (flash::gen_chunk; the chunked instances): each block writes one
+// chunk of dK and dV, and the contractions over D (S^T = K Q^T and dP^T = V
+// dO^T) are summed over the chunks staged one at a time, in the order that ends
+// with the block's own chunk, so Q's and dO's columns for dK and dV are the
+// ones left in shared memory. With more than one chunk K and V are reloaded per
+// chunk and every block recomputes the scores (D / DC times their work; right
+// and slow first). Each thread holds 4 entries of P^T and dS^T (KV row tid / 8,
+// q columns tid % 8 + 8i; P rounded to v's dtype, dS to q's) and an eighth of
+// its KV row's dK and dV chunk as interleaved float4s, in f32 registers for the
+// whole loop, so the group's query heads are summed in f32 with no atomics.
+// Bound by shared-memory reads, not by the FMA rate; simple first.
 // ---------------------------------------------------------------------------
 
 constexpr int kGBKV = 16;  // KV rows per block, 8 threads per row
@@ -1488,9 +1516,11 @@ constexpr int gen_smem_bytes() {
           2 * kGBQ) * 4;
 }
 
+// p by value: the body taking the kernel's parameters by reference compiled
+// the one-chunk instance at f32 D128 to code 1.10x slower on the H100.
 template <typename T, int DC, bool kChunked>
 __device__ __forceinline__ void flash_bwd_dkv_generic_body(
-    const flash::BwdParams& p) {
+    const flash::BwdParams p) {
   extern __shared__ float4 gen_smem[];
   constexpr int kP = DC + 4;      // row pitch of the f32 tiles
   constexpr int kPT = kGBQ + 1;   // row pitch of P^T and dS^T
@@ -1636,7 +1666,7 @@ __device__ __forceinline__ void flash_bwd_dkv_generic_body(
   }
 }
 
-// One block per (KV tile, b, KV head): D up to 4 kD, in one chunk.
+// One block per (KV tile, b, KV head): D up to 3 kD, in one chunk.
 template <typename T, int DC>
 __global__ void __launch_bounds__(128)
 flash_bwd_dkv_generic_kernel(const flash::BwdParams p) {
@@ -1667,9 +1697,10 @@ int launch_generic(const flash::BwdParams& p, int D, int B, cudaStream_t st) {
 }
 
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
-// and dtype: D itself up to 4 kD (bf16 at D = kD and 2 kD is the wgmma
-// kernels'), above that a chunk of flash::gen_chunk(D) columns (D = 5 kD and
-// 8 kD are the cluster kernels').
+// and dtype: D itself for f32 at kD, 2 kD and 3 kD and bf16 at 3 kD (bf16
+// at kD and 2 kD is the wgmma kernels', 4 kD the cluster kernels'), above
+// 4 kD a chunk of flash::gen_chunk(D) columns (D = 5 kD and 8 kD are the
+// cluster kernels').
 int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -1680,17 +1711,13 @@ int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
     return wide ? launch_generic<float, 2 * kD, true>(p, D, B, st)
                 : launch_generic<float, kD, true>(p, D, B, st);
   }
-  if (dtype == 1) {
-    if (D == 3 * kD) return launch_generic<bf16, 3 * kD, false>(p, D, B, st);
-    return launch_generic<bf16, 4 * kD, false>(p, D, B, st);
-  }
+  if (dtype == 1) return launch_generic<bf16, 3 * kD, false>(p, D, B, st);
   if (D == kD) return launch_generic<float, kD, false>(p, D, B, st);
   if (D == 2 * kD) return launch_generic<float, 2 * kD, false>(p, D, B, st);
-  if (D == 3 * kD) return launch_generic<float, 3 * kD, false>(p, D, B, st);
-  return launch_generic<float, 4 * kD, false>(p, D, B, st);
+  return launch_generic<float, 3 * kD, false>(p, D, B, st);
 }
 
-// f32 at D = kChunks kD (5 or 8): one cluster of kChunks CTAs per 64 KV
+// f32 at D = kChunks kD (4, 5 or 8): one cluster of kChunks CTAs per 64 KV
 // rows, on `kernel`, the instance of that size. A launch the card refuses
 // (no room for a cluster) returns its error. The shared-memory opt-in is set
 // at every launch, as for the generic variants.
@@ -1718,7 +1745,7 @@ int launch_cluster(Kernel kernel, const flash::BwdParams& p, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 at D = kChunks kD (5 or 8): one cluster of kChunks CTAs per 64 KV
+// bf16 at D = kChunks kD (4, 5 or 8): one cluster of kChunks CTAs per 64 KV
 // rows, on `kernel`, the instance of that size, with 128B-swizzled
 // 64-column boxes of every input. A launch the card refuses returns its
 // error.
@@ -1763,6 +1790,12 @@ extern "C" int ray_flash_bwd_dkv_f32_d1024_max_clusters(int* clusters) {
                              f32c::kThreads, f32c::kSmemBytes, clusters);
 }
 
+// The same for the f32 D = 512 kernel (clusters of 4).
+extern "C" int ray_flash_bwd_dkv_f32_d512_max_clusters(int* clusters) {
+  return flash::max_clusters(f32c::flash_bwd_dkv_f32_d512_cluster_kernel, 4,
+                             f32c::kThreads, f32c::kSmemBytes, clusters);
+}
+
 // The same for the bf16 D = 640 kernel (clusters of 5).
 extern "C" int ray_flash_bwd_dkv_bf16_max_clusters(int* clusters) {
   return flash::max_clusters(bf16c::flash_bwd_dkv_bf16_cluster_kernel, 5,
@@ -1775,13 +1808,19 @@ extern "C" int ray_flash_bwd_dkv_bf16_d1024_max_clusters(int* clusters) {
                              8, bf16c::kThreads, bf16c::kSmemBytes, clusters);
 }
 
+// The same for the bf16 D = 512 kernel (clusters of 4).
+extern "C" int ray_flash_bwd_dkv_bf16_d512_max_clusters(int* clusters) {
+  return flash::max_clusters(bf16c::flash_bwd_dkv_bf16_d512_cluster_kernel,
+                             4, bf16c::kThreads, bf16c::kSmemBytes, clusters);
+}
+
 // q/dO [B, H, Sq, D] and k/v [B, KVH, Skv, D] given by element strides (batch,
 // head, seq; the last dim dense, every stride and base address a multiple of 16
 // bytes, as TMA and the 16-byte loads require); lse and delta [B, H, Sq] f32
 // and dk/dv [B, KVH, Skv, D] dense, in the inputs' dtype. D is a multiple of
 // 128; dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 and 256 runs a wgmma
-// kernel, D = 640 a cluster kernel of 5 CTAs and D = 1024 one of 8 (f32 or
-// bf16), every other case the generic variant. Returns
+// kernel, D = 512 a cluster kernel of 4 CTAs, D = 640 one of 5 and D = 1024
+// one of 8 (f32 or bf16), every other case the generic variant. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape or
 // layout the kernels do not take).
 extern "C" int ray_flash_bwd_dkv(
@@ -1802,12 +1841,18 @@ extern "C" int ray_flash_bwd_dkv(
         static_cast<const float*>(delta), dk, dv,
         q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
         o_sb, o_sh, o_ss, H,    KVH,  Sq,   Skv,  scale, causal};
+    if (dtype == 0 && D == 4 * kD)
+      return launch_cluster<4>(f32c::flash_bwd_dkv_f32_d512_cluster_kernel,
+                               p, B, st);
     if (dtype == 0 && D == 5 * kD)
       return launch_cluster<5>(f32c::flash_bwd_dkv_f32_cluster_kernel, p, B,
                                st);
     if (dtype == 0 && D == 8 * kD)
       return launch_cluster<8>(f32c::flash_bwd_dkv_f32_d1024_cluster_kernel,
                                p, B, st);
+    if (D == 4 * kD)
+      return launch_bf16_cluster<4>(
+          bf16c::flash_bwd_dkv_bf16_d512_cluster_kernel, p, B, st);
     if (D == 5 * kD)
       return launch_bf16_cluster<5>(bf16c::flash_bwd_dkv_bf16_cluster_kernel,
                                     p, B, st);
