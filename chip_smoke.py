@@ -19,9 +19,9 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    S2048; the other variants (f32 at head_dim 128 to 1024, bf16 at 256
    to 1024; bf16 256 on the wgmma kernels, at 640 the forward, dK/dV and
    dQ in f32 and in bf16 on the cluster kernels of 5 CTAs, at 1024 the
-   same on clusters of 8, dK/dV and dQ at 512 (f32 and bf16) on clusters
-   of 4 and the dQ at f32 384 on clusters of 3, the rest generic, tiled
-   over D from 768) at B1
+   same on clusters of 8, dK/dV and dQ at 512 (f32 and bf16) and the f32
+   forward at 512 on clusters of 4 and dK/dV and dQ at f32 384 on clusters
+   of 3, the rest generic, tiled over D from 768) at B1
    H8 KVH2 S2048 and the ragged S1000, causal and not, and at the shapes
    of their train-parity runs, bf16 256 also at ``llama3_8b(n_heads=16)``'s
    training length, B1 H16 KVH8 S8192 causal, and D896 and D768 (f32 and
@@ -224,13 +224,14 @@ builds the kernels and runs phase 2 alone (a quick check after a kernel
 edit), ``--only-bwd`` runs phase 5 alone in the same way, ``--only-times``
 times the bf16 wgmma kernels alone at head_dim 256 and 128, S2048 and
 S8192, the six D640 cluster kernels (forward, dK/dV and dQ, f32 and
-bf16), the six D1024 ones, the D512 dK/dV and dQ in f32 and bf16 and the
-f32 D384 dQ (beside the generic D512 forward and the generic D384 forward,
-dK/dV and bf16 dQ) at their parity shapes, in 3 rounds, and checks
-nothing of the build (run it from two trees' roots in turns to compare
-them; with ``--tree-csrc DIR`` it times the dQ entry point, or with
-``--tree-kernel flash_bwd_dkv`` the dK/dV one, as another tree's sources
-build it beside this tree's, in one process), ``--only-moe``
+bf16), the six D1024 ones, the D512 dK/dV and dQ in f32 and bf16 and
+the f32 D512 forward, and the f32 D384 dK/dV and dQ (beside the generic
+bf16 D512 forward and the generic D384 forward, bf16 dK/dV and bf16 dQ)
+at their parity shapes, in 3 rounds, and checks nothing of the build (run
+it from two trees' roots in turns to compare them; with ``--tree-csrc
+DIR`` it times the dQ entry point, or with ``--tree-kernel flash_bwd_dkv``
+or ``flash_fwd`` the dK/dV or forward one, as another tree's sources build
+it beside this tree's, in one process), ``--only-moe``
 phase 9, ``--only-ckpt`` phases 4 and 10, ``--only-runtime`` phase 11,
 ``--only-trainer`` phases 8 and 12, ``--only-serve`` phase 13,
 ``--only-edges`` phase 14, ``--only-rllib`` phase 15, ``--only-tune``
@@ -250,6 +251,7 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import gc
 import glob
 import inspect
@@ -289,7 +291,8 @@ from ray_tpu_torch.models.llama import (LlamaConfig, flops_per_token,
                                         forward, forward_with_aux,
                                         init_params, loss_fn, param_count)
 from ray_tpu_torch.ops import _build
-from ray_tpu_torch.ops.attention import (_bwd_launch, attention_route,
+from ray_tpu_torch.ops.attention import (_bwd_launch, _fwd_launch,
+                                         attention_route,
                                          flash_bwd, flash_bwd_dkv,
                                          flash_bwd_dq, flash_bwd_plain,
                                          flash_bwd_plain_dkv,
@@ -354,20 +357,24 @@ SERVE_FWD_CASES = [(1, 32, 16, S, True, BF16, "model")
 FWD_CASES += SERVE_FWD_CASES
 # The kernel variants other than bf16 D128 (bf16 D256 on the wgmma kernels,
 # at D640 and D1024 the forward, dK/dV and dQ in f32 and in bf16, at D512
-# dK/dV and dQ in f32 and in bf16 and at f32 D384 the dQ on the cluster
-# kernels, every other one generic), in phases 2 and 5: at B1 H8 KVH2,
+# dK/dV and dQ in f32 and in bf16 and the f32 forward, and at f32 D384
+# dK/dV and dQ on the cluster kernels, every other one generic), in phases
+# 2 and 5: at B1 H8 KVH2,
 # S2048 and the ragged S1000, causal and not, and at the shape
 # the train-parity path of their dtype and head_dim gives them
 # (``PARITY_RUNS``: B1 H32 KVH8 D128, B1 H16 KVH8 D256, B1 H8 KVH4 D384,
 # D512 and D640, B1 H4 KVH2 D1024, S2048 causal); bf16 D256 also at phase
 # 7's training length, B1 H16 KVH8 S8192 causal (``llama3_8b(n_heads=16)``
 # at S8192). The cluster kernels split D640 over 5 CTAs, D1024 over 8, the
-# D512 dK/dV and dQ over 4 and the f32 D384 dQ over 3 (the rows of a dK/dV
-# or dQ cluster's 64 unevenly over 5: 12 or 13 a CTA, 8 each over 8, 16
-# over 4, 21 or 22 over 3 in two row slots; the ragged S1000 ending in a
-# tile of 40, so that over 4 the third CTA's 16 rows are half past Skv and
-# the fourth's all; the forward's 128-row q tiles, 25 or 26 rows
-# a CTA over 5 and 16 over 8, end in one of 104). D896 and D768 (f32 and
+# D512 forward, dK/dV and dQ over 4 and the f32 D384 dK/dV and dQ over 3
+# (the rows of a dK/dV or dQ cluster's 64 unevenly over 5: 12 or 13 a CTA,
+# 8 each over 8, 16 over 4, 21 or 22 over 3 in two row slots; the ragged
+# S1000 ending in a tile of 40, so that over 4 the third CTA's 16 rows are
+# half past Skv and the fourth's all, and over 3 the second CTA's second
+# slot holds rows 37-41, of which 40-41 lie past Skv, and all the third
+# CTA's rows lie past it; the forward's 128-row q tiles, 25 or 26 rows a
+# CTA over 5, 16 over 8 and 32 over 4, end in one of 104, so that over 4
+# the fourth CTA's rows 104-127 lie past Sq). D896 and D768 (f32 and
 # bf16; B1 H8 KVH2 S2048 causal) keep the generic chunked instances of 128
 # and 256 columns checked and timed: no parity run reaches them, and since
 # the cluster kernels took D640 and D1024 they serve only D896, 1152, ...
@@ -394,15 +401,15 @@ VARIANT_CASES = [(name, D, dt, 1, 8, 2, S, causal)
 # The variants that run wgmma kernels besides bf16 D128, by kernel: bf16
 # D256 (all three); and those that run the cluster kernels: the forward,
 # dK/dV and dQ at D640 and D1024 in f32 and in bf16, dK/dV and dQ at D512 in
-# f32 and in bf16, and the dQ at f32 D384. Every other variant runs a
-# generic instance.
+# f32 and in bf16, the forward at f32 D512, and dK/dV and dQ at f32 D384.
+# Every other variant runs a generic instance.
 WGMMA_VARIANTS = {"flash_fwd": ("bf16_d256",),
                   "flash_bwd_dkv": ("bf16_d256",),
                   "flash_bwd_dq": ("bf16_d256",)}
-CLUSTER_VARIANTS = {"flash_fwd": ("f32_d640", "bf16_d640", "f32_d1024",
-                                  "bf16_d1024"),
-                    "flash_bwd_dkv": ("f32_d512", "bf16_d512", "f32_d640",
-                                      "bf16_d640", "f32_d1024",
+CLUSTER_VARIANTS = {"flash_fwd": ("f32_d512", "f32_d640", "bf16_d640",
+                                  "f32_d1024", "bf16_d1024"),
+                    "flash_bwd_dkv": ("f32_d384", "f32_d512", "bf16_d512",
+                                      "f32_d640", "bf16_d640", "f32_d1024",
                                       "bf16_d1024"),
                     "flash_bwd_dq": ("f32_d384", "f32_d512", "bf16_d512",
                                      "f32_d640", "bf16_d640", "f32_d1024",
@@ -522,17 +529,18 @@ OUT_DIR = "chiprun_out"
 # any warning (setmaxnreg ignored, wgmma serialized).
 BUILD_REPORT = ("registers", "spill", "smem", "arning", "wgmma",
                 "setmaxnreg")
-# Generic instances: 6 one-chunk ones in the forward (f32 D128-512, bf16
-# D384-512; bf16 D256 is the wgmma kernels'), 4 in the dK/dV (f32
-# D128-384, bf16 D384; D512 is the cluster kernels'), 3 in the dQ (f32 D128
-# and D256, bf16 D384; f32 D384 and D512 and bf16 D512 are cluster
-# kernels'), and each kernel 4 chunked ones (f32 and
+# Generic instances: 5 one-chunk ones in the forward (f32 D128-384, bf16
+# D384-512; bf16 D256 is the wgmma kernels', f32 D512 a cluster kernel's),
+# 3 in the dK/dV (f32 D128 and D256, bf16 D384; f32 D384 and D512 and bf16
+# D512 are cluster kernels'), 3 in the dQ (f32 D128 and D256, bf16 D384;
+# f32 D384 and D512 and bf16 D512 are cluster kernels'), and each kernel 4
+# chunked ones (f32 and
 # bf16, chunks of 128 and 256). D640 and D1024 are the cluster kernels' for
 # all three in f32 and in bf16, so the instances of 128-column chunks serve
 # only D896, 1152, ... (D above 512 with D % 256 != 0; the D896 cases of
 # VARIANT_CASES run them) and those of 256-column chunks only D768, 1280,
 # ... (the D768 cases run them)
-GENERIC_INSTANCES = 25
+GENERIC_INSTANCES = 23
 # wgmma kernels: each of the three at D128 and D256 (the forward's two from
 # one template)
 WGMMA_INSTANCES = 6
@@ -540,9 +548,10 @@ WGMMA_INSTANCES = 6
 # FMA units and the bf16 forward, dK/dV and dQ on wgmma; of 8 CTAs at
 # D1024, the f32 forward, dK/dV and dQ on the FMA units and the bf16
 # forward, dK/dV and dQ on wgmma (each its D640 instance's template); of 4
-# CTAs at D512, the f32 and bf16 dK/dV and the f32 and bf16 dQ, and of 3
-# CTAs at f32 D384, the dQ (each its dtype's template of that kernel)
-CLUSTER_INSTANCES = 17
+# CTAs at D512, the f32 forward, the f32 and bf16 dK/dV and the f32 and
+# bf16 dQ, and of 3 CTAs at f32 D384, the dK/dV and dQ (each its dtype's
+# template of that kernel)
+CLUSTER_INSTANCES = 19
 
 
 def log(*a):
@@ -999,6 +1008,10 @@ def bwd_bounds(B, H, KVH, S, causal, D=128, elem=2, peak=PEAK_BF16_FLOPS):
     return out
 
 
+def _abs_err(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
 def _rel_err(got, want) -> float:
     return ((got.float() - want.float()).abs().max()
             / want.float().abs().max()).item()
@@ -1067,9 +1080,9 @@ def _bwd_case(gen, card, B, H, KVH, S, causal, layout, D=128, dt=BF16):
 # turn, medians printed: the quick A/B of two trees in one call (run it
 # from each root in turns). Then the cluster kernels at their parity runs'
 # shapes, S2048 only: the forward, dK/dV and dQ in f32 and bf16 at D640,
-# D1024 and D512 (at D512 dK/dV and dQ cluster kernels, the forward
-# generic), and at D384 in f32 and bf16 (the f32 dQ a cluster kernel, the
-# rest generic).
+# D1024 and D512 (at D512 all cluster kernels but the generic bf16
+# forward), and at D384 in f32 and bf16 (the f32 dK/dV and dQ cluster
+# kernels, the rest generic).
 TIME_SHAPES = ((256, 16, 8), (128, 32, 8))
 TIME_SEQS = (2048, TRAIN_SEQ)
 TIME_ROUNDS = 3
@@ -1113,21 +1126,24 @@ def phase_kernel_times(card: str) -> list:
     return rows
 
 
-# --only-times --tree-csrc DIR ...: a backward entry point (``--tree-kernel``:
-# ``flash_bwd_dq``, the default, or ``flash_bwd_dkv``) as each named source
-# directory builds it (another tree's ``ray_tpu_torch/ops/csrc``, unpacked
-# with ``git archive``; its ``ray_<kernel>`` must keep this tree's C
+# --only-times --tree-csrc DIR ...: an entry point (``--tree-kernel``:
+# ``flash_bwd_dq``, the default, ``flash_bwd_dkv`` or ``flash_fwd``) as each
+# named source directory builds it (another tree's ``ray_tpu_torch/ops/csrc``,
+# unpacked with ``git archive``; its ``ray_<kernel>`` must keep this tree's C
 # signature) and then as this tree builds it, all launched through the
-# wrapper's own ``_bwd_launch`` on the same inputs: by default D384 in both
-# dtypes, f32 D128 and D256 and the chunked D768 and D896 in both dtypes at
-# their shapes (S2048 causal; ``--tree-case DTYPE:D:H:KVH`` picks others, as
-# for a tree that served fewer head_dims, or one whose instance this tree
-# replaced), each held against the plain version, then timed in 3 rounds in
-# the order A B ... B A: the A/B of one kernel across commits.
+# wrapper's own ``_bwd_launch`` or ``_fwd_launch`` on the same inputs: by
+# default D384 in both dtypes, f32 D128 and D256 and the chunked D768 and
+# D896 in both dtypes at their shapes (S2048 causal; ``--tree-case
+# DTYPE:D:H:KVH`` picks others, as for a tree that served fewer head_dims,
+# or one whose instance this tree replaced), each held against the plain
+# version (the forward's O and LSE by phase 2's absolute bounds, the
+# backward's outputs by phase 5's relative ones), then timed in 3 rounds in the order A B ... B A: the A/B of one
+# kernel across commits.
 TREE_CASES = ("bf16:384:8:4", "f32:384:8:4", "f32:128:8:4", "f32:256:8:4",
               "bf16:768:8:2", "f32:768:8:2", "bf16:896:8:2", "f32:896:8:2")
 TREE_PLAIN = {"flash_bwd_dq": lambda *a: (flash_bwd_plain_dq(*a),),
-              "flash_bwd_dkv": flash_bwd_plain_dkv}
+              "flash_bwd_dkv": flash_bwd_plain_dkv,
+              "flash_fwd": flash_fwd_plain}
 
 
 def phase_trees(card: str, kernel: str, dirs: list, cases: list) -> list:
@@ -1144,23 +1160,30 @@ def phase_trees(card: str, kernel: str, dirs: list, cases: list) -> list:
         D, H, KVH, S = int(D), int(H), int(KVH), 2048
         q, k, v, do = (_attn_input(1, h, S, D, gen, dt, "dense")
                        for h in (H, KVH, KVH, H))
-        o, lse = flash_fwd(q, k, v, True)
-        delta = (do.float() * o.float()).sum(-1)
-        args = (q, k, v, do, lse, delta, True, D ** -0.5)
+        if kernel == "flash_fwd":  # O and LSE, absolute errors
+            args = (q, k, v, True, D ** -0.5)
+            launch = _fwd_launch
+            tols = (ATOL_O_BF16, ATOL_LSE) if dt == BF16 else (ATOL_F32,) * 2
+            err_fn = _abs_err
+        else:  # dQ, or dK and dV, relative errors
+            o, lse = flash_fwd(q, k, v, True)
+            delta = (do.float() * o.float()).sum(-1)
+            args = (q, k, v, do, lse, delta, True, D ** -0.5)
+            launch = functools.partial(_bwd_launch, kernel)
+            tols = (REL_TOL_BWD if dt == BF16 else REL_TOL_BWD_F32,) * 2
+            err_fn = _rel_err
         want = TREE_PLAIN[kernel](*args)
         outs = [tuple(torch.empty_like(w) for w in want) for _ in libs]
-        fns = [lambda lib=lib, out=out: _bwd_launch(kernel, out, *args,
-                                                    lib=lib)
+        fns = [lambda lib=lib, out=out: launch(out, *args, lib=lib)
                for lib, out in zip(libs, outs)]
         errs = []
         for fn, out in zip(fns, outs):
             fn()
             torch.cuda.synchronize()
-            errs.append(max(_rel_err(g, w) for g, w in zip(out, want)))
-        tol = REL_TOL_BWD if dt == BF16 else REL_TOL_BWD_F32
-        check(all(e <= tol for e in errs),
-              f"{kernel} D{D} {dt} across trees {srcs}: relative max "
-              f"errors {errs} (bound {tol})")
+            errs.append([err_fn(g, w) for g, w in zip(out, want)])
+        check(all(e <= t for es in errs for e, t in zip(es, tols)),
+              f"{kernel} D{D} {dt} across trees {srcs}: max errors {errs} "
+              f"(bounds {tols})")
         times = [[] for _ in fns]
         order = list(range(len(fns)))
         for _ in range(TIME_ROUNDS):
@@ -1170,11 +1193,11 @@ def phase_trees(card: str, kernel: str, dirs: list, cases: list) -> list:
             row = dict(kernel=kernel, src=os.path.relpath(src),
                        shape=f"B1 H{H} KVH{KVH} S{S} D{D}", causal=True,
                        dtype=str(dt).replace("torch.", ""),
-                       ms=statistics.median(t), rounds_ms=t, rel_err=e,
+                       ms=statistics.median(t), rounds_ms=t, errs=e,
                        card=card)
             log("TREES", json.dumps(row))
             rows.append(row)
-        del q, k, v, do, o, lse, delta, args, want, outs, fns
+        del q, k, v, do, args, want, outs, fns
         torch.cuda.empty_cache()
     return rows
 
@@ -1182,6 +1205,8 @@ def phase_trees(card: str, kernel: str, dirs: list, cases: list) -> list:
 # The cluster kernels by kernel-line entry: (library, its max-clusters
 # entry point, CTAs a cluster).
 CLUSTER_FIT = {
+    "flash_fwd.f32_d512": ("flash_fwd", "ray_flash_fwd_f32_d512_max_clusters",
+                           4),
     "flash_fwd.f32_d640": ("flash_fwd", "ray_flash_fwd_max_clusters", 5),
     "flash_fwd.bf16_d640": ("flash_fwd", "ray_flash_fwd_bf16_max_clusters",
                             5),
@@ -1189,6 +1214,8 @@ CLUSTER_FIT = {
                             "ray_flash_fwd_f32_d1024_max_clusters", 8),
     "flash_fwd.bf16_d1024": ("flash_fwd",
                              "ray_flash_fwd_bf16_d1024_max_clusters", 8),
+    "flash_bwd_dkv.f32_d384": ("flash_bwd_dkv",
+                               "ray_flash_bwd_dkv_f32_d384_max_clusters", 3),
     "flash_bwd_dkv.f32_d512": ("flash_bwd_dkv",
                                "ray_flash_bwd_dkv_f32_d512_max_clusters", 4),
     "flash_bwd_dkv.bf16_d512": ("flash_bwd_dkv",
@@ -4514,7 +4541,7 @@ def main() -> int:
                     "(no check of the build)")
     ap.add_argument("--tree-csrc", action="append", default=[],
                     metavar="DIR",
-                    help="with --only-times: time a backward entry point "
+                    help="with --only-times: time an entry point "
                     "as each DIR (another tree's ray_tpu_torch/ops/csrc) "
                     "and this tree build it, in turns, in place of the "
                     "kernel times")

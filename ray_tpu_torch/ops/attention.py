@@ -47,19 +47,22 @@ Which code runs is picked inside its C entry point by (dtype, head_dim):
     forward (``flash_fwd_bf16_d1024_cluster_kernel``), dK/dV
     (``flash_bwd_dkv_bf16_d1024_cluster_kernel``) and dQ
     (``flash_bwd_dq_bf16_d1024_cluster_kernel``);
-  * 512: dK/dV and dQ at 4 CTAs, in f32 on the f32 templates on the FMA
-    units (``flash_bwd_dkv_f32_d512_cluster_kernel``,
-    ``flash_bwd_dq_f32_d512_cluster_kernel``), in bf16 on the bf16 ones on
-    wgmma (``flash_bwd_dkv_bf16_d512_cluster_kernel``,
+  * f32 at 512: all three at 4 CTAs on the f32 templates on the FMA units
+    (``flash_fwd_f32_d512_cluster_kernel``,
+    ``flash_bwd_dkv_f32_d512_cluster_kernel``,
+    ``flash_bwd_dq_f32_d512_cluster_kernel``);
+  * bf16 at 512: dK/dV and dQ at 4 CTAs on the bf16 templates on wgmma
+    (``flash_bwd_dkv_bf16_d512_cluster_kernel``,
     ``flash_bwd_dq_bf16_d512_cluster_kernel``); its forward is generic;
-  * f32 at 384: the dQ on the f32 dQ's template at 3 CTAs
-    (``flash_bwd_dq_f32_d384_cluster_kernel``, its exchange in two row
-    slots); its forward and dK/dV are generic;
-  * every other case (f32 at any other multiple of 128, the forward at
-    384 and 512 and dK/dV at 384, bf16 at 384 and from 768 up but 1024): the
-    generic variant on the CUDA cores, which from 768 up tiles over D
-    (chunks of 256 or 128 columns, the scores summed over the chunks;
-    ``ops/csrc/flash_common.cuh`` ``gen_chunk``).
+  * f32 at 384: dK/dV and dQ on the f32 templates at 3 CTAs
+    (``flash_bwd_dkv_f32_d384_cluster_kernel``,
+    ``flash_bwd_dq_f32_d384_cluster_kernel``, each exchange in two row
+    slots); its forward is generic;
+  * every other case (f32 at 128, 256 and from 768 up but 1024, the f32
+    forward at 384, bf16 at 384, the bf16 forward at 512 and bf16 from 768
+    up but 1024): the generic variant on the CUDA cores, which from 768 up
+    tiles over D (chunks of 256 or 128 columns, the scores summed over the
+    chunks; ``ops/csrc/flash_common.cuh`` ``gen_chunk``).
 Sequence lengths are not routed: the kernels take any S (TMA zero-fills,
 the stores are guarded), where the JAX package sends S % 128 != 0 to its
 jnp branch.
@@ -245,10 +248,9 @@ def kernel_variant(q: torch.Tensor) -> str:
     """The name of the kernel variant that q's dtype and head_dim launch:
     "bf16_d128" and "bf16_d256" (the wgmma kernels), "f32_d128",
     "f32_d256", ..., "bf16_d384", ... (the generic ones; "f32_d640",
-    "bf16_d640", "f32_d1024" and "bf16_d1024" run the cluster kernels of
-    all three, "f32_d512" and "bf16_d512" those of dK/dV and dQ and the
-    generic forward, "f32_d384" that of dQ and the generic forward and
-    dK/dV).
+    "bf16_d640", "f32_d1024", "bf16_d1024" and "f32_d512" run the cluster
+    kernels of all three, "bf16_d512" and "f32_d384" those of dK/dV and dQ
+    and the generic forward).
     The wrappers count
     launches by it in ``launches_by_variant`` beside ``launches``."""
     dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
@@ -261,10 +263,12 @@ def _count(wrapper, q: torch.Tensor) -> None:
     wrapper.launches_by_variant[v] = wrapper.launches_by_variant.get(v, 0) + 1
 
 
-def _kernel_fn():
+def _kernel_fn(lib=None):
+    """The library's ``ray_flash_fwd`` entry point, typed; ``lib`` defaults
+    to this tree's build of ``csrc/flash_fwd.cu``."""
     from ray_tpu_torch.ops._build import load
 
-    fn = load("flash_fwd").ray_flash_fwd
+    fn = (lib or load("flash_fwd")).ray_flash_fwd
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 9
                        + [ctypes.c_int] * 6 + [ctypes.c_float]
@@ -293,13 +297,23 @@ def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_fwd kernel takes float32 or bfloat16, "
                         f"not {q.dtype}")
+    check_kernel_layout("flash_fwd kernel", q=q, k=k, v=v)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _fwd_launch((o, lse), q, k, v, causal, sm_scale)
+    _count(flash_fwd, q)
+    return o, lse
+
+
+def _fwd_launch(outs, q, k, v, causal: bool, sm_scale: float,
+                lib=None) -> None:
+    """Launch ``ray_flash_fwd`` (of ``lib``, default this tree's build)
+    into ``outs`` = (o, lse) on the current stream; raise on its error."""
     B, H, Sq, D = q.shape
     _, KVH, Skv, _ = k.shape
-    check_kernel_layout("flash_fwd kernel", q=q, k=k, v=v)
-    o = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    o, lse = outs
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _kernel_fn()(
+    err = _kernel_fn(lib)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         B, H, KVH, Sq, Skv, D, float(sm_scale), int(causal),
@@ -308,8 +322,6 @@ def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error "
                            f"{err} (shape q={tuple(q.shape)} "
                            f"k={tuple(k.shape)} dtype={q.dtype})")
-    _count(flash_fwd, q)
-    return o, lse
 
 
 def _check_qkv(fn: str, q, k, v, *rest) -> None:
@@ -331,10 +343,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash-attention forward -> (O [b, h, sq, d] in q's dtype, LSE
     [b, h, sq] f32). Routed by ``attention_route``: at the kernels'
     head_dims (multiples of 128) CUDA tensors launch ``csrc/flash_fwd.cu``
-    (its wgmma kernel for bf16 at 128 and 256, a cluster kernel for f32
-    and bf16 at 640 (5 CTAs) and 1024 (8), its generic variant otherwise;
-    counted in
-    ``flash_fwd.launches``) and CPU tensors run
+    (its wgmma kernel for bf16 at 128 and 256, a cluster kernel for f32 at
+    512 (4 CTAs) and for f32 and bf16 at 640 (5) and 1024 (8), its generic
+    variant otherwise; counted in ``flash_fwd.launches``) and CPU tensors run
     ``flash_fwd_plain``; a head_dim that is not a multiple of 128 runs
     ``flash_fwd_reference``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
@@ -484,9 +495,9 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) [b, kvh, skv, d] in k's dtype. CUDA tensors launch
     ``csrc/flash_bwd_dkv.cu`` (a wgmma kernel for bf16 at 128 and 256, a
-    cluster kernel for f32 and bf16 at 512 (4 CTAs), 640 (5) and 1024 (8),
-    the generic variant otherwise; counted in ``flash_bwd_dkv.launches``);
-    CPU tensors run ``flash_bwd_plain_dkv``."""
+    cluster kernel for f32 and bf16 at 512 (4 CTAs), 640 (5) and 1024 (8)
+    and for f32 at 384 (3), the generic variant otherwise; counted in
+    ``flash_bwd_dkv.launches``); CPU tensors run ``flash_bwd_plain_dkv``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if _bwd_device("flash_bwd_dkv", q, k, v, dout, lse, delta) == "cpu":
         return flash_bwd_plain_dkv(q, k, v, dout, lse, delta, causal, scale)

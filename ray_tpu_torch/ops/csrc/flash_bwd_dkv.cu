@@ -131,15 +131,23 @@
 //     scope.
 //   * 226 KB of shared memory: one CTA an SM, and a cluster takes 5 SMs of
 //     one GPC (22 clusters fit on the H100).
-// f32 at 512 and 1024 runs the same kernel at 4 and 8 CTAs a cluster
-// (flash_bwd_dkv_f32_d512_cluster_kernel,
+// f32 at 384, 512 and 1024 runs the same kernel at 3, 4 and 8 CTAs a
+// cluster (flash_bwd_dkv_f32_d384_cluster_kernel,
+// flash_bwd_dkv_f32_d512_cluster_kernel,
 // flash_bwd_dkv_f32_d1024_cluster_kernel): the body is a template over the
 // number of 128-column chunks, and each instance gives its cluster's size
 // as a literal. At 8 chunks each CTA owns 8 of the 64 KV rows in the
 // exchange and moves about 28 KB a tile through the cluster; 8 is the
 // largest portable cluster. At 4 chunks each CTA owns 16 rows, 8 threads a
-// row: every thread of the exchange. Chunks of 256 columns would not fit: K,
-// V and the Q/dO ring alone would take 320 KB a CTA.
+// row: every thread of the exchange. At 3 it owns 21 or 22, more than the
+// exchange's 16 rows of 8 threads, so the exchange walks its rows in slots
+// of 16 (kSlots: 2 at 3 chunks, 1 at 4, 5 and 8), one loop for every
+// cluster size; the second slot keeps 5 or 6 rows, 40 or 48 of the 128
+// threads. The two slots' sums do not fit the exchange's 56 registers
+// (ptxas spilled 64 bytes), so at two slots the exchange takes 72 and the
+// math warpgroups 216 in place of 224, which they take without a spill.
+// Chunks of 256 columns would not fit: K, V and the Q/dO ring alone would
+// take 320 KB a CTA.
 // bf16 at 640 runs flash_bwd_dkv_bf16_cluster_kernel (after that): the same
 // cluster with each CTA's products on the tensor cores. The generic chunked
 // instance ran all four products as scalar FMAs, and its 5 chunk blocks each
@@ -176,8 +184,8 @@
 // and sums 8 partials a row in place of 5; at 4 it owns 16 rows in two
 // slots and sums 4 partials a row.
 // A generic variant (at the end of this file) serves f32 at any other
-// head_dim that is a multiple of 128 (128, 256, 384 and from 768 up but
-// 1024) and bf16 at 384 and from 768 up but 1024 (tiled over D from 768
+// head_dim that is a multiple of 128 (128, 256 and from 768 up but 1024)
+// and bf16 at 384 and from 768 up but 1024 (tiled over D from 768
 // up), with P and dS rounded to the input dtype as the Pallas kernel rounds
 // them.
 
@@ -679,9 +687,9 @@ flash_bwd_dkv_d256_kernel(const __grid_constant__ CUtensorMap tq,
 }  // namespace d256
 
 // ---------------------------------------------------------------------------
-// f32 at D = 512, 640 and 1024: one cluster of 4, 5 or 8 CTAs per (b, KV
-// head, 64 KV rows), one CTA per 128-column chunk of D; the scores summed
-// over the cluster (see the top of this file).
+// f32 at D = 384, 512, 640 and 1024: one cluster of 3, 4, 5 or 8 CTAs per
+// (b, KV head, 64 KV rows), one CTA per 128-column chunk of D; the scores
+// summed over the cluster (see the top of this file).
 // ---------------------------------------------------------------------------
 
 namespace f32c {
@@ -695,7 +703,7 @@ constexpr int kMathWarps = 8;           // two warpgroups: the products
 constexpr int kXWarps = 4;              // one warpgroup: the exchange, loads
 constexpr int kThreads = 32 * (kMathWarps + kXWarps);
 constexpr int kMathRegs = 224;          // setmaxnreg of the math warpgroups
-constexpr int kXRegs = 56;              // and of the exchange warpgroup
+constexpr int kXRegs = 56;              // and of the exchange (one row slot)
 constexpr uint32_t kRowBytes = kD * 4;  // one row of a chunk
 
 // K, V, Q and dO chunks as TMA writes them: 4 boxes of 32 columns, each
@@ -738,6 +746,14 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
                                             const CUtensorMap& tdo,
                                             const flash::BwdParams& p) {
   constexpr int kDW = kChunks * kD;  // head_dim
+  // KV rows a CTA's exchange owns at most (22 of 3 CTAs, 16 of 4, 13 of 5,
+  // 8 of 8), 16 a slot
+  constexpr int kSlots = ((kBKV + kChunks - 1) / kChunks + 15) / 16;
+  // setmaxnreg of the math and exchange warpgroups: 224 and 56 at one row
+  // slot, 216 and 72 at two (at 56 the exchange spilled 64 bytes); either
+  // split is the 168 x 384 registers the launch gives a CTA.
+  constexpr int kMathR = kSlots == 1 ? kMathRegs : 216;
+  constexpr int kXR = kSlots == 1 ? kXRegs : 72;
   extern __shared__ unsigned char cluster_smem[];
   const uint32_t raw = hopper::smem_u32(cluster_smem);
   Smem& sm = *reinterpret_cast<Smem*>(cluster_smem +
@@ -787,7 +803,7 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
 
   if (warp >= kMathWarps) {
     // ---------------- exchange warpgroup --------------------------------
-    hopper::reg_dealloc<kXRegs>();
+    hopper::reg_dealloc<kXR>();
     // Its first warp loads: K and V once, then per tile Q and dO (TMA, 4
     // boxes each; rows past Sq and Skv are zero-filled) and LSE and delta
     // (+inf and 0 past Sq: P and dS are 0 on such a q row), the loads read
@@ -832,17 +848,24 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
       }
     }
 
-    // This CTA's slice of the KV rows (12 or 13 of 64 at 5 chunks, 8 at 8,
-    // 16 at 4: every thread): thread xt sums one 16-byte column of one row
-    // over the chunks, in chunk order 0 to kChunks - 1 in every CTA, so
-    // that all hold the same P^T and dS^T bits, forms P^T = exp(S^T scale -
-    // LSE) and dS^T = P^T (dP^T - delta) scale in f32 (the Pallas kernel's
-    // casts round nothing in f32), and stores them into every CTA's pd.
+    // This CTA's KV rows, [c 64 / kChunks, (c + 1) 64 / kChunks) (8 of 64
+    // at 8 chunks, 12 or 13 at 5, 16 at 4: every thread; 21 or 22 at 3):
+    // thread xt takes row c 64 / kChunks + xt / 8 + 16 i of each row slot i
+    // < kSlots and sums one 16-byte column (4 q columns) of it over the
+    // chunks, in chunk order 0 to kChunks - 1 in every CTA, so that all hold
+    // the same P^T and dS^T bits, forms P^T = exp(S^T scale - LSE) and dS^T
+    // = P^T (dP^T - delta) scale in f32 (the Pallas kernel's casts round
+    // nothing in f32), and stores them into every CTA's pd.
     const int xt = tid - 32 * kMathWarps;
-    const int row = c * kBKV / kChunks + xt / 8;
     const int col4 = xt % 8;
-    const bool mine = row < (c + 1) * kBKV / kChunks;
-    const int krow = k0 + row;
+    int row[kSlots], krow[kSlots];
+    bool mine[kSlots];
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      row[i] = c * kBKV / kChunks + xt / 8 + 16 * i;
+      mine[i] = row[i] < (c + 1) * kBKV / kChunks;
+      krow[i] = k0 + row[i];
+    }
     for (int it = 0; it < n_it; ++it) {
       const int buf = it & 1;
       const int s = it % kStages;
@@ -850,50 +873,57 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
       const int nx = it + kStages - 1;  // the tile the loader loads next
       if (loader && nx < n_it) fetch_rows(nx);
       hopper::mbar_wait_cluster(&sm.parts_ready[buf], (it >> 1) & 1);
-      float4 st = make_float4(0.f, 0.f, 0.f, 0.f), dpt = st;
-      if (mine) {
+      float4 st[kSlots], dpt[kSlots];
+#pragma unroll
+      for (int i = 0; i < kSlots; ++i) {
+        st[i] = dpt[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (!mine[i]) continue;
         const uint32_t s_at =
-            hopper::smem_u32(sm.part[buf][0] + swz32(row, col4));
+            hopper::smem_u32(sm.part[buf][0] + swz32(row[i], col4));
         const uint32_t p_at =
-            hopper::smem_u32(sm.part[buf][1] + swz32(row, col4));
+            hopper::smem_u32(sm.part[buf][1] + swz32(row[i], col4));
 #pragma unroll
         for (int r = 0; r < kChunks; ++r) {
           const float4 x = hopper::ld_cluster_f4(hopper::map_rank(s_at, r));
           const float4 y = hopper::ld_cluster_f4(hopper::map_rank(p_at, r));
-          st = r == 0 ? x : flash::add4(st, x);
-          dpt = r == 0 ? y : flash::add4(dpt, y);
+          st[i] = r == 0 ? x : flash::add4(st[i], x);
+          dpt[i] = r == 0 ? y : flash::add4(dpt[i], y);
         }
       }
       __syncwarp();
       if (lane < kChunks) hopper::mbar_signal_rank(&sm.parts_free[buf], lane);
       hopper::mbar_wait(&sm.full[s], (it / kStages) & 1);  // LSE, delta
-      if (mine) {
-        float pv[4] = {st.x, st.y, st.z, st.w};
-        float dv[4] = {dpt.x, dpt.y, dpt.z, dpt.w};
+#pragma unroll
+      for (int i = 0; i < kSlots; ++i) {
+        if (!mine[i]) continue;
+        float pv[4] = {st[i].x, st[i].y, st[i].z, st[i].w};
+        float dv[4] = {dpt[i].x, dpt[i].y, dpt[i].z, dpt[i].w};
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qi = 4 * col4 + e;
           float x = pv[e] * p.scale;
-          if (p.causal && q0 + qi < krow) x = flash::kMaskValue;
+          if (p.causal && q0 + qi < krow[i]) x = flash::kMaskValue;
           const float pr = expf(x - sm.lse[s][qi]);
           pv[e] = pr;
           dv[e] = (dv[e] - sm.delta[s][qi]) * pr * p.scale;
         }
-        st = f4(pv);
-        dpt = f4(dv);
+        st[i] = f4(pv);
+        dpt[i] = f4(dv);
       }
       // Every CTA's math warps are done with this buffer's tile before.
       if (it >= 2)
         hopper::mbar_wait(&sm.pd_free[buf], ((it - 2) >> 1) & 1);
-      if (mine) {
+#pragma unroll
+      for (int i = 0; i < kSlots; ++i) {
+        if (!mine[i]) continue;
         const uint32_t p_at =
-            hopper::smem_u32(sm.pd[buf][0] + row * kBQ + 4 * col4);
+            hopper::smem_u32(sm.pd[buf][0] + row[i] * kBQ + 4 * col4);
         const uint32_t d_at =
-            hopper::smem_u32(sm.pd[buf][1] + row * kBQ + 4 * col4);
+            hopper::smem_u32(sm.pd[buf][1] + row[i] * kBQ + 4 * col4);
 #pragma unroll
         for (int r = 0; r < kChunks; ++r) {
-          hopper::st_cluster_f4(hopper::map_rank(p_at, r), st);
-          hopper::st_cluster_f4(hopper::map_rank(d_at, r), dpt);
+          hopper::st_cluster_f4(hopper::map_rank(p_at, r), st[i]);
+          hopper::st_cluster_f4(hopper::map_rank(d_at, r), dpt[i]);
         }
       }
       __syncwarp();
@@ -914,7 +944,7 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
     // loop runs on an 8 x 8 register tile, so each word read from shared
     // memory feeds 8 FMAs (shared memory gives 32 words a clock, the FMA
     // units take 128).
-    hopper::reg_alloc<kMathRegs>();
+    hopper::reg_alloc<kMathR>();
     const int half = warp / 4;
     const int w4 = warp % 4;
     // Phase A: KV rows l8 + 8i by q rows 8 w4 + i' (i, i' < 8) over the
@@ -1111,6 +1141,17 @@ flash_bwd_dkv_f32_d512_cluster_kernel(const __grid_constant__ CUtensorMap tq,
                                       const __grid_constant__ CUtensorMap tdo,
                                       const flash::BwdParams p) {
   dkv_cluster<4>(tq, tk, tv, tdo, p);
+}
+
+// f32 at D = 384: clusters of 3 CTAs. Each CTA's exchange owns 21 or 22 of
+// the 64 KV rows in two row slots of 16.
+__global__ void __cluster_dims__(3, 1, 1) __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_f32_d384_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                      const __grid_constant__ CUtensorMap tk,
+                                      const __grid_constant__ CUtensorMap tv,
+                                      const __grid_constant__ CUtensorMap tdo,
+                                      const flash::BwdParams p) {
+  dkv_cluster<3>(tq, tk, tv, tdo, p);
 }
 
 }  // namespace f32c
@@ -1666,7 +1707,8 @@ __device__ __forceinline__ void flash_bwd_dkv_generic_body(
   }
 }
 
-// One block per (KV tile, b, KV head): D up to 3 kD, in one chunk.
+// One block per (KV tile, b, KV head): D up to 3 kD, in one chunk (f32 up
+// to 2 kD).
 template <typename T, int DC>
 __global__ void __launch_bounds__(128)
 flash_bwd_dkv_generic_kernel(const flash::BwdParams p) {
@@ -1697,10 +1739,10 @@ int launch_generic(const flash::BwdParams& p, int D, int B, cudaStream_t st) {
 }
 
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
-// and dtype: D itself for f32 at kD, 2 kD and 3 kD and bf16 at 3 kD (bf16
-// at kD and 2 kD is the wgmma kernels', 4 kD the cluster kernels'), above
-// 4 kD a chunk of flash::gen_chunk(D) columns (D = 5 kD and 8 kD are the
-// cluster kernels').
+// and dtype: D itself for f32 at kD and 2 kD and bf16 at 3 kD (bf16 at kD
+// and 2 kD is the wgmma kernels', f32 at 3 kD and 4 kD and bf16 at 4 kD the
+// cluster kernels'), above 4 kD a chunk of flash::gen_chunk(D) columns (D =
+// 5 kD and 8 kD are the cluster kernels').
 int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -1713,12 +1755,11 @@ int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
   }
   if (dtype == 1) return launch_generic<bf16, 3 * kD, false>(p, D, B, st);
   if (D == kD) return launch_generic<float, kD, false>(p, D, B, st);
-  if (D == 2 * kD) return launch_generic<float, 2 * kD, false>(p, D, B, st);
-  return launch_generic<float, 3 * kD, false>(p, D, B, st);
+  return launch_generic<float, 2 * kD, false>(p, D, B, st);
 }
 
-// f32 at D = kChunks kD (4, 5 or 8): one cluster of kChunks CTAs per 64 KV
-// rows, on `kernel`, the instance of that size. A launch the card refuses
+// f32 at D = kChunks kD (3, 4, 5 or 8): one cluster of kChunks CTAs per 64
+// KV rows, on `kernel`, the instance of that size. A launch the card refuses
 // (no room for a cluster) returns its error. The shared-memory opt-in is set
 // at every launch, as for the generic variants.
 template <int kChunks, typename Kernel>
@@ -1796,6 +1837,12 @@ extern "C" int ray_flash_bwd_dkv_f32_d512_max_clusters(int* clusters) {
                              f32c::kThreads, f32c::kSmemBytes, clusters);
 }
 
+// The same for the f32 D = 384 kernel (clusters of 3).
+extern "C" int ray_flash_bwd_dkv_f32_d384_max_clusters(int* clusters) {
+  return flash::max_clusters(f32c::flash_bwd_dkv_f32_d384_cluster_kernel, 3,
+                             f32c::kThreads, f32c::kSmemBytes, clusters);
+}
+
 // The same for the bf16 D = 640 kernel (clusters of 5).
 extern "C" int ray_flash_bwd_dkv_bf16_max_clusters(int* clusters) {
   return flash::max_clusters(bf16c::flash_bwd_dkv_bf16_cluster_kernel, 5,
@@ -1819,10 +1866,10 @@ extern "C" int ray_flash_bwd_dkv_bf16_d512_max_clusters(int* clusters) {
 // bytes, as TMA and the 16-byte loads require); lse and delta [B, H, Sq] f32
 // and dk/dv [B, KVH, Skv, D] dense, in the inputs' dtype. D is a multiple of
 // 128; dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 and 256 runs a wgmma
-// kernel, D = 512 a cluster kernel of 4 CTAs, D = 640 one of 5 and D = 1024
-// one of 8 (f32 or bf16), every other case the generic variant. Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape or
-// layout the kernels do not take).
+// kernel, f32 at D = 384 a cluster kernel of 3 CTAs, D = 512 one of 4, D =
+// 640 one of 5 and D = 1024 one of 8 (f32 or bf16), every other case the
+// generic variant. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a shape or layout the kernels do not take).
 extern "C" int ray_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, long long q_sb,
@@ -1841,6 +1888,9 @@ extern "C" int ray_flash_bwd_dkv(
         static_cast<const float*>(delta), dk, dv,
         q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
         o_sb, o_sh, o_ss, H,    KVH,  Sq,   Skv,  scale, causal};
+    if (dtype == 0 && D == 3 * kD)
+      return launch_cluster<3>(f32c::flash_bwd_dkv_f32_d384_cluster_kernel,
+                               p, B, st);
     if (dtype == 0 && D == 4 * kD)
       return launch_cluster<4>(f32c::flash_bwd_dkv_f32_d512_cluster_kernel,
                                p, B, st);

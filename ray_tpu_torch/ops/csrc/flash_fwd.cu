@@ -70,15 +70,16 @@
 //     place, any S. With 64-row tiles the block's last causal tile lies
 //     wholly above consumer 0's rows: it runs that tile masked to zeros
 //     (turns stay balanced), 1 / (2 (qt + 1)) of its work.
-// f32 at head_dim 640 and 1024 runs flash_fwd_f32_cluster_kernel and
-// flash_fwd_f32_d1024_cluster_kernel (after it), one body at 5 and 8 CTAs
-// (fwd_cluster<kChunks>): the f32 dK/dV's cluster (flash_bwd_dkv.cu)
-// carried over to the forward, which has no dP. The generic chunked instances
-// computed S over all of D in each of their 5 or 4 chunk blocks and read one
+// f32 at head_dim 512, 640 and 1024 runs flash_fwd_f32_d512_cluster_kernel,
+// flash_fwd_f32_cluster_kernel and flash_fwd_f32_d1024_cluster_kernel (after
+// it), one body at 4, 5 and 8 CTAs (fwd_cluster<kChunks>): the f32 dK/dV's
+// cluster (flash_bwd_dkv.cu) carried over to the forward, which has no dP.
+// The generic instances they replace computed S over all of D in each block
+// (in each of their 5 or 4 chunk blocks above 512) and read one
 // shared-memory word per 1 to 4 FMAs. These kernels are bound by the FMA
 // units: f32 has no exact tensor-core input (TF32 rounds, and the f32 forward
 // is held to 1e-5), 2 products of 128 x 32 x D FMAs per (q, KV) tile pair.
-//   * One cluster of D / 128 CTAs (5 or 8; 8 is the largest portable
+//   * One cluster of D / 128 CTAs (4, 5 or 8; 8 is the largest portable
 //     cluster) per (b, head, 128 q rows), one CTA per 128-column chunk of D,
 //     the heaviest causal q tiles first. A CTA loads its chunk of Q once (f32
 //     TMA boxes of 32 columns, 128B-swizzled since it is read down 8 rows of
@@ -86,20 +87,20 @@
 //     32-row tile through a 3-stage ring.
 //   * The product over D is split across the cluster, not repeated: each CTA
 //     computes S (128 x 32) over its own 128 columns into its shared memory.
-//     The exchange warpgroup owns 128 / (D / 128) of the q rows (25 or 26 at
-//     D640, 16 at D1024) for the whole loop: it sums their partials over the
-//     chunks through distributed shared memory in chunk order from 0, scales
-//     and masks them, keeps each row's running max m and sum l, and stores P
-//     = exp(S - m) (f32: nothing rounds) and the row's correction exp(m_old -
-//     m_new) into every CTA. O = O corr + P V follows, O (64 f32 a thread) in
-//     registers for the whole loop; at the end the owners store l into every
-//     CTA and write LSE = m + log(l).
+//     The exchange warpgroup owns 128 / (D / 128) of the q rows (32 at
+//     D512, 25 or 26 at D640, 16 at D1024) for the whole loop: it sums their
+//     partials over the chunks through distributed shared memory in chunk
+//     order from 0, scales and masks them, keeps each row's running max m
+//     and sum l, and stores P = exp(S - m) (f32: nothing rounds) and the
+//     row's correction exp(m_old - m_new) into every CTA. O = O corr + P V
+//     follows, O (64 f32 a thread) in registers for the whole loop; at the
+//     end the owners store l into every CTA and write LSE = m + log(l).
 //   * Roles, hand-overs and 8 x 8 register tiles as in that dK/dV: two math
 //     warpgroups (S of tile t, then O of tile t - 1) and one exchange and
 //     load warpgroup. The exchange does not bound it at D640: on the card,
 //     keeping its loads or its stores within the CTA left its time as it was.
-//   * 232,448 bytes of shared memory: one CTA an SM, 22 clusters of 5 or 15
-//     of 8 at once.
+//   * 232,448 bytes of shared memory: one CTA an SM, 30 clusters of 4, 22 of
+//     5 or 15 of 8 at once.
 // bf16 at head_dim 640 runs flash_fwd_bf16_cluster_kernel (after those):
 // the f32 forward's cluster with each CTA's two products on the tensor
 // cores, as the bf16 dK/dV's cluster (flash_bwd_dkv.cu bf16c) runs its four.
@@ -142,8 +143,8 @@
 // rows (one row a 16-lane group, every lane used) and sums 8 partials a row
 // in place of 5. It replaces the generic instance of 256-column chunks, which
 // computed S over all of D in each of its 4 chunk blocks.
-// A generic scalar-FMA variant serves f32 at any other head_dim that is a
-// multiple of 128 and bf16 at 384, 512 and from 768 up but 1024, tiled over
+// A generic scalar-FMA variant serves f32 at 128, 256, 384 and from 768 up
+// but 1024 and bf16 at 384, 512 and from 768 up but 1024, tiled over
 // D from 768 up: its instance of 256-column chunks serves D768, 1280, ...,
 // that of 128-column chunks D896, 1152, ...
 
@@ -567,8 +568,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// f32 at D = 640 and 1024: one cluster of 5 or 8 CTAs per (b, head, 128 q
-// rows), one CTA per 128-column chunk of D, the scores summed over the
+// f32 at D = 512, 640 and 1024: one cluster of 4, 5 or 8 CTAs per (b, head,
+// 128 q rows), one CTA per 128-column chunk of D, the scores summed over the
 // cluster (see the top of this file).
 // ---------------------------------------------------------------------------
 
@@ -625,7 +626,7 @@ __device__ __forceinline__ int pm_at(int row, int col4) {
   return row * kBN + ((col4 ^ (row & 1)) << 2);
 }
 
-// The kernel over kChunks CTAs a cluster (D = kChunks kD); the two kernels
+// The kernel over kChunks CTAs a cluster (D = kChunks kD); the three kernels
 // after it give the cluster's size as a literal.
 template <int kChunks>
 __device__ __forceinline__ void fwd_cluster(const CUtensorMap& tq,
@@ -699,14 +700,15 @@ __device__ __forceinline__ void fwd_cluster(const CUtensorMap& tq,
       for (int kt = 0; kt < min(n_kt, kStages - 1); ++kt) load_tile(kt);
     }
 
-    // This CTA's q rows, [r0, r1) (25 or 26 of 128 at 5 chunks, 16 at 8),
-    // for the whole loop: 8 lanes a row, lane col4 of row r0 + xt / 8 + 16 i
-    // (i < 2; at 8 chunks i = 1 is never this CTA's) sums 16-byte column
-    // col4 (4 KV columns) over the chunks, in chunk order from 0 in every
-    // CTA, applies scale and the mask, keeps the row's running max m and sum
-    // l (the same in its 8 lanes), and stores P = exp(S - m_new) in f32 (the
-    // Pallas kernel's cast to V's dtype rounds nothing in f32) and the row's
-    // correction exp(m_old - m_new) into every CTA.
+    // This CTA's q rows, [r0, r1) (32 of 128 at 4 chunks, both slots full;
+    // 25 or 26 at 5, 16 at 8), for the whole loop: 8 lanes a row, lane col4
+    // of row r0 + xt / 8 + 16 i (i < 2; at 8 chunks i = 1 is never this
+    // CTA's) sums 16-byte column col4 (4 KV columns) over the chunks, in
+    // chunk order from 0 in every CTA, applies scale and the mask, keeps
+    // the row's running max m and sum l (the same in its 8 lanes), and
+    // stores P = exp(S - m_new) in f32 (the Pallas kernel's cast to V's
+    // dtype rounds nothing in f32) and the row's correction exp(m_old -
+    // m_new) into every CTA.
     const int xt = tid - 32 * kMathWarps;
     const int r0 = c * kBM / kChunks;
     const int r1 = (c + 1) * kBM / kChunks;
@@ -1016,6 +1018,16 @@ flash_fwd_f32_d1024_cluster_kernel(const __grid_constant__ CUtensorMap tq,
                                    const __grid_constant__ CUtensorMap tv,
                                    const Params p) {
   fwd_cluster<8>(tq, tk, tv, p);
+}
+
+// f32 at D = 512: clusters of 4 CTAs. Each CTA's exchange owns 32 of the 128
+// q rows, 8 threads a row in both row slots: every thread of it, twice.
+__global__ void __cluster_dims__(4, 1, 1) __launch_bounds__(kThreads, 1)
+flash_fwd_f32_d512_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                  const __grid_constant__ CUtensorMap tk,
+                                  const __grid_constant__ CUtensorMap tv,
+                                  const Params p) {
+  fwd_cluster<4>(tq, tk, tv, p);
 }
 
 }  // namespace f32c
@@ -1391,12 +1403,12 @@ flash_fwd_bf16_d1024_cluster_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ---------------------------------------------------------------------------
 // Generic variant: every dtype and head_dim (a multiple of 128) but bf16 D =
-// 128 and 256, D = 640 and D = 1024, which the kernels above serve. Scalar
-// FMAs on the CUDA cores over f32 tiles in dynamic shared memory: 32 q rows
-// per block, 4 threads per row, 16-row KV tiles, the same online softmax with
-// P rounded to the input dtype before P V. D up to 512 runs in one chunk (DC =
-// D). Above, D is cut
-// into chunks of DC = 256 or 128 columns (flash::gen_chunk; the chunked
+// 128 and 256, f32 D = 512, D = 640 and D = 1024, which the kernels above
+// serve. Scalar FMAs on the CUDA cores over f32 tiles in dynamic shared
+// memory: 32 q rows per block, 4 threads per row, 16-row KV tiles, the same
+// online softmax with P rounded to the input dtype before P V. D up to 512
+// runs in one chunk (DC = D). Above, D is cut into chunks of DC = 256 or 128
+// columns (flash::gen_chunk; the chunked
 // instances): the grid's z axis gives each block one chunk of O's columns, held
 // in registers (acc[DC / 4]), and the scores S = Q K^T are summed over the
 // chunks staged one at a time through shared memory. So shared memory (131 KB
@@ -1539,7 +1551,7 @@ __device__ __forceinline__ void flash_fwd_generic_body(const Params& p) {
   }
 }
 
-// One block per (q tile, b * h): D up to 4 kD, in one chunk.
+// One block per (q tile, b * h): D up to 4 kD, in one chunk (f32 up to 3 kD).
 template <typename T, int DC>
 __global__ void __launch_bounds__(128)
 flash_fwd_generic_kernel(const Params p) {
@@ -1569,9 +1581,10 @@ int launch_generic(const Params& p, int D, int B, cudaStream_t st) {
 }
 
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
-// and dtype: D itself up to 4 kD (bf16 at D = kD and 2 kD is the wgmma
-// kernel's), above that a chunk of flash::gen_chunk(D) columns (D = 5 kD
-// and 8 kD are the cluster kernels').
+// and dtype: D itself for f32 at kD, 2 kD and 3 kD and bf16 at 3 kD and 4 kD
+// (bf16 at kD and 2 kD is the wgmma kernel's, f32 at 4 kD a cluster
+// kernel's), above 4 kD a chunk of flash::gen_chunk(D) columns (D = 5 kD and
+// 8 kD are the cluster kernels').
 int launch_generic_d(const Params& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -1588,11 +1601,10 @@ int launch_generic_d(const Params& p, int D, int dtype, int B,
   }
   if (D == kD) return launch_generic<float, kD, false>(p, D, B, st);
   if (D == 2 * kD) return launch_generic<float, 2 * kD, false>(p, D, B, st);
-  if (D == 3 * kD) return launch_generic<float, 3 * kD, false>(p, D, B, st);
-  return launch_generic<float, 4 * kD, false>(p, D, B, st);
+  return launch_generic<float, 3 * kD, false>(p, D, B, st);
 }
 
-// f32 at D = kChunks kD (5 or 8): one cluster of kChunks CTAs per 128 q
+// f32 at D = kChunks kD (4, 5 or 8): one cluster of kChunks CTAs per 128 q
 // rows, on `kernel`, the instance of that size. A launch the card refuses (no
 // room for a cluster) returns its error. The shared-memory opt-in is set at
 // every launch, as for the generic variants.
@@ -1657,6 +1669,12 @@ extern "C" int ray_flash_fwd_f32_d1024_max_clusters(int* clusters) {
                              f32c::kThreads, f32c::kSmemBytes, clusters);
 }
 
+// The same for the f32 D = 512 kernel (clusters of 4).
+extern "C" int ray_flash_fwd_f32_d512_max_clusters(int* clusters) {
+  return flash::max_clusters(f32c::flash_fwd_f32_d512_cluster_kernel, 4,
+                             f32c::kThreads, f32c::kSmemBytes, clusters);
+}
+
 // The same for the bf16 D = 640 kernel (clusters of 5).
 extern "C" int ray_flash_fwd_bf16_max_clusters(int* clusters) {
   return flash::max_clusters(bf16c::flash_fwd_bf16_cluster_kernel, 5,
@@ -1699,12 +1717,12 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* o,
 // q [B, H, Sq, D], k/v [B, KVH, Skv, D] given by element strides (batch,
 // head, seq; the last dim dense); o [B, H, Sq, D] and lse [B, H, Sq] dense.
 // D is a multiple of 128; dtype: 0 = float32, 1 = bfloat16. bf16 at
-// D = 128 and 256 runs the wgmma kernel, 640 a cluster kernel of 5 CTAs
-// and 1024 one of 8 (f32 or bf16), every other case the generic variant.
-// Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape or
-// layout the kernels do not take: every stride and the base addresses must
-// be multiples of 16 bytes, as TMA and the 16-byte loads require).
+// D = 128 and 256 runs the wgmma kernel, f32 at 512 a cluster kernel of 4
+// CTAs, 640 one of 5 and 1024 one of 8 (f32 or bf16), every other case the
+// generic variant. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a shape or layout the kernels do not take:
+// every stride and the base addresses must be multiples of 16 bytes, as TMA
+// and the 16-byte loads require).
 extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, long long q_sb,
                              long long q_sh, long long q_ss, long long k_sb,
@@ -1728,6 +1746,9 @@ extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
   const Params p{q,    k,    v,    o,    static_cast<float*>(lse),
                  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                  H,    KVH,  Sq,   Skv,  scale, causal};
+  if (dtype == 0 && D == 4 * kD)
+    return launch_cluster<4>(f32c::flash_fwd_f32_d512_cluster_kernel, p, B,
+                             st);
   if (dtype == 0 && D == 5 * kD)
     return launch_cluster<5>(f32c::flash_fwd_f32_cluster_kernel, p, B, st);
   if (dtype == 0 && D == 8 * kD)

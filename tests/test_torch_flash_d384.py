@@ -1,13 +1,16 @@
 """The port's plain flash forward and backward at head_dim 384 against the
 Pallas TPU kernels, on the CPU, with inputs made from a numpy seed.
 
-On the card, f32 at head_dim 384 runs its dQ on a 3-CTA cluster kernel, one
-CTA per 128 columns of D, that sums S and dP over D through each other's
-shared memory (``csrc/flash_bwd_dq.cu``
-``flash_bwd_dq_f32_d384_cluster_kernel``, the f32 D512, D640 and D1024
-dQ's body at 3 CTAs, on the FMA units; each CTA's exchange owns 21 or 22 of
-the 64 q rows, in two row slots); its forward and dK/dV, and all three in
-bf16, run the generic variant in one chunk of 384 columns.
+On the card, f32 at head_dim 384 runs its backward on two 3-CTA cluster
+kernels, one CTA per 128 columns of D, that sum the scores over D through
+each other's shared memory, on the FMA units:
+``flash_bwd_dkv_f32_d384_cluster_kernel`` (``csrc/flash_bwd_dkv.cu``, the
+f32 D512, D640 and D1024 dK/dV's body at 3 CTAs; each CTA's exchange owns
+21 or 22 of the 64 KV rows, in two row slots) and
+``flash_bwd_dq_f32_d384_cluster_kernel`` (``csrc/flash_bwd_dq.cu``, the f32
+dQ's body, its exchange owning 21 or 22 of the 64 q rows in two row
+slots). Its forward, and all three in bf16, still run the generic variant
+in one chunk of 384 columns.
 ``chip_smoke.py`` holds each against ``flash_fwd_plain``,
 ``flash_bwd_plain_dkv`` and ``flash_bwd_plain_dq``. Here those plain
 versions are held against the real Pallas bodies (``_flash_fwd_kernel``,
@@ -160,20 +163,23 @@ def test_flash_bwd_plain_d384_matches_pallas_kernels_interpret(dt, causal):
     assert torch.equal(dq3, dq2)
 
 
+@pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_flash_bwd_d384_gqa_sums_query_heads_like_repeat_kv(dt):
-    """H4 KVH2 S256 D384 causal: the plain backward reads kv head h // 2 in
-    place and gives dK/dV with 2 heads, equal to the Pallas kernels on
-    repeat_kv'd K and V followed by the VJP of repeat_kv (each kv head's
-    two query heads summed, here in f32)."""
+def test_flash_bwd_d384_gqa_sums_query_heads_like_repeat_kv(dt, causal):
+    """H4 KVH2 S256 D384, causal and not (the card's phases 2 and 5 run
+    both through the 3-CTA f32 dK/dV clusters at GQA groups of 4): the
+    plain backward reads kv head h // 2 in place and gives dK/dV with 2
+    heads, equal to the Pallas kernels on repeat_kv'd K and V followed by
+    the VJP of repeat_kv (each kv head's two query heads summed, here in
+    f32)."""
     q, k, v, do = _inputs(dt, 4, 2, seed=370)
     kr, vr = (jnp.repeat(x, 2, axis=1) for x in (k, v))
-    o, lse = _pallas_fwd(q, kr, vr, True)
-    want_dq, want_dk, want_dv = _pallas_bwd(q, kr, vr, o, lse, do, True)
+    o, lse = _pallas_fwd(q, kr, vr, causal)
+    want_dq, want_dk, want_dv = _pallas_bwd(q, kr, vr, o, lse, do, causal)
     tq, tk, tv, tdo = (_torch(x, dt) for x in (q, k, v, do))
     dq, dk, dv = tatt.flash_bwd_plain(tq, tk, tv, _torch(o, dt),
                                       torch.from_numpy(np.array(lse)), tdo,
-                                      True, SCALE)
+                                      causal, SCALE)
     assert dk.shape == dv.shape == (1, 2, S, D)
     _close(dq, want_dq, dt)
     for got, want in ((dk, want_dk), (dv, want_dv)):

@@ -1,17 +1,19 @@
 """The port's plain flash forward and backward at head_dim 512 against the
 Pallas TPU kernels, on the CPU, with inputs made from a numpy seed.
 
-On the card, head_dim 512 runs its backward on four 4-CTA cluster kernels,
-one CTA per 128 columns of D, that sum the scores over D through each
-other's shared memory: in f32 on the FMA units
-``flash_bwd_dkv_f32_d512_cluster_kernel`` (``csrc/flash_bwd_dkv.cu``, the
-f32 D640 and D1024 dK/dV's body at 4 CTAs) and
+On the card, head_dim 512 runs on five 4-CTA cluster kernels, one CTA per
+128 columns of D, that sum the scores over D through each other's shared
+memory: in f32 on the FMA units all three,
+``flash_fwd_f32_d512_cluster_kernel`` (``csrc/flash_fwd.cu``, the f32 D640
+and D1024 forward's body at 4 CTAs; each CTA's exchange owns 32 of the 128
+q rows, in two full row slots), ``flash_bwd_dkv_f32_d512_cluster_kernel``
+(``csrc/flash_bwd_dkv.cu``, the f32 D640 and D1024 dK/dV's body) and
 ``flash_bwd_dq_f32_d512_cluster_kernel`` (``csrc/flash_bwd_dq.cu``, the f32
-dQ's), in bf16 on wgmma in each CTA
+dQ's); in bf16 the backward on wgmma in each CTA,
 ``flash_bwd_dkv_bf16_d512_cluster_kernel`` and
 ``flash_bwd_dq_bf16_d512_cluster_kernel`` (the bf16 D640 and D1024 bodies
-at 4 CTAs). Only its forward still runs the generic variant, in one chunk
-of 512 columns in both dtypes. ``chip_smoke.py``
+at 4 CTAs). Only the bf16 forward still runs the generic variant, in one
+chunk of 512 columns. ``chip_smoke.py``
 holds each against ``flash_fwd_plain``, ``flash_bwd_plain_dkv`` and
 ``flash_bwd_plain_dq``. Here those plain versions are held against the
 real Pallas bodies (``_flash_fwd_kernel``, ``_flash_bwd_dkv_kernel``,
