@@ -51,16 +51,20 @@ Which code runs is picked inside its C entry point by (dtype, head_dim):
     (``flash_fwd_f32_d512_cluster_kernel``,
     ``flash_bwd_dkv_f32_d512_cluster_kernel``,
     ``flash_bwd_dq_f32_d512_cluster_kernel``);
-  * bf16 at 512: dK/dV and dQ at 4 CTAs on the bf16 templates on wgmma
-    (``flash_bwd_dkv_bf16_d512_cluster_kernel``,
-    ``flash_bwd_dq_bf16_d512_cluster_kernel``); its forward is generic;
+  * bf16 at 512: all three at 4 CTAs on the bf16 templates on wgmma
+    (``flash_fwd_bf16_d512_cluster_kernel``,
+    ``flash_bwd_dkv_bf16_d512_cluster_kernel``,
+    ``flash_bwd_dq_bf16_d512_cluster_kernel``);
   * f32 at 384: dK/dV and dQ on the f32 templates at 3 CTAs
     (``flash_bwd_dkv_f32_d384_cluster_kernel``,
     ``flash_bwd_dq_f32_d384_cluster_kernel``, each exchange in two row
     slots); its forward is generic;
-  * every other case (f32 at 128, 256 and from 768 up but 1024, the f32
-    forward at 384, bf16 at 384, the bf16 forward at 512 and bf16 from 768
-    up but 1024): the generic variant on the CUDA cores, which from 768 up
+  * bf16 at 384: dK/dV on the bf16 template at 3 CTAs
+    (``flash_bwd_dkv_bf16_d384_cluster_kernel``, its exchange in three row
+    slots); its forward and dQ are generic;
+  * every other case (f32 at 128, 256 and from 768 up but 1024, the
+    forward at 384, the bf16 dQ at 384 and bf16 from 768 up but 1024): the
+    generic variant on the CUDA cores, which from 768 up
     tiles over D (chunks of 256 or 128 columns, the scores summed over the
     chunks; ``ops/csrc/flash_common.cuh`` ``gen_chunk``).
 Sequence lengths are not routed: the kernels take any S (TMA zero-fills,
@@ -247,10 +251,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def kernel_variant(q: torch.Tensor) -> str:
     """The name of the kernel variant that q's dtype and head_dim launch:
     "bf16_d128" and "bf16_d256" (the wgmma kernels), "f32_d128",
-    "f32_d256", ..., "bf16_d384", ... (the generic ones; "f32_d640",
-    "bf16_d640", "f32_d1024", "bf16_d1024" and "f32_d512" run the cluster
-    kernels of all three, "bf16_d512" and "f32_d384" those of dK/dV and dQ
-    and the generic forward).
+    "f32_d256", ..., "f32_d768", ... (the generic ones; "f32_d640",
+    "bf16_d640", "f32_d1024", "bf16_d1024", "f32_d512" and "bf16_d512" run
+    the cluster kernels of all three, "f32_d384" those of dK/dV and dQ and
+    the generic forward, "bf16_d384" that of dK/dV and the generic forward
+    and dQ).
     The wrappers count
     launches by it in ``launches_by_variant`` beside ``launches``."""
     dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
@@ -343,9 +348,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash-attention forward -> (O [b, h, sq, d] in q's dtype, LSE
     [b, h, sq] f32). Routed by ``attention_route``: at the kernels'
     head_dims (multiples of 128) CUDA tensors launch ``csrc/flash_fwd.cu``
-    (its wgmma kernel for bf16 at 128 and 256, a cluster kernel for f32 at
-    512 (4 CTAs) and for f32 and bf16 at 640 (5) and 1024 (8), its generic
-    variant otherwise; counted in ``flash_fwd.launches``) and CPU tensors run
+    (its wgmma kernel for bf16 at 128 and 256, a cluster kernel for f32 and
+    bf16 at 512 (4 CTAs), 640 (5) and 1024 (8), its generic variant
+    otherwise; counted in ``flash_fwd.launches``) and CPU tensors run
     ``flash_fwd_plain``; a head_dim that is not a multiple of 128 runs
     ``flash_fwd_reference``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
@@ -495,8 +500,8 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) [b, kvh, skv, d] in k's dtype. CUDA tensors launch
     ``csrc/flash_bwd_dkv.cu`` (a wgmma kernel for bf16 at 128 and 256, a
-    cluster kernel for f32 and bf16 at 512 (4 CTAs), 640 (5) and 1024 (8)
-    and for f32 at 384 (3), the generic variant otherwise; counted in
+    cluster kernel for f32 and bf16 at 384 (3 CTAs), 512 (4), 640 (5) and
+    1024 (8), the generic variant otherwise; counted in
     ``flash_bwd_dkv.launches``); CPU tensors run ``flash_bwd_plain_dkv``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if _bwd_device("flash_bwd_dkv", q, k, v, dout, lse, delta) == "cpu":

@@ -175,19 +175,22 @@
 //     faster on the card than each writer fencing before its release.
 //   * 232,448 bytes of shared memory (3 ring stages, two buffers of the
 //     partials and of P^T and dS^T): one CTA an SM, 22 clusters at once.
-// bf16 at 512 and 1024 runs the same kernel at 4 and 8 CTAs a cluster
-// (flash_bwd_dkv_bf16_d512_cluster_kernel,
+// bf16 at 384, 512 and 1024 runs the same kernel at 3, 4 and 8 CTAs a
+// cluster (flash_bwd_dkv_bf16_d384_cluster_kernel,
+// flash_bwd_dkv_bf16_d512_cluster_kernel,
 // flash_bwd_dkv_bf16_d1024_cluster_kernel), as f32 does: the body is a
 // template over the chunk count, each instance gives its cluster's size as a
 // literal, and the shared memory is the 5-CTA one's. At 8 CTAs each CTA's
 // exchange owns 8 of the 64 KV rows (one row a 16-lane group, one row slot)
 // and sums 8 partials a row in place of 5; at 4 it owns 16 rows in two
-// slots and sums 4 partials a row.
+// slots and sums 4 partials a row; at 3 it owns 21 or 22 rows in three
+// slots (the third 5 or 6 rows full) and sums 3 partials a row. The body
+// has no setmaxnreg split, so the third slot's sums come out of the 168
+// registers every thread of the launch has.
 // A generic variant (at the end of this file) serves f32 at any other
 // head_dim that is a multiple of 128 (128, 256 and from 768 up but 1024)
-// and bf16 at 384 and from 768 up but 1024 (tiled over D from 768
-// up), with P and dS rounded to the input dtype as the Pallas kernel rounds
-// them.
+// and bf16 from 768 up but 1024 (tiled over D from 768 up), with P and dS
+// rounded to the input dtype as the Pallas kernel rounds them.
 
 #include <math.h>
 
@@ -1215,8 +1218,8 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
                                             const CUtensorMap& tdo,
                                             const DkvArgs& p) {
   constexpr int kDW = kChunks * kD;  // head_dim
-  // KV rows a CTA's exchange owns at most (16 of 4 CTAs, 13 of 5, 8 of 8), 8
-  // a slot
+  // KV rows a CTA's exchange owns at most (22 of 3 CTAs, 16 of 4, 13 of 5, 8
+  // of 8), 8 a slot
   constexpr int kSlots = ((kBKV + kChunks - 1) / kChunks + 7) / 8;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
@@ -1313,13 +1316,13 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
       }
     }
 
-    // This CTA's slice of the KV rows, [r0, r1) (16 of 4 CTAs, 12 or 13 of
-    // 5, 8 of 8): thread xt sums 16-byte column col4 (4 q columns) of rows
-    // r0 + xt / 16 + 8 i (i < kSlots) over the kChunks chunks, in chunk
-    // order from 0 in every CTA, forms P^T = exp(S^T scale - LSE) and from
-    // that f32 P^T dS^T = P^T (dP^T - delta) scale, rounds both to bf16
-    // (where the Pallas kernel rounds them) and stores them into every CTA's
-    // pd.
+    // This CTA's slice of the KV rows, [r0, r1) (21 or 22 of 3 CTAs, 16 of
+    // 4, 12 or 13 of 5, 8 of 8): thread xt sums 16-byte column col4 (4 q
+    // columns) of rows r0 + xt / 16 + 8 i (i < kSlots) over the kChunks
+    // chunks, in chunk order from 0 in every CTA, forms P^T = exp(S^T scale
+    // - LSE) and from that f32 P^T dS^T = P^T (dP^T - delta) scale, rounds
+    // both to bf16 (where the Pallas kernel rounds them) and stores them
+    // into every CTA's pd.
     const int xt = tid - 32 * kMathWarps;
     const int r0 = c * kBKV / kChunks;
     const int r1 = (c + 1) * kBKV / kChunks;
@@ -1525,16 +1528,27 @@ flash_bwd_dkv_bf16_d512_cluster_kernel(
   dkv_cluster<4>(tq, tk, tv, tdo, p);
 }
 
+// bf16 at D = 384: clusters of 3 CTAs. Each CTA's exchange owns 21 or 22 of
+// the 64 KV rows, 16 lanes a row, in three row slots.
+__global__ void __cluster_dims__(3, 1, 1) __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_bf16_d384_cluster_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tdo, const DkvArgs p) {
+  dkv_cluster<3>(tq, tk, tv, tdo, p);
+}
+
 }  // namespace bf16c
 
 // ---------------------------------------------------------------------------
 // Generic variant: every dtype and head_dim (a multiple of 128) but bf16 D =
-// 128 and 256, D = 512, D = 640 and D = 1024, which the kernels above serve.
+// 128 and 256, D = 384, 512, 640 and 1024, which the kernels above serve.
 // The same function on the CUDA cores: one block of 128 threads per (b, KV
 // head, 16 KV rows, chunk of D), walking the group's query heads and their
 // 32-row q tiles as the wgmma kernels do, with K, V, Q, dO as f32 tiles in
-// dynamic shared memory (104 KB at DC = 256, 150 KB at 384). D up to 384 runs
-// in one chunk (DC = D); above 512, D is cut into chunks of DC = 256 or 128
+// dynamic shared memory (104 KB at DC = 256). D up to 256 runs in one chunk
+// (DC = D); above 512, D is cut into chunks of DC = 256 or 128
 // columns (flash::gen_chunk; the chunked instances): each block writes one
 // chunk of dK and dV, and the contractions over D (S^T = K Q^T and dP^T = V
 // dO^T) are summed over the chunks staged one at a time, in the order that ends
@@ -1707,8 +1721,7 @@ __device__ __forceinline__ void flash_bwd_dkv_generic_body(
   }
 }
 
-// One block per (KV tile, b, KV head): D up to 3 kD, in one chunk (f32 up
-// to 2 kD).
+// One block per (KV tile, b, KV head): D up to 2 kD, in one chunk.
 template <typename T, int DC>
 __global__ void __launch_bounds__(128)
 flash_bwd_dkv_generic_kernel(const flash::BwdParams p) {
@@ -1739,10 +1752,9 @@ int launch_generic(const flash::BwdParams& p, int D, int B, cudaStream_t st) {
 }
 
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
-// and dtype: D itself for f32 at kD and 2 kD and bf16 at 3 kD (bf16 at kD
-// and 2 kD is the wgmma kernels', f32 at 3 kD and 4 kD and bf16 at 4 kD the
-// cluster kernels'), above 4 kD a chunk of flash::gen_chunk(D) columns (D =
-// 5 kD and 8 kD are the cluster kernels').
+// and dtype: D itself for f32 at kD and 2 kD (bf16 at kD and 2 kD is the
+// wgmma kernels', 3 kD and 4 kD the cluster kernels'), above 4 kD a chunk of
+// flash::gen_chunk(D) columns (D = 5 kD and 8 kD are the cluster kernels').
 int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -1753,7 +1765,6 @@ int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
     return wide ? launch_generic<float, 2 * kD, true>(p, D, B, st)
                 : launch_generic<float, kD, true>(p, D, B, st);
   }
-  if (dtype == 1) return launch_generic<bf16, 3 * kD, false>(p, D, B, st);
   if (D == kD) return launch_generic<float, kD, false>(p, D, B, st);
   return launch_generic<float, 2 * kD, false>(p, D, B, st);
 }
@@ -1786,7 +1797,7 @@ int launch_cluster(Kernel kernel, const flash::BwdParams& p, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 at D = kChunks kD (4, 5 or 8): one cluster of kChunks CTAs per 64 KV
+// bf16 at D = kChunks kD (3, 4, 5 or 8): one cluster of kChunks CTAs per 64 KV
 // rows, on `kernel`, the instance of that size, with 128B-swizzled
 // 64-column boxes of every input. A launch the card refuses returns its
 // error.
@@ -1861,14 +1872,20 @@ extern "C" int ray_flash_bwd_dkv_bf16_d512_max_clusters(int* clusters) {
                              4, bf16c::kThreads, bf16c::kSmemBytes, clusters);
 }
 
+// The same for the bf16 D = 384 kernel (clusters of 3).
+extern "C" int ray_flash_bwd_dkv_bf16_d384_max_clusters(int* clusters) {
+  return flash::max_clusters(bf16c::flash_bwd_dkv_bf16_d384_cluster_kernel,
+                             3, bf16c::kThreads, bf16c::kSmemBytes, clusters);
+}
+
 // q/dO [B, H, Sq, D] and k/v [B, KVH, Skv, D] given by element strides (batch,
 // head, seq; the last dim dense, every stride and base address a multiple of 16
 // bytes, as TMA and the 16-byte loads require); lse and delta [B, H, Sq] f32
 // and dk/dv [B, KVH, Skv, D] dense, in the inputs' dtype. D is a multiple of
 // 128; dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 and 256 runs a wgmma
-// kernel, f32 at D = 384 a cluster kernel of 3 CTAs, D = 512 one of 4, D =
-// 640 one of 5 and D = 1024 one of 8 (f32 or bf16), every other case the
-// generic variant. Returns cudaGetLastError() after the launch
+// kernel, D = 384 a cluster kernel of 3 CTAs, D = 512 one of 4, D = 640 one
+// of 5 and D = 1024 one of 8 (f32 or bf16), every other case the generic
+// variant. Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for a shape or layout the kernels do not take).
 extern "C" int ray_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
@@ -1900,6 +1917,9 @@ extern "C" int ray_flash_bwd_dkv(
     if (dtype == 0 && D == 8 * kD)
       return launch_cluster<8>(f32c::flash_bwd_dkv_f32_d1024_cluster_kernel,
                                p, B, st);
+    if (D == 3 * kD)
+      return launch_bf16_cluster<3>(
+          bf16c::flash_bwd_dkv_bf16_d384_cluster_kernel, p, B, st);
     if (D == 4 * kD)
       return launch_bf16_cluster<4>(
           bf16c::flash_bwd_dkv_bf16_d512_cluster_kernel, p, B, st);

@@ -135,16 +135,19 @@
 //   * Shared memory: Q 32 KB, the ring 96 KB, P 2 x 16 KB, the partials 2
 //     x 32 KB, the rows' corrections and sums: 232,448 bytes with the
 //     alignment slack, the whole opt-in (a 2-stage ring would free 32 KB).
-// bf16 at 1024 runs the same kernel at 8 CTAs a cluster
-// (flash_fwd_bf16_d1024_cluster_kernel), as f32 does: the body is a template
-// over the chunk count (fwd_cluster<kChunks>), each instance gives its
-// cluster's size as a literal, and each CTA keeps its 128 columns, so the
-// shared memory is the 5-CTA one's. Each CTA's exchange owns 16 of the 128 q
-// rows (one row a 16-lane group, every lane used) and sums 8 partials a row
-// in place of 5. It replaces the generic instance of 256-column chunks, which
-// computed S over all of D in each of its 4 chunk blocks.
+// bf16 at 1024 and 512 runs the same kernel at 8 and 4 CTAs a cluster
+// (flash_fwd_bf16_d1024_cluster_kernel, flash_fwd_bf16_d512_cluster_kernel),
+// as f32 does: the body is a template over the chunk count
+// (fwd_cluster<kChunks>), each instance gives its cluster's size as a
+// literal, and each CTA keeps its 128 columns, so the shared memory is the
+// 5-CTA one's. At 8 CTAs each CTA's exchange owns 16 of the 128 q rows (one
+// row a 16-lane group, every lane used) and sums 8 partials a row in place
+// of 5; at 4 it owns 32 rows in four full row slots and sums 4 partials a
+// row. They replace the generic instance of 256-column chunks, which
+// computed S over all of D in each of its 4 chunk blocks, and the one-chunk
+// generic instance at 512, which ran both products as scalar FMAs.
 // A generic scalar-FMA variant serves f32 at 128, 256, 384 and from 768 up
-// but 1024 and bf16 at 384, 512 and from 768 up but 1024, tiled over
+// but 1024 and bf16 at 384 and from 768 up but 1024, tiled over
 // D from 768 up: its instance of 256-column chunks serves D768, 1280, ...,
 // that of 128-column chunks D896, 1152, ...
 
@@ -1033,10 +1036,10 @@ flash_fwd_f32_d512_cluster_kernel(const __grid_constant__ CUtensorMap tq,
 }  // namespace f32c
 
 // ---------------------------------------------------------------------------
-// bf16 at D = 640 and 1024: one cluster of 5 or 8 CTAs per (b, head, 128 q
-// rows), one CTA per 128 columns of D, the scores summed over the cluster
-// and each CTA's two products on the tensor cores (see the top of this
-// file).
+// bf16 at D = 512, 640 and 1024: one cluster of 4, 5 or 8 CTAs per (b,
+// head, 128 q rows), one CTA per 128 columns of D, the scores summed over
+// the cluster and each CTA's two products on the tensor cores (see the top
+// of this file).
 // ---------------------------------------------------------------------------
 
 namespace bf16c {
@@ -1089,7 +1092,8 @@ __device__ __forceinline__ void fwd_cluster(const CUtensorMap& tq,
                                             const CUtensorMap& tv,
                                             const FwdArgs& p) {
   constexpr int kDW = kChunks * kD;  // head_dim
-  // q rows a CTA's exchange owns at most (26 of 5 CTAs, 16 of 8), 8 a slot
+  // q rows a CTA's exchange owns at most (32 of 4 CTAs, 26 of 5, 16 of 8), 8
+  // a slot
   constexpr int kSlots = ((kBM + kChunks - 1) / kChunks + 7) / 8;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
@@ -1158,15 +1162,15 @@ __device__ __forceinline__ void fwd_cluster(const CUtensorMap& tq,
     }
 
     // This CTA's q rows, [r0, r1) (25 or 26 of the 128 at 5 CTAs, 16 at
-    // 8), for the whole loop: 16 lanes a row, lane col4 of row r0 + xt / 16
-    // + 8 i (i < kSlots) sums 16-byte column col4 (4 KV columns) over the
-    // kChunks chunks, in chunk order from 0 in every CTA, scales it to log2
-    // units, masks KV columns past Skv (TMA zero-filled their K rows, so S
-    // is 0 there and 2^(0 - m) is not) and after the row (causal), keeps
-    // the row's running max m and sum l (the same in its 16 lanes), and
-    // stores P = 2^(S - m_new) rounded to bf16 (where the Pallas kernel
-    // casts P to V's dtype; l sums it unrounded, as there) and the row's
-    // correction 2^(m_old - m_new) into every CTA.
+    // 8, 32 at 4), for the whole loop: 16 lanes a row, lane col4 of row r0
+    // + xt / 16 + 8 i (i < kSlots) sums 16-byte column col4 (4 KV columns)
+    // over the kChunks chunks, in chunk order from 0 in every CTA, scales
+    // it to log2 units, masks KV columns past Skv (TMA zero-filled their K
+    // rows, so S is 0 there and 2^(0 - m) is not) and after the row
+    // (causal), keeps the row's running max m and sum l (the same in its 16
+    // lanes), and stores P = 2^(S - m_new) rounded to bf16 (where the
+    // Pallas kernel casts P to V's dtype; l sums it unrounded, as there) and
+    // the row's correction 2^(m_old - m_new) into every CTA.
     const int xt = tid - 32 * kMathWarps;
     const int r0 = c * kBM / kChunks;
     const int r1 = (c + 1) * kBM / kChunks;
@@ -1399,20 +1403,30 @@ flash_fwd_bf16_d1024_cluster_kernel(const __grid_constant__ CUtensorMap tq,
   fwd_cluster<8>(tq, tk, tv, p);
 }
 
+// bf16 at D = 512: clusters of 4 CTAs. Each CTA's exchange owns 32 of the 128
+// q rows, 16 lanes a row in four row slots: every lane of it, four times.
+__global__ void __cluster_dims__(4, 1, 1) __launch_bounds__(kThreads, 1)
+flash_fwd_bf16_d512_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                   const __grid_constant__ CUtensorMap tk,
+                                   const __grid_constant__ CUtensorMap tv,
+                                   const FwdArgs p) {
+  fwd_cluster<4>(tq, tk, tv, p);
+}
+
 }  // namespace bf16c
 
 // ---------------------------------------------------------------------------
 // Generic variant: every dtype and head_dim (a multiple of 128) but bf16 D =
-// 128 and 256, f32 D = 512, D = 640 and D = 1024, which the kernels above
+// 128 and 256, D = 512, D = 640 and D = 1024, which the kernels above
 // serve. Scalar FMAs on the CUDA cores over f32 tiles in dynamic shared
 // memory: 32 q rows per block, 4 threads per row, 16-row KV tiles, the same
-// online softmax with P rounded to the input dtype before P V. D up to 512
+// online softmax with P rounded to the input dtype before P V. D up to 384
 // runs in one chunk (DC = D). Above, D is cut into chunks of DC = 256 or 128
 // columns (flash::gen_chunk; the chunked
 // instances): the grid's z axis gives each block one chunk of O's columns, held
 // in registers (acc[DC / 4]), and the scores S = Q K^T are summed over the
-// chunks staged one at a time through shared memory. So shared memory (131 KB
-// at most, DC = 512) and registers stay bounded at any D. The f32 instances of
+// chunks staged one at a time through shared memory. So shared memory (99 KB
+// at most, DC = 384) and registers stay bounded at any D. The f32 instances of
 // 256- and 128-column chunks serve only D768, 1280, ... and D896, 1152, ...
 // (f32 D640 and 1024 are the cluster kernels'), and so do the bf16 ones (bf16
 // D640 and 1024 are the cluster kernels'). With more than one
@@ -1551,7 +1565,7 @@ __device__ __forceinline__ void flash_fwd_generic_body(const Params& p) {
   }
 }
 
-// One block per (q tile, b * h): D up to 4 kD, in one chunk (f32 up to 3 kD).
+// One block per (q tile, b * h): D up to 3 kD, in one chunk.
 template <typename T, int DC>
 __global__ void __launch_bounds__(128)
 flash_fwd_generic_kernel(const Params p) {
@@ -1581,10 +1595,10 @@ int launch_generic(const Params& p, int D, int B, cudaStream_t st) {
 }
 
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
-// and dtype: D itself for f32 at kD, 2 kD and 3 kD and bf16 at 3 kD and 4 kD
-// (bf16 at kD and 2 kD is the wgmma kernel's, f32 at 4 kD a cluster
-// kernel's), above 4 kD a chunk of flash::gen_chunk(D) columns (D = 5 kD and
-// 8 kD are the cluster kernels').
+// and dtype: D itself for f32 at kD, 2 kD and 3 kD and bf16 at 3 kD (bf16 at
+// kD and 2 kD is the wgmma kernel's, 4 kD the cluster kernels'), above 4 kD a
+// chunk of flash::gen_chunk(D) columns (D = 5 kD and 8 kD are the cluster
+// kernels').
 int launch_generic_d(const Params& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -1595,10 +1609,7 @@ int launch_generic_d(const Params& p, int D, int dtype, int B,
     return wide ? launch_generic<float, 2 * kD, true>(p, D, B, st)
                 : launch_generic<float, kD, true>(p, D, B, st);
   }
-  if (dtype == 1) {
-    if (D == 3 * kD) return launch_generic<bf16, 3 * kD, false>(p, D, B, st);
-    return launch_generic<bf16, 4 * kD, false>(p, D, B, st);
-  }
+  if (dtype == 1) return launch_generic<bf16, 3 * kD, false>(p, D, B, st);
   if (D == kD) return launch_generic<float, kD, false>(p, D, B, st);
   if (D == 2 * kD) return launch_generic<float, 2 * kD, false>(p, D, B, st);
   return launch_generic<float, 3 * kD, false>(p, D, B, st);
@@ -1627,7 +1638,7 @@ int launch_cluster(Kernel kernel, const Params& p, int B, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 at D = kChunks kD (5 or 8): one cluster of kChunks CTAs per 128 q
+// bf16 at D = kChunks kD (4, 5 or 8): one cluster of kChunks CTAs per 128 q
 // rows, on `kernel`, the instance of that size, with 128B-swizzled 64-column
 // boxes of q, k and v. A launch the card refuses returns its error. The
 // shared-memory opt-in is set at every launch.
@@ -1687,6 +1698,12 @@ extern "C" int ray_flash_fwd_bf16_d1024_max_clusters(int* clusters) {
                              bf16c::kThreads, bf16c::kSmemBytes, clusters);
 }
 
+// The same for the bf16 D = 512 kernel (clusters of 4).
+extern "C" int ray_flash_fwd_bf16_d512_max_clusters(int* clusters) {
+  return flash::max_clusters(bf16c::flash_fwd_bf16_d512_cluster_kernel, 4,
+                             bf16c::kThreads, bf16c::kSmemBytes, clusters);
+}
+
 // The bf16 launch at D = 128 or 256: tensor maps over q, k, v (4-D {D, S,
 // heads, batch}, 128B swizzle, boxes of 64 columns x kBM or BN rows), then
 // the kernel.
@@ -1717,7 +1734,7 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* o,
 // q [B, H, Sq, D], k/v [B, KVH, Skv, D] given by element strides (batch,
 // head, seq; the last dim dense); o [B, H, Sq, D] and lse [B, H, Sq] dense.
 // D is a multiple of 128; dtype: 0 = float32, 1 = bfloat16. bf16 at
-// D = 128 and 256 runs the wgmma kernel, f32 at 512 a cluster kernel of 4
+// D = 128 and 256 runs the wgmma kernel, D = 512 a cluster kernel of 4
 // CTAs, 640 one of 5 and 1024 one of 8 (f32 or bf16), every other case the
 // generic variant. Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for a shape or layout the kernels do not take:
@@ -1754,6 +1771,9 @@ extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 8 * kD)
     return launch_cluster<8>(f32c::flash_fwd_f32_d1024_cluster_kernel, p, B,
                              st);
+  if (dtype == 1 && D == 4 * kD)
+    return launch_bf16_cluster<4>(bf16c::flash_fwd_bf16_d512_cluster_kernel,
+                                  p, B, st);
   if (dtype == 1 && D == 5 * kD)
     return launch_bf16_cluster<5>(bf16c::flash_fwd_bf16_cluster_kernel, p, B,
                                   st);

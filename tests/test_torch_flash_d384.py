@@ -1,16 +1,19 @@
 """The port's plain flash forward and backward at head_dim 384 against the
 Pallas TPU kernels, on the CPU, with inputs made from a numpy seed.
 
-On the card, f32 at head_dim 384 runs its backward on two 3-CTA cluster
-kernels, one CTA per 128 columns of D, that sum the scores over D through
-each other's shared memory, on the FMA units:
+On the card, head_dim 384 runs three 3-CTA cluster kernels, one CTA per
+128 columns of D, that sum the scores over D through each other's shared
+memory: in f32 the backward on the FMA units,
 ``flash_bwd_dkv_f32_d384_cluster_kernel`` (``csrc/flash_bwd_dkv.cu``, the
 f32 D512, D640 and D1024 dK/dV's body at 3 CTAs; each CTA's exchange owns
-21 or 22 of the 64 KV rows, in two row slots) and
+21 or 22 of the 64 KV rows, in two row slots of 16) and
 ``flash_bwd_dq_f32_d384_cluster_kernel`` (``csrc/flash_bwd_dq.cu``, the f32
 dQ's body, its exchange owning 21 or 22 of the 64 q rows in two row
-slots). Its forward, and all three in bf16, still run the generic variant
-in one chunk of 384 columns.
+slots); in bf16 the dK/dV on wgmma in each CTA,
+``flash_bwd_dkv_bf16_d384_cluster_kernel`` (the bf16 D512, D640 and D1024
+dK/dV's body at 3 CTAs, its exchange owning 21 or 22 of the 64 KV rows in
+three row slots of 8). The forward in both dtypes and the bf16 dQ still
+run the generic variant in one chunk of 384 columns.
 ``chip_smoke.py`` holds each against ``flash_fwd_plain``,
 ``flash_bwd_plain_dkv`` and ``flash_bwd_plain_dq``. Here those plain
 versions are held against the real Pallas bodies (``_flash_fwd_kernel``,
@@ -20,8 +23,8 @@ backward on the Pallas forward's O and LSE (``tests/test_torch_ops.py``
 has f32 at one block of 128 and a KV head shared by 2). The GQA cases take
 the D384 parity runs' group of 2 (``llama3_8b(d_model=3072, n_heads=8,
 n_kv_heads=4)``), and the whole ``flash_attention`` and its gradients, in
-f32 and in bf16, are held against the JAX package's at those heads, at S40
-and S200.
+f32 and in bf16, are held against the JAX package's at those heads, at S40,
+S104 and S200.
 
 Tolerances as ``test_torch_flash_d256.py`` sets them: f32 is f32 on both
 sides, only the summation order differs, so 1e-5 absolute (LSE too, in
@@ -188,7 +191,7 @@ def test_flash_bwd_d384_gqa_sums_query_heads_like_repeat_kv(dt, causal):
         _close(got, summed, dt)
 
 
-@pytest.mark.parametrize("s", [40, 200])
+@pytest.mark.parametrize("s", [40, 104, 200])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_flash_attention_d384_matches_jax(dt, causal, s):
@@ -197,7 +200,11 @@ def test_flash_attention_d384_matches_jax(dt, causal, s):
     ``flash_attention`` and ``jax.grad`` on the CPU (its jnp branch),
     grouped-query heads on the JAX side through ``repeat_kv``. On the card
     S200 ends in a ragged last 64-row q tile of the f32 3-CTA dQ (and of the
-    generic instances' 16- and 32-row tiles). f32: output and dQ, dK, dV to
+    generic instances' 16- and 32-row tiles); S40 and S104 (both 40 mod 64)
+    end the last 64-row KV tile of the 3-CTA dK/dVs at row 40, so that the
+    second CTA's rows 40-41 and all the third CTA's rows 42-63 lie past Skv
+    (in bf16 the third CTA's three row slots, in f32 its two). f32: output
+    and dQ, dK, dV to
     1e-5 absolute, summation order alone. bf16: 2 bf16 steps at their
     magnitude (``_close``): the port rounds P and dS to bf16 before the
     products where the jnp branch keeps them in f32 (it rounds P / l in the

@@ -1,7 +1,7 @@
 """The port's plain flash forward and backward at head_dim 512 against the
 Pallas TPU kernels, on the CPU, with inputs made from a numpy seed.
 
-On the card, head_dim 512 runs on five 4-CTA cluster kernels, one CTA per
+On the card, head_dim 512 runs on six 4-CTA cluster kernels, one CTA per
 128 columns of D, that sum the scores over D through each other's shared
 memory: in f32 on the FMA units all three,
 ``flash_fwd_f32_d512_cluster_kernel`` (``csrc/flash_fwd.cu``, the f32 D640
@@ -9,11 +9,12 @@ and D1024 forward's body at 4 CTAs; each CTA's exchange owns 32 of the 128
 q rows, in two full row slots), ``flash_bwd_dkv_f32_d512_cluster_kernel``
 (``csrc/flash_bwd_dkv.cu``, the f32 D640 and D1024 dK/dV's body) and
 ``flash_bwd_dq_f32_d512_cluster_kernel`` (``csrc/flash_bwd_dq.cu``, the f32
-dQ's); in bf16 the backward on wgmma in each CTA,
-``flash_bwd_dkv_bf16_d512_cluster_kernel`` and
+dQ's); in bf16 all three on wgmma in each CTA,
+``flash_fwd_bf16_d512_cluster_kernel`` (the bf16 D640 and D1024 forward's
+body at 4 CTAs; its exchange owns 32 of the 128 q rows in four full row
+slots of 8), ``flash_bwd_dkv_bf16_d512_cluster_kernel`` and
 ``flash_bwd_dq_bf16_d512_cluster_kernel`` (the bf16 D640 and D1024 bodies
-at 4 CTAs). Only the bf16 forward still runs the generic variant, in one
-chunk of 512 columns. ``chip_smoke.py``
+at 4 CTAs). No D512 instance runs the generic variant. ``chip_smoke.py``
 holds each against ``flash_fwd_plain``, ``flash_bwd_plain_dkv`` and
 ``flash_bwd_plain_dq``. Here those plain versions are held against the
 real Pallas bodies (``_flash_fwd_kernel``, ``_flash_bwd_dkv_kernel``,
@@ -22,7 +23,8 @@ blocks of 128, so every causal block class; the backward on the Pallas
 forward's O and LSE. The GQA cases take the D512 parity runs' group of 2
 (``llama3_8b(n_heads=8, n_kv_heads=4)``), and the whole ``flash_attention``
 and its gradients, in f32 and in bf16, are held against the JAX package's
-at those heads, at S40 and S200.
+at those heads, at S40 and S200, and in bf16 also at S104 (a 64-row KV
+tile and a ragged one of 40, one q tile of 104 rows).
 
 Tolerances as ``test_torch_flash_d256.py`` sets them: f32 is f32 on both
 sides, only the summation order differs, so 1e-5 absolute (LSE too, in
@@ -218,15 +220,19 @@ def test_flash_attention_f32_d512_matches_jax(causal, s):
         _close(got, w, "f32")
 
 
-@pytest.mark.parametrize("s", [40, 200])
+@pytest.mark.parametrize("s", [40, 104, 200])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_bf16_d512_matches_jax(causal, s):
     """B1 H8 KVH4 D512 in bf16, the bf16 D512 parity run's heads: the whole
     ``flash_attention`` and its backward against the JAX package's
     ``flash_attention`` and ``jax.grad`` on the CPU (its jnp branch),
     grouped-query heads on the JAX side through ``repeat_kv``. On the card
-    S200 ends in a ragged last 64-row q tile of the bf16 4-CTA dQ (and of
-    the generic forward's and dK/dV's tiles). Output and dQ, dK, dV to 2
+    S200 ends in a ragged last 64-row q tile of the bf16 4-CTA dQ and KV
+    tile of its dK/dV; S40 and S104 (both 40 mod 64) end the 4-CTA
+    forward's 128-row q tile at row 40 or 104, so that its fourth CTA owns
+    rows wholly past Sq (104-127 at S104, 96-127 at S40), and the dK/dV's
+    last 64-row KV tile at row 40, its fourth CTA's 16 rows past Skv.
+    Output and dQ, dK, dV to 2
     bf16 steps at their magnitude (``_close``): the port rounds P and dS to
     bf16 before the products where the jnp branch keeps them in f32 (it
     rounds P / l in the forward), and the JAX side sums each kv head's

@@ -1,0 +1,95 @@
+"""``chip_smoke.py``'s tables of the cluster kernels against the CUDA
+sources, on the CPU (no card, no ``nvcc``).
+
+Every ``__cluster_dims__(N, 1, 1)`` kernel of ``ray_tpu_torch/ops/csrc``
+has an ``extern "C" int ray_*_max_clusters`` entry point that asks the card
+how many of its clusters fit (``cudaOccupancyMaxActiveClusters``), and
+``chip_smoke.py`` names each such entry in ``CLUSTER_FIT`` (with N), each
+variant that runs a cluster kernel in ``CLUSTER_VARIANTS``, and their count
+in ``CLUSTER_INSTANCES``. On the card a missing entry shows only as a
+failed phase; here the sources are read as text and the tables held
+against them.
+"""
+
+import re
+from pathlib import Path
+
+import pytest
+
+import chip_smoke
+
+CSRC = Path(__file__).resolve().parents[1] / "ray_tpu_torch" / "ops" / "csrc"
+SOURCES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+# A cluster kernel: its cluster size, then its name at the start of a line.
+KERNEL = re.compile(r"__cluster_dims__\((\d+), 1, 1\)[^\n]*\n(\w+)\(")
+# A max-clusters entry: its name, the kernel it asks about and the size.
+ENTRY = re.compile(r'extern "C" int (ray_\w+_max_clusters)\(int\* clusters\)'
+                   r"\s*\{\s*return flash::max_clusters\(\s*(?:\w+::)*(\w+),"
+                   r"\s*(\d+),")
+
+
+def _read(name: str):
+    """({kernel: CTAs a cluster}, [(entry, kernel, CTAs)]) of one source."""
+    text = (CSRC / f"{name}.cu").read_text()
+    kernels = {}
+    for n, kernel in KERNEL.findall(text):
+        assert kernel not in kernels, f"{name}.cu: {kernel} twice"
+        kernels[kernel] = int(n)
+    entries = [(e, k, int(n)) for e, k, n in ENTRY.findall(text)]
+    return kernels, entries
+
+
+def _all():
+    """{entry: (source, kernel, CTAs)} and the cluster kernels' count over
+    the three sources."""
+    entries, count = {}, 0
+    for name in SOURCES:
+        kernels, found = _read(name)
+        count += len(kernels)
+        for entry, kernel, n in found:
+            assert entry not in entries, f"{entry} twice"
+            entries[entry] = (name, kernel, n)
+    return entries, count
+
+
+@pytest.mark.parametrize("name", SOURCES)
+def test_every_cluster_kernel_has_one_max_clusters_entry(name):
+    """Each cluster kernel of the source is named by exactly one
+    ``ray_*_max_clusters`` entry of the same source, at its own cluster
+    size, and each entry names a cluster kernel of that source."""
+    kernels, entries = _read(name)
+    assert kernels, f"{name}.cu has no cluster kernel"
+    for kernel, n in kernels.items():
+        named = [(e, m) for e, k, m in entries if k == kernel]
+        assert len(named) == 1, f"{kernel}: entries {named}"
+        assert named[0][1] == n, f"{kernel}: {n} CTAs, entry says {named}"
+    for entry, kernel, _ in entries:
+        assert kernel in kernels, f"{entry} names {kernel}, no cluster kernel"
+
+
+def test_cluster_fit_names_every_entry_with_its_size():
+    """``CLUSTER_FIT`` names exactly the sources' max-clusters entries, each
+    under the library that defines it and with its kernel's cluster
+    size."""
+    entries, _ = _all()
+    fit = {fn: (lib, n) for lib, fn, n in chip_smoke.CLUSTER_FIT.values()}
+    assert len(fit) == len(chip_smoke.CLUSTER_FIT), "an entry named twice"
+    assert fit == {e: (lib, n) for e, (lib, _, n) in entries.items()}
+
+
+def test_cluster_fit_keys_are_the_cluster_variants():
+    """``CLUSTER_FIT``'s keys (``kernel.variant``) are the variants that
+    ``CLUSTER_VARIANTS`` runs on cluster kernels, and each key's library is
+    its kernel."""
+    variants = {f"{k}.{v}" for k, vs in chip_smoke.CLUSTER_VARIANTS.items()
+                for v in vs}
+    assert set(chip_smoke.CLUSTER_FIT) == variants
+    for key, (lib, _, _) in chip_smoke.CLUSTER_FIT.items():
+        assert key.split(".")[0] == lib, key
+
+
+def test_cluster_instances_counts_the_cluster_kernels():
+    """``CLUSTER_INSTANCES`` (the ptxas report's count that the card run
+    checks) is the number of ``__cluster_dims__`` kernels."""
+    _, count = _all()
+    assert chip_smoke.CLUSTER_INSTANCES == count
