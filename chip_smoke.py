@@ -20,8 +20,9 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    to 1024; bf16 256 on the wgmma kernels, at 640 the forward, dK/dV and
    dQ in f32 and in bf16 on the cluster kernels of 5 CTAs, at 1024 the
    same on clusters of 8, the forward, dK/dV and dQ at 512 (f32 and bf16)
-   on clusters of 4 and dK/dV at 384 (f32 and bf16) and the dQ at f32 384
-   on clusters of 3, the rest generic, tiled over D from 768) at B1
+   on clusters of 4 and the forward and dK/dV at 384 (f32 and bf16) and
+   the dQ at f32 384 on clusters of 3, the rest generic, tiled over D from
+   768) at B1
    H8 KVH2 S2048 and the ragged S1000, causal and not, and at the shapes
    of their train-parity runs, bf16 256 also at ``llama3_8b(n_heads=16)``'s
    training length, B1 H16 KVH8 S8192 causal, and D896 and D768 (f32 and
@@ -115,9 +116,10 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    batch, peak memory and the device's idle share are printed.
 
 13. The serve app: ``LLMConfig(vocab_size=128256, d_model=4096,
-   n_layers=32, max_seq=8192, max_ongoing_requests=8, decode_chunk=8,
-   page_size=64)`` (Llama-3-8B's width, depth, vocabulary and context
-   under the serve preset's shape rule; random weights from seed 0). An
+   n_layers=8, max_seq=8192, max_ongoing_requests=8, decode_chunk=8,
+   page_size=64)`` (Llama-3-8B's width, vocabulary and context under the
+   serve preset's shape rule, **depth cut 32 -> 8** to keep the run inside
+   its time limit; random weights from seed 0). An
    in-process engine records the greedy streams of phase 3's 8 prompts
    and bench_serve.py's numbers, and is freed. Then ``init()``,
    ``serve.start(http=True)`` and ``build_llm_app`` with ``num_gpus=1``:
@@ -135,8 +137,8 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    Last,
    ``build_llm_processor`` over 16 rows gives the references cut to 16
    tokens. The replicas are the package's servers with a launch reader
-   added (``CountedLLMServer`` ...): 32 ``bf16_d128`` forwards per
-   prefill in the mono replica and in the prefill pool, none in the
+   added (``CountedLLMServer`` ...): one ``bf16_d128`` forward per layer
+   per prefill in the mono replica and in the prefill pool, none in the
    decode pool.
 14. The device edges: ``init()`` and three ``num_gpus=0`` actors that
    share the card. ``DeviceChannel`` at capacity 2 from this process to
@@ -165,7 +167,8 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    CPU in this process (64 x 64 MLPs: launch-bound on a GPU).
 16. Tune, the CLI and jobs: ``init()``, then (a) ``Tuner`` over a function
    trainable that trains phase 8's configuration (not cut) through
-   ``make_train_fns``: 4 trials over ``lr`` (phase 8's first), ASHA on
+   ``make_train_fns``: 2 trials over ``lr`` (phase 8's first; **cut**
+   from 4 to keep the run inside its time limit), ASHA on
    the loss (rungs at 1, 2 and 4 of 6 steps), ``resources_per_trial=
    {"GPU": 1}`` and ``max_concurrent_trials=2`` on the one card. Each
    trial reports its loss, step time and the kernels' launch counters
@@ -224,9 +227,9 @@ builds the kernels and runs phase 2 alone (a quick check after a kernel
 edit), ``--only-bwd`` runs phase 5 alone in the same way, ``--only-times``
 times the bf16 wgmma kernels alone at head_dim 256 and 128, S2048 and
 S8192, the six D640 cluster kernels (forward, dK/dV and dQ, f32 and
-bf16), the six D1024 ones, the six D512 ones, the D384 dK/dV in f32 and
-bf16 and the f32 D384 dQ (beside the generic D384 forward and bf16 dQ)
-at their parity shapes, in 3 rounds, and checks nothing of the build (run
+bf16), the six D1024 ones, the six D512 ones, the D384 forward and dK/dV
+in f32 and bf16 and the f32 D384 dQ (beside the generic bf16 D384 dQ) at
+their parity shapes, in 3 rounds, and checks nothing of the build (run
 it from two trees' roots in turns to compare them; with ``--tree-csrc
 DIR`` it times the dQ entry point, or with ``--tree-kernel flash_bwd_dkv``
 or ``flash_fwd`` the dK/dV or forward one, as another tree's sources build
@@ -356,28 +359,32 @@ SERVE_FWD_CASES = [(1, 32, 16, S, True, BF16, "model")
 FWD_CASES += SERVE_FWD_CASES
 # The kernel variants other than bf16 D128 (bf16 D256 on the wgmma kernels,
 # at D512, D640 and D1024 the forward, dK/dV and dQ in f32 and in bf16, and
-# at D384 dK/dV in f32 and in bf16 and the f32 dQ on the cluster kernels,
-# every other one generic), in phases 2 and 5: at B1 H8 KVH2,
-# S2048 and the ragged S1000, causal and not, and at the shape
+# at D384 the forward and dK/dV in f32 and in bf16 and the f32 dQ on the
+# cluster kernels, every other one generic), in phases 2 and 5: at B1 H8
+# KVH2, S2048 and the ragged S1000, causal and not, and at the shape
 # the train-parity path of their dtype and head_dim gives them
 # (``PARITY_RUNS``: B1 H32 KVH8 D128, B1 H16 KVH8 D256, B1 H8 KVH4 D384,
 # D512 and D640, B1 H4 KVH2 D1024, S2048 causal); bf16 D256 also at phase
 # 7's training length, B1 H16 KVH8 S8192 causal (``llama3_8b(n_heads=16)``
 # at S8192). The cluster kernels split D640 over 5 CTAs, D1024 over 8, the
-# D512 forward, dK/dV and dQ over 4 and the D384 dK/dV and f32 dQ over 3
+# D512 forward, dK/dV and dQ over 4 and the D384 forward, dK/dV and f32 dQ
+# over 3
 # (the rows of a dK/dV or dQ cluster's 64 unevenly over 5: 12 or 13 a CTA,
 # 8 each over 8, 16 over 4, 21 or 22 over 3, in two row slots of 16 (f32)
 # or three of 8 (bf16); the ragged S1000 ending in a tile of 40, so that
 # over 4 the third CTA's 16 rows are half past Skv and the fourth's all,
 # and over 3 the second CTA's rows 37-41 (f32's second slot, bf16's third)
 # lie partly past Skv (40-41), and all the third CTA's rows lie past it;
-# the forward's 128-row q tiles, 25 or 26 rows a CTA over 5, 16 over 8 and
-# 32 over 4, end in one of 104, so that over 4 the fourth CTA's rows
-# 104-127 lie past Sq). D896 and D768 (f32 and
-# bf16; B1 H8 KVH2 S2048 causal) keep the generic chunked instances of 128
-# and 256 columns checked and timed: no parity run reaches them, and since
-# the cluster kernels took D640 and D1024 they serve only D896, 1152, ...
-# and D768, 1280, ...
+# the forward's 128-row q tiles, 25 or 26 rows a CTA over 5, 16 over 8, 32
+# over 4 and 42 or 43 over 3 (three row slots of 16 in f32, six of 8 in
+# bf16), end in one of 104, so that over 4 the fourth CTA's rows 104-127
+# lie past Sq, and over 3 the third CTA's rows 104-127 (85-127 its own):
+# its second slot's last 13 rows and all its third slot's in f32, its third
+# slot's last 5 and all its fourth to sixth slots' in bf16). D896 and D768
+# (f32 and bf16; B1 H8 KVH2 S2048 causal) keep the generic chunked
+# instances of 128 and 256 columns checked and timed: no parity run
+# reaches them, and since the cluster kernels took D640 and D1024 they
+# serve only D896, 1152, ... and D768, 1280, ...
 VARIANTS = (("f32_d128", 128, F32), ("f32_d256", 256, F32),
             ("bf16_d256", 256, BF16), ("f32_d384", 384, F32),
             ("bf16_d384", 384, BF16), ("f32_d512", 512, F32),
@@ -399,14 +406,15 @@ VARIANT_CASES = [(name, D, dt, 1, 8, 2, S, causal)
     ("bf16_d768", 768, BF16, 1, 8, 2, 2048, True)]
 # The variants that run wgmma kernels besides bf16 D128, by kernel: bf16
 # D256 (all three); and those that run the cluster kernels: the forward,
-# dK/dV and dQ at D512, D640 and D1024 in f32 and in bf16, dK/dV at D384 in
-# f32 and in bf16, and the dQ at f32 D384. Every other variant runs a
-# generic instance.
+# dK/dV and dQ at D512, D640 and D1024 in f32 and in bf16, the forward and
+# dK/dV at D384 in f32 and in bf16, and the dQ at f32 D384. Every other
+# variant runs a generic instance.
 WGMMA_VARIANTS = {"flash_fwd": ("bf16_d256",),
                   "flash_bwd_dkv": ("bf16_d256",),
                   "flash_bwd_dq": ("bf16_d256",)}
-CLUSTER_VARIANTS = {"flash_fwd": ("f32_d512", "bf16_d512", "f32_d640",
-                                  "bf16_d640", "f32_d1024", "bf16_d1024"),
+CLUSTER_VARIANTS = {"flash_fwd": ("f32_d384", "bf16_d384", "f32_d512",
+                                  "bf16_d512", "f32_d640", "bf16_d640",
+                                  "f32_d1024", "bf16_d1024"),
                     "flash_bwd_dkv": ("f32_d384", "bf16_d384", "f32_d512",
                                       "bf16_d512", "f32_d640", "bf16_d640",
                                       "f32_d1024", "bf16_d1024"),
@@ -528,17 +536,18 @@ OUT_DIR = "chiprun_out"
 # any warning (setmaxnreg ignored, wgmma serialized).
 BUILD_REPORT = ("registers", "spill", "smem", "arning", "wgmma",
                 "setmaxnreg")
-# Generic instances: 4 one-chunk ones in the forward (f32 D128-384, bf16
-# D384; bf16 D256 is the wgmma kernels', D512 the cluster kernels'), 2 in
+# Generic instances: 2 one-chunk ones in the forward (f32 D128 and D256;
+# bf16 D256 is the wgmma kernels', D384 and D512 the cluster kernels'), 2 in
 # the dK/dV (f32 D128 and D256; D384 and D512 are cluster kernels'), 3 in
 # the dQ (f32 D128 and D256, bf16 D384; f32 D384 and D512 and bf16 D512 are
-# cluster kernels'), and each kernel 4 chunked ones (f32 and
+# cluster kernels': every instance at D384 but the bf16 dQ is a cluster
+# kernel), and each kernel 4 chunked ones (f32 and
 # bf16, chunks of 128 and 256). D640 and D1024 are the cluster kernels' for
 # all three in f32 and in bf16, so the instances of 128-column chunks serve
 # only D896, 1152, ... (D above 512 with D % 256 != 0; the D896 cases of
 # VARIANT_CASES run them) and those of 256-column chunks only D768, 1280,
 # ... (the D768 cases run them)
-GENERIC_INSTANCES = 21
+GENERIC_INSTANCES = 19
 # wgmma kernels: each of the three at D128 and D256 (the forward's two from
 # one template)
 WGMMA_INSTANCES = 6
@@ -547,9 +556,9 @@ WGMMA_INSTANCES = 6
 # D1024, the f32 forward, dK/dV and dQ on the FMA units and the bf16
 # forward, dK/dV and dQ on wgmma (each its D640 instance's template); of 4
 # CTAs at D512, the forward, dK/dV and dQ in f32 and in bf16, and of 3 CTAs
-# at D384, the f32 and bf16 dK/dV and the f32 dQ (each its dtype's template
-# of that kernel)
-CLUSTER_INSTANCES = 21
+# at D384, the f32 and bf16 forward and dK/dV and the f32 dQ (each its
+# dtype's template of that kernel)
+CLUSTER_INSTANCES = 23
 
 
 def log(*a):
@@ -1079,7 +1088,7 @@ def _bwd_case(gen, card, B, H, KVH, S, causal, layout, D=128, dt=BF16):
 # from each root in turns). Then the cluster kernels at their parity runs'
 # shapes, S2048 only: the forward, dK/dV and dQ in f32 and bf16 at D640,
 # D1024 and D512 (all cluster kernels), and at D384 in f32 and bf16 (the
-# dK/dV of both and the f32 dQ cluster kernels, the forward and the bf16 dQ
+# forward and dK/dV of both and the f32 dQ cluster kernels, the bf16 dQ
 # generic).
 TIME_SHAPES = ((256, 16, 8), (128, 32, 8))
 TIME_SEQS = (2048, TRAIN_SEQ)
@@ -1204,6 +1213,10 @@ def phase_trees(card: str, kernel: str, dirs: list, cases: list) -> list:
 # The cluster kernels by kernel-line entry: (library, its max-clusters
 # entry point, CTAs a cluster).
 CLUSTER_FIT = {
+    "flash_fwd.f32_d384": ("flash_fwd", "ray_flash_fwd_f32_d384_max_clusters",
+                           3),
+    "flash_fwd.bf16_d384": ("flash_fwd",
+                            "ray_flash_fwd_bf16_d384_max_clusters", 3),
     "flash_fwd.f32_d512": ("flash_fwd", "ray_flash_fwd_f32_d512_max_clusters",
                            4),
     "flash_fwd.bf16_d512": ("flash_fwd",
@@ -2248,12 +2261,16 @@ def phase_trainer(card: str, bench: dict) -> dict:
 # phase 13: the serve app on the card — mono, PD and batch inference
 # ---------------------------------------------------------------------------
 
-# Llama-3-8B's width, depth, vocabulary and context through the serve
-# preset, whose model follows the JAX package's rule (heads d_model / 128,
-# KV heads d_model / 256, d_ff 2.75 d_model): 32 heads of 128, 16 KV heads,
-# d_ff 11264, 7.1 B parameters (14.2 GB in bf16), 256 KB of KV per token.
-# Random weights from seed 0; not cut.
-SERVE_CFG = dict(vocab_size=128256, d_model=4096, n_layers=32, max_seq=8192,
+# Llama-3-8B's width, vocabulary and context through the serve preset, whose
+# model follows the JAX package's rule (heads d_model / 128, KV heads
+# d_model / 256, d_ff 2.75 d_model): 32 heads of 128, 16 KV heads, d_ff
+# 11264, 8 KB of KV per token and layer. Random weights from seed 0. Depth
+# cut from 32 to 8 layers (2.6 B parameters, 5.1 GB in bf16): at 32 the
+# phase took 300 s of the run's 1,200 (its three bench_serve.py passes
+# decode at about 9 tokens/s), and every check it makes (streams equal to
+# the references, one forward per layer per prefill, every KV handoff by
+# CUDA IPC) holds at any depth; phase 3 serves the full 32 layers.
+SERVE_CFG = dict(vocab_size=128256, d_model=4096, n_layers=8, max_seq=8192,
                  max_ongoing_requests=8, decode_chunk=8, page_size=64)
 SERVE_SAMPLED = dict(temperature=0.8, top_k=40, seed=1234)
 # bench_serve.py's measurements: TTFT over 15 solo requests (a 16-token
@@ -3475,11 +3492,15 @@ def _phase_rllib(card: str, device: str) -> dict:
 # phase 16: Tune, the CLI and jobs on the card
 # ---------------------------------------------------------------------------
 
-# (a) Tune over phase 8's configuration: 4 trials over lr, phase 8's
+# (a) Tune over phase 8's configuration: 2 trials over lr, phase 8's
 # (default_optimizer's) first, so that ASHA records it at every rung before
-# the others; each trial asks for a whole card, and two may run at once, so
-# the tuner holds the second until the first has ended.
-TUNE_LRS = (3e-4, 1e-4, 3e-5, 1e-5)
+# the other; each trial asks for a whole card, and two may run at once, so
+# the tuner holds the second until the first has ended. Cut from 4 trials
+# (3e-4, 1e-4, 3e-5, 1e-5): a trial costs about 34 s on the card, mostly its
+# process's start (torch import, first step), and 2 keep every check (no
+# trial errs, ASHA stops one early: 1e-5 trails 3e-4 from rung 2 on; the
+# trials hold the card in turn; the first trial's losses are phase 8's).
+TUNE_LRS = (3e-4, 1e-5)
 TUNE_STEPS = 6           # ASHA's max_t: rungs at 1, 2 and 4 steps
 TUNE_CONCURRENT = 2
 TUNE_ASHA = dict(grace_period=1, reduction_factor=2)
@@ -4604,6 +4625,7 @@ def main() -> int:
     _build.build_all()
     build_s = time.perf_counter() - t
     host_build.join()
+    phase1_s = time.perf_counter() - t  # both builds
     check("s" in host, "the runtime's host library did not build")
     log(f"BUILD {_build.sources()} in {build_s:.2f} s; the runtime's host "
         f"library {os.path.basename(object_store._LIB_PATH)} in "
@@ -4691,26 +4713,39 @@ def main() -> int:
     if args.only_planes:
         _dump("chip_smoke_planes.json", phase_planes(card, suites=True))
         return 0
-    rows = phase_kernels(card)
-    route = phase_reference_route(card)
+    # Each phase's seconds, printed as it ends and kept in the JSON: the
+    # whole run has to end inside its time limit.
+    phase_s = {1: phase1_s}
+
+    def timed(n, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[n] = time.perf_counter() - t0
+        log(f"PHASE {n} took {phase_s[n]:.1f} s  [{card}]")
+        return out
+
+    log(f"PHASE 1 took {phase1_s:.1f} s  [{card}]")
+    rows, route = timed(2, lambda: (phase_kernels(card),
+                                    phase_reference_route(card)))
     if args.only_kernels:
         return 0
-    engine = phase_engine(card)
-    server = phase_llm_server()
-    bwd_rows = phase_bwd_kernels(card)
-    parity = phase_train_parity(card)
-    train = phase_train_main(card)
-    bench = phase_train_bench(card)
-    moe = phase_moe(card)
-    ckpt = phase_checkpoint(card, server)
-    runtime = phase_runtime(card)
-    trainer = phase_trainer(card, bench)
-    serving = phase_serve(card, engine)
-    edges = phase_edges(card)
-    rl = phase_rllib(card)
-    tuned = phase_tune(card, bench)
-    auto = phase_autoscale(card, runtime)
-    planes = phase_planes(card)
+    engine = timed(3, phase_engine, card)
+    server = timed(4, phase_llm_server)
+    bwd_rows = timed(5, phase_bwd_kernels, card)
+    parity = timed(6, phase_train_parity, card)
+    train = timed(7, phase_train_main, card)
+    bench = timed(8, phase_train_bench, card)
+    moe = timed(9, phase_moe, card)
+    ckpt = timed(10, phase_checkpoint, card, server)
+    runtime = timed(11, phase_runtime, card)
+    trainer = timed(12, phase_trainer, card, bench)
+    serving = timed(13, phase_serve, card, engine)
+    edges = timed(14, phase_edges, card)
+    rl = timed(15, phase_rllib, card)
+    tuned = timed(16, phase_tune, card, bench)
+    auto = timed(17, phase_autoscale, card, runtime)
+    planes = timed(18, phase_planes, card)
+    log(f"PHASES 1-18 took {sum(phase_s.values()):.1f} s  [{card}]")
 
     main_row = next(r for r in rows if r["shape"] == "B1 H32 KVH8 S8192 D128"
                     and r["causal"] and r["layout"] == "dense")
@@ -4767,7 +4802,7 @@ def main() -> int:
                        reference_route=route, checkpoint=ckpt,
                        runtime=runtime, trainer=trainer, serve=serving,
                        edges=edges, rllib=rl, tune=tuned, autoscale=auto,
-                       planes=planes, kernels=kernels),
+                       planes=planes, kernels=kernels, phase_s=phase_s),
                   f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

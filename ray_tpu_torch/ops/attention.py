@@ -55,15 +55,16 @@ Which code runs is picked inside its C entry point by (dtype, head_dim):
     (``flash_fwd_bf16_d512_cluster_kernel``,
     ``flash_bwd_dkv_bf16_d512_cluster_kernel``,
     ``flash_bwd_dq_bf16_d512_cluster_kernel``);
-  * f32 at 384: dK/dV and dQ on the f32 templates at 3 CTAs
-    (``flash_bwd_dkv_f32_d384_cluster_kernel``,
-    ``flash_bwd_dq_f32_d384_cluster_kernel``, each exchange in two row
-    slots); its forward is generic;
-  * bf16 at 384: dK/dV on the bf16 template at 3 CTAs
-    (``flash_bwd_dkv_bf16_d384_cluster_kernel``, its exchange in three row
-    slots); its forward and dQ are generic;
-  * every other case (f32 at 128, 256 and from 768 up but 1024, the
-    forward at 384, the bf16 dQ at 384 and bf16 from 768 up but 1024): the
+  * f32 at 384: all three at 3 CTAs on the f32 templates
+    (``flash_fwd_f32_d384_cluster_kernel``, its exchange in three row
+    slots; ``flash_bwd_dkv_f32_d384_cluster_kernel``,
+    ``flash_bwd_dq_f32_d384_cluster_kernel``, each exchange in two);
+  * bf16 at 384: the forward and dK/dV on the bf16 templates at 3 CTAs
+    (``flash_fwd_bf16_d384_cluster_kernel``, its exchange in six row
+    slots; ``flash_bwd_dkv_bf16_d384_cluster_kernel``, in three); its dQ
+    is generic;
+  * every other case (f32 at 128, 256 and from 768 up but 1024, the bf16
+    dQ at 384 and bf16 from 768 up but 1024): the
     generic variant on the CUDA cores, which from 768 up
     tiles over D (chunks of 256 or 128 columns, the scores summed over the
     chunks; ``ops/csrc/flash_common.cuh`` ``gen_chunk``).
@@ -252,10 +253,10 @@ def kernel_variant(q: torch.Tensor) -> str:
     """The name of the kernel variant that q's dtype and head_dim launch:
     "bf16_d128" and "bf16_d256" (the wgmma kernels), "f32_d128",
     "f32_d256", ..., "f32_d768", ... (the generic ones; "f32_d640",
-    "bf16_d640", "f32_d1024", "bf16_d1024", "f32_d512" and "bf16_d512" run
-    the cluster kernels of all three, "f32_d384" those of dK/dV and dQ and
-    the generic forward, "bf16_d384" that of dK/dV and the generic forward
-    and dQ).
+    "bf16_d640", "f32_d1024", "bf16_d1024", "f32_d512", "bf16_d512" and
+    "f32_d384" run the cluster kernels of all three, "bf16_d384" those of
+    the forward and dK/dV and the generic dQ: every instance at D384 but
+    the bf16 dQ is a cluster kernel).
     The wrappers count
     launches by it in ``launches_by_variant`` beside ``launches``."""
     dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
@@ -349,7 +350,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [b, h, sq] f32). Routed by ``attention_route``: at the kernels'
     head_dims (multiples of 128) CUDA tensors launch ``csrc/flash_fwd.cu``
     (its wgmma kernel for bf16 at 128 and 256, a cluster kernel for f32 and
-    bf16 at 512 (4 CTAs), 640 (5) and 1024 (8), its generic variant
+    bf16 at 384 (3 CTAs), 512 (4), 640 (5) and 1024 (8), its generic variant
     otherwise; counted in ``flash_fwd.launches``) and CPU tensors run
     ``flash_fwd_plain``; a head_dim that is not a multiple of 128 runs
     ``flash_fwd_reference``."""

@@ -70,16 +70,17 @@
 //     place, any S. With 64-row tiles the block's last causal tile lies
 //     wholly above consumer 0's rows: it runs that tile masked to zeros
 //     (turns stay balanced), 1 / (2 (qt + 1)) of its work.
-// f32 at head_dim 512, 640 and 1024 runs flash_fwd_f32_d512_cluster_kernel,
+// f32 at head_dim 384, 512, 640 and 1024 runs
+// flash_fwd_f32_d384_cluster_kernel, flash_fwd_f32_d512_cluster_kernel,
 // flash_fwd_f32_cluster_kernel and flash_fwd_f32_d1024_cluster_kernel (after
-// it), one body at 4, 5 and 8 CTAs (fwd_cluster<kChunks>): the f32 dK/dV's
+// it), one body at 3, 4, 5 and 8 CTAs (fwd_cluster<kChunks>): the f32 dK/dV's
 // cluster (flash_bwd_dkv.cu) carried over to the forward, which has no dP.
 // The generic instances they replace computed S over all of D in each block
 // (in each of their 5 or 4 chunk blocks above 512) and read one
 // shared-memory word per 1 to 4 FMAs. These kernels are bound by the FMA
 // units: f32 has no exact tensor-core input (TF32 rounds, and the f32 forward
 // is held to 1e-5), 2 products of 128 x 32 x D FMAs per (q, KV) tile pair.
-//   * One cluster of D / 128 CTAs (4, 5 or 8; 8 is the largest portable
+//   * One cluster of D / 128 CTAs (3, 4, 5 or 8; 8 is the largest portable
 //     cluster) per (b, head, 128 q rows), one CTA per 128-column chunk of D,
 //     the heaviest causal q tiles first. A CTA loads its chunk of Q once (f32
 //     TMA boxes of 32 columns, 128B-swizzled since it is read down 8 rows of
@@ -87,8 +88,9 @@
 //     32-row tile through a 3-stage ring.
 //   * The product over D is split across the cluster, not repeated: each CTA
 //     computes S (128 x 32) over its own 128 columns into its shared memory.
-//     The exchange warpgroup owns 128 / (D / 128) of the q rows (32 at
-//     D512, 25 or 26 at D640, 16 at D1024) for the whole loop: it sums their
+//     The exchange warpgroup owns 128 / (D / 128) of the q rows (42 or 43 at
+//     D384, 32 at D512, 25 or 26 at D640, 16 at D1024) for the whole loop,
+//     in row slots of 16 rows (three at D384, two otherwise): it sums their
 //     partials over the chunks through distributed shared memory in chunk
 //     order from 0, scales and masks them, keeps each row's running max m
 //     and sum l, and stores P = exp(S - m) (f32: nothing rounds) and the
@@ -99,8 +101,8 @@
 //     warpgroups (S of tile t, then O of tile t - 1) and one exchange and
 //     load warpgroup. The exchange does not bound it at D640: on the card,
 //     keeping its loads or its stores within the CTA left its time as it was.
-//   * 232,448 bytes of shared memory: one CTA an SM, 30 clusters of 4, 22 of
-//     5 or 15 of 8 at once.
+//   * 232,448 bytes of shared memory: one CTA an SM, 39 clusters of 3, 30 of
+//     4, 22 of 5 or 15 of 8 at once.
 // bf16 at head_dim 640 runs flash_fwd_bf16_cluster_kernel (after those):
 // the f32 forward's cluster with each CTA's two products on the tensor
 // cores, as the bf16 dK/dV's cluster (flash_bwd_dkv.cu bf16c) runs its four.
@@ -135,19 +137,22 @@
 //   * Shared memory: Q 32 KB, the ring 96 KB, P 2 x 16 KB, the partials 2
 //     x 32 KB, the rows' corrections and sums: 232,448 bytes with the
 //     alignment slack, the whole opt-in (a 2-stage ring would free 32 KB).
-// bf16 at 1024 and 512 runs the same kernel at 8 and 4 CTAs a cluster
-// (flash_fwd_bf16_d1024_cluster_kernel, flash_fwd_bf16_d512_cluster_kernel),
+// bf16 at 1024, 512 and 384 runs the same kernel at 8, 4 and 3 CTAs a
+// cluster (flash_fwd_bf16_d1024_cluster_kernel,
+// flash_fwd_bf16_d512_cluster_kernel, flash_fwd_bf16_d384_cluster_kernel),
 // as f32 does: the body is a template over the chunk count
 // (fwd_cluster<kChunks>), each instance gives its cluster's size as a
 // literal, and each CTA keeps its 128 columns, so the shared memory is the
 // 5-CTA one's. At 8 CTAs each CTA's exchange owns 16 of the 128 q rows (one
 // row a 16-lane group, every lane used) and sums 8 partials a row in place
 // of 5; at 4 it owns 32 rows in four full row slots and sums 4 partials a
-// row. They replace the generic instance of 256-column chunks, which
-// computed S over all of D in each of its 4 chunk blocks, and the one-chunk
-// generic instance at 512, which ran both products as scalar FMAs.
-// A generic scalar-FMA variant serves f32 at 128, 256, 384 and from 768 up
-// but 1024 and bf16 at 384 and from 768 up but 1024, tiled over
+// row; at 3 it owns 42 or 43 rows in six row slots of 8 (the sixth 2 or 3
+// rows full) and sums 3 partials a row. They replace the generic instance of
+// 256-column chunks, which computed S over all of D in each of its 4 chunk
+// blocks, and the one-chunk generic instances at 384 and 512, which ran both
+// products as scalar FMAs.
+// A generic scalar-FMA variant serves f32 at 128, 256 and from 768 up but
+// 1024 and bf16 from 768 up but 1024, tiled over
 // D from 768 up: its instance of 256-column chunks serves D768, 1280, ...,
 // that of 128-column chunks D896, 1152, ...
 
@@ -637,6 +642,17 @@ __device__ __forceinline__ void fwd_cluster(const CUtensorMap& tq,
                                             const CUtensorMap& tv,
                                             const Params& p) {
   constexpr int kDW = kChunks * kD;  // head_dim
+  // q rows a CTA's exchange owns at most (43 of 3 CTAs, 32 of 4, 26 of 5, 16
+  // of 8), 16 a slot: 3 slots at 3 CTAs, 2 at 4 and 5. At 8 the second slot
+  // stays, never this CTA's, as that instance has always had it.
+  constexpr int kOwned = ((kBM + kChunks - 1) / kChunks + 15) / 16;
+  constexpr int kSlots = kOwned < 2 ? 2 : kOwned;
+  // setmaxnreg of the math and exchange warpgroups: 224 and 56 at two row
+  // slots, 216 and 72 at three (at 56 three slots spilled 28 bytes; 208 and
+  // 88 ran no faster); either split is the 168 x 384 registers the launch
+  // gives a CTA.
+  constexpr int kMathR = kSlots == 2 ? kMathRegs : 216;
+  constexpr int kXR = kSlots == 2 ? kXRegs : 72;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
   Smem& sm =
@@ -683,7 +699,7 @@ __device__ __forceinline__ void fwd_cluster(const CUtensorMap& tq,
     // ---------------- exchange warpgroup --------------------------------
     // Its first warp's lane 0 loads (TMA, 4 boxes each; rows past Sq and
     // Skv are zero-filled): Q once, K and V per tile of KV head kvh.
-    hopper::reg_dealloc<kXRegs>();
+    hopper::reg_dealloc<kXR>();
     const bool loader = warp == kMathWarps && lane == 0;
     auto load_tile = [&](int kt) {
       const int s = kt % kStages;
@@ -703,10 +719,11 @@ __device__ __forceinline__ void fwd_cluster(const CUtensorMap& tq,
       for (int kt = 0; kt < min(n_kt, kStages - 1); ++kt) load_tile(kt);
     }
 
-    // This CTA's q rows, [r0, r1) (32 of 128 at 4 chunks, both slots full;
-    // 25 or 26 at 5, 16 at 8), for the whole loop: 8 lanes a row, lane col4
-    // of row r0 + xt / 8 + 16 i (i < 2; at 8 chunks i = 1 is never this
-    // CTA's) sums 16-byte column col4 (4 KV columns) over the chunks, in
+    // This CTA's q rows, [r0, r1) (42 or 43 of 128 at 3 chunks, the third
+    // slot 10 or 11 rows full; 32 at 4, both slots full; 25 or 26 at 5, 16
+    // at 8), for the whole loop: 8 lanes a row, lane col4 of row r0 + xt / 8
+    // + 16 i (i < kSlots; at 8 chunks i = 1 is never this CTA's) sums
+    // 16-byte column col4 (4 KV columns) over the chunks, in
     // chunk order from 0 in every CTA, applies scale and the mask, keeps
     // the row's running max m and sum l (the same in its 8 lanes), and
     // stores P = exp(S - m_new) in f32 (the Pallas kernel's cast to V's
@@ -716,11 +733,11 @@ __device__ __forceinline__ void fwd_cluster(const CUtensorMap& tq,
     const int r0 = c * kBM / kChunks;
     const int r1 = (c + 1) * kBM / kChunks;
     const int col4 = xt % 8;
-    int row[2];
-    bool mine[2];
-    float m[2], l[2];
+    int row[kSlots];
+    bool mine[kSlots];
+    float m[kSlots], l[kSlots];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < kSlots; ++i) {
       row[i] = r0 + xt / 8 + 16 * i;
       mine[i] = row[i] < r1;  // the same in a row's 8 lanes
       m[i] = -INFINITY;
@@ -731,9 +748,9 @@ __device__ __forceinline__ void fwd_cluster(const CUtensorMap& tq,
       const int k0 = kt * kBN;
       const int nx = kt + kStages - 1;  // the tile the loader loads next
       hopper::mbar_wait_cluster(&sm.parts_ready[buf], (kt >> 1) & 1);
-      float4 sv[2];
+      float4 sv[kSlots];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
+      for (int i = 0; i < kSlots; ++i) {
         sv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (!mine[i]) continue;
         const uint32_t at = hopper::smem_u32(sm.part[buf] + swz(row[i], col4));
@@ -745,10 +762,10 @@ __device__ __forceinline__ void fwd_cluster(const CUtensorMap& tq,
       }
       __syncwarp();
       if (lane < kChunks) hopper::mbar_signal_rank(&sm.parts_free[buf], lane);
-      float4 pv[2];
-      float corr[2];
+      float4 pv[kSlots];
+      float corr[kSlots];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
+      for (int i = 0; i < kSlots; ++i) {
         float x[4] = {sv[i].x, sv[i].y, sv[i].z, sv[i].w};
         float mx = -INFINITY;
 #pragma unroll
@@ -781,7 +798,7 @@ __device__ __forceinline__ void fwd_cluster(const CUtensorMap& tq,
       if (kt >= 2)
         hopper::mbar_wait(&sm.pd_free[buf], ((kt - 2) >> 1) & 1);
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
+      for (int i = 0; i < kSlots; ++i) {
         if (!mine[i]) continue;
         const uint32_t p_at =
             hopper::smem_u32(sm.pm[buf] + pm_at(row[i], col4));
@@ -807,7 +824,7 @@ __device__ __forceinline__ void fwd_cluster(const CUtensorMap& tq,
     // below), and LSE = m + log(l) in natural-log units, which the
     // backward reads.
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < kSlots; ++i) {
       if (!mine[i] || col4 != 0) continue;
       const float lf = fmaxf(l[i], 1e-30f);
       const uint32_t at = hopper::smem_u32(sm.lsum + row[i]);
@@ -827,7 +844,7 @@ __device__ __forceinline__ void fwd_cluster(const CUtensorMap& tq,
     // phase B. Every inner loop runs on an 8 x 8 register tile, so each
     // word read from shared memory feeds 8 FMAs (shared memory gives 32
     // words a clock, the FMA units take 128).
-    hopper::reg_alloc<kMathRegs>();
+    hopper::reg_alloc<kMathR>();
     const int half = warp / 4;
     const int w4 = warp % 4;
     // Phase A: q rows 64 half + l8 + 8i by KV rows 8 w4 + i' (i, i' < 8)
@@ -1033,6 +1050,17 @@ flash_fwd_f32_d512_cluster_kernel(const __grid_constant__ CUtensorMap tq,
   fwd_cluster<4>(tq, tk, tv, p);
 }
 
+// f32 at D = 384: clusters of 3 CTAs. Each CTA's exchange owns 42 or 43 of
+// the 128 q rows, 8 threads a row in three row slots of 16, the third 10 or
+// 11 rows full, at setmaxnreg 72 beside math warpgroups at 216.
+__global__ void __cluster_dims__(3, 1, 1) __launch_bounds__(kThreads, 1)
+flash_fwd_f32_d384_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                  const __grid_constant__ CUtensorMap tk,
+                                  const __grid_constant__ CUtensorMap tv,
+                                  const Params p) {
+  fwd_cluster<3>(tq, tk, tv, p);
+}
+
 }  // namespace f32c
 
 // ---------------------------------------------------------------------------
@@ -1092,8 +1120,8 @@ __device__ __forceinline__ void fwd_cluster(const CUtensorMap& tq,
                                             const CUtensorMap& tv,
                                             const FwdArgs& p) {
   constexpr int kDW = kChunks * kD;  // head_dim
-  // q rows a CTA's exchange owns at most (32 of 4 CTAs, 26 of 5, 16 of 8), 8
-  // a slot
+  // q rows a CTA's exchange owns at most (43 of 3 CTAs, 32 of 4, 26 of 5, 16
+  // of 8), 8 a slot
   constexpr int kSlots = ((kBM + kChunks - 1) / kChunks + 7) / 8;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
@@ -1162,11 +1190,12 @@ __device__ __forceinline__ void fwd_cluster(const CUtensorMap& tq,
     }
 
     // This CTA's q rows, [r0, r1) (25 or 26 of the 128 at 5 CTAs, 16 at
-    // 8, 32 at 4), for the whole loop: 16 lanes a row, lane col4 of row r0
-    // + xt / 16 + 8 i (i < kSlots) sums 16-byte column col4 (4 KV columns)
-    // over the kChunks chunks, in chunk order from 0 in every CTA, scales
-    // it to log2 units, masks KV columns past Skv (TMA zero-filled their K
-    // rows, so S is 0 there and 2^(0 - m) is not) and after the row
+    // 8, 32 at 4, 42 or 43 at 3), for the whole loop: 16 lanes a row, lane
+    // col4 of row r0 + xt / 16 + 8 i (i < kSlots) sums 16-byte column col4
+    // (4 KV columns) over the kChunks chunks, in chunk order from 0 in
+    // every CTA, scales it to log2 units, masks KV columns past Skv (TMA
+    // zero-filled their K rows, so S is 0 there and 2^(0 - m) is not) and
+    // after the row
     // (causal), keeps the row's running max m and sum l (the same in its 16
     // lanes), and stores P = 2^(S - m_new) rounded to bf16 (where the
     // Pallas kernel casts P to V's dtype; l sums it unrounded, as there) and
@@ -1413,20 +1442,31 @@ flash_fwd_bf16_d512_cluster_kernel(const __grid_constant__ CUtensorMap tq,
   fwd_cluster<4>(tq, tk, tv, p);
 }
 
+// bf16 at D = 384: clusters of 3 CTAs. Each CTA's exchange owns 42 or 43 of
+// the 128 q rows, 16 lanes a row in six row slots of 8, the sixth 2 or 3
+// rows full.
+__global__ void __cluster_dims__(3, 1, 1) __launch_bounds__(kThreads, 1)
+flash_fwd_bf16_d384_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                   const __grid_constant__ CUtensorMap tk,
+                                   const __grid_constant__ CUtensorMap tv,
+                                   const FwdArgs p) {
+  fwd_cluster<3>(tq, tk, tv, p);
+}
+
 }  // namespace bf16c
 
 // ---------------------------------------------------------------------------
 // Generic variant: every dtype and head_dim (a multiple of 128) but bf16 D =
-// 128 and 256, D = 512, D = 640 and D = 1024, which the kernels above
-// serve. Scalar FMAs on the CUDA cores over f32 tiles in dynamic shared
+// 128 and 256, D = 384, D = 512, D = 640 and D = 1024, which the kernels
+// above serve. Scalar FMAs on the CUDA cores over f32 tiles in dynamic shared
 // memory: 32 q rows per block, 4 threads per row, 16-row KV tiles, the same
-// online softmax with P rounded to the input dtype before P V. D up to 384
-// runs in one chunk (DC = D). Above, D is cut into chunks of DC = 256 or 128
-// columns (flash::gen_chunk; the chunked
-// instances): the grid's z axis gives each block one chunk of O's columns, held
-// in registers (acc[DC / 4]), and the scores S = Q K^T are summed over the
-// chunks staged one at a time through shared memory. So shared memory (99 KB
-// at most, DC = 384) and registers stay bounded at any D. The f32 instances of
+// online softmax with P rounded to the input dtype before P V. f32 D128 and
+// D256 run in one chunk (DC = D). Above 512, D is cut into chunks of DC = 256
+// or 128 columns (flash::gen_chunk; the chunked instances): the grid's z axis
+// gives each block one chunk of O's columns, held in registers (acc[DC /
+// 4]), and the scores S = Q K^T are summed over the chunks staged one at a
+// time through shared memory. So shared memory (67 KB
+// at most, DC = 256) and registers stay bounded at any D. The f32 instances of
 // 256- and 128-column chunks serve only D768, 1280, ... and D896, 1152, ...
 // (f32 D640 and 1024 are the cluster kernels'), and so do the bf16 ones (bf16
 // D640 and 1024 are the cluster kernels'). With more than one
@@ -1565,7 +1605,7 @@ __device__ __forceinline__ void flash_fwd_generic_body(const Params& p) {
   }
 }
 
-// One block per (q tile, b * h): D up to 3 kD, in one chunk.
+// One block per (q tile, b * h): f32 D = kD or 2 kD, in one chunk.
 template <typename T, int DC>
 __global__ void __launch_bounds__(128)
 flash_fwd_generic_kernel(const Params p) {
@@ -1595,10 +1635,11 @@ int launch_generic(const Params& p, int D, int B, cudaStream_t st) {
 }
 
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
-// and dtype: D itself for f32 at kD, 2 kD and 3 kD and bf16 at 3 kD (bf16 at
-// kD and 2 kD is the wgmma kernel's, 4 kD the cluster kernels'), above 4 kD a
-// chunk of flash::gen_chunk(D) columns (D = 5 kD and 8 kD are the cluster
-// kernels').
+// and dtype: D itself for f32 at kD and 2 kD, above 4 kD a chunk of
+// flash::gen_chunk(D) columns (D = 5 kD and 8 kD are the cluster kernels').
+// No bf16 forward runs a one-chunk instance: bf16 at kD and 2 kD is the
+// wgmma kernel's, at 3 kD and 4 kD the cluster kernels', as is f32 at 3 kD
+// and 4 kD, so the caller sends only f32 at kD and 2 kD here below 5 kD.
 int launch_generic_d(const Params& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -1609,16 +1650,14 @@ int launch_generic_d(const Params& p, int D, int dtype, int B,
     return wide ? launch_generic<float, 2 * kD, true>(p, D, B, st)
                 : launch_generic<float, kD, true>(p, D, B, st);
   }
-  if (dtype == 1) return launch_generic<bf16, 3 * kD, false>(p, D, B, st);
   if (D == kD) return launch_generic<float, kD, false>(p, D, B, st);
-  if (D == 2 * kD) return launch_generic<float, 2 * kD, false>(p, D, B, st);
-  return launch_generic<float, 3 * kD, false>(p, D, B, st);
+  return launch_generic<float, 2 * kD, false>(p, D, B, st);
 }
 
-// f32 at D = kChunks kD (4, 5 or 8): one cluster of kChunks CTAs per 128 q
-// rows, on `kernel`, the instance of that size. A launch the card refuses (no
-// room for a cluster) returns its error. The shared-memory opt-in is set at
-// every launch, as for the generic variants.
+// f32 at D = kChunks kD (3, 4, 5 or 8): one cluster of kChunks CTAs per 128
+// q rows, on `kernel`, the instance of that size. A launch the card refuses
+// (no room for a cluster) returns its error. The shared-memory opt-in is set
+// at every launch, as for the generic variants.
 template <int kChunks, typename Kernel>
 int launch_cluster(Kernel kernel, const Params& p, int B, cudaStream_t st) {
   constexpr int D = kChunks * kD;
@@ -1638,10 +1677,10 @@ int launch_cluster(Kernel kernel, const Params& p, int B, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 at D = kChunks kD (4, 5 or 8): one cluster of kChunks CTAs per 128 q
-// rows, on `kernel`, the instance of that size, with 128B-swizzled 64-column
-// boxes of q, k and v. A launch the card refuses returns its error. The
-// shared-memory opt-in is set at every launch.
+// bf16 at D = kChunks kD (3, 4, 5 or 8): one cluster of kChunks CTAs per
+// 128 q rows, on `kernel`, the instance of that size, with 128B-swizzled
+// 64-column boxes of q, k and v. A launch the card refuses returns its
+// error. The shared-memory opt-in is set at every launch.
 template <int kChunks, typename Kernel>
 int launch_bf16_cluster(Kernel kernel, const Params& p, int B,
                         cudaStream_t st) {
@@ -1686,6 +1725,12 @@ extern "C" int ray_flash_fwd_f32_d512_max_clusters(int* clusters) {
                              f32c::kThreads, f32c::kSmemBytes, clusters);
 }
 
+// The same for the f32 D = 384 kernel (clusters of 3).
+extern "C" int ray_flash_fwd_f32_d384_max_clusters(int* clusters) {
+  return flash::max_clusters(f32c::flash_fwd_f32_d384_cluster_kernel, 3,
+                             f32c::kThreads, f32c::kSmemBytes, clusters);
+}
+
 // The same for the bf16 D = 640 kernel (clusters of 5).
 extern "C" int ray_flash_fwd_bf16_max_clusters(int* clusters) {
   return flash::max_clusters(bf16c::flash_fwd_bf16_cluster_kernel, 5,
@@ -1701,6 +1746,12 @@ extern "C" int ray_flash_fwd_bf16_d1024_max_clusters(int* clusters) {
 // The same for the bf16 D = 512 kernel (clusters of 4).
 extern "C" int ray_flash_fwd_bf16_d512_max_clusters(int* clusters) {
   return flash::max_clusters(bf16c::flash_fwd_bf16_d512_cluster_kernel, 4,
+                             bf16c::kThreads, bf16c::kSmemBytes, clusters);
+}
+
+// The same for the bf16 D = 384 kernel (clusters of 3).
+extern "C" int ray_flash_fwd_bf16_d384_max_clusters(int* clusters) {
+  return flash::max_clusters(bf16c::flash_fwd_bf16_d384_cluster_kernel, 3,
                              bf16c::kThreads, bf16c::kSmemBytes, clusters);
 }
 
@@ -1734,9 +1785,9 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* o,
 // q [B, H, Sq, D], k/v [B, KVH, Skv, D] given by element strides (batch,
 // head, seq; the last dim dense); o [B, H, Sq, D] and lse [B, H, Sq] dense.
 // D is a multiple of 128; dtype: 0 = float32, 1 = bfloat16. bf16 at
-// D = 128 and 256 runs the wgmma kernel, D = 512 a cluster kernel of 4
-// CTAs, 640 one of 5 and 1024 one of 8 (f32 or bf16), every other case the
-// generic variant. Returns cudaGetLastError() after the launch
+// D = 128 and 256 runs the wgmma kernel, D = 384 a cluster kernel of 3
+// CTAs, 512 one of 4, 640 one of 5 and 1024 one of 8 (f32 or bf16), every
+// other case the generic variant. Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for a shape or layout the kernels do not take:
 // every stride and the base addresses must be multiples of 16 bytes, as TMA
 // and the 16-byte loads require).
@@ -1763,6 +1814,9 @@ extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
   const Params p{q,    k,    v,    o,    static_cast<float*>(lse),
                  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                  H,    KVH,  Sq,   Skv,  scale, causal};
+  if (dtype == 0 && D == 3 * kD)
+    return launch_cluster<3>(f32c::flash_fwd_f32_d384_cluster_kernel, p, B,
+                             st);
   if (dtype == 0 && D == 4 * kD)
     return launch_cluster<4>(f32c::flash_fwd_f32_d512_cluster_kernel, p, B,
                              st);
@@ -1771,6 +1825,9 @@ extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 8 * kD)
     return launch_cluster<8>(f32c::flash_fwd_f32_d1024_cluster_kernel, p, B,
                              st);
+  if (dtype == 1 && D == 3 * kD)
+    return launch_bf16_cluster<3>(bf16c::flash_fwd_bf16_d384_cluster_kernel,
+                                  p, B, st);
   if (dtype == 1 && D == 4 * kD)
     return launch_bf16_cluster<4>(bf16c::flash_fwd_bf16_d512_cluster_kernel,
                                   p, B, st);

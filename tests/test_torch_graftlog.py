@@ -41,6 +41,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def ring(tmp_path):
     """This process's ring parked in a throwaway store dir. Works in
     both writer modes (native lib or the pure-Python mmap fallback)."""
+    # Start from an empty pending queue: open_ring replays the lines this
+    # process logged while no ring was open, and a test file run before
+    # this one in the same process may have left some (test_torch_lint's
+    # cases log a failed export and an unopenable controller store with no
+    # ring open), which would land in this ring ahead of the test's own.
+    graftlog._pending.clear()
     assert graftlog.open_ring(str(tmp_path))
     yield str(tmp_path)
     graftlog.close_ring()

@@ -6,9 +6,11 @@ has an ``extern "C" int ray_*_max_clusters`` entry point that asks the card
 how many of its clusters fit (``cudaOccupancyMaxActiveClusters``), and
 ``chip_smoke.py`` names each such entry in ``CLUSTER_FIT`` (with N), each
 variant that runs a cluster kernel in ``CLUSTER_VARIANTS``, and their count
-in ``CLUSTER_INSTANCES``. On the card a missing entry shows only as a
-failed phase; here the sources are read as text and the tables held
-against them.
+in ``CLUSTER_INSTANCES``; the generic instances that each source's
+``launch_generic_d`` picks from are counted in ``GENERIC_INSTANCES``. On
+the card a missing entry or a count that drifted shows only as a failed
+phase; here the sources are read as text and the tables held against
+them.
 """
 
 import re
@@ -22,6 +24,9 @@ CSRC = Path(__file__).resolve().parents[1] / "ray_tpu_torch" / "ops" / "csrc"
 SOURCES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # A cluster kernel: its cluster size, then its name at the start of a line.
 KERNEL = re.compile(r"__cluster_dims__\((\d+), 1, 1\)[^\n]*\n(\w+)\(")
+# A generic instance in launch_generic_d: its element type, the columns of
+# its chunk and whether it is the chunked kernel.
+GENERIC = re.compile(r"launch_generic<(\w+), ([\w *]+), (true|false)>\(")
 # A max-clusters entry: its name, the kernel it asks about and the size.
 ENTRY = re.compile(r'extern "C" int (ray_\w+_max_clusters)\(int\* clusters\)'
                    r"\s*\{\s*return flash::max_clusters\(\s*(?:\w+::)*(\w+),"
@@ -93,3 +98,33 @@ def test_cluster_instances_counts_the_cluster_kernels():
     checks) is the number of ``__cluster_dims__`` kernels."""
     _, count = _all()
     assert chip_smoke.CLUSTER_INSTANCES == count
+
+
+def _generic_instances(name: str) -> set:
+    """The distinct ``launch_generic<T, DC, chunked>`` instantiations in
+    ``launch_generic_d`` of one source."""
+    text = (CSRC / f"{name}.cu").read_text()
+    start = text.index("int launch_generic_d(")
+    return set(GENERIC.findall(text[start:text.index("\n}\n", start)]))
+
+
+def test_generic_instances_counts_launch_generic_d():
+    """``GENERIC_INSTANCES`` (the ptxas report's count of generic kernels,
+    which the card run checks) is the number of one-chunk and chunked
+    generic instances that the three sources' ``launch_generic_d``
+    launch."""
+    counts = {name: sorted(_generic_instances(name)) for name in SOURCES}
+    assert all(counts.values()), counts
+    assert sum(map(len, counts.values())) == \
+        chip_smoke.GENERIC_INSTANCES, counts
+
+
+@pytest.mark.parametrize("kernel, variant, kind", [
+    ("flash_fwd", "f32_d384", "cluster"),
+    ("flash_fwd", "bf16_d384", "cluster"),
+    ("flash_bwd_dq", "bf16_d384", "generic")])
+def test_kernel_kind_at_d384(kernel, variant, kind):
+    """At D384 the f32 and bf16 forwards run cluster kernels, and the bf16
+    dQ its generic instance: the kind under which the parity runs count
+    their launches."""
+    assert chip_smoke.kernel_kind(kernel, variant) == kind

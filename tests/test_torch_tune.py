@@ -74,7 +74,8 @@ def test_chip_smoke_tune_phase_on_the_cpu():
         cloudpickle.unregister_pickle_by_value(chip_smoke)
         c.shutdown()
     assert trials["losses_bitwise"] and trials["launches"] == {}
-    assert len(trials["trials"]) == 4 and len(ppo["trials"]) == 2
+    assert len(trials["trials"]) == len(chip_smoke.TUNE_LRS)
+    assert len(ppo["trials"]) == 2
 
 
 def test_quadratic_search_finds_minimum(cluster):
