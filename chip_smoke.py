@@ -20,9 +20,9 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    to 1024; bf16 256 on the wgmma kernels, at 640 the forward, dK/dV and
    dQ in f32 and in bf16 on the cluster kernels of 5 CTAs, at 1024 the
    same on clusters of 8, the forward, dK/dV and dQ at 512 (f32 and bf16)
-   on clusters of 4 and the forward and dK/dV at 384 (f32 and bf16) and
-   the dQ at f32 384 on clusters of 3, the rest generic, tiled over D from
-   768) at B1
+   on clusters of 4, the forward, dK/dV and dQ at 384 (f32 and bf16) on
+   clusters of 3 and the dK/dV at f32 256 on clusters of 2, the rest
+   generic, tiled over D from 768) at B1
    H8 KVH2 S2048 and the ragged S1000, causal and not, and at the shapes
    of their train-parity runs, bf16 256 also at ``llama3_8b(n_heads=16)``'s
    training length, B1 H16 KVH8 S8192 causal, and D896 and D768 (f32 and
@@ -227,9 +227,9 @@ builds the kernels and runs phase 2 alone (a quick check after a kernel
 edit), ``--only-bwd`` runs phase 5 alone in the same way, ``--only-times``
 times the bf16 wgmma kernels alone at head_dim 256 and 128, S2048 and
 S8192, the six D640 cluster kernels (forward, dK/dV and dQ, f32 and
-bf16), the six D1024 ones, the six D512 ones, the D384 forward and dK/dV
-in f32 and bf16 and the f32 D384 dQ (beside the generic bf16 D384 dQ) at
-their parity shapes, in 3 rounds, and checks nothing of the build (run
+bf16), the six D1024 ones, the six D512 ones, the six D384 ones and the
+f32 D256 dK/dV (beside the generic f32 D256 forward and dQ) at their
+parity shapes, in 3 rounds, and checks nothing of the build (run
 it from two trees' roots in turns to compare them; with ``--tree-csrc
 DIR`` it times the dQ entry point, or with ``--tree-kernel flash_bwd_dkv``
 or ``flash_fwd`` the dK/dV or forward one, as another tree's sources build
@@ -358,23 +358,24 @@ SERVE_FWD_CASES = [(1, 32, 16, S, True, BF16, "model")
                    for S in (32, 512, 2048, 8192)]
 FWD_CASES += SERVE_FWD_CASES
 # The kernel variants other than bf16 D128 (bf16 D256 on the wgmma kernels,
-# at D512, D640 and D1024 the forward, dK/dV and dQ in f32 and in bf16, and
-# at D384 the forward and dK/dV in f32 and in bf16 and the f32 dQ on the
-# cluster kernels, every other one generic), in phases 2 and 5: at B1 H8
-# KVH2, S2048 and the ragged S1000, causal and not, and at the shape
-# the train-parity path of their dtype and head_dim gives them
+# at D384, D512, D640 and D1024 the forward, dK/dV and dQ in f32 and in
+# bf16, and at f32 D256 the dK/dV on the cluster kernels, every other one
+# generic), in phases 2 and 5: at B1 H8 KVH2, S2048 and the ragged S1000,
+# causal and not, and at the shape the train-parity path of their dtype
+# and head_dim gives them
 # (``PARITY_RUNS``: B1 H32 KVH8 D128, B1 H16 KVH8 D256, B1 H8 KVH4 D384,
 # D512 and D640, B1 H4 KVH2 D1024, S2048 causal); bf16 D256 also at phase
 # 7's training length, B1 H16 KVH8 S8192 causal (``llama3_8b(n_heads=16)``
-# at S8192). The cluster kernels split D640 over 5 CTAs, D1024 over 8, the
-# D512 forward, dK/dV and dQ over 4 and the D384 forward, dK/dV and f32 dQ
-# over 3
+# at S8192). The cluster kernels split D640 over 5 CTAs, D1024 over 8, D512
+# over 4, D384 over 3 and the f32 D256 dK/dV over 2
 # (the rows of a dK/dV or dQ cluster's 64 unevenly over 5: 12 or 13 a CTA,
 # 8 each over 8, 16 over 4, 21 or 22 over 3, in two row slots of 16 (f32)
-# or three of 8 (bf16); the ragged S1000 ending in a tile of 40, so that
-# over 4 the third CTA's 16 rows are half past Skv and the fourth's all,
-# and over 3 the second CTA's rows 37-41 (f32's second slot, bf16's third)
-# lie partly past Skv (40-41), and all the third CTA's rows lie past it;
+# or three of 8 (bf16), 32 over 2 in two full row slots of 16; the ragged
+# S1000 ending in a tile of 40, so that over 4 the third CTA's 16 rows are
+# half past Skv or Sq and the fourth's all, over 3 the second CTA's rows
+# 37-41 (f32's second slot, bf16's third) lie partly past them (40-41), and
+# all the third CTA's rows lie past them, and over 2 the second CTA's first
+# slot (rows 32-47) lies partly past Skv (40-47) and its second wholly;
 # the forward's 128-row q tiles, 25 or 26 rows a CTA over 5, 16 over 8, 32
 # over 4 and 42 or 43 over 3 (three row slots of 16 in f32, six of 8 in
 # bf16), end in one of 104, so that over 4 the fourth CTA's rows 104-127
@@ -406,21 +407,20 @@ VARIANT_CASES = [(name, D, dt, 1, 8, 2, S, causal)
     ("bf16_d768", 768, BF16, 1, 8, 2, 2048, True)]
 # The variants that run wgmma kernels besides bf16 D128, by kernel: bf16
 # D256 (all three); and those that run the cluster kernels: the forward,
-# dK/dV and dQ at D512, D640 and D1024 in f32 and in bf16, the forward and
-# dK/dV at D384 in f32 and in bf16, and the dQ at f32 D384. Every other
-# variant runs a generic instance.
+# dK/dV and dQ at D384, D512, D640 and D1024 in f32 and in bf16, and the
+# dK/dV at f32 D256. Every other variant runs a generic instance.
 WGMMA_VARIANTS = {"flash_fwd": ("bf16_d256",),
                   "flash_bwd_dkv": ("bf16_d256",),
                   "flash_bwd_dq": ("bf16_d256",)}
 CLUSTER_VARIANTS = {"flash_fwd": ("f32_d384", "bf16_d384", "f32_d512",
                                   "bf16_d512", "f32_d640", "bf16_d640",
                                   "f32_d1024", "bf16_d1024"),
-                    "flash_bwd_dkv": ("f32_d384", "bf16_d384", "f32_d512",
-                                      "bf16_d512", "f32_d640", "bf16_d640",
-                                      "f32_d1024", "bf16_d1024"),
-                    "flash_bwd_dq": ("f32_d384", "f32_d512", "bf16_d512",
-                                     "f32_d640", "bf16_d640", "f32_d1024",
-                                     "bf16_d1024")}
+                    "flash_bwd_dkv": ("f32_d256", "f32_d384", "bf16_d384",
+                                      "f32_d512", "bf16_d512", "f32_d640",
+                                      "bf16_d640", "f32_d1024", "bf16_d1024"),
+                    "flash_bwd_dq": ("f32_d384", "bf16_d384", "f32_d512",
+                                     "bf16_d512", "f32_d640", "bf16_d640",
+                                     "f32_d1024", "bf16_d1024")}
 PROMPT_LENS = (17, 100, 300, 700, 1500, 3000, 5000, 8000)
 SAMPLED = {1: dict(temperature=0.8, top_k=40, seed=1234),
            6: dict(temperature=1.0, top_k=0, seed=5678)}
@@ -537,17 +537,16 @@ OUT_DIR = "chiprun_out"
 BUILD_REPORT = ("registers", "spill", "smem", "arning", "wgmma",
                 "setmaxnreg")
 # Generic instances: 2 one-chunk ones in the forward (f32 D128 and D256;
-# bf16 D256 is the wgmma kernels', D384 and D512 the cluster kernels'), 2 in
-# the dK/dV (f32 D128 and D256; D384 and D512 are cluster kernels'), 3 in
-# the dQ (f32 D128 and D256, bf16 D384; f32 D384 and D512 and bf16 D512 are
-# cluster kernels': every instance at D384 but the bf16 dQ is a cluster
-# kernel), and each kernel 4 chunked ones (f32 and
-# bf16, chunks of 128 and 256). D640 and D1024 are the cluster kernels' for
+# bf16 D256 is the wgmma kernels', D384 and D512 the cluster kernels'), 1 in
+# the dK/dV (f32 D128; f32 D256, D384 and D512 are cluster kernels'), 2 in
+# the dQ (f32 D128 and D256; D384 and D512 are cluster kernels': every
+# instance at D384 is a cluster kernel), and each kernel 4 chunked ones (f32
+# and bf16, chunks of 128 and 256). D640 and D1024 are the cluster kernels' for
 # all three in f32 and in bf16, so the instances of 128-column chunks serve
 # only D896, 1152, ... (D above 512 with D % 256 != 0; the D896 cases of
 # VARIANT_CASES run them) and those of 256-column chunks only D768, 1280,
 # ... (the D768 cases run them)
-GENERIC_INSTANCES = 19
+GENERIC_INSTANCES = 17
 # wgmma kernels: each of the three at D128 and D256 (the forward's two from
 # one template)
 WGMMA_INSTANCES = 6
@@ -555,10 +554,10 @@ WGMMA_INSTANCES = 6
 # FMA units and the bf16 forward, dK/dV and dQ on wgmma; of 8 CTAs at
 # D1024, the f32 forward, dK/dV and dQ on the FMA units and the bf16
 # forward, dK/dV and dQ on wgmma (each its D640 instance's template); of 4
-# CTAs at D512, the forward, dK/dV and dQ in f32 and in bf16, and of 3 CTAs
-# at D384, the f32 and bf16 forward and dK/dV and the f32 dQ (each its
-# dtype's template of that kernel)
-CLUSTER_INSTANCES = 23
+# CTAs at D512 and of 3 at D384, the forward, dK/dV and dQ in f32 and in
+# bf16, and of 2 CTAs at f32 D256, the dK/dV (each its dtype's template of
+# that kernel)
+CLUSTER_INSTANCES = 25
 
 
 def log(*a):
@@ -1087,9 +1086,8 @@ def _bwd_case(gen, card, B, H, KVH, S, causal, layout, D=128, dt=BF16):
 # turn, medians printed: the quick A/B of two trees in one call (run it
 # from each root in turns). Then the cluster kernels at their parity runs'
 # shapes, S2048 only: the forward, dK/dV and dQ in f32 and bf16 at D640,
-# D1024 and D512 (all cluster kernels), and at D384 in f32 and bf16 (the
-# forward and dK/dV of both and the f32 dQ cluster kernels, the bf16 dQ
-# generic).
+# D1024, D512 and D384 (all cluster kernels), and at f32 D256 (the dK/dV
+# cluster kernel, the forward and dQ generic).
 TIME_SHAPES = ((256, 16, 8), (128, 32, 8))
 TIME_SEQS = (2048, TRAIN_SEQ)
 TIME_ROUNDS = 3
@@ -1097,6 +1095,7 @@ TIME_CLUSTER = (640, 8, 4, 2048)  # D, H, KVH, S; B1, causal
 TIME_CLUSTER_1024 = (1024, 4, 2, 2048)
 TIME_CLUSTER_512 = (512, 8, 4, 2048)
 TIME_CLUSTER_384 = (384, 8, 4, 2048)
+TIME_CLUSTER_256 = (256, 16, 8, 2048)
 
 
 def phase_kernel_times(card: str) -> list:
@@ -1106,7 +1105,8 @@ def phase_kernel_times(card: str) -> list:
         (*TIME_CLUSTER, F32), (*TIME_CLUSTER, BF16),
         (*TIME_CLUSTER_1024, F32), (*TIME_CLUSTER_1024, BF16),
         (*TIME_CLUSTER_512, F32), (*TIME_CLUSTER_512, BF16),
-        (*TIME_CLUSTER_384, F32), (*TIME_CLUSTER_384, BF16)]
+        (*TIME_CLUSTER_384, F32), (*TIME_CLUSTER_384, BF16),
+        (*TIME_CLUSTER_256, F32)]
     rows = []
     for D, H, KVH, S, dt in cases:
         q, k, v, do = (_attn_input(1, h, S, D, gen, dt, "dense")
@@ -1228,6 +1228,8 @@ CLUSTER_FIT = {
                             "ray_flash_fwd_f32_d1024_max_clusters", 8),
     "flash_fwd.bf16_d1024": ("flash_fwd",
                              "ray_flash_fwd_bf16_d1024_max_clusters", 8),
+    "flash_bwd_dkv.f32_d256": ("flash_bwd_dkv",
+                               "ray_flash_bwd_dkv_f32_d256_max_clusters", 2),
     "flash_bwd_dkv.f32_d384": ("flash_bwd_dkv",
                                "ray_flash_bwd_dkv_f32_d384_max_clusters", 3),
     "flash_bwd_dkv.bf16_d384": ("flash_bwd_dkv",
@@ -1250,6 +1252,8 @@ CLUSTER_FIT = {
                                  8),
     "flash_bwd_dq.f32_d384": ("flash_bwd_dq",
                               "ray_flash_bwd_dq_f32_d384_max_clusters", 3),
+    "flash_bwd_dq.bf16_d384": ("flash_bwd_dq",
+                               "ray_flash_bwd_dq_bf16_d384_max_clusters", 3),
     "flash_bwd_dq.f32_d512": ("flash_bwd_dq",
                               "ray_flash_bwd_dq_f32_d512_max_clusters", 4),
     "flash_bwd_dq.bf16_d512": ("flash_bwd_dq",
@@ -4643,8 +4647,9 @@ def main() -> int:
         return 0
     # The generic variants hold DC/4 (forward) or 2 DC/8 (dK/dV) f32
     # accumulators per thread for their chunk of DC columns, near the
-    # register limit at DC 384 (one chunk; the chunked instances stop at 256
-    # for that reason); the wgmma kernels hold 64 or 128 (D128:
+    # register limit at DC 384 (the chunked instances stop at 256 for that
+    # reason, and no one-chunk instance above 256 is left); the wgmma
+    # kernels hold 64 or 128 (D128:
     # O, or dK and dV, or dQ; D256: O, or a half of dK and dV, or of dQ)
     # beside their scores under setmaxnreg 240, the f32 cluster kernels 64
     # dK, dV or O accumulators (32 of dQ) beside an 8 x 8 score tile, the

@@ -59,12 +59,15 @@ Which code runs is picked inside its C entry point by (dtype, head_dim):
     (``flash_fwd_f32_d384_cluster_kernel``, its exchange in three row
     slots; ``flash_bwd_dkv_f32_d384_cluster_kernel``,
     ``flash_bwd_dq_f32_d384_cluster_kernel``, each exchange in two);
-  * bf16 at 384: the forward and dK/dV on the bf16 templates at 3 CTAs
+  * bf16 at 384: all three on the bf16 templates at 3 CTAs
     (``flash_fwd_bf16_d384_cluster_kernel``, its exchange in six row
-    slots; ``flash_bwd_dkv_bf16_d384_cluster_kernel``, in three); its dQ
-    is generic;
-  * every other case (f32 at 128, 256 and from 768 up but 1024, the bf16
-    dQ at 384 and bf16 from 768 up but 1024): the
+    slots; ``flash_bwd_dkv_bf16_d384_cluster_kernel``,
+    ``flash_bwd_dq_bf16_d384_cluster_kernel``, each in three);
+  * f32 at 256: the dK/dV on the f32 template at 2 CTAs
+    (``flash_bwd_dkv_f32_d256_cluster_kernel``, its exchange in two full
+    row slots); its forward and dQ are generic;
+  * every other case (f32 at 128, the f32 forward and dQ at 256, and f32
+    and bf16 from 768 up but 1024): the
     generic variant on the CUDA cores, which from 768 up
     tiles over D (chunks of 256 or 128 columns, the scores summed over the
     chunks; ``ops/csrc/flash_common.cuh`` ``gen_chunk``).
@@ -253,10 +256,9 @@ def kernel_variant(q: torch.Tensor) -> str:
     """The name of the kernel variant that q's dtype and head_dim launch:
     "bf16_d128" and "bf16_d256" (the wgmma kernels), "f32_d128",
     "f32_d256", ..., "f32_d768", ... (the generic ones; "f32_d640",
-    "bf16_d640", "f32_d1024", "bf16_d1024", "f32_d512", "bf16_d512" and
-    "f32_d384" run the cluster kernels of all three, "bf16_d384" those of
-    the forward and dK/dV and the generic dQ: every instance at D384 but
-    the bf16 dQ is a cluster kernel).
+    "bf16_d640", "f32_d1024", "bf16_d1024", "f32_d512", "bf16_d512",
+    "f32_d384" and "bf16_d384" run the cluster kernels of all three,
+    "f32_d256" that of dK/dV and the generic forward and dQ).
     The wrappers count
     launches by it in ``launches_by_variant`` beside ``launches``."""
     dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
@@ -501,8 +503,8 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) [b, kvh, skv, d] in k's dtype. CUDA tensors launch
     ``csrc/flash_bwd_dkv.cu`` (a wgmma kernel for bf16 at 128 and 256, a
-    cluster kernel for f32 and bf16 at 384 (3 CTAs), 512 (4), 640 (5) and
-    1024 (8), the generic variant otherwise; counted in
+    cluster kernel for f32 at 256 (2 CTAs) and for f32 and bf16 at 384 (3),
+    512 (4), 640 (5) and 1024 (8), the generic variant otherwise; counted in
     ``flash_bwd_dkv.launches``); CPU tensors run ``flash_bwd_plain_dkv``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if _bwd_device("flash_bwd_dkv", q, k, v, dout, lse, delta) == "cpu":
@@ -520,8 +522,8 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
                  sm_scale: Optional[float] = None) -> torch.Tensor:
     """dQ [b, h, sq, d] in q's dtype. CUDA tensors launch
     ``csrc/flash_bwd_dq.cu`` (a wgmma kernel for bf16 at 128 and 256, a
-    cluster kernel for f32 and bf16 at 512 (4 CTAs), 640 (5) and 1024 (8)
-    and for f32 at 384 (3), the generic variant otherwise; counted in
+    cluster kernel for f32 and bf16 at 384 (3 CTAs), 512 (4), 640 (5) and
+    1024 (8), the generic variant otherwise; counted in
     ``flash_bwd_dq.launches``); CPU tensors run ``flash_bwd_plain_dq``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if _bwd_device("flash_bwd_dq", q, k, v, dout, lse, delta) == "cpu":

@@ -131,8 +131,9 @@
 //     scope.
 //   * 226 KB of shared memory: one CTA an SM, and a cluster takes 5 SMs of
 //     one GPC (22 clusters fit on the H100).
-// f32 at 384, 512 and 1024 runs the same kernel at 3, 4 and 8 CTAs a
-// cluster (flash_bwd_dkv_f32_d384_cluster_kernel,
+// f32 at 256, 384, 512 and 1024 runs the same kernel at 2, 3, 4 and 8 CTAs
+// a cluster (flash_bwd_dkv_f32_d256_cluster_kernel,
+// flash_bwd_dkv_f32_d384_cluster_kernel,
 // flash_bwd_dkv_f32_d512_cluster_kernel,
 // flash_bwd_dkv_f32_d1024_cluster_kernel): the body is a template over the
 // number of 128-column chunks, and each instance gives its cluster's size
@@ -141,13 +142,15 @@
 // largest portable cluster. At 4 chunks each CTA owns 16 rows, 8 threads a
 // row: every thread of the exchange. At 3 it owns 21 or 22, more than the
 // exchange's 16 rows of 8 threads, so the exchange walks its rows in slots
-// of 16 (kSlots: 2 at 3 chunks, 1 at 4, 5 and 8), one loop for every
+// of 16 (kSlots: 2 at 2 and 3 chunks, 1 at 4, 5 and 8), one loop for every
 // cluster size; the second slot keeps 5 or 6 rows, 40 or 48 of the 128
-// threads. The two slots' sums do not fit the exchange's 56 registers
+// threads. At 2 chunks it owns 32 rows: both slots full, every thread in
+// each. The two slots' sums do not fit the exchange's 56 registers
 // (ptxas spilled 64 bytes), so at two slots the exchange takes 72 and the
 // math warpgroups 216 in place of 224, which they take without a spill.
 // Chunks of 256 columns would not fit: K, V and the Q/dO ring alone would
-// take 320 KB a CTA.
+// take 320 KB a CTA; so at D256 one CTA cannot hold a 64-row KV block (its
+// dK and dV alone are 128 registers a math thread), and two share it.
 // bf16 at 640 runs flash_bwd_dkv_bf16_cluster_kernel (after that): the same
 // cluster with each CTA's products on the tensor cores. The generic chunked
 // instance ran all four products as scalar FMAs, and its 5 chunk blocks each
@@ -188,7 +191,7 @@
 // has no setmaxnreg split, so the third slot's sums come out of the 168
 // registers every thread of the launch has.
 // A generic variant (at the end of this file) serves f32 at any other
-// head_dim that is a multiple of 128 (128, 256 and from 768 up but 1024)
+// head_dim that is a multiple of 128 (128 and from 768 up but 1024)
 // and bf16 from 768 up but 1024 (tiled over D from 768 up), with P and dS
 // rounded to the input dtype as the Pallas kernel rounds them.
 
@@ -749,8 +752,8 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
                                             const CUtensorMap& tdo,
                                             const flash::BwdParams& p) {
   constexpr int kDW = kChunks * kD;  // head_dim
-  // KV rows a CTA's exchange owns at most (22 of 3 CTAs, 16 of 4, 13 of 5,
-  // 8 of 8), 16 a slot
+  // KV rows a CTA's exchange owns at most (32 of 2 CTAs, 22 of 3, 16 of 4,
+  // 13 of 5, 8 of 8), 16 a slot
   constexpr int kSlots = ((kBKV + kChunks - 1) / kChunks + 15) / 16;
   // setmaxnreg of the math and exchange warpgroups: 224 and 56 at one row
   // slot, 216 and 72 at two (at 56 the exchange spilled 64 bytes); either
@@ -852,7 +855,8 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
     }
 
     // This CTA's KV rows, [c 64 / kChunks, (c + 1) 64 / kChunks) (8 of 64
-    // at 8 chunks, 12 or 13 at 5, 16 at 4: every thread; 21 or 22 at 3):
+    // at 8 chunks, 12 or 13 at 5, 16 at 4: every thread; 21 or 22 at 3; 32
+    // at 2: every thread in both slots):
     // thread xt takes row c 64 / kChunks + xt / 8 + 16 i of each row slot i
     // < kSlots and sums one 16-byte column (4 q columns) of it over the
     // chunks, in chunk order 0 to kChunks - 1 in every CTA, so that all hold
@@ -1155,6 +1159,17 @@ flash_bwd_dkv_f32_d384_cluster_kernel(const __grid_constant__ CUtensorMap tq,
                                       const __grid_constant__ CUtensorMap tdo,
                                       const flash::BwdParams p) {
   dkv_cluster<3>(tq, tk, tv, tdo, p);
+}
+
+// f32 at D = 256: clusters of 2 CTAs. Each CTA's exchange owns 32 of the 64
+// KV rows in two full row slots of 16.
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_f32_d256_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                      const __grid_constant__ CUtensorMap tk,
+                                      const __grid_constant__ CUtensorMap tv,
+                                      const __grid_constant__ CUtensorMap tdo,
+                                      const flash::BwdParams p) {
+  dkv_cluster<2>(tq, tk, tv, tdo, p);
 }
 
 }  // namespace f32c
@@ -1542,12 +1557,12 @@ flash_bwd_dkv_bf16_d384_cluster_kernel(
 }  // namespace bf16c
 
 // ---------------------------------------------------------------------------
-// Generic variant: every dtype and head_dim (a multiple of 128) but bf16 D =
-// 128 and 256, D = 384, 512, 640 and 1024, which the kernels above serve.
+// Generic variant: every dtype and head_dim (a multiple of 128) but D = 256,
+// 384, 512, 640 and 1024 and bf16 D = 128, which the kernels above serve.
 // The same function on the CUDA cores: one block of 128 threads per (b, KV
 // head, 16 KV rows, chunk of D), walking the group's query heads and their
 // 32-row q tiles as the wgmma kernels do, with K, V, Q, dO as f32 tiles in
-// dynamic shared memory (104 KB at DC = 256). D up to 256 runs in one chunk
+// dynamic shared memory (104 KB at DC = 256). D = 128 runs in one chunk
 // (DC = D); above 512, D is cut into chunks of DC = 256 or 128
 // columns (flash::gen_chunk; the chunked instances): each block writes one
 // chunk of dK and dV, and the contractions over D (S^T = K Q^T and dP^T = V
@@ -1721,7 +1736,7 @@ __device__ __forceinline__ void flash_bwd_dkv_generic_body(
   }
 }
 
-// One block per (KV tile, b, KV head): D up to 2 kD, in one chunk.
+// One block per (KV tile, b, KV head): D = kD, in one chunk.
 template <typename T, int DC>
 __global__ void __launch_bounds__(128)
 flash_bwd_dkv_generic_kernel(const flash::BwdParams p) {
@@ -1752,9 +1767,10 @@ int launch_generic(const flash::BwdParams& p, int D, int B, cudaStream_t st) {
 }
 
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
-// and dtype: D itself for f32 at kD and 2 kD (bf16 at kD and 2 kD is the
-// wgmma kernels', 3 kD and 4 kD the cluster kernels'), above 4 kD a chunk of
-// flash::gen_chunk(D) columns (D = 5 kD and 8 kD are the cluster kernels').
+// and dtype: D itself for f32 at kD (bf16 at kD and 2 kD is the wgmma
+// kernels', f32 at 2 kD and both at 3 kD and 4 kD the cluster kernels'),
+// above 4 kD a chunk of flash::gen_chunk(D) columns (D = 5 kD and 8 kD are
+// the cluster kernels').
 int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -1765,11 +1781,10 @@ int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
     return wide ? launch_generic<float, 2 * kD, true>(p, D, B, st)
                 : launch_generic<float, kD, true>(p, D, B, st);
   }
-  if (D == kD) return launch_generic<float, kD, false>(p, D, B, st);
-  return launch_generic<float, 2 * kD, false>(p, D, B, st);
+  return launch_generic<float, kD, false>(p, D, B, st);
 }
 
-// f32 at D = kChunks kD (3, 4, 5 or 8): one cluster of kChunks CTAs per 64
+// f32 at D = kChunks kD (2, 3, 4, 5 or 8): one cluster of kChunks CTAs per 64
 // KV rows, on `kernel`, the instance of that size. A launch the card refuses
 // (no room for a cluster) returns its error. The shared-memory opt-in is set
 // at every launch, as for the generic variants.
@@ -1854,6 +1869,12 @@ extern "C" int ray_flash_bwd_dkv_f32_d384_max_clusters(int* clusters) {
                              f32c::kThreads, f32c::kSmemBytes, clusters);
 }
 
+// The same for the f32 D = 256 kernel (clusters of 2).
+extern "C" int ray_flash_bwd_dkv_f32_d256_max_clusters(int* clusters) {
+  return flash::max_clusters(f32c::flash_bwd_dkv_f32_d256_cluster_kernel, 2,
+                             f32c::kThreads, f32c::kSmemBytes, clusters);
+}
+
 // The same for the bf16 D = 640 kernel (clusters of 5).
 extern "C" int ray_flash_bwd_dkv_bf16_max_clusters(int* clusters) {
   return flash::max_clusters(bf16c::flash_bwd_dkv_bf16_cluster_kernel, 5,
@@ -1883,9 +1904,9 @@ extern "C" int ray_flash_bwd_dkv_bf16_d384_max_clusters(int* clusters) {
 // bytes, as TMA and the 16-byte loads require); lse and delta [B, H, Sq] f32
 // and dk/dv [B, KVH, Skv, D] dense, in the inputs' dtype. D is a multiple of
 // 128; dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 and 256 runs a wgmma
-// kernel, D = 384 a cluster kernel of 3 CTAs, D = 512 one of 4, D = 640 one
-// of 5 and D = 1024 one of 8 (f32 or bf16), every other case the generic
-// variant. Returns cudaGetLastError() after the launch
+// kernel, f32 at D = 256 a cluster kernel of 2 CTAs, D = 384 one of 3, D =
+// 512 one of 4, D = 640 one of 5 and D = 1024 one of 8 (f32 or bf16), every
+// other case the generic variant. Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for a shape or layout the kernels do not take).
 extern "C" int ray_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
@@ -1905,6 +1926,9 @@ extern "C" int ray_flash_bwd_dkv(
         static_cast<const float*>(delta), dk, dv,
         q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
         o_sb, o_sh, o_ss, H,    KVH,  Sq,   Skv,  scale, causal};
+    if (dtype == 0 && D == 2 * kD)
+      return launch_cluster<2>(f32c::flash_bwd_dkv_f32_d256_cluster_kernel,
+                               p, B, st);
     if (dtype == 0 && D == 3 * kD)
       return launch_cluster<3>(f32c::flash_bwd_dkv_f32_d384_cluster_kernel,
                                p, B, st);

@@ -140,17 +140,21 @@
 //   * Shared memory: Q and dO 32 KB, the ring 96 KB, dS 2 x 8 KB, the
 //     partials 2 x 2 x 16 KB: 215,040 bytes with the alignment slack, one
 //     CTA an SM.
-// bf16 at 1024 and 512 runs the same kernel at 8 and 4 CTAs a cluster
-// (flash_bwd_dq_bf16_d1024_cluster_kernel,
-// flash_bwd_dq_bf16_d512_cluster_kernel), as f32 does: the body is a
+// bf16 at 1024, 512 and 384 runs the same kernel at 8, 4 and 3 CTAs a
+// cluster (flash_bwd_dq_bf16_d1024_cluster_kernel,
+// flash_bwd_dq_bf16_d512_cluster_kernel,
+// flash_bwd_dq_bf16_d384_cluster_kernel), as f32 does: the body is a
 // template over the chunk count, each instance gives its cluster's size as a
 // literal, and the shared memory is the 5-CTA one's. At 8 CTAs each CTA's
 // exchange owns 8 of the 64 q rows (one row a 16-lane group, one row slot)
 // and sums 8 partials a row in place of 5; at 4 it owns 16 rows in two
-// slots and sums 4 partials a row.
+// slots and sums 4 partials a row; at 3 it owns 21 or 22 rows (0-20, 21-41,
+// 42-63) in three slots (the third 5 or 6 rows full) and sums 3 partials a
+// row. The body has no setmaxnreg split, so the third slot's sums come out
+// of the 168 registers every thread of the launch has.
 // A generic variant (at the end of this file) serves f32 at any other
 // head_dim that is a multiple of 128 (128, 256 and from 768 up but 1024)
-// and bf16 at 384 and from 768 up but 1024 (tiled over D from
+// and bf16 from 768 up but 1024 (tiled over D from
 // 768 up: chunks of 256 columns for D768, 1280, ..., of 128 for D896, 1152,
 // ...), with P and dS rounded to the input dtype as the Pallas kernel rounds
 // them.
@@ -1128,8 +1132,8 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
                                            const CUtensorMap& tdo,
                                            const DqArgs& p) {
   constexpr int kDW = kChunks * kD;  // head_dim
-  // q rows a CTA's exchange owns at most (16 of 4 CTAs, 13 of 5, 8 of 8), 8
-  // a slot
+  // q rows a CTA's exchange owns at most (22 of 3 CTAs, 16 of 4, 13 of 5, 8
+  // of 8), 8 a slot
   constexpr int kSlots = ((kBQ + kChunks - 1) / kChunks + 7) / 8;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
@@ -1205,8 +1209,8 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
       for (int kt = 0; kt < min(n_kt, kStages - 1); ++kt) load_tile(kt);
     }
 
-    // This CTA's q rows, [c 64 / kChunks, (c + 1) 64 / kChunks) (16 of 4
-    // CTAs, 12 or 13 of 5, 8 of 8), for the whole loop: 16 lanes a row, lane
+    // This CTA's q rows, [c 64 / kChunks, (c + 1) 64 / kChunks) (21 or 22
+    // of 3 CTAs, 16 of 4, 12 or 13 of 5, 8 of 8), for the whole loop: 16 lanes a row, lane
     // col4 of row r0 + xt / 16 + 8 i (i < kSlots) sums 16-byte column col4
     // (4 KV columns) of S and dP over the kChunks chunks, in chunk order
     // from 0 in every CTA, forms P = 2^(S scale log2 e - LSE log2
@@ -1422,16 +1426,27 @@ flash_bwd_dq_bf16_d512_cluster_kernel(const __grid_constant__ CUtensorMap tq,
   dq_cluster<4>(tq, tk, tv, tdo, p);
 }
 
+// bf16 at D = 384: clusters of 3 CTAs. Each CTA's exchange owns 21 or 22 of
+// the 64 q rows, 16 lanes a row, in three row slots.
+__global__ void __cluster_dims__(3, 1, 1) __launch_bounds__(kThreads, 1)
+flash_bwd_dq_bf16_d384_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                      const __grid_constant__ CUtensorMap tk,
+                                      const __grid_constant__ CUtensorMap tv,
+                                      const __grid_constant__ CUtensorMap tdo,
+                                      const DqArgs p) {
+  dq_cluster<3>(tq, tk, tv, tdo, p);
+}
+
 }  // namespace bf16c
 
 // ---------------------------------------------------------------------------
 // Generic variant: every dtype and head_dim (a multiple of 128) but bf16
-// D = 128, 256 and 512, f32 D = 384 and 512, D = 640 and D = 1024, which
-// the kernels above serve.
+// D = 128 and 256, D = 384, 512, 640 and 1024, which the kernels above
+// serve.
 // The same function on the CUDA cores: one block of 128 threads per (b, h, 16
 // q rows, chunk of D), walking the visible 32-row KV tiles, with Q, dO, K, V
-// as f32 tiles in dynamic shared memory (102 KB at DC = 256, 148 KB at 384).
-// D up to 384 runs in one chunk (DC = D); above 512, D is cut into chunks of
+// as f32 tiles in dynamic shared memory (102 KB at DC = 256).
+// D up to 256 runs in one chunk (DC = D); above 512, D is cut into chunks of
 // DC = 256 or 128 columns (flash::gen_chunk; the chunked instances): each block
 // writes one chunk of dQ, and the contractions over D (S = Q K^T and dP = dO
 // V^T) are summed over the chunks staged one at a time, in the order that
@@ -1456,7 +1471,8 @@ constexpr int gen_smem_bytes() {
 }
 
 // p by value: the body taking the kernel's parameters by reference compiled
-// the one-chunk instance at bf16 D384 to code 1.45x slower on the H100.
+// the one-chunk instance at bf16 D384 (a cluster kernel's now) to code 1.45x
+// slower on the H100.
 template <typename T, int DC, bool kChunked>
 __device__ __forceinline__ void flash_bwd_dq_generic_body(
     const flash::BwdParams p) {
@@ -1571,7 +1587,7 @@ __device__ __forceinline__ void flash_bwd_dq_generic_body(
   }
 }
 
-// One block per (q tile, b * h): D up to 4 kD, in one chunk.
+// One block per (q tile, b * h): f32 D up to 2 kD, in one chunk.
 template <typename T, int DC>
 __global__ void __launch_bounds__(128)
 flash_bwd_dq_generic_kernel(const flash::BwdParams p) {
@@ -1601,9 +1617,9 @@ int launch_generic(const flash::BwdParams& p, int D, int B, cudaStream_t st) {
 }
 
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
-// and dtype: D itself for bf16 at 3 kD and f32 at kD and 2 kD (the other D
-// up to 4 kD are the wgmma and cluster kernels'), above 4 kD a chunk of
-// flash::gen_chunk(D) columns (D = 5 kD and 8 kD are the cluster kernels').
+// and dtype: D itself for f32 at kD and 2 kD (the other D up to 4 kD are the
+// wgmma and cluster kernels'), above 4 kD a chunk of flash::gen_chunk(D)
+// columns (D = 5 kD and 8 kD are the cluster kernels').
 int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -1614,7 +1630,6 @@ int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
     return wide ? launch_generic<float, 2 * kD, true>(p, D, B, st)
                 : launch_generic<float, kD, true>(p, D, B, st);
   }
-  if (dtype == 1) return launch_generic<bf16, 3 * kD, false>(p, D, B, st);
   if (D == kD) return launch_generic<float, kD, false>(p, D, B, st);
   return launch_generic<float, 2 * kD, false>(p, D, B, st);
 }
@@ -1645,7 +1660,7 @@ int launch_cluster(Kernel kernel, const flash::BwdParams& p, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 at D = kChunks kD (4, 5 or 8): one cluster of kChunks CTAs per 64 q
+// bf16 at D = kChunks kD (3, 4, 5 or 8): one cluster of kChunks CTAs per 64 q
 // rows, on `kernel`, the instance of that size, with 128B-swizzled
 // 64-column boxes of every input. A launch the card refuses returns its
 // error. The shared-memory opt-in is set at every launch.
@@ -1719,14 +1734,20 @@ extern "C" int ray_flash_bwd_dq_bf16_d512_max_clusters(int* clusters) {
                              bf16c::kThreads, bf16c::kSmemBytes, clusters);
 }
 
+// The same for the bf16 D = 384 kernel (clusters of 3).
+extern "C" int ray_flash_bwd_dq_bf16_d384_max_clusters(int* clusters) {
+  return flash::max_clusters(bf16c::flash_bwd_dq_bf16_d384_cluster_kernel, 3,
+                             bf16c::kThreads, bf16c::kSmemBytes, clusters);
+}
+
 // q/dO [B, H, Sq, D] and k/v [B, KVH, Skv, D] given by element strides (batch,
 // head, seq; the last dim dense, every stride and base address a multiple of 16
 // bytes, as TMA and the 16-byte loads require); lse and delta [B, H, Sq] f32
 // and dq [B, H, Sq, D] dense, in the inputs' dtype. D is a multiple of 128;
 // dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 and 256 runs a wgmma
-// kernel, D = 512 a cluster kernel of 4 CTAs, D = 640 one of 5 and D = 1024
-// one of 8 (f32 or bf16), f32 at D = 384 one of 3, every other case the
-// generic variant.
+// kernel, D = 384 a cluster kernel of 3 CTAs, D = 512 one of 4, D = 640 one
+// of 5 and D = 1024 one of 8 (f32 or bf16), every other case the generic
+// variant.
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
 // shape or layout the kernels do not take).
 extern "C" int ray_flash_bwd_dq(
@@ -1759,6 +1780,9 @@ extern "C" int ray_flash_bwd_dq(
     if (dtype == 0 && D == 8 * kD)
       return launch_cluster<8>(f32c::flash_bwd_dq_f32_cluster_kernel, p, B,
                                st);
+    if (D == 3 * kD)
+      return launch_bf16_cluster<3>(
+          bf16c::flash_bwd_dq_bf16_d384_cluster_kernel, p, B, st);
     if (D == 4 * kD)
       return launch_bf16_cluster<4>(
           bf16c::flash_bwd_dq_bf16_d512_cluster_kernel, p, B, st);

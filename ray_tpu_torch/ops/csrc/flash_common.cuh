@@ -8,7 +8,7 @@
 // shared memory (over D / 16 k-steps), and A B with A from registers and B
 // MN-major. Then what the two D = 256 backward kernels share (a score
 // slice stored to a swizzled box, and A B with both operands in shared
-// memory), and what the generic variants (f32, and bf16 from head_dim 384
+// memory), and what the generic variants (f32, and bf16 from head_dim 768
 // up) share: loads and stores by element type, rounding to it, f32 tiles
 // in shared memory, the chunk of D they tile by, the backward's
 // parameters; the cluster kernels' swizzled f32 score partials (32 columns
@@ -151,7 +151,7 @@ __device__ __forceinline__ void mma_t(float (&acc)[64], uint32_t a_base,
 }
 
 // ---------------------------------------------------------------------------
-// The generic variants (f32 at any multiple of 128, bf16 from 384 up):
+// The generic variants (f32 at any multiple of 128, bf16 from 768 up):
 // scalar FMAs on the CUDA cores over f32 tiles in dynamic shared memory.
 // Inputs are read 4 elements at a time (16 bytes of f32, 8 of
 // bf16: the wrappers' layout check keeps rows 16-byte aligned) and widened

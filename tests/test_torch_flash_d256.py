@@ -1,14 +1,23 @@
 """The port's plain flash versions at head_dim 256 against the Pallas TPU
 kernels, on the CPU, with inputs made from a numpy seed.
 
-On the card, bf16 at head_dim 256 runs the wgmma forward and dK/dV kernels
+On the card, bf16 at head_dim 256 runs the wgmma kernels of all three
 (``csrc/flash_fwd.cu`` ``flash_fwd_bf16_kernel<256, 64>``,
-``csrc/flash_bwd_dkv.cu`` ``flash_bwd_dkv_d256_kernel``) and the generic
-dQ, and ``chip_smoke.py`` holds each against ``flash_fwd_plain``,
-``flash_bwd_plain_dkv`` and ``flash_bwd_plain_dq``. Here those plain
+``csrc/flash_bwd_dkv.cu`` ``flash_bwd_dkv_d256_kernel``,
+``csrc/flash_bwd_dq.cu`` ``flash_bwd_dq_d256_kernel``); f32 runs its dK/dV
+on a 2-CTA cluster kernel, one CTA per 128 columns of D, that sums the
+scores over D through the other's shared memory on the FMA units
+(``flash_bwd_dkv_f32_d256_cluster_kernel``, the f32 D384-D1024 dK/dV's body
+at 2 CTAs; each CTA's exchange owns 32 of the 64 KV rows, in two full row
+slots of 16), and its forward and dQ on the generic variant. ``chip_smoke.py``
+holds each against ``flash_fwd_plain``, ``flash_bwd_plain_dkv`` and
+``flash_bwd_plain_dq``. Here those plain
 versions are held against the real Pallas bodies (``_flash_fwd_kernel``,
 ``_flash_bwd_dkv_kernel``, ``_flash_bwd_dq_kernel``) run in interpret mode
-at D256: two q and two kv blocks of 128, so every causal block class.
+at D256: two q and two kv blocks of 128, so every causal block class; and
+the whole f32 ``flash_attention`` and its gradients are held against the
+JAX package's at the D256 parity runs' heads (B1 H16 KVH8) at S88, S104 and
+S200.
 
 Tolerances: f32 is f32 on both sides, only the summation order differs,
 so 1e-5 absolute (measured: under 5e-6). In bf16 both round P to bf16
@@ -24,6 +33,7 @@ also bit-equal but for at most 1% (measured: 0.53%), where keeping P and dS
 in f32 would change about 40% of them.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -156,3 +166,38 @@ def test_flash_d256_gqa_sums_query_heads_like_repeat_kv(dt):
         summed = np.asarray(jnp.asarray(want, jnp.float32)).reshape(
             1, 2, 2, S, D).sum(axis=2)
         _close(got, summed, dt)
+
+
+@pytest.mark.parametrize("s", [88, 104, 200])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_f32_d256_matches_jax(causal, s):
+    """B1 H16 KVH8 D256 f32, the D256 parity runs' heads: the whole
+    ``flash_attention`` and its backward against the JAX package's
+    ``flash_attention`` and ``jax.grad`` on the CPU (its jnp branch),
+    grouped-query heads on the JAX side through ``repeat_kv``. On the card
+    the 2-CTA dK/dV's CTA 0 owns KV rows 0-31 of a 64-row tile (slots 0-15
+    and 16-31) and CTA 1 rows 32-63: S88 ends the last tile at row 24,
+    inside CTA 0's second slot (CTA 1 wholly past Skv), S104 at row 40,
+    inside CTA 1's first slot (its second wholly past), and S200 at row 8
+    (also a ragged last tile of the generic forward's and dQ's tiles).
+    Output and dQ, dK, dV to 1e-5 absolute: f32 on both sides, summation
+    order alone."""
+    jdt = DTYPES["f32"][0]
+    q, k, v, g = (jnp.asarray(_rand(shape, 260 + i), jdt)
+                  for i, shape in enumerate(((1, 16, s, D), (1, 8, s, D),
+                                             (1, 8, s, D), (1, 16, s, D))))
+
+    def loss(q, k, v):
+        out = jatt.flash_attention(q, jatt.repeat_kv(k, 2),
+                                   jatt.repeat_kv(v, 2), causal)
+        return jnp.sum((out * g).astype(jnp.float32)), out
+
+    (_, want_o), want = jax.value_and_grad(loss, argnums=(0, 1, 2),
+                                           has_aux=True)(q, k, v)
+    tq, tk, tv = (_torch(x, "f32").requires_grad_() for x in (q, k, v))
+    out = tatt.flash_attention(tq, tk, tv, causal)
+    (out * _torch(g, "f32")).sum().backward()
+    assert out.shape == (1, 16, s, D) and tk.grad.shape == (1, 8, s, D)
+    _close(out.detach(), want_o, "f32")
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        _close(got, w, "f32")

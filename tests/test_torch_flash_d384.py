@@ -1,19 +1,22 @@
 """The port's plain flash forward and backward at head_dim 384 against the
 Pallas TPU kernels, on the CPU, with inputs made from a numpy seed.
 
-On the card, head_dim 384 runs three 3-CTA cluster kernels, one CTA per
-128 columns of D, that sum the scores over D through each other's shared
-memory: in f32 the backward on the FMA units,
+On the card, head_dim 384 runs all three kernels on 3-CTA cluster
+kernels, one CTA per 128 columns of D, that sum the scores over D through
+each other's shared memory: in f32 on the FMA units, the forward
+``flash_fwd_f32_d384_cluster_kernel`` (``csrc/flash_fwd.cu``; its exchange
+owns 42 or 43 of the 128 q rows in three row slots of 16),
 ``flash_bwd_dkv_f32_d384_cluster_kernel`` (``csrc/flash_bwd_dkv.cu``, the
 f32 D512, D640 and D1024 dK/dV's body at 3 CTAs; each CTA's exchange owns
 21 or 22 of the 64 KV rows, in two row slots of 16) and
 ``flash_bwd_dq_f32_d384_cluster_kernel`` (``csrc/flash_bwd_dq.cu``, the f32
 dQ's body, its exchange owning 21 or 22 of the 64 q rows in two row
-slots); in bf16 the dK/dV on wgmma in each CTA,
+slots); in bf16 on wgmma in each CTA, the forward
+``flash_fwd_bf16_d384_cluster_kernel`` (six row slots of 8),
 ``flash_bwd_dkv_bf16_d384_cluster_kernel`` (the bf16 D512, D640 and D1024
 dK/dV's body at 3 CTAs, its exchange owning 21 or 22 of the 64 KV rows in
-three row slots of 8). The forward in both dtypes and the bf16 dQ still
-run the generic variant in one chunk of 384 columns.
+three row slots of 8) and ``flash_bwd_dq_bf16_d384_cluster_kernel`` (the
+bf16 dQ's body, 21 or 22 of the 64 q rows in three row slots of 8).
 ``chip_smoke.py`` holds each against ``flash_fwd_plain``,
 ``flash_bwd_plain_dkv`` and ``flash_bwd_plain_dq``. Here those plain
 versions are held against the real Pallas bodies (``_flash_fwd_kernel``,
@@ -199,11 +202,13 @@ def test_flash_attention_d384_matches_jax(dt, causal, s):
     ``flash_attention`` and its backward against the JAX package's
     ``flash_attention`` and ``jax.grad`` on the CPU (its jnp branch),
     grouped-query heads on the JAX side through ``repeat_kv``. On the card
-    S200 ends in a ragged last 64-row q tile of the f32 3-CTA dQ (and of the
-    generic instances' 16- and 32-row tiles); S40 and S104 (both 40 mod 64)
-    end the last 64-row KV tile of the 3-CTA dK/dVs at row 40, so that the
-    second CTA's rows 40-41 and all the third CTA's rows 42-63 lie past Skv
-    (in bf16 the third CTA's three row slots, in f32 its two). f32: output
+    S200 ends in a ragged last 64-row q tile of the 3-CTA dQs (rows 8-63
+    past Sq: all the first CTA's rows but 0-7, and the other two CTAs'
+    wholly); S40 and S104 (both 40 mod 64) end the last 64-row KV tile of
+    the 3-CTA dK/dVs and the last q tile of the 3-CTA dQs at row 40, so
+    that the second CTA's rows 40-41 (in bf16 its third row slot, 37-41;
+    in f32 its second) and all the third CTA's rows 42-63 lie past Skv or
+    Sq. f32: output
     and dQ, dK, dV to
     1e-5 absolute, summation order alone. bf16: 2 bf16 steps at their
     magnitude (``_close``): the port rounds P and dS to bf16 before the

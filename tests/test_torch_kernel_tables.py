@@ -122,9 +122,26 @@ def test_generic_instances_counts_launch_generic_d():
 @pytest.mark.parametrize("kernel, variant, kind", [
     ("flash_fwd", "f32_d384", "cluster"),
     ("flash_fwd", "bf16_d384", "cluster"),
-    ("flash_bwd_dq", "bf16_d384", "generic")])
+    ("flash_bwd_dkv", "f32_d384", "cluster"),
+    ("flash_bwd_dkv", "bf16_d384", "cluster"),
+    ("flash_bwd_dq", "f32_d384", "cluster"),
+    ("flash_bwd_dq", "bf16_d384", "cluster")])
 def test_kernel_kind_at_d384(kernel, variant, kind):
-    """At D384 the f32 and bf16 forwards run cluster kernels, and the bf16
-    dQ its generic instance: the kind under which the parity runs count
-    their launches."""
+    """At D384 all three kernels run cluster kernels in f32 and in bf16
+    (the bf16 dQ's 3-CTA cluster last): the kind under which the parity
+    runs count their launches."""
+    assert chip_smoke.kernel_kind(kernel, variant) == kind
+
+
+@pytest.mark.parametrize("kernel, variant, kind", [
+    ("flash_fwd", "f32_d256", "generic"),
+    ("flash_bwd_dkv", "f32_d256", "cluster"),
+    ("flash_bwd_dq", "f32_d256", "generic"),
+    ("flash_fwd", "bf16_d256", "wgmma"),
+    ("flash_bwd_dkv", "bf16_d256", "wgmma"),
+    ("flash_bwd_dq", "bf16_d256", "wgmma")])
+def test_kernel_kind_at_d256(kernel, variant, kind):
+    """At D256 the f32 dK/dV runs its 2-CTA cluster kernel, the f32
+    forward and dQ their generic instances, and bf16 the wgmma kernels of
+    all three."""
     assert chip_smoke.kernel_kind(kernel, variant) == kind
