@@ -21,11 +21,12 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    dQ in f32 and in bf16 on the cluster kernels of 5 CTAs, at 1024 the
    same on clusters of 8, the forward, dK/dV and dQ at 512 (f32 and bf16)
    on clusters of 4, the forward, dK/dV and dQ at 384 (f32 and bf16) on
-   clusters of 3 and the dK/dV at f32 256 on clusters of 2, the rest
-   generic, tiled over D from 768) at B1
+   clusters of 3 and the forward, dK/dV and dQ at f32 256 on clusters of
+   2, the rest generic, tiled over D from 768) at B1
    H8 KVH2 S2048 and the ragged S1000, causal and not, and at the shapes
-   of their train-parity runs, bf16 256 also at ``llama3_8b(n_heads=16)``'s
-   training length, B1 H16 KVH8 S8192 causal, and D896 and D768 (f32 and
+   of their train-parity runs, f32 256 also at B1 H16 KVH8 S120, bf16
+   256 also at ``llama3_8b(n_heads=16)``'s training length, B1 H16 KVH8
+   S8192 causal, and D896 and D768 (f32 and
    bf16), B1 H8 KVH2 S2048 causal: the generic chunked instances of 128
    and 256 columns that the cluster kernels took D640 and D1024 from (no
    ptxas spill allowed in any generic instance, wgmma kernel or cluster
@@ -228,12 +229,12 @@ edit), ``--only-bwd`` runs phase 5 alone in the same way, ``--only-times``
 times the bf16 wgmma kernels alone at head_dim 256 and 128, S2048 and
 S8192, the six D640 cluster kernels (forward, dK/dV and dQ, f32 and
 bf16), the six D1024 ones, the six D512 ones, the six D384 ones and the
-f32 D256 dK/dV (beside the generic f32 D256 forward and dQ) at their
-parity shapes, in 3 rounds, and checks nothing of the build (run
-it from two trees' roots in turns to compare them; with ``--tree-csrc
-DIR`` it times the dQ entry point, or with ``--tree-kernel flash_bwd_dkv``
-or ``flash_fwd`` the dK/dV or forward one, as another tree's sources build
-it beside this tree's, in one process), ``--only-moe``
+three f32 D256 ones at their parity shapes, in 3 rounds, and checks
+nothing of the build (run it from two trees' roots in turns to compare
+them; with ``--tree-csrc DIR`` it times the dQ entry point, or with
+``--tree-kernel flash_bwd_dkv`` or ``flash_fwd`` the dK/dV or forward one,
+as another tree's sources build it beside this tree's, in one process),
+``--only-moe``
 phase 9, ``--only-ckpt`` phases 4 and 10, ``--only-runtime`` phase 11,
 ``--only-trainer`` phases 8 and 12, ``--only-serve`` phase 13,
 ``--only-edges`` phase 14, ``--only-rllib`` phase 15, ``--only-tune``
@@ -359,15 +360,15 @@ SERVE_FWD_CASES = [(1, 32, 16, S, True, BF16, "model")
 FWD_CASES += SERVE_FWD_CASES
 # The kernel variants other than bf16 D128 (bf16 D256 on the wgmma kernels,
 # at D384, D512, D640 and D1024 the forward, dK/dV and dQ in f32 and in
-# bf16, and at f32 D256 the dK/dV on the cluster kernels, every other one
-# generic), in phases 2 and 5: at B1 H8 KVH2, S2048 and the ragged S1000,
-# causal and not, and at the shape the train-parity path of their dtype
-# and head_dim gives them
+# bf16, and at f32 D256 the forward, dK/dV and dQ on the cluster kernels,
+# every other one generic), in phases 2 and 5: at B1 H8 KVH2, S2048 and the
+# ragged S1000, causal and not, and at the shape the train-parity path of
+# their dtype and head_dim gives them
 # (``PARITY_RUNS``: B1 H32 KVH8 D128, B1 H16 KVH8 D256, B1 H8 KVH4 D384,
 # D512 and D640, B1 H4 KVH2 D1024, S2048 causal); bf16 D256 also at phase
 # 7's training length, B1 H16 KVH8 S8192 causal (``llama3_8b(n_heads=16)``
 # at S8192). The cluster kernels split D640 over 5 CTAs, D1024 over 8, D512
-# over 4, D384 over 3 and the f32 D256 dK/dV over 2
+# over 4, D384 over 3 and f32 D256 over 2
 # (the rows of a dK/dV or dQ cluster's 64 unevenly over 5: 12 or 13 a CTA,
 # 8 each over 8, 16 over 4, 21 or 22 over 3, in two row slots of 16 (f32)
 # or three of 8 (bf16), 32 over 2 in two full row slots of 16; the ragged
@@ -375,14 +376,21 @@ FWD_CASES += SERVE_FWD_CASES
 # half past Skv or Sq and the fourth's all, over 3 the second CTA's rows
 # 37-41 (f32's second slot, bf16's third) lie partly past them (40-41), and
 # all the third CTA's rows lie past them, and over 2 the second CTA's first
-# slot (rows 32-47) lies partly past Skv (40-47) and its second wholly;
-# the forward's 128-row q tiles, 25 or 26 rows a CTA over 5, 16 over 8, 32
-# over 4 and 42 or 43 over 3 (three row slots of 16 in f32, six of 8 in
-# bf16), end in one of 104, so that over 4 the fourth CTA's rows 104-127
-# lie past Sq, and over 3 the third CTA's rows 104-127 (85-127 its own):
-# its second slot's last 13 rows and all its third slot's in f32, its third
-# slot's last 5 and all its fourth to sixth slots' in bf16). D896 and D768
-# (f32 and bf16; B1 H8 KVH2 S2048 causal) keep the generic chunked
+# slot (rows 32-47) lies partly past Skv or Sq (40-47) and its second
+# wholly; the forward's 128-row q tiles, 25 or 26 rows a CTA over 5, 16 over
+# 8, 32 over 4, 42 or 43 over 3 (three row slots of 16 in f32, six of 8 in
+# bf16) and 64 over 2 (four row slots of 16), end in one of 104, so that
+# over 4 the fourth CTA's rows 104-127 lie past Sq, over 3 the third CTA's
+# rows 104-127 (85-127 its own): its second slot's last 13 rows and all its
+# third slot's in f32, its third slot's last 5 and all its fourth to sixth
+# slots' in bf16, and over 2 the second CTA's third slot (96-111) half past
+# Sq and its fourth wholly). f32 D256 also at its parity heads, B1 H16 KVH8,
+# at S120, causal and not: one q tile of 120 rows, so the forward's fourth
+# slot (rows 112-127) lies half past Sq, the only case that leaves it partly
+# full, and the last 64-row q and KV tiles hold 56 rows, the second CTA's
+# second slot (48-63) half past Sq in the dQ and past Skv in the dK/dV.
+# D896 and D768 (f32 and bf16; B1 H8 KVH2 S2048 causal) keep the generic
+# chunked
 # instances of 128 and 256 columns checked and timed: no parity run
 # reaches them, and since the cluster kernels took D640 and D1024 they
 # serve only D896, 1152, ... and D768, 1280, ...
@@ -401,26 +409,28 @@ VARIANT_CASES = [(name, D, dt, 1, 8, 2, S, causal)
                  for causal in (True, False)] + [
     (name, D, dt, *VARIANT_MAIN[D], 2048, True) for name, D, dt in VARIANTS
 ] + [("bf16_d256", 256, BF16, *VARIANT_MAIN[256], TRAIN_SEQ, True)] + [
+    ("f32_d256", 256, F32, *VARIANT_MAIN[256], 120, causal)
+    for causal in (True, False)] + [
     (f"{dt_name}_d896", 896, dt, 1, 8, 2, 2048, True)
     for dt_name, dt in (("f32", F32), ("bf16", BF16))] + [
     ("f32_d768", 768, F32, 1, 8, 2, 2048, True),
     ("bf16_d768", 768, BF16, 1, 8, 2, 2048, True)]
 # The variants that run wgmma kernels besides bf16 D128, by kernel: bf16
 # D256 (all three); and those that run the cluster kernels: the forward,
-# dK/dV and dQ at D384, D512, D640 and D1024 in f32 and in bf16, and the
-# dK/dV at f32 D256. Every other variant runs a generic instance.
+# dK/dV and dQ at D384, D512, D640 and D1024 in f32 and in bf16, and at f32
+# D256. Every other variant runs a generic instance.
 WGMMA_VARIANTS = {"flash_fwd": ("bf16_d256",),
                   "flash_bwd_dkv": ("bf16_d256",),
                   "flash_bwd_dq": ("bf16_d256",)}
-CLUSTER_VARIANTS = {"flash_fwd": ("f32_d384", "bf16_d384", "f32_d512",
-                                  "bf16_d512", "f32_d640", "bf16_d640",
-                                  "f32_d1024", "bf16_d1024"),
+CLUSTER_VARIANTS = {"flash_fwd": ("f32_d256", "f32_d384", "bf16_d384",
+                                  "f32_d512", "bf16_d512", "f32_d640",
+                                  "bf16_d640", "f32_d1024", "bf16_d1024"),
                     "flash_bwd_dkv": ("f32_d256", "f32_d384", "bf16_d384",
                                       "f32_d512", "bf16_d512", "f32_d640",
                                       "bf16_d640", "f32_d1024", "bf16_d1024"),
-                    "flash_bwd_dq": ("f32_d384", "bf16_d384", "f32_d512",
-                                     "bf16_d512", "f32_d640", "bf16_d640",
-                                     "f32_d1024", "bf16_d1024")}
+                    "flash_bwd_dq": ("f32_d256", "f32_d384", "bf16_d384",
+                                     "f32_d512", "bf16_d512", "f32_d640",
+                                     "bf16_d640", "f32_d1024", "bf16_d1024")}
 PROMPT_LENS = (17, 100, 300, 700, 1500, 3000, 5000, 8000)
 SAMPLED = {1: dict(temperature=0.8, top_k=40, seed=1234),
            6: dict(temperature=1.0, top_k=0, seed=5678)}
@@ -536,17 +546,16 @@ OUT_DIR = "chiprun_out"
 # any warning (setmaxnreg ignored, wgmma serialized).
 BUILD_REPORT = ("registers", "spill", "smem", "arning", "wgmma",
                 "setmaxnreg")
-# Generic instances: 2 one-chunk ones in the forward (f32 D128 and D256;
-# bf16 D256 is the wgmma kernels', D384 and D512 the cluster kernels'), 1 in
-# the dK/dV (f32 D128; f32 D256, D384 and D512 are cluster kernels'), 2 in
-# the dQ (f32 D128 and D256; D384 and D512 are cluster kernels': every
-# instance at D384 is a cluster kernel), and each kernel 4 chunked ones (f32
-# and bf16, chunks of 128 and 256). D640 and D1024 are the cluster kernels' for
+# Generic instances: 1 one-chunk one in each kernel (f32 D128: bf16 D128
+# and D256 are the wgmma kernels', f32 D256 and D384 and D512 in both dtypes
+# the cluster kernels', so every instance at D256 and D384 is a wgmma or
+# cluster kernel), and each kernel 4 chunked ones (f32 and bf16, chunks of
+# 128 and 256). D640 and D1024 are the cluster kernels' for
 # all three in f32 and in bf16, so the instances of 128-column chunks serve
 # only D896, 1152, ... (D above 512 with D % 256 != 0; the D896 cases of
 # VARIANT_CASES run them) and those of 256-column chunks only D768, 1280,
 # ... (the D768 cases run them)
-GENERIC_INSTANCES = 17
+GENERIC_INSTANCES = 15
 # wgmma kernels: each of the three at D128 and D256 (the forward's two from
 # one template)
 WGMMA_INSTANCES = 6
@@ -555,9 +564,9 @@ WGMMA_INSTANCES = 6
 # D1024, the f32 forward, dK/dV and dQ on the FMA units and the bf16
 # forward, dK/dV and dQ on wgmma (each its D640 instance's template); of 4
 # CTAs at D512 and of 3 at D384, the forward, dK/dV and dQ in f32 and in
-# bf16, and of 2 CTAs at f32 D256, the dK/dV (each its dtype's template of
-# that kernel)
-CLUSTER_INSTANCES = 25
+# bf16, and of 2 CTAs at f32 D256, the forward, dK/dV and dQ (each its
+# dtype's template of that kernel)
+CLUSTER_INSTANCES = 27
 
 
 def log(*a):
@@ -1086,8 +1095,7 @@ def _bwd_case(gen, card, B, H, KVH, S, causal, layout, D=128, dt=BF16):
 # turn, medians printed: the quick A/B of two trees in one call (run it
 # from each root in turns). Then the cluster kernels at their parity runs'
 # shapes, S2048 only: the forward, dK/dV and dQ in f32 and bf16 at D640,
-# D1024, D512 and D384 (all cluster kernels), and at f32 D256 (the dK/dV
-# cluster kernel, the forward and dQ generic).
+# D1024, D512 and D384, and in f32 at D256 (all cluster kernels).
 TIME_SHAPES = ((256, 16, 8), (128, 32, 8))
 TIME_SEQS = (2048, TRAIN_SEQ)
 TIME_ROUNDS = 3
@@ -1213,6 +1221,8 @@ def phase_trees(card: str, kernel: str, dirs: list, cases: list) -> list:
 # The cluster kernels by kernel-line entry: (library, its max-clusters
 # entry point, CTAs a cluster).
 CLUSTER_FIT = {
+    "flash_fwd.f32_d256": ("flash_fwd", "ray_flash_fwd_f32_d256_max_clusters",
+                           2),
     "flash_fwd.f32_d384": ("flash_fwd", "ray_flash_fwd_f32_d384_max_clusters",
                            3),
     "flash_fwd.bf16_d384": ("flash_fwd",
@@ -1250,6 +1260,8 @@ CLUSTER_FIT = {
     "flash_bwd_dkv.bf16_d1024": ("flash_bwd_dkv",
                                  "ray_flash_bwd_dkv_bf16_d1024_max_clusters",
                                  8),
+    "flash_bwd_dq.f32_d256": ("flash_bwd_dq",
+                              "ray_flash_bwd_dq_f32_d256_max_clusters", 2),
     "flash_bwd_dq.f32_d384": ("flash_bwd_dq",
                               "ray_flash_bwd_dq_f32_d384_max_clusters", 3),
     "flash_bwd_dq.bf16_d384": ("flash_bwd_dq",
@@ -4648,7 +4660,7 @@ def main() -> int:
     # The generic variants hold DC/4 (forward) or 2 DC/8 (dK/dV) f32
     # accumulators per thread for their chunk of DC columns, near the
     # register limit at DC 384 (the chunked instances stop at 256 for that
-    # reason, and no one-chunk instance above 256 is left); the wgmma
+    # reason, and no one-chunk instance above 128 is left); the wgmma
     # kernels hold 64 or 128 (D128:
     # O, or dK and dV, or dQ; D256: O, or a half of dK and dV, or of dQ)
     # beside their scores under setmaxnreg 240, the f32 cluster kernels 64

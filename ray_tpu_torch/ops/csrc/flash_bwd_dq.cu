@@ -72,38 +72,41 @@
 //     products: the N = 32 score products read more shared memory than it
 //     gives the tensor cores, and the consumers meet at the barrier with
 //     the tensor cores idle while both compute P and dS.
-// f32 at 384, 512, 640 and 1024 runs flash_bwd_dq_f32_d384_cluster_kernel,
+// f32 at 256, 384, 512, 640 and 1024 runs
+// flash_bwd_dq_f32_d256_cluster_kernel, flash_bwd_dq_f32_d384_cluster_kernel,
 // flash_bwd_dq_f32_d512_cluster_kernel, flash_bwd_dq_f32_d640_cluster_kernel
 // and flash_bwd_dq_f32_cluster_kernel (after those), one body,
-// dq_cluster<kChunks>, at 3, 4, 5 and 8 CTAs. The generic variant's chunked
-// instances computed S and dP over all of D in each of their 5 or 4 chunk
-// blocks, and its instances (the one-chunk ones at 384 and 512 too) read one
-// shared-memory word per FMA or two in their inner loops
+// dq_cluster<kChunks>, at 2, 3, 4, 5 and 8 CTAs. The generic variant's
+// chunked instances computed S and dP over all of D in each of their 5 or 4
+// chunk blocks, and its instances (the one-chunk ones at 256, 384 and 512
+// too) read one shared-memory word per FMA or two in their inner loops
 // (32 words a clock against the FMA units' 128). These kernels are bound by
 // the FMA units: f32 has no exact tensor-core input (TF32 rounds, and the f32
 // variants are held to 1e-4), 3 products of 64 * 32 * D FMAs per (64 q rows,
 // 32 KV rows) pair. They are the f32 dK/dV cluster (flash_bwd_dkv.cu) with
 // (Q, dO) and (K, V) in each other's places and one product fewer:
-//   * One cluster of D / 128 CTAs (3, 4, 5 or 8; 8 is the largest portable
-//     cluster) per (b, head, 64 q rows), one CTA per 128-column chunk of D.
-//     A CTA loads its chunk of Q and dO once (128B-swizzled f32 boxes of 32
-//     columns, since they are read down 8 rows of one column at once) and
-//     streams its chunk of K and V per 32-row KV tile through a 3-stage ring
-//     (not swizzled: read along rows). The group's query heads run
-//     next to each other and the heaviest causal q tiles first, as above.
+//   * One cluster of D / 128 CTAs (2, 3, 4, 5 or 8; 8 is the largest
+//     portable cluster) per (b, head, 64 q rows), one CTA per 128-column
+//     chunk of D. A CTA loads its chunk of Q and dO once (128B-swizzled f32
+//     boxes of 32 columns, since they are read down 8 rows of one column at
+//     once) and streams its chunk of K and V per 32-row KV tile through a
+//     3-stage ring (not swizzled: read along rows). The group's query heads
+//     run next to each other and the heaviest causal q tiles first, as
+//     above.
 //   * Warpgroup 0 computes S = Q K^T, warpgroup 1 dP = dO V^T (64 x 32)
 //     over the CTA's 128 columns into its shared memory. Then each CTA sums
 //     its share of the 64 q rows (8 at D1024; 12 or 13 at D640, which
 //     splits them unevenly; 16 at D512, 8 threads a row, so every thread
 //     of the exchange sums 4 partials of S and of dP where at D1024 half
-//     the threads sum 8; 21 or 22 at D384, more than the 16 rows its 128
-//     threads cover at once, so a thread takes a row in each of two row
-//     slots, 16 rows apart) over the chunks through distributed shared
-//     memory (ld.shared::cluster), in chunk order from 0, masks KV columns
-//     past Skv (TMA zero-filled their K rows, so S is 0 there and exp(0 -
-//     LSE) is not) and after the row (causal), forms P and dS = P (dP -
-//     delta) scale in f32 (rounding nothing, as the Pallas kernel's cast
-//     does not in f32) and stores dS into every CTA (st.shared::cluster).
+//     the threads sum 8; 21 or 22 at D384 and 32 at D256, more than the 16
+//     rows its 128 threads cover at once, so a thread takes a row in each of
+//     two row slots, 16 rows apart) over the chunks through distributed
+//     shared memory (ld.shared::cluster), in chunk order from 0, masks KV
+//     columns past Skv (TMA zero-filled their K rows, so S is 0 there and
+//     exp(0 - LSE) is not) and after the row (causal), forms P and dS = P
+//     (dP - delta) scale in f32 (rounding nothing, as the Pallas kernel's
+//     cast does not in f32) and stores dS into every CTA
+//     (st.shared::cluster).
 //     Only dS crosses back: one 64 x 32 buffer a tile.
 //   * dQ[:, chunk] += dS K_chunk, split over both math warpgroups by q
 //     rows: 32 f32 registers a thread for the whole loop. A ring stage is
@@ -153,8 +156,8 @@
 // row. The body has no setmaxnreg split, so the third slot's sums come out
 // of the 168 registers every thread of the launch has.
 // A generic variant (at the end of this file) serves f32 at any other
-// head_dim that is a multiple of 128 (128, 256 and from 768 up but 1024)
-// and bf16 from 768 up but 1024 (tiled over D from
+// head_dim that is a multiple of 128 (128 and from 768 up but 1024) and
+// bf16 from 768 up but 1024 (tiled over D from
 // 768 up: chunks of 256 columns for D768, 1280, ..., of 128 for D896, 1152,
 // ...), with P and dS rounded to the input dtype as the Pallas kernel rounds
 // them.
@@ -624,10 +627,10 @@ flash_bwd_dq_d256_kernel(const __grid_constant__ CUtensorMap tq,
 }  // namespace d256
 
 // ---------------------------------------------------------------------------
-// f32 at D = 384, 512, 640 and 1024: one cluster of 3, 4, 5 or 8 CTAs per
-// (b, head, 64 q rows), one CTA per 128-column chunk of D, the scores summed
-// over the cluster; the f32 dK/dV cluster (flash_bwd_dkv.cu) with Q, dO and
-// K, V in each other's places (see the top of this file).
+// f32 at D = 256, 384, 512, 640 and 1024: one cluster of 2, 3, 4, 5 or 8
+// CTAs per (b, head, 64 q rows), one CTA per 128-column chunk of D, the
+// scores summed over the cluster; the f32 dK/dV cluster (flash_bwd_dkv.cu)
+// with Q, dO and K, V in each other's places (see the top of this file).
 // ---------------------------------------------------------------------------
 
 namespace f32c {
@@ -688,8 +691,8 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
                                            const CUtensorMap& tdo,
                                            const flash::BwdParams& p) {
   constexpr int kDW = kChunks * kD;  // head_dim
-  // q rows a CTA's exchange owns at most (22 of 3 CTAs, 16 of 4, 13 of 5, 8
-  // of 8), 16 a slot
+  // q rows a CTA's exchange owns at most (32 of 2 CTAs, 22 of 3, 16 of 4, 13
+  // of 5, 8 of 8), 16 a slot
   constexpr int kSlots = ((kBQ + kChunks - 1) / kChunks + 15) / 16;
   extern __shared__ unsigned char cluster_smem[];
   const uint32_t raw = hopper::smem_u32(cluster_smem);
@@ -767,16 +770,17 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
     }
 
     // This CTA's q rows, [c 64 / kChunks, (c + 1) 64 / kChunks) (8 of 64 at 8
-    // chunks, 12 or 13 at 5, 16 at 4: every thread; 21 or 22 at 3), for the
-    // whole loop: thread xt takes row c 64 / kChunks + xt / 8 + 16 i of each
-    // row slot i < kSlots and sums one 16-byte column (4 KV columns) of it
-    // over the chunks, in chunk order 0 to kChunks - 1 in every CTA, so that
-    // all hold the same dS bits; applies scale and the mask (KV columns past
-    // Skv, whose K rows TMA zero-filled, and after the row, causal), forms P
-    // = exp(S scale - LSE) and dS = P (dP - delta) scale in f32 (the Pallas
-    // kernel's cast rounds nothing in f32) and stores dS into every CTA's
-    // ds. The rows' LSE and delta are read once (+inf and 0 past Sq: P and
-    // dS are 0 on such a row).
+    // chunks, 12 or 13 at 5, 16 at 4: every thread; 21 or 22 at 3; 32 at 2:
+    // every thread in both slots), for the whole loop: thread xt takes row
+    // c 64 / kChunks + xt / 8 + 16 i of each row slot i < kSlots and sums
+    // one 16-byte column (4 KV columns) of it over the chunks, in chunk
+    // order 0 to kChunks - 1 in every CTA, so that all hold the same dS
+    // bits; applies scale and the mask (KV columns past Skv, whose K rows
+    // TMA zero-filled, and after the row, causal), forms P = exp(S scale -
+    // LSE) and dS = P (dP - delta) scale in f32 (the Pallas kernel's cast
+    // rounds nothing in f32) and stores dS into every CTA's ds. The rows'
+    // LSE and delta are read once (+inf and 0 past Sq: P and dS are 0 on
+    // such a row).
     const int xt = tid - 32 * kMathWarps;
     const int col4 = xt % 8;
     int row[kSlots];
@@ -1072,6 +1076,17 @@ flash_bwd_dq_f32_d384_cluster_kernel(const __grid_constant__ CUtensorMap tq,
                                      const __grid_constant__ CUtensorMap tdo,
                                      const flash::BwdParams p) {
   dq_cluster<3>(tq, tk, tv, tdo, p);
+}
+
+// f32 at D = 256: clusters of 2 CTAs. Each CTA's exchange owns 32 of the 64
+// q rows (0-31, 32-63), 8 threads a row, in two full row slots of 16.
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
+flash_bwd_dq_f32_d256_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                     const __grid_constant__ CUtensorMap tk,
+                                     const __grid_constant__ CUtensorMap tv,
+                                     const __grid_constant__ CUtensorMap tdo,
+                                     const flash::BwdParams p) {
+  dq_cluster<2>(tq, tk, tv, tdo, p);
 }
 
 }  // namespace f32c
@@ -1441,12 +1456,11 @@ flash_bwd_dq_bf16_d384_cluster_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ---------------------------------------------------------------------------
 // Generic variant: every dtype and head_dim (a multiple of 128) but bf16
-// D = 128 and 256, D = 384, 512, 640 and 1024, which the kernels above
-// serve.
+// D = 128, D = 256, 384, 512, 640 and 1024, which the kernels above serve.
 // The same function on the CUDA cores: one block of 128 threads per (b, h, 16
 // q rows, chunk of D), walking the visible 32-row KV tiles, with Q, dO, K, V
 // as f32 tiles in dynamic shared memory (102 KB at DC = 256).
-// D up to 256 runs in one chunk (DC = D); above 512, D is cut into chunks of
+// D = 128 runs in one chunk (DC = D); above 512, D is cut into chunks of
 // DC = 256 or 128 columns (flash::gen_chunk; the chunked instances): each block
 // writes one chunk of dQ, and the contractions over D (S = Q K^T and dP = dO
 // V^T) are summed over the chunks staged one at a time, in the order that
@@ -1587,7 +1601,7 @@ __device__ __forceinline__ void flash_bwd_dq_generic_body(
   }
 }
 
-// One block per (q tile, b * h): f32 D up to 2 kD, in one chunk.
+// One block per (q tile, b * h): f32 D = kD, in one chunk.
 template <typename T, int DC>
 __global__ void __launch_bounds__(128)
 flash_bwd_dq_generic_kernel(const flash::BwdParams p) {
@@ -1617,9 +1631,9 @@ int launch_generic(const flash::BwdParams& p, int D, int B, cudaStream_t st) {
 }
 
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
-// and dtype: D itself for f32 at kD and 2 kD (the other D up to 4 kD are the
-// wgmma and cluster kernels'), above 4 kD a chunk of flash::gen_chunk(D)
-// columns (D = 5 kD and 8 kD are the cluster kernels').
+// and dtype: D itself for f32 at kD (the other D up to 4 kD are the wgmma
+// and cluster kernels'), above 4 kD a chunk of flash::gen_chunk(D) columns
+// (D = 5 kD and 8 kD are the cluster kernels').
 int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -1630,14 +1644,13 @@ int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
     return wide ? launch_generic<float, 2 * kD, true>(p, D, B, st)
                 : launch_generic<float, kD, true>(p, D, B, st);
   }
-  if (D == kD) return launch_generic<float, kD, false>(p, D, B, st);
-  return launch_generic<float, 2 * kD, false>(p, D, B, st);
+  return launch_generic<float, kD, false>(p, D, B, st);
 }
 
-// f32 at D = kChunks kD (3, 4, 5 or 8): one cluster of kChunks CTAs per 64 q
-// rows, on `kernel`, the instance of that size. A launch the card refuses
-// (no room for a cluster) returns its error. The shared-memory opt-in is set
-// at every launch, as for the generic variants.
+// f32 at D = kChunks kD (2, 3, 4, 5 or 8): one cluster of kChunks CTAs per
+// 64 q rows, on `kernel`, the instance of that size. A launch the card
+// refuses (no room for a cluster) returns its error. The shared-memory opt-in
+// is set at every launch, as for the generic variants.
 template <int kChunks, typename Kernel>
 int launch_cluster(Kernel kernel, const flash::BwdParams& p, int B,
                    cudaStream_t st) {
@@ -1716,6 +1729,12 @@ extern "C" int ray_flash_bwd_dq_f32_d384_max_clusters(int* clusters) {
                              f32c::kThreads, f32c::kSmemBytes, clusters);
 }
 
+// The same for the f32 D = 256 kernel (clusters of 2).
+extern "C" int ray_flash_bwd_dq_f32_d256_max_clusters(int* clusters) {
+  return flash::max_clusters(f32c::flash_bwd_dq_f32_d256_cluster_kernel, 2,
+                             f32c::kThreads, f32c::kSmemBytes, clusters);
+}
+
 // The same for the bf16 D = 640 kernel (clusters of 5).
 extern "C" int ray_flash_bwd_dq_bf16_max_clusters(int* clusters) {
   return flash::max_clusters(bf16c::flash_bwd_dq_bf16_cluster_kernel, 5,
@@ -1745,9 +1764,9 @@ extern "C" int ray_flash_bwd_dq_bf16_d384_max_clusters(int* clusters) {
 // bytes, as TMA and the 16-byte loads require); lse and delta [B, H, Sq] f32
 // and dq [B, H, Sq, D] dense, in the inputs' dtype. D is a multiple of 128;
 // dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 and 256 runs a wgmma
-// kernel, D = 384 a cluster kernel of 3 CTAs, D = 512 one of 4, D = 640 one
-// of 5 and D = 1024 one of 8 (f32 or bf16), every other case the generic
-// variant.
+// kernel, f32 at D = 256 a cluster kernel of 2 CTAs, D = 384 one of 3, D =
+// 512 one of 4, D = 640 one of 5 and D = 1024 one of 8 (f32 or bf16), every
+// other case the generic variant.
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
 // shape or layout the kernels do not take).
 extern "C" int ray_flash_bwd_dq(
@@ -1768,6 +1787,9 @@ extern "C" int ray_flash_bwd_dq(
         static_cast<const float*>(delta), dq, nullptr,
         q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
         o_sb, o_sh, o_ss, H,    KVH,  Sq,   Skv,  scale, causal};
+    if (dtype == 0 && D == 2 * kD)
+      return launch_cluster<2>(f32c::flash_bwd_dq_f32_d256_cluster_kernel, p,
+                               B, st);
     if (dtype == 0 && D == 3 * kD)
       return launch_cluster<3>(f32c::flash_bwd_dq_f32_d384_cluster_kernel, p,
                                B, st);

@@ -70,39 +70,41 @@
 //     place, any S. With 64-row tiles the block's last causal tile lies
 //     wholly above consumer 0's rows: it runs that tile masked to zeros
 //     (turns stay balanced), 1 / (2 (qt + 1)) of its work.
-// f32 at head_dim 384, 512, 640 and 1024 runs
-// flash_fwd_f32_d384_cluster_kernel, flash_fwd_f32_d512_cluster_kernel,
-// flash_fwd_f32_cluster_kernel and flash_fwd_f32_d1024_cluster_kernel (after
-// it), one body at 3, 4, 5 and 8 CTAs (fwd_cluster<kChunks>): the f32 dK/dV's
-// cluster (flash_bwd_dkv.cu) carried over to the forward, which has no dP.
-// The generic instances they replace computed S over all of D in each block
-// (in each of their 5 or 4 chunk blocks above 512) and read one
-// shared-memory word per 1 to 4 FMAs. These kernels are bound by the FMA
-// units: f32 has no exact tensor-core input (TF32 rounds, and the f32 forward
-// is held to 1e-5), 2 products of 128 x 32 x D FMAs per (q, KV) tile pair.
-//   * One cluster of D / 128 CTAs (3, 4, 5 or 8; 8 is the largest portable
-//     cluster) per (b, head, 128 q rows), one CTA per 128-column chunk of D,
-//     the heaviest causal q tiles first. A CTA loads its chunk of Q once (f32
-//     TMA boxes of 32 columns, 128B-swizzled since it is read down 8 rows of
-//     one column at once) and streams its chunk of K and V of the KV head per
-//     32-row tile through a 3-stage ring.
+// f32 at head_dim 256, 384, 512, 640 and 1024 runs
+// flash_fwd_f32_d256_cluster_kernel, flash_fwd_f32_d384_cluster_kernel,
+// flash_fwd_f32_d512_cluster_kernel, flash_fwd_f32_cluster_kernel and
+// flash_fwd_f32_d1024_cluster_kernel (after it), one body at 2, 3, 4, 5 and 8
+// CTAs (fwd_cluster<kChunks>): the f32 dK/dV's cluster (flash_bwd_dkv.cu)
+// carried over to the forward, which has no dP. The generic instances they
+// replace computed S over all of D in each block (in each of their 5 or 4
+// chunk blocks above 512) and read one shared-memory word per 1 to 4 FMAs.
+// These kernels are bound by the FMA units: f32 has no exact tensor-core
+// input (TF32 rounds, and the f32 forward is held to 1e-5), 2 products of
+// 128 x 32 x D FMAs per (q, KV) tile pair.
+//   * One cluster of D / 128 CTAs (2, 3, 4, 5 or 8; 8 is the largest
+//     portable cluster) per (b, head, 128 q rows), one CTA per 128-column
+//     chunk of D, the heaviest causal q tiles first. A CTA loads its chunk
+//     of Q once (f32 TMA boxes of 32 columns, 128B-swizzled since it is read
+//     down 8 rows of one column at once) and streams its chunk of K and V of
+//     the KV head per 32-row tile through a 3-stage ring.
 //   * The product over D is split across the cluster, not repeated: each CTA
 //     computes S (128 x 32) over its own 128 columns into its shared memory.
-//     The exchange warpgroup owns 128 / (D / 128) of the q rows (42 or 43 at
-//     D384, 32 at D512, 25 or 26 at D640, 16 at D1024) for the whole loop,
-//     in row slots of 16 rows (three at D384, two otherwise): it sums their
-//     partials over the chunks through distributed shared memory in chunk
-//     order from 0, scales and masks them, keeps each row's running max m
-//     and sum l, and stores P = exp(S - m) (f32: nothing rounds) and the
-//     row's correction exp(m_old - m_new) into every CTA. O = O corr + P V
-//     follows, O (64 f32 a thread) in registers for the whole loop; at the
-//     end the owners store l into every CTA and write LSE = m + log(l).
+//     The exchange warpgroup owns 128 / (D / 128) of the q rows (64 at
+//     D256, 42 or 43 at D384, 32 at D512, 25 or 26 at D640, 16 at D1024) for
+//     the whole loop, in row slots of 16 rows (four at D256, three at D384,
+//     two otherwise): it sums their partials over the chunks through
+//     distributed shared memory in chunk order from 0, scales and masks
+//     them, keeps each row's running max m and sum l, and stores P = exp(S -
+//     m) (f32: nothing rounds) and the row's correction exp(m_old - m_new)
+//     into every CTA. O = O corr + P V follows, O (64 f32 a thread) in
+//     registers for the whole loop; at the end the owners store l into every
+//     CTA and write LSE = m + log(l).
 //   * Roles, hand-overs and 8 x 8 register tiles as in that dK/dV: two math
 //     warpgroups (S of tile t, then O of tile t - 1) and one exchange and
 //     load warpgroup. The exchange does not bound it at D640: on the card,
 //     keeping its loads or its stores within the CTA left its time as it was.
-//   * 232,448 bytes of shared memory: one CTA an SM, 39 clusters of 3, 30 of
-//     4, 22 of 5 or 15 of 8 at once.
+//   * 232,448 bytes of shared memory: one CTA an SM, 66 clusters of 2, 39 of
+//     3, 30 of 4, 22 of 5 or 15 of 8 at once.
 // bf16 at head_dim 640 runs flash_fwd_bf16_cluster_kernel (after those):
 // the f32 forward's cluster with each CTA's two products on the tensor
 // cores, as the bf16 dK/dV's cluster (flash_bwd_dkv.cu bf16c) runs its four.
@@ -151,8 +153,8 @@
 // 256-column chunks, which computed S over all of D in each of its 4 chunk
 // blocks, and the one-chunk generic instances at 384 and 512, which ran both
 // products as scalar FMAs.
-// A generic scalar-FMA variant serves f32 at 128, 256 and from 768 up but
-// 1024 and bf16 from 768 up but 1024, tiled over
+// A generic scalar-FMA variant serves f32 at 128 and from 768 up but 1024
+// and bf16 from 768 up but 1024, tiled over
 // D from 768 up: its instance of 256-column chunks serves D768, 1280, ...,
 // that of 128-column chunks D896, 1152, ...
 
@@ -576,9 +578,9 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// f32 at D = 512, 640 and 1024: one cluster of 4, 5 or 8 CTAs per (b, head,
-// 128 q rows), one CTA per 128-column chunk of D, the scores summed over the
-// cluster (see the top of this file).
+// f32 at D = 256, 384, 512, 640 and 1024: one cluster of 2, 3, 4, 5 or 8
+// CTAs per (b, head, 128 q rows), one CTA per 128-column chunk of D, the
+// scores summed over the cluster (see the top of this file).
 // ---------------------------------------------------------------------------
 
 namespace f32c {
@@ -642,17 +644,19 @@ __device__ __forceinline__ void fwd_cluster(const CUtensorMap& tq,
                                             const CUtensorMap& tv,
                                             const Params& p) {
   constexpr int kDW = kChunks * kD;  // head_dim
-  // q rows a CTA's exchange owns at most (43 of 3 CTAs, 32 of 4, 26 of 5, 16
-  // of 8), 16 a slot: 3 slots at 3 CTAs, 2 at 4 and 5. At 8 the second slot
-  // stays, never this CTA's, as that instance has always had it.
+  // q rows a CTA's exchange owns at most (64 of 2 CTAs, 43 of 3, 32 of 4, 26
+  // of 5, 16 of 8), 16 a slot: 4 slots at 2 CTAs, 3 at 3, 2 at 4 and 5. At 8
+  // the second slot stays, never this CTA's, as that instance has always had
+  // it.
   constexpr int kOwned = ((kBM + kChunks - 1) / kChunks + 15) / 16;
   constexpr int kSlots = kOwned < 2 ? 2 : kOwned;
   // setmaxnreg of the math and exchange warpgroups: 224 and 56 at two row
   // slots, 216 and 72 at three (at 56 three slots spilled 28 bytes; 208 and
-  // 88 ran no faster); either split is the 168 x 384 registers the launch
-  // gives a CTA.
-  constexpr int kMathR = kSlots == 2 ? kMathRegs : 216;
-  constexpr int kXR = kSlots == 2 ? kXRegs : 72;
+  // 88 ran no faster), 200 and 104 at four (none of 216 / 72, 208 / 88 and
+  // 200 / 104 spilled there; 200 / 104 ran 3% faster than 216 / 72 on the
+  // H100); each split is the 168 x 384 registers the launch gives a CTA.
+  constexpr int kMathR = kSlots == 2 ? kMathRegs : kSlots == 3 ? 216 : 200;
+  constexpr int kXR = kSlots == 2 ? kXRegs : kSlots == 3 ? 72 : 104;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
   Smem& sm =
@@ -719,16 +723,16 @@ __device__ __forceinline__ void fwd_cluster(const CUtensorMap& tq,
       for (int kt = 0; kt < min(n_kt, kStages - 1); ++kt) load_tile(kt);
     }
 
-    // This CTA's q rows, [r0, r1) (42 or 43 of 128 at 3 chunks, the third
-    // slot 10 or 11 rows full; 32 at 4, both slots full; 25 or 26 at 5, 16
-    // at 8), for the whole loop: 8 lanes a row, lane col4 of row r0 + xt / 8
-    // + 16 i (i < kSlots; at 8 chunks i = 1 is never this CTA's) sums
-    // 16-byte column col4 (4 KV columns) over the chunks, in
-    // chunk order from 0 in every CTA, applies scale and the mask, keeps
-    // the row's running max m and sum l (the same in its 8 lanes), and
-    // stores P = exp(S - m_new) in f32 (the Pallas kernel's cast to V's
-    // dtype rounds nothing in f32) and the row's correction exp(m_old -
-    // m_new) into every CTA.
+    // This CTA's q rows, [r0, r1) (64 of 128 at 2 chunks, all four slots
+    // full; 42 or 43 at 3, the third slot 10 or 11 rows full; 32 at 4, both
+    // slots full; 25 or 26 at 5, 16 at 8), for the whole loop: 8 lanes a
+    // row, lane col4 of row r0 + xt / 8 + 16 i (i < kSlots; at 8 chunks i = 1
+    // is never this CTA's) sums 16-byte column col4 (4 KV columns) over the
+    // chunks, in chunk order from 0 in every CTA, applies scale and the
+    // mask, keeps the row's running max m and sum l (the same in its 8
+    // lanes), and stores P = exp(S - m_new) in f32 (the Pallas kernel's cast
+    // to V's dtype rounds nothing in f32) and the row's correction exp(m_old
+    // - m_new) into every CTA.
     const int xt = tid - 32 * kMathWarps;
     const int r0 = c * kBM / kChunks;
     const int r1 = (c + 1) * kBM / kChunks;
@@ -1059,6 +1063,17 @@ flash_fwd_f32_d384_cluster_kernel(const __grid_constant__ CUtensorMap tq,
                                   const __grid_constant__ CUtensorMap tv,
                                   const Params p) {
   fwd_cluster<3>(tq, tk, tv, p);
+}
+
+// f32 at D = 256: clusters of 2 CTAs. Each CTA's exchange owns 64 of the 128
+// q rows, 8 threads a row in four full row slots of 16, at setmaxnreg 104
+// beside math warpgroups at 200.
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
+flash_fwd_f32_d256_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                  const __grid_constant__ CUtensorMap tk,
+                                  const __grid_constant__ CUtensorMap tv,
+                                  const Params p) {
+  fwd_cluster<2>(tq, tk, tv, p);
 }
 
 }  // namespace f32c
@@ -1457,11 +1472,11 @@ flash_fwd_bf16_d384_cluster_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ---------------------------------------------------------------------------
 // Generic variant: every dtype and head_dim (a multiple of 128) but bf16 D =
-// 128 and 256, D = 384, D = 512, D = 640 and D = 1024, which the kernels
+// 128, D = 256, D = 384, D = 512, D = 640 and D = 1024, which the kernels
 // above serve. Scalar FMAs on the CUDA cores over f32 tiles in dynamic shared
 // memory: 32 q rows per block, 4 threads per row, 16-row KV tiles, the same
-// online softmax with P rounded to the input dtype before P V. f32 D128 and
-// D256 run in one chunk (DC = D). Above 512, D is cut into chunks of DC = 256
+// online softmax with P rounded to the input dtype before P V. f32 D128 runs
+// in one chunk (DC = D). Above 512, D is cut into chunks of DC = 256
 // or 128 columns (flash::gen_chunk; the chunked instances): the grid's z axis
 // gives each block one chunk of O's columns, held in registers (acc[DC /
 // 4]), and the scores S = Q K^T are summed over the chunks staged one at a
@@ -1605,7 +1620,7 @@ __device__ __forceinline__ void flash_fwd_generic_body(const Params& p) {
   }
 }
 
-// One block per (q tile, b * h): f32 D = kD or 2 kD, in one chunk.
+// One block per (q tile, b * h): f32 D = kD, in one chunk.
 template <typename T, int DC>
 __global__ void __launch_bounds__(128)
 flash_fwd_generic_kernel(const Params p) {
@@ -1635,11 +1650,11 @@ int launch_generic(const Params& p, int D, int B, cudaStream_t st) {
 }
 
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
-// and dtype: D itself for f32 at kD and 2 kD, above 4 kD a chunk of
+// and dtype: D itself for f32 at kD, above 4 kD a chunk of
 // flash::gen_chunk(D) columns (D = 5 kD and 8 kD are the cluster kernels').
 // No bf16 forward runs a one-chunk instance: bf16 at kD and 2 kD is the
-// wgmma kernel's, at 3 kD and 4 kD the cluster kernels', as is f32 at 3 kD
-// and 4 kD, so the caller sends only f32 at kD and 2 kD here below 5 kD.
+// wgmma kernel's, at 3 kD and 4 kD the cluster kernels', as is f32 at 2 kD,
+// 3 kD and 4 kD, so the caller sends only f32 at kD here below 5 kD.
 int launch_generic_d(const Params& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
@@ -1650,11 +1665,10 @@ int launch_generic_d(const Params& p, int D, int dtype, int B,
     return wide ? launch_generic<float, 2 * kD, true>(p, D, B, st)
                 : launch_generic<float, kD, true>(p, D, B, st);
   }
-  if (D == kD) return launch_generic<float, kD, false>(p, D, B, st);
-  return launch_generic<float, 2 * kD, false>(p, D, B, st);
+  return launch_generic<float, kD, false>(p, D, B, st);
 }
 
-// f32 at D = kChunks kD (3, 4, 5 or 8): one cluster of kChunks CTAs per 128
+// f32 at D = kChunks kD (2, 3, 4, 5 or 8): one cluster of kChunks CTAs per 128
 // q rows, on `kernel`, the instance of that size. A launch the card refuses
 // (no room for a cluster) returns its error. The shared-memory opt-in is set
 // at every launch, as for the generic variants.
@@ -1731,6 +1745,12 @@ extern "C" int ray_flash_fwd_f32_d384_max_clusters(int* clusters) {
                              f32c::kThreads, f32c::kSmemBytes, clusters);
 }
 
+// The same for the f32 D = 256 kernel (clusters of 2).
+extern "C" int ray_flash_fwd_f32_d256_max_clusters(int* clusters) {
+  return flash::max_clusters(f32c::flash_fwd_f32_d256_cluster_kernel, 2,
+                             f32c::kThreads, f32c::kSmemBytes, clusters);
+}
+
 // The same for the bf16 D = 640 kernel (clusters of 5).
 extern "C" int ray_flash_fwd_bf16_max_clusters(int* clusters) {
   return flash::max_clusters(bf16c::flash_fwd_bf16_cluster_kernel, 5,
@@ -1785,12 +1805,12 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* o,
 // q [B, H, Sq, D], k/v [B, KVH, Skv, D] given by element strides (batch,
 // head, seq; the last dim dense); o [B, H, Sq, D] and lse [B, H, Sq] dense.
 // D is a multiple of 128; dtype: 0 = float32, 1 = bfloat16. bf16 at
-// D = 128 and 256 runs the wgmma kernel, D = 384 a cluster kernel of 3
-// CTAs, 512 one of 4, 640 one of 5 and 1024 one of 8 (f32 or bf16), every
-// other case the generic variant. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a shape or layout the kernels do not take:
-// every stride and the base addresses must be multiples of 16 bytes, as TMA
-// and the 16-byte loads require).
+// D = 128 and 256 runs the wgmma kernel, f32 at D = 256 a cluster kernel of
+// 2 CTAs, D = 384 one of 3, 512 one of 4, 640 one of 5 and 1024 one of 8
+// (f32 or bf16), every other case the generic variant. Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape or
+// layout the kernels do not take: every stride and the base addresses must
+// be multiples of 16 bytes, as TMA and the 16-byte loads require).
 extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, long long q_sb,
                              long long q_sh, long long q_ss, long long k_sb,
@@ -1814,6 +1834,9 @@ extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
   const Params p{q,    k,    v,    o,    static_cast<float*>(lse),
                  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                  H,    KVH,  Sq,   Skv,  scale, causal};
+  if (dtype == 0 && D == 2 * kD)
+    return launch_cluster<2>(f32c::flash_fwd_f32_d256_cluster_kernel, p, B,
+                             st);
   if (dtype == 0 && D == 3 * kD)
     return launch_cluster<3>(f32c::flash_fwd_f32_d384_cluster_kernel, p, B,
                              st);

@@ -4,20 +4,25 @@ kernels, on the CPU, with inputs made from a numpy seed.
 On the card, bf16 at head_dim 256 runs the wgmma kernels of all three
 (``csrc/flash_fwd.cu`` ``flash_fwd_bf16_kernel<256, 64>``,
 ``csrc/flash_bwd_dkv.cu`` ``flash_bwd_dkv_d256_kernel``,
-``csrc/flash_bwd_dq.cu`` ``flash_bwd_dq_d256_kernel``); f32 runs its dK/dV
-on a 2-CTA cluster kernel, one CTA per 128 columns of D, that sums the
-scores over D through the other's shared memory on the FMA units
-(``flash_bwd_dkv_f32_d256_cluster_kernel``, the f32 D384-D1024 dK/dV's body
-at 2 CTAs; each CTA's exchange owns 32 of the 64 KV rows, in two full row
-slots of 16), and its forward and dQ on the generic variant. ``chip_smoke.py``
-holds each against ``flash_fwd_plain``, ``flash_bwd_plain_dkv`` and
-``flash_bwd_plain_dq``. Here those plain
+``csrc/flash_bwd_dq.cu`` ``flash_bwd_dq_d256_kernel``); f32 runs all three
+on 2-CTA cluster kernels, one CTA per 128 columns of D, that sum the scores
+over D through the other's shared memory on the FMA units (the f32
+D384-D1024 bodies at 2 CTAs): ``flash_fwd_f32_d256_cluster_kernel`` (128 q
+rows a cluster; each CTA's exchange owns 64 of them, CTA 0 rows 0-63 and
+CTA 1 rows 64-127, in four full row slots of 16),
+``flash_bwd_dkv_f32_d256_cluster_kernel`` (64 KV rows a cluster; each
+exchange owns 32, in two full row slots of 16) and
+``flash_bwd_dq_f32_d256_cluster_kernel`` (64 q rows a cluster, split as the
+dK/dV's KV rows). ``chip_smoke.py`` holds each against ``flash_fwd_plain``,
+``flash_bwd_plain_dkv`` and ``flash_bwd_plain_dq``. Here those plain
 versions are held against the real Pallas bodies (``_flash_fwd_kernel``,
 ``_flash_bwd_dkv_kernel``, ``_flash_bwd_dq_kernel``) run in interpret mode
 at D256: two q and two kv blocks of 128, so every causal block class; and
 the whole f32 ``flash_attention`` and its gradients are held against the
-JAX package's at the D256 parity runs' heads (B1 H16 KVH8) at S88, S104 and
-S200.
+JAX package's at the D256 parity runs' heads (B1 H16 KVH8) at S88, S104,
+S120 and S200: between them the cluster kernels' last tiles end ragged in
+every row slot of the dK/dV's and dQ's two CTAs and of the forward's CTA 1
+(``test_flash_attention_f32_d256_matches_jax`` says which).
 
 Tolerances: f32 is f32 on both sides, only the summation order differs,
 so 1e-5 absolute (measured: under 5e-6). In bf16 both round P to bf16
@@ -168,18 +173,32 @@ def test_flash_d256_gqa_sums_query_heads_like_repeat_kv(dt):
         _close(got, summed, dt)
 
 
-@pytest.mark.parametrize("s", [88, 104, 200])
+@pytest.mark.parametrize("s", [88, 104, 120, 200])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_f32_d256_matches_jax(causal, s):
     """B1 H16 KVH8 D256 f32, the D256 parity runs' heads: the whole
     ``flash_attention`` and its backward against the JAX package's
     ``flash_attention`` and ``jax.grad`` on the CPU (its jnp branch),
     grouped-query heads on the JAX side through ``repeat_kv``. On the card
-    the 2-CTA dK/dV's CTA 0 owns KV rows 0-31 of a 64-row tile (slots 0-15
-    and 16-31) and CTA 1 rows 32-63: S88 ends the last tile at row 24,
-    inside CTA 0's second slot (CTA 1 wholly past Skv), S104 at row 40,
-    inside CTA 1's first slot (its second wholly past), and S200 at row 8
-    (also a ragged last tile of the generic forward's and dQ's tiles).
+    all three run 2-CTA cluster kernels. The dK/dV's and dQ's CTA 0 owns
+    rows 0-31 of a 64-row KV or q tile (slots 0-15 and 16-31) and CTA 1 rows
+    32-63 (slots 32-47 and 48-63); the forward's CTA 0 owns rows 0-63 of a
+    128-row q tile (four slots of 16) and CTA 1 rows 64-127 (slots 64-79,
+    80-95, 96-111, 112-127). The last tiles end:
+
+    * S88: dK/dV and dQ at row 24, inside CTA 0's second slot (CTA 1
+      wholly past Skv or Sq); forward at row 88, inside CTA 1's second slot
+      (its third and fourth wholly past Sq).
+    * S104: dK/dV and dQ at row 40, inside CTA 1's first slot (its second
+      wholly past); forward at row 104, inside CTA 1's third slot (its
+      fourth wholly past).
+    * S120: dK/dV and dQ at row 56, inside CTA 1's second slot; forward at
+      row 120, inside CTA 1's fourth slot, the only length here that leaves
+      it partly full.
+    * S200: dK/dV and dQ at row 8, inside CTA 0's first slot (the rest
+      past); forward at row 72, inside CTA 1's first slot (its other three
+      wholly past Sq).
+
     Output and dQ, dK, dV to 1e-5 absolute: f32 on both sides, summation
     order alone."""
     jdt = DTYPES["f32"][0]
