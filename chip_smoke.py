@@ -21,10 +21,12 @@ kernels from ``ray_tpu_torch/ops/csrc`` with ``nvcc`` on first use.
    dQ in f32 and in bf16 on the cluster kernels of 5 CTAs, at 1024 the
    same on clusters of 8, the forward, dK/dV and dQ at 512 (f32 and bf16)
    on clusters of 4, the forward, dK/dV and dQ at 384 (f32 and bf16) on
-   clusters of 3 and the forward, dK/dV and dQ at f32 256 on clusters of
-   2, the rest generic, tiled over D from 768) at B1
+   clusters of 3, the forward, dK/dV and dQ at f32 256 on clusters of 2
+   and the dK/dV and dQ at f32 128 on clusters of 1, the rest generic,
+   tiled over D from 768) at B1
    H8 KVH2 S2048 and the ragged S1000, causal and not, and at the shapes
-   of their train-parity runs, f32 256 also at B1 H16 KVH8 S120, bf16
+   of their train-parity runs, f32 256 also at B1 H16 KVH8 S120, f32 128
+   at B1 H32 KVH8 S120, bf16
    256 also at ``llama3_8b(n_heads=16)``'s training length, B1 H16 KVH8
    S8192 causal, and D896 and D768 (f32 and
    bf16), B1 H8 KVH2 S2048 causal: the generic chunked instances of 128
@@ -228,8 +230,9 @@ builds the kernels and runs phase 2 alone (a quick check after a kernel
 edit), ``--only-bwd`` runs phase 5 alone in the same way, ``--only-times``
 times the bf16 wgmma kernels alone at head_dim 256 and 128, S2048 and
 S8192, the six D640 cluster kernels (forward, dK/dV and dQ, f32 and
-bf16), the six D1024 ones, the six D512 ones, the six D384 ones and the
-three f32 D256 ones at their parity shapes, in 3 rounds, and checks
+bf16), the six D1024 ones, the six D512 ones, the six D384 ones, the
+three f32 D256 ones and the f32 D128 dK/dV and dQ (beside the generic f32
+D128 forward) at their parity shapes, in 3 rounds, and checks
 nothing of the build (run it from two trees' roots in turns to compare
 them; with ``--tree-csrc DIR`` it times the dQ entry point, or with
 ``--tree-kernel flash_bwd_dkv`` or ``flash_fwd`` the dK/dV or forward one,
@@ -389,6 +392,10 @@ FWD_CASES += SERVE_FWD_CASES
 # slot (rows 112-127) lies half past Sq, the only case that leaves it partly
 # full, and the last 64-row q and KV tiles hold 56 rows, the second CTA's
 # second slot (48-63) half past Sq in the dQ and past Skv in the dK/dV.
+# f32 D128 also at its parity heads, B1 H32 KVH8, at S120, causal and not:
+# the last 64-row q and KV tiles hold 56 rows, so the one CTA's fourth
+# exchange slot (48-63) lies half past Sq in the dQ and past Skv in the
+# dK/dV.
 # D896 and D768 (f32 and bf16; B1 H8 KVH2 S2048 causal) keep the generic
 # chunked
 # instances of 128 and 256 columns checked and timed: no parity run
@@ -411,26 +418,31 @@ VARIANT_CASES = [(name, D, dt, 1, 8, 2, S, causal)
 ] + [("bf16_d256", 256, BF16, *VARIANT_MAIN[256], TRAIN_SEQ, True)] + [
     ("f32_d256", 256, F32, *VARIANT_MAIN[256], 120, causal)
     for causal in (True, False)] + [
+    ("f32_d128", 128, F32, *VARIANT_MAIN[128], 120, causal)
+    for causal in (True, False)] + [
     (f"{dt_name}_d896", 896, dt, 1, 8, 2, 2048, True)
     for dt_name, dt in (("f32", F32), ("bf16", BF16))] + [
     ("f32_d768", 768, F32, 1, 8, 2, 2048, True),
     ("bf16_d768", 768, BF16, 1, 8, 2, 2048, True)]
 # The variants that run wgmma kernels besides bf16 D128, by kernel: bf16
 # D256 (all three); and those that run the cluster kernels: the forward,
-# dK/dV and dQ at D384, D512, D640 and D1024 in f32 and in bf16, and at f32
-# D256. Every other variant runs a generic instance.
+# dK/dV and dQ at D384, D512, D640 and D1024 in f32 and in bf16, at f32
+# D256, and the dK/dV and dQ at f32 D128. Every other variant runs a generic
+# instance.
 WGMMA_VARIANTS = {"flash_fwd": ("bf16_d256",),
                   "flash_bwd_dkv": ("bf16_d256",),
                   "flash_bwd_dq": ("bf16_d256",)}
 CLUSTER_VARIANTS = {"flash_fwd": ("f32_d256", "f32_d384", "bf16_d384",
                                   "f32_d512", "bf16_d512", "f32_d640",
                                   "bf16_d640", "f32_d1024", "bf16_d1024"),
-                    "flash_bwd_dkv": ("f32_d256", "f32_d384", "bf16_d384",
+                    "flash_bwd_dkv": ("f32_d128", "f32_d256", "f32_d384",
+                                      "bf16_d384",
                                       "f32_d512", "bf16_d512", "f32_d640",
                                       "bf16_d640", "f32_d1024", "bf16_d1024"),
-                    "flash_bwd_dq": ("f32_d256", "f32_d384", "bf16_d384",
-                                     "f32_d512", "bf16_d512", "f32_d640",
-                                     "bf16_d640", "f32_d1024", "bf16_d1024")}
+                    "flash_bwd_dq": ("f32_d128", "f32_d256", "f32_d384",
+                                     "bf16_d384", "f32_d512", "bf16_d512",
+                                     "f32_d640", "bf16_d640", "f32_d1024",
+                                     "bf16_d1024")}
 PROMPT_LENS = (17, 100, 300, 700, 1500, 3000, 5000, 8000)
 SAMPLED = {1: dict(temperature=0.8, top_k=40, seed=1234),
            6: dict(temperature=1.0, top_k=0, seed=5678)}
@@ -546,16 +558,18 @@ OUT_DIR = "chiprun_out"
 # any warning (setmaxnreg ignored, wgmma serialized).
 BUILD_REPORT = ("registers", "spill", "smem", "arning", "wgmma",
                 "setmaxnreg")
-# Generic instances: 1 one-chunk one in each kernel (f32 D128: bf16 D128
+# Generic instances: 1 one-chunk one in the forward (f32 D128: bf16 D128
 # and D256 are the wgmma kernels', f32 D256 and D384 and D512 in both dtypes
 # the cluster kernels', so every instance at D256 and D384 is a wgmma or
-# cluster kernel), and each kernel 4 chunked ones (f32 and bf16, chunks of
-# 128 and 256). D640 and D1024 are the cluster kernels' for
+# cluster kernel; the dK/dV and dQ at f32 D128 are cluster kernels of 1
+# CTA, so they have no one-chunk instance), and each kernel 4 chunked ones
+# (f32 and bf16, chunks of 128 and 256). D640 and D1024 are the cluster
+# kernels' for
 # all three in f32 and in bf16, so the instances of 128-column chunks serve
 # only D896, 1152, ... (D above 512 with D % 256 != 0; the D896 cases of
 # VARIANT_CASES run them) and those of 256-column chunks only D768, 1280,
 # ... (the D768 cases run them)
-GENERIC_INSTANCES = 15
+GENERIC_INSTANCES = 13
 # wgmma kernels: each of the three at D128 and D256 (the forward's two from
 # one template)
 WGMMA_INSTANCES = 6
@@ -564,9 +578,9 @@ WGMMA_INSTANCES = 6
 # D1024, the f32 forward, dK/dV and dQ on the FMA units and the bf16
 # forward, dK/dV and dQ on wgmma (each its D640 instance's template); of 4
 # CTAs at D512 and of 3 at D384, the forward, dK/dV and dQ in f32 and in
-# bf16, and of 2 CTAs at f32 D256, the forward, dK/dV and dQ (each its
-# dtype's template of that kernel)
-CLUSTER_INSTANCES = 27
+# bf16, of 2 CTAs at f32 D256, the forward, dK/dV and dQ, and of 1 CTA at
+# f32 D128, the dK/dV and dQ (each its dtype's template of that kernel)
+CLUSTER_INSTANCES = 29
 
 
 def log(*a):
@@ -1095,7 +1109,8 @@ def _bwd_case(gen, card, B, H, KVH, S, causal, layout, D=128, dt=BF16):
 # turn, medians printed: the quick A/B of two trees in one call (run it
 # from each root in turns). Then the cluster kernels at their parity runs'
 # shapes, S2048 only: the forward, dK/dV and dQ in f32 and bf16 at D640,
-# D1024, D512 and D384, and in f32 at D256 (all cluster kernels).
+# D1024, D512 and D384, and in f32 at D256 (all cluster kernels) and D128
+# (the dK/dV and dQ cluster kernels, the forward generic).
 TIME_SHAPES = ((256, 16, 8), (128, 32, 8))
 TIME_SEQS = (2048, TRAIN_SEQ)
 TIME_ROUNDS = 3
@@ -1104,6 +1119,7 @@ TIME_CLUSTER_1024 = (1024, 4, 2, 2048)
 TIME_CLUSTER_512 = (512, 8, 4, 2048)
 TIME_CLUSTER_384 = (384, 8, 4, 2048)
 TIME_CLUSTER_256 = (256, 16, 8, 2048)
+TIME_CLUSTER_128 = (128, 32, 8, 2048)
 
 
 def phase_kernel_times(card: str) -> list:
@@ -1114,7 +1130,7 @@ def phase_kernel_times(card: str) -> list:
         (*TIME_CLUSTER_1024, F32), (*TIME_CLUSTER_1024, BF16),
         (*TIME_CLUSTER_512, F32), (*TIME_CLUSTER_512, BF16),
         (*TIME_CLUSTER_384, F32), (*TIME_CLUSTER_384, BF16),
-        (*TIME_CLUSTER_256, F32)]
+        (*TIME_CLUSTER_256, F32), (*TIME_CLUSTER_128, F32)]
     rows = []
     for D, H, KVH, S, dt in cases:
         q, k, v, do = (_attn_input(1, h, S, D, gen, dt, "dense")
@@ -1238,6 +1254,8 @@ CLUSTER_FIT = {
                             "ray_flash_fwd_f32_d1024_max_clusters", 8),
     "flash_fwd.bf16_d1024": ("flash_fwd",
                              "ray_flash_fwd_bf16_d1024_max_clusters", 8),
+    "flash_bwd_dkv.f32_d128": ("flash_bwd_dkv",
+                               "ray_flash_bwd_dkv_f32_d128_max_clusters", 1),
     "flash_bwd_dkv.f32_d256": ("flash_bwd_dkv",
                                "ray_flash_bwd_dkv_f32_d256_max_clusters", 2),
     "flash_bwd_dkv.f32_d384": ("flash_bwd_dkv",
@@ -1260,6 +1278,8 @@ CLUSTER_FIT = {
     "flash_bwd_dkv.bf16_d1024": ("flash_bwd_dkv",
                                  "ray_flash_bwd_dkv_bf16_d1024_max_clusters",
                                  8),
+    "flash_bwd_dq.f32_d128": ("flash_bwd_dq",
+                              "ray_flash_bwd_dq_f32_d128_max_clusters", 1),
     "flash_bwd_dq.f32_d256": ("flash_bwd_dq",
                               "ray_flash_bwd_dq_f32_d256_max_clusters", 2),
     "flash_bwd_dq.f32_d384": ("flash_bwd_dq",

@@ -68,8 +68,13 @@ Which code runs is picked inside its C entry point by (dtype, head_dim):
     slots; ``flash_bwd_dkv_f32_d256_cluster_kernel``,
     ``flash_bwd_dq_f32_d256_cluster_kernel``, each in two full row slots):
     every instance at 256 is a wgmma or cluster kernel;
-  * every other case (f32 at 128, and f32 and bf16 from 768 up but 1024):
-    the generic variant on the CUDA cores, which from 768 up
+  * f32 at 128: the dK/dV and dQ on the f32 templates at 1 CTA, which
+    holds all of D and sums no peer's partials
+    (``flash_bwd_dkv_f32_d128_cluster_kernel``,
+    ``flash_bwd_dq_f32_d128_cluster_kernel``, each exchange in four full
+    row slots); the forward on its generic instance;
+  * every other case (the f32 forward at 128, and f32 and bf16 from 768
+    up but 1024): the generic variant on the CUDA cores, which from 768 up
     tiles over D (chunks of 256 or 128 columns, the scores summed over the
     chunks; ``ops/csrc/flash_common.cuh`` ``gen_chunk``).
 Sequence lengths are not routed: the kernels take any S (TMA zero-fills,
@@ -255,11 +260,12 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 def kernel_variant(q: torch.Tensor) -> str:
     """The name of the kernel variant that q's dtype and head_dim launch:
-    "bf16_d128" and "bf16_d256" (the wgmma kernels), "f32_d128",
-    "f32_d768", ... (the generic ones; "f32_d256", "f32_d384", "bf16_d384",
-    "f32_d512", "bf16_d512", "f32_d640", "bf16_d640", "f32_d1024" and
-    "bf16_d1024" run the cluster kernels of all three). The wrappers count
-    launches by it in ``launches_by_variant`` beside ``launches``."""
+    "bf16_d128" and "bf16_d256" (the wgmma kernels), "f32_d768", ... (the
+    generic ones; "f32_d256", "f32_d384", "bf16_d384", "f32_d512",
+    "bf16_d512", "f32_d640", "bf16_d640", "f32_d1024" and "bf16_d1024" run
+    the cluster kernels of all three, "f32_d128" those of dK/dV and dQ
+    beside the generic forward). The wrappers count launches by it in
+    ``launches_by_variant`` beside ``launches``."""
     dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
     return f"{dt}_d{q.shape[-1]}"
 
@@ -502,9 +508,10 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) [b, kvh, skv, d] in k's dtype. CUDA tensors launch
     ``csrc/flash_bwd_dkv.cu`` (a wgmma kernel for bf16 at 128 and 256, a
-    cluster kernel for f32 at 256 (2 CTAs) and for f32 and bf16 at 384 (3),
-    512 (4), 640 (5) and 1024 (8), the generic variant otherwise; counted in
-    ``flash_bwd_dkv.launches``); CPU tensors run ``flash_bwd_plain_dkv``."""
+    cluster kernel for f32 at 128 (1 CTA) and 256 (2 CTAs) and for f32 and
+    bf16 at 384 (3), 512 (4), 640 (5) and 1024 (8), the generic variant
+    otherwise; counted in ``flash_bwd_dkv.launches``); CPU tensors run
+    ``flash_bwd_plain_dkv``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if _bwd_device("flash_bwd_dkv", q, k, v, dout, lse, delta) == "cpu":
         return flash_bwd_plain_dkv(q, k, v, dout, lse, delta, causal, scale)
@@ -521,9 +528,10 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
                  sm_scale: Optional[float] = None) -> torch.Tensor:
     """dQ [b, h, sq, d] in q's dtype. CUDA tensors launch
     ``csrc/flash_bwd_dq.cu`` (a wgmma kernel for bf16 at 128 and 256, a
-    cluster kernel for f32 at 256 (2 CTAs) and for f32 and bf16 at 384 (3),
-    512 (4), 640 (5) and 1024 (8), the generic variant otherwise; counted in
-    ``flash_bwd_dq.launches``); CPU tensors run ``flash_bwd_plain_dq``."""
+    cluster kernel for f32 at 128 (1 CTA) and 256 (2 CTAs) and for f32 and
+    bf16 at 384 (3), 512 (4), 640 (5) and 1024 (8), the generic variant
+    otherwise; counted in ``flash_bwd_dq.launches``); CPU tensors run
+    ``flash_bwd_plain_dq``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if _bwd_device("flash_bwd_dq", q, k, v, dout, lse, delta) == "cpu":
         return flash_bwd_plain_dq(q, k, v, dout, lse, delta, causal, scale)

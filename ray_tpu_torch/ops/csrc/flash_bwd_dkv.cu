@@ -131,8 +131,9 @@
 //     scope.
 //   * 226 KB of shared memory: one CTA an SM, and a cluster takes 5 SMs of
 //     one GPC (22 clusters fit on the H100).
-// f32 at 256, 384, 512 and 1024 runs the same kernel at 2, 3, 4 and 8 CTAs
-// a cluster (flash_bwd_dkv_f32_d256_cluster_kernel,
+// f32 at 128, 256, 384, 512 and 1024 runs the same kernel at 1, 2, 3, 4 and
+// 8 CTAs a cluster (flash_bwd_dkv_f32_d128_cluster_kernel,
+// flash_bwd_dkv_f32_d256_cluster_kernel,
 // flash_bwd_dkv_f32_d384_cluster_kernel,
 // flash_bwd_dkv_f32_d512_cluster_kernel,
 // flash_bwd_dkv_f32_d1024_cluster_kernel): the body is a template over the
@@ -147,7 +148,11 @@
 // threads. At 2 chunks it owns 32 rows: both slots full, every thread in
 // each. The two slots' sums do not fit the exchange's 56 registers
 // (ptxas spilled 64 bytes), so at two slots the exchange takes 72 and the
-// math warpgroups 216 in place of 224, which they take without a spill.
+// math warpgroups 216 in place of 224, which they take without a spill. At
+// 1 chunk (D128) the one CTA owns all 64 rows, four full slots, at 88 and
+// 208, and sums no peer's partials: with no peer its hand-overs are
+// CTA-scope arrivals and plain shared-memory loads and stores (4.3% faster
+// on the H100 than the cluster-scope ones at one CTA).
 // Chunks of 256 columns would not fit: K, V and the Q/dO ring alone would
 // take 320 KB a CTA; so at D256 one CTA cannot hold a 64-row KV block (its
 // dK and dV alone are 128 registers a math thread), and two share it.
@@ -190,10 +195,10 @@
 // slots (the third 5 or 6 rows full) and sums 3 partials a row. The body
 // has no setmaxnreg split, so the third slot's sums come out of the 168
 // registers every thread of the launch has.
-// A generic variant (at the end of this file) serves f32 at any other
-// head_dim that is a multiple of 128 (128 and from 768 up but 1024)
-// and bf16 from 768 up but 1024 (tiled over D from 768 up), with P and dS
-// rounded to the input dtype as the Pallas kernel rounds them.
+// A generic variant (at the end of this file) serves f32 and bf16 at any
+// other head_dim that is a multiple of 128 (from 768 up but 1024, tiled over
+// D), with P and dS rounded to the input dtype as the Pallas kernel rounds
+// them.
 
 #include <math.h>
 
@@ -693,9 +698,9 @@ flash_bwd_dkv_d256_kernel(const __grid_constant__ CUtensorMap tq,
 }  // namespace d256
 
 // ---------------------------------------------------------------------------
-// f32 at D = 384, 512, 640 and 1024: one cluster of 3, 4, 5 or 8 CTAs per
-// (b, KV head, 64 KV rows), one CTA per 128-column chunk of D; the scores
-// summed over the cluster (see the top of this file).
+// f32 at D = 128, 256, 384, 512, 640 and 1024: one cluster of 1, 2, 3, 4, 5
+// or 8 CTAs per (b, KV head, 64 KV rows), one CTA per 128-column chunk of D;
+// the scores summed over the cluster (see the top of this file).
 // ---------------------------------------------------------------------------
 
 namespace f32c {
@@ -752,14 +757,21 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
                                             const CUtensorMap& tdo,
                                             const flash::BwdParams& p) {
   constexpr int kDW = kChunks * kD;  // head_dim
-  // KV rows a CTA's exchange owns at most (32 of 2 CTAs, 22 of 3, 16 of 4,
-  // 13 of 5, 8 of 8), 16 a slot
+  // KV rows a CTA's exchange owns at most (64 of 1 CTA, 32 of 2, 22 of 3, 16
+  // of 4, 13 of 5, 8 of 8), 16 a slot
   constexpr int kSlots = ((kBKV + kChunks - 1) / kChunks + 15) / 16;
   // setmaxnreg of the math and exchange warpgroups: 224 and 56 at one row
-  // slot, 216 and 72 at two (at 56 the exchange spilled 64 bytes); either
-  // split is the 168 x 384 registers the launch gives a CTA.
-  constexpr int kMathR = kSlots == 1 ? kMathRegs : 216;
-  constexpr int kXR = kSlots == 1 ? kXRegs : 72;
+  // slot, 216 and 72 at two (at 56 the exchange spilled 64 bytes), 208 and
+  // 88 at four (D = kD: 216 / 72 spilled 44 bytes, and 208 / 88 ran 0.7%
+  // faster than 200 / 104 on the H100); each split is the 168 x 384
+  // registers the launch gives a CTA.
+  constexpr int kMathR = kSlots == 1 ? kMathRegs : kSlots == 2 ? 216 : 208;
+  constexpr int kXR = kSlots == 1 ? kXRegs : kSlots == 2 ? 72 : 88;
+  // One CTA a cluster (D = kD): no peer reads or arrives, so the hand-overs
+  // are CTA-scope arrivals and waits (no MEMBAR.ALL.GPU), the exchange
+  // reads and writes its own shared memory with plain loads and stores, and
+  // every math warp arrives at parts_ready itself, with no named barrier.
+  constexpr bool kOne = kChunks == 1;
   extern __shared__ unsigned char cluster_smem[];
   const uint32_t raw = hopper::smem_u32(cluster_smem);
   Smem& sm = *reinterpret_cast<Smem*>(cluster_smem +
@@ -796,7 +808,7 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
       hopper::mbar_init(&sm.empty[s], kMathWarps);
     }
     for (int i = 0; i < 2; ++i) {
-      hopper::mbar_init(&sm.parts_ready[i], kChunks);
+      hopper::mbar_init(&sm.parts_ready[i], kOne ? kMathWarps : kChunks);
       hopper::mbar_init(&sm.parts_free[i], kChunks * kXWarps);
       hopper::mbar_init(&sm.pd_ready[i], kChunks * kXWarps);
       hopper::mbar_init(&sm.pd_free[i], kChunks * kMathWarps);
@@ -805,7 +817,10 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
   }
   // The barriers are set up, and every CTA of the cluster runs, before a
   // copy lands or a peer touches this CTA's shared memory.
-  hopper::cluster_sync();
+  if constexpr (kOne)
+    __syncthreads();
+  else
+    hopper::cluster_sync();
 
   if (warp >= kMathWarps) {
     // ---------------- exchange warpgroup --------------------------------
@@ -856,7 +871,7 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
 
     // This CTA's KV rows, [c 64 / kChunks, (c + 1) 64 / kChunks) (8 of 64
     // at 8 chunks, 12 or 13 at 5, 16 at 4: every thread; 21 or 22 at 3; 32
-    // at 2: every thread in both slots):
+    // at 2: every thread in both slots; all 64 at 1, in four full slots):
     // thread xt takes row c 64 / kChunks + xt / 8 + 16 i of each row slot i
     // < kSlots and sums one 16-byte column (4 q columns) of it over the
     // chunks, in chunk order 0 to kChunks - 1 in every CTA, so that all hold
@@ -879,12 +894,20 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
       const int q0 = q_start(it);
       const int nx = it + kStages - 1;  // the tile the loader loads next
       if (loader && nx < n_it) fetch_rows(nx);
-      hopper::mbar_wait_cluster(&sm.parts_ready[buf], (it >> 1) & 1);
+      if constexpr (kOne)
+        hopper::mbar_wait(&sm.parts_ready[buf], (it >> 1) & 1);
+      else
+        hopper::mbar_wait_cluster(&sm.parts_ready[buf], (it >> 1) & 1);
       float4 st[kSlots], dpt[kSlots];
 #pragma unroll
       for (int i = 0; i < kSlots; ++i) {
         st[i] = dpt[i] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (!mine[i]) continue;
+        if constexpr (kOne) {
+          st[i] = flash::ld4(sm.part[buf][0] + swz32(row[i], col4));
+          dpt[i] = flash::ld4(sm.part[buf][1] + swz32(row[i], col4));
+          continue;
+        }
         const uint32_t s_at =
             hopper::smem_u32(sm.part[buf][0] + swz32(row[i], col4));
         const uint32_t p_at =
@@ -898,7 +921,12 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
         }
       }
       __syncwarp();
-      if (lane < kChunks) hopper::mbar_signal_rank(&sm.parts_free[buf], lane);
+      if constexpr (kOne) {
+        if (lane == 0) hopper::mbar_arrive(&sm.parts_free[buf]);
+      } else {
+        if (lane < kChunks)
+          hopper::mbar_signal_rank(&sm.parts_free[buf], lane);
+      }
       hopper::mbar_wait(&sm.full[s], (it / kStages) & 1);  // LSE, delta
 #pragma unroll
       for (int i = 0; i < kSlots; ++i) {
@@ -923,6 +951,13 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
 #pragma unroll
       for (int i = 0; i < kSlots; ++i) {
         if (!mine[i]) continue;
+        if constexpr (kOne) {
+          *reinterpret_cast<float4*>(sm.pd[buf][0] + row[i] * kBQ +
+                                     4 * col4) = st[i];
+          *reinterpret_cast<float4*>(sm.pd[buf][1] + row[i] * kBQ +
+                                     4 * col4) = dpt[i];
+          continue;
+        }
         const uint32_t p_at =
             hopper::smem_u32(sm.pd[buf][0] + row[i] * kBQ + 4 * col4);
         const uint32_t d_at =
@@ -934,7 +969,12 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
         }
       }
       __syncwarp();
-      if (lane < kChunks) hopper::mbar_arrive_rank(&sm.pd_ready[buf], lane);
+      if constexpr (kOne) {
+        if (lane == 0) hopper::mbar_arrive(&sm.pd_ready[buf]);
+      } else {
+        if (lane < kChunks)
+          hopper::mbar_arrive_rank(&sm.pd_ready[buf], lane);
+      }
       // The tile two ahead goes into the stage of the one before this,
       // once this CTA's math warps are done with it.
       if (loader && nx < n_it) {
@@ -1054,7 +1094,11 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
         // so the other warps only arrive at the named barrier and go on. Its
         // id alternates by tile, and no warp runs two tiles ahead of the
         // signalling one (its phase B waits for the next tile's exchange).
-        if (warp == it % kMathWarps) {
+        // At one CTA each warp arrives (CTA scope) for its own partials.
+        if constexpr (kOne) {
+          __syncwarp();
+          if (lane == 0) hopper::mbar_arrive(&sm.parts_ready[buf]);
+        } else if (warp == it % kMathWarps) {
           hopper::named_bar_sync(1 + buf, 32 * kMathWarps);
           if (lane < kChunks)
             hopper::mbar_arrive_rank(&sm.parts_ready[buf], lane);
@@ -1068,7 +1112,10 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
         const int t = it - 1;
         const int s = t % kStages;
         const int buf = t & 1;
-        hopper::mbar_wait_cluster(&sm.pd_ready[buf], (t >> 1) & 1);
+        if constexpr (kOne)
+          hopper::mbar_wait(&sm.pd_ready[buf], (t >> 1) & 1);
+        else
+          hopper::mbar_wait_cluster(&sm.pd_ready[buf], (t >> 1) & 1);
         const float* Pm = sm.pd[buf][half] + kg * kBQ;
         // 16-byte column dg + 16m of a row: box dg / 8 + 2m, column dg % 8.
         const float* Bt = (half ? sm.q[s][0] : sm.dout[s][0]) +
@@ -1097,7 +1144,12 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
         }
         __syncwarp();
         if (lane == 0) hopper::mbar_arrive(&sm.empty[s]);
-        if (lane < kChunks) hopper::mbar_signal_rank(&sm.pd_free[buf], lane);
+        if constexpr (kOne) {
+          if (lane == 0) hopper::mbar_arrive(&sm.pd_free[buf]);
+        } else {
+          if (lane < kChunks)
+            hopper::mbar_signal_rank(&sm.pd_free[buf], lane);
+        }
       }
     }
 
@@ -1116,7 +1168,7 @@ __device__ __forceinline__ void dkv_cluster(const CUtensorMap& tq,
     }
   }
   // No CTA leaves while a peer may still touch its shared memory.
-  hopper::cluster_sync();
+  if constexpr (!kOne) hopper::cluster_sync();
 }
 
 // f32 at D = 640: clusters of 5 CTAs.
@@ -1170,6 +1222,17 @@ flash_bwd_dkv_f32_d256_cluster_kernel(const __grid_constant__ CUtensorMap tq,
                                       const __grid_constant__ CUtensorMap tdo,
                                       const flash::BwdParams p) {
   dkv_cluster<2>(tq, tk, tv, tdo, p);
+}
+
+// f32 at D = 128: clusters of 1 CTA, which holds all of D. Its exchange owns
+// all 64 KV rows in four full row slots of 16 and sums no peer's partials.
+__global__ void __cluster_dims__(1, 1, 1) __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_f32_d128_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                      const __grid_constant__ CUtensorMap tk,
+                                      const __grid_constant__ CUtensorMap tv,
+                                      const __grid_constant__ CUtensorMap tdo,
+                                      const flash::BwdParams p) {
+  dkv_cluster<1>(tq, tk, tv, tdo, p);
 }
 
 }  // namespace f32c
@@ -1557,14 +1620,14 @@ flash_bwd_dkv_bf16_d384_cluster_kernel(
 }  // namespace bf16c
 
 // ---------------------------------------------------------------------------
-// Generic variant: every dtype and head_dim (a multiple of 128) but D = 256,
-// 384, 512, 640 and 1024 and bf16 D = 128, which the kernels above serve.
+// Generic variant: every dtype and head_dim (a multiple of 128) above 512
+// but 640 and 1024; the kernels above serve those.
 // The same function on the CUDA cores: one block of 128 threads per (b, KV
 // head, 16 KV rows, chunk of D), walking the group's query heads and their
 // 32-row q tiles as the wgmma kernels do, with K, V, Q, dO as f32 tiles in
-// dynamic shared memory (104 KB at DC = 256). D = 128 runs in one chunk
-// (DC = D); above 512, D is cut into chunks of DC = 256 or 128
-// columns (flash::gen_chunk; the chunked instances): each block writes one
+// dynamic shared memory (104 KB at DC = 256). D is cut into chunks of DC =
+// 256 or 128 columns (flash::gen_chunk; the chunked instances): each block
+// writes one
 // chunk of dK and dV, and the contractions over D (S^T = K Q^T and dP^T = V
 // dO^T) are summed over the chunks staged one at a time, in the order that ends
 // with the block's own chunk, so Q's and dO's columns for dK and dV are the
@@ -1587,7 +1650,8 @@ constexpr int gen_smem_bytes() {
 }
 
 // p by value: the body taking the kernel's parameters by reference compiled
-// the one-chunk instance at f32 D128 to code 1.10x slower on the H100.
+// the one-chunk instance at f32 D128 (a cluster kernel's now) to code 1.10x
+// slower on the H100.
 template <typename T, int DC, bool kChunked>
 __device__ __forceinline__ void flash_bwd_dkv_generic_body(
     const flash::BwdParams p) {
@@ -1736,13 +1800,6 @@ __device__ __forceinline__ void flash_bwd_dkv_generic_body(
   }
 }
 
-// One block per (KV tile, b, KV head): D = kD, in one chunk.
-template <typename T, int DC>
-__global__ void __launch_bounds__(128)
-flash_bwd_dkv_generic_kernel(const flash::BwdParams p) {
-  flash_bwd_dkv_generic_body<T, DC, false>(p);
-}
-
 // One block per (KV tile, b, KV head, chunk of D): D above 4 kD.
 template <typename T, int DC>
 __global__ void __launch_bounds__(128, 1)
@@ -1750,14 +1807,11 @@ flash_bwd_dkv_generic_chunked_kernel(const flash::BwdParams p) {
   flash_bwd_dkv_generic_body<T, DC, true>(p);
 }
 
-template <typename T, int DC, bool kChunked>
+template <typename T, int DC>
 int launch_generic(const flash::BwdParams& p, int D, int B, cudaStream_t st) {
   constexpr int smem = gen_smem_bytes<DC>();
-  void (*kernel)(const flash::BwdParams);
-  if constexpr (kChunked)
-    kernel = flash_bwd_dkv_generic_chunked_kernel<T, DC>;
-  else
-    kernel = flash_bwd_dkv_generic_kernel<T, DC>;
+  void (*kernel)(const flash::BwdParams) =
+      flash_bwd_dkv_generic_chunked_kernel<T, DC>;
   const cudaError_t err = flash::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_kvt = (p.Skv + kGBKV - 1) / kGBKV;
@@ -1767,25 +1821,25 @@ int launch_generic(const flash::BwdParams& p, int D, int B, cudaStream_t st) {
 }
 
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
-// and dtype: D itself for f32 at kD (bf16 at kD and 2 kD is the wgmma
-// kernels', f32 at 2 kD and both at 3 kD and 4 kD the cluster kernels'),
-// above 4 kD a chunk of flash::gen_chunk(D) columns (D = 5 kD and 8 kD are
-// the cluster kernels').
+// and dtype: above 4 kD a chunk of flash::gen_chunk(D) columns (D = 5 kD and
+// 8 kD are the cluster kernels'). No generic instance takes D up to 4 kD
+// (bf16 at kD and 2 kD is the wgmma kernels', f32 at kD and 2 kD and both at
+// 3 kD and 4 kD the cluster kernels'): cudaErrorInvalidValue.
 int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
     const bool wide = flash::gen_chunk(D) == 2 * kD;
     if (dtype == 1)
-      return wide ? launch_generic<bf16, 2 * kD, true>(p, D, B, st)
-                  : launch_generic<bf16, kD, true>(p, D, B, st);
-    return wide ? launch_generic<float, 2 * kD, true>(p, D, B, st)
-                : launch_generic<float, kD, true>(p, D, B, st);
+      return wide ? launch_generic<bf16, 2 * kD>(p, D, B, st)
+                  : launch_generic<bf16, kD>(p, D, B, st);
+    return wide ? launch_generic<float, 2 * kD>(p, D, B, st)
+                : launch_generic<float, kD>(p, D, B, st);
   }
-  return launch_generic<float, kD, false>(p, D, B, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// f32 at D = kChunks kD (2, 3, 4, 5 or 8): one cluster of kChunks CTAs per 64
-// KV rows, on `kernel`, the instance of that size. A launch the card refuses
+// f32 at D = kChunks kD (1, 2, 3, 4, 5 or 8): one cluster of kChunks CTAs per
+// 64 KV rows, on `kernel`, the instance of that size. A launch the card refuses
 // (no room for a cluster) returns its error. The shared-memory opt-in is set
 // at every launch, as for the generic variants.
 template <int kChunks, typename Kernel>
@@ -1875,6 +1929,12 @@ extern "C" int ray_flash_bwd_dkv_f32_d256_max_clusters(int* clusters) {
                              f32c::kThreads, f32c::kSmemBytes, clusters);
 }
 
+// The same for the f32 D = 128 kernel (clusters of 1).
+extern "C" int ray_flash_bwd_dkv_f32_d128_max_clusters(int* clusters) {
+  return flash::max_clusters(f32c::flash_bwd_dkv_f32_d128_cluster_kernel, 1,
+                             f32c::kThreads, f32c::kSmemBytes, clusters);
+}
+
 // The same for the bf16 D = 640 kernel (clusters of 5).
 extern "C" int ray_flash_bwd_dkv_bf16_max_clusters(int* clusters) {
   return flash::max_clusters(bf16c::flash_bwd_dkv_bf16_cluster_kernel, 5,
@@ -1904,10 +1964,11 @@ extern "C" int ray_flash_bwd_dkv_bf16_d384_max_clusters(int* clusters) {
 // bytes, as TMA and the 16-byte loads require); lse and delta [B, H, Sq] f32
 // and dk/dv [B, KVH, Skv, D] dense, in the inputs' dtype. D is a multiple of
 // 128; dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 and 256 runs a wgmma
-// kernel, f32 at D = 256 a cluster kernel of 2 CTAs, D = 384 one of 3, D =
-// 512 one of 4, D = 640 one of 5 and D = 1024 one of 8 (f32 or bf16), every
-// other case the generic variant. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a shape or layout the kernels do not take).
+// kernel, f32 at D = 128 a cluster kernel of 1 CTA, at D = 256 one of 2 CTAs,
+// D = 384 one of 3, D = 512 one of 4, D = 640 one of 5 and D = 1024 one of 8
+// (f32 or bf16), every other case (from D = 768 up) the generic variant.
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
+// shape or layout the kernels do not take).
 extern "C" int ray_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, long long q_sb,
@@ -1926,6 +1987,9 @@ extern "C" int ray_flash_bwd_dkv(
         static_cast<const float*>(delta), dk, dv,
         q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
         o_sb, o_sh, o_ss, H,    KVH,  Sq,   Skv,  scale, causal};
+    if (dtype == 0 && D == kD)
+      return launch_cluster<1>(f32c::flash_bwd_dkv_f32_d128_cluster_kernel,
+                               p, B, st);
     if (dtype == 0 && D == 2 * kD)
       return launch_cluster<2>(f32c::flash_bwd_dkv_f32_d256_cluster_kernel,
                                p, B, st);

@@ -72,20 +72,21 @@
 //     products: the N = 32 score products read more shared memory than it
 //     gives the tensor cores, and the consumers meet at the barrier with
 //     the tensor cores idle while both compute P and dS.
-// f32 at 256, 384, 512, 640 and 1024 runs
-// flash_bwd_dq_f32_d256_cluster_kernel, flash_bwd_dq_f32_d384_cluster_kernel,
-// flash_bwd_dq_f32_d512_cluster_kernel, flash_bwd_dq_f32_d640_cluster_kernel
-// and flash_bwd_dq_f32_cluster_kernel (after those), one body,
-// dq_cluster<kChunks>, at 2, 3, 4, 5 and 8 CTAs. The generic variant's
-// chunked instances computed S and dP over all of D in each of their 5 or 4
-// chunk blocks, and its instances (the one-chunk ones at 256, 384 and 512
-// too) read one shared-memory word per FMA or two in their inner loops
+// f32 at 128, 256, 384, 512, 640 and 1024 runs
+// flash_bwd_dq_f32_d128_cluster_kernel, flash_bwd_dq_f32_d256_cluster_kernel,
+// flash_bwd_dq_f32_d384_cluster_kernel, flash_bwd_dq_f32_d512_cluster_kernel,
+// flash_bwd_dq_f32_d640_cluster_kernel and flash_bwd_dq_f32_cluster_kernel
+// (after those), one body, dq_cluster<kChunks>, at 1, 2, 3, 4, 5 and 8 CTAs.
+// The generic variant's chunked instances computed S and dP over all of D in
+// each of their 5 or 4 chunk blocks, and its instances (the one-chunk ones
+// at 128, 256, 384 and 512 too) read one shared-memory word per FMA or two
+// in their inner loops
 // (32 words a clock against the FMA units' 128). These kernels are bound by
 // the FMA units: f32 has no exact tensor-core input (TF32 rounds, and the f32
 // variants are held to 1e-4), 3 products of 64 * 32 * D FMAs per (64 q rows,
 // 32 KV rows) pair. They are the f32 dK/dV cluster (flash_bwd_dkv.cu) with
 // (Q, dO) and (K, V) in each other's places and one product fewer:
-//   * One cluster of D / 128 CTAs (2, 3, 4, 5 or 8; 8 is the largest
+//   * One cluster of D / 128 CTAs (1, 2, 3, 4, 5 or 8; 8 is the largest
 //     portable cluster) per (b, head, 64 q rows), one CTA per 128-column
 //     chunk of D. A CTA loads its chunk of Q and dO once (128B-swizzled f32
 //     boxes of 32 columns, since they are read down 8 rows of one column at
@@ -100,7 +101,8 @@
 //     of the exchange sums 4 partials of S and of dP where at D1024 half
 //     the threads sum 8; 21 or 22 at D384 and 32 at D256, more than the 16
 //     rows its 128 threads cover at once, so a thread takes a row in each of
-//     two row slots, 16 rows apart) over the chunks through distributed
+//     two row slots, 16 rows apart; all 64 at D128, in four row slots, with
+//     no peer's partial to add) over the chunks through distributed
 //     shared memory (ld.shared::cluster), in chunk order from 0, masks KV
 //     columns past Skv (TMA zero-filled their K rows, so S is 0 there and
 //     exp(0 - LSE) is not) and after the row (causal), forms P and dS = P
@@ -115,7 +117,10 @@
 //     (setmaxnreg 224) run phase A of tile t, then phase B of tile t - 1,
 //     beside the exchange of tile t in the third (56 registers), through
 //     mbarriers the peers arrive at (parts_ready, parts_free, ds_ready,
-//     ds_free), with double buffers; 8 x 8 register tiles in phase A.
+//     ds_free), with double buffers; 8 x 8 register tiles in phase A. At
+//     D128 (one CTA, four row slots) the split is 208 / 88 and the
+//     hand-overs are CTA-scope arrivals, as in the dK/dV cluster (7.8%
+//     faster on the H100 than the cluster-scope ones at one CTA).
 //   * About 209 KB of shared memory: one CTA an SM.
 // bf16 at 640 runs flash_bwd_dq_bf16_cluster_kernel (after those): the f32
 // dQ's dataflow with each CTA's three products on the tensor cores. The
@@ -155,12 +160,10 @@
 // 42-63) in three slots (the third 5 or 6 rows full) and sums 3 partials a
 // row. The body has no setmaxnreg split, so the third slot's sums come out
 // of the 168 registers every thread of the launch has.
-// A generic variant (at the end of this file) serves f32 at any other
-// head_dim that is a multiple of 128 (128 and from 768 up but 1024) and
-// bf16 from 768 up but 1024 (tiled over D from
-// 768 up: chunks of 256 columns for D768, 1280, ..., of 128 for D896, 1152,
-// ...), with P and dS rounded to the input dtype as the Pallas kernel rounds
-// them.
+// A generic variant (at the end of this file) serves f32 and bf16 at any
+// other head_dim that is a multiple of 128 (from 768 up but 1024), tiled over
+// D: chunks of 256 columns for D768, 1280, ..., of 128 for D896, 1152, ...,
+// with P and dS rounded to the input dtype as the Pallas kernel rounds them.
 
 #include <math.h>
 
@@ -627,8 +630,8 @@ flash_bwd_dq_d256_kernel(const __grid_constant__ CUtensorMap tq,
 }  // namespace d256
 
 // ---------------------------------------------------------------------------
-// f32 at D = 256, 384, 512, 640 and 1024: one cluster of 2, 3, 4, 5 or 8
-// CTAs per (b, head, 64 q rows), one CTA per 128-column chunk of D, the
+// f32 at D = 128, 256, 384, 512, 640 and 1024: one cluster of 1, 2, 3, 4, 5
+// or 8 CTAs per (b, head, 64 q rows), one CTA per 128-column chunk of D, the
 // scores summed over the cluster; the f32 dK/dV cluster (flash_bwd_dkv.cu)
 // with Q, dO and K, V in each other's places (see the top of this file).
 // ---------------------------------------------------------------------------
@@ -691,9 +694,20 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
                                            const CUtensorMap& tdo,
                                            const flash::BwdParams& p) {
   constexpr int kDW = kChunks * kD;  // head_dim
-  // q rows a CTA's exchange owns at most (32 of 2 CTAs, 22 of 3, 16 of 4, 13
-  // of 5, 8 of 8), 16 a slot
+  // q rows a CTA's exchange owns at most (64 of 1 CTA, 32 of 2, 22 of 3, 16
+  // of 4, 13 of 5, 8 of 8), 16 a slot
   constexpr int kSlots = ((kBQ + kChunks - 1) / kChunks + 15) / 16;
+  // setmaxnreg of the math and exchange warpgroups: 224 and 56 at up to two
+  // row slots, 208 and 88 at four (D = kD: 216 / 72 ran as fast and 200 /
+  // 104 3% slower on the H100, none spilled); each split is the 168 x 384
+  // registers the launch gives a CTA.
+  constexpr int kMathR = kSlots == 4 ? 208 : kMathRegs;
+  constexpr int kXR = kSlots == 4 ? 88 : kXRegs;
+  // One CTA a cluster (D = kD): no peer reads or arrives, so the hand-overs
+  // are CTA-scope arrivals and waits (no MEMBAR.ALL.GPU), the exchange
+  // reads and writes its own shared memory with plain loads and stores, and
+  // every math warp arrives at parts_ready itself, with no named barrier.
+  constexpr bool kOne = kChunks == 1;
   extern __shared__ unsigned char cluster_smem[];
   const uint32_t raw = hopper::smem_u32(cluster_smem);
   Smem& sm = *reinterpret_cast<Smem*>(cluster_smem +
@@ -731,7 +745,7 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
       hopper::mbar_init(&sm.empty[s], kMathWarps);
     }
     for (int i = 0; i < 2; ++i) {
-      hopper::mbar_init(&sm.parts_ready[i], kChunks);
+      hopper::mbar_init(&sm.parts_ready[i], kOne ? kMathWarps : kChunks);
       hopper::mbar_init(&sm.parts_free[i], kChunks * kXWarps);
       hopper::mbar_init(&sm.ds_ready[i], kChunks * kXWarps);
       hopper::mbar_init(&sm.ds_free[i], kChunks * kMathWarps);
@@ -740,13 +754,16 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
   }
   // The barriers are set up, and every CTA of the cluster runs, before a
   // copy lands or a peer touches this CTA's shared memory.
-  hopper::cluster_sync();
+  if constexpr (kOne)
+    __syncthreads();
+  else
+    hopper::cluster_sync();
 
   if (warp >= kMathWarps) {
     // ---------------- exchange warpgroup --------------------------------
     // Its first warp's lane 0 loads (TMA, 4 boxes each; rows past Sq and
     // Skv are zero-filled): Q and dO once, K and V per tile of KV head kvh.
-    hopper::reg_dealloc<kXRegs>();
+    hopper::reg_dealloc<kXR>();
     const bool loader = warp == kMathWarps && lane == 0;
     auto load_tile = [&](int kt) {
       const int s = kt % kStages;
@@ -771,7 +788,8 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
 
     // This CTA's q rows, [c 64 / kChunks, (c + 1) 64 / kChunks) (8 of 64 at 8
     // chunks, 12 or 13 at 5, 16 at 4: every thread; 21 or 22 at 3; 32 at 2:
-    // every thread in both slots), for the whole loop: thread xt takes row
+    // every thread in both slots; all 64 at 1, in four full slots), for the
+    // whole loop: thread xt takes row
     // c 64 / kChunks + xt / 8 + 16 i of each row slot i < kSlots and sums
     // one 16-byte column (4 KV columns) of it over the chunks, in chunk
     // order 0 to kChunks - 1 in every CTA, so that all hold the same dS
@@ -799,12 +817,20 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
       const int buf = kt & 1;
       const int k0 = kt * kBN;
       const int nx = kt + kStages - 1;  // the tile the loader loads next
-      hopper::mbar_wait_cluster(&sm.parts_ready[buf], (kt >> 1) & 1);
+      if constexpr (kOne)
+        hopper::mbar_wait(&sm.parts_ready[buf], (kt >> 1) & 1);
+      else
+        hopper::mbar_wait_cluster(&sm.parts_ready[buf], (kt >> 1) & 1);
       float4 sv[kSlots], dpv[kSlots];
 #pragma unroll
       for (int i = 0; i < kSlots; ++i) {
         sv[i] = dpv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (!mine[i]) continue;
+        if constexpr (kOne) {
+          sv[i] = flash::ld4(sm.part[buf][0] + swz32(row[i], col4));
+          dpv[i] = flash::ld4(sm.part[buf][1] + swz32(row[i], col4));
+          continue;
+        }
         const uint32_t s_at =
             hopper::smem_u32(sm.part[buf][0] + swz32(row[i], col4));
         const uint32_t p_at =
@@ -818,7 +844,12 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
         }
       }
       __syncwarp();
-      if (lane < kChunks) hopper::mbar_signal_rank(&sm.parts_free[buf], lane);
+      if constexpr (kOne) {
+        if (lane == 0) hopper::mbar_arrive(&sm.parts_free[buf]);
+      } else {
+        if (lane < kChunks)
+          hopper::mbar_signal_rank(&sm.parts_free[buf], lane);
+      }
 #pragma unroll
       for (int i = 0; i < kSlots; ++i) {
         if (!mine[i]) continue;
@@ -840,6 +871,11 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
 #pragma unroll
       for (int i = 0; i < kSlots; ++i) {
         if (!mine[i]) continue;
+        if constexpr (kOne) {
+          *reinterpret_cast<float4*>(sm.ds[buf] + ds_at(row[i], col4)) =
+              dpv[i];
+          continue;
+        }
         const uint32_t d_at =
             hopper::smem_u32(sm.ds[buf] + ds_at(row[i], col4));
 #pragma unroll
@@ -847,7 +883,12 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
           hopper::st_cluster_f4(hopper::map_rank(d_at, r), dpv[i]);
       }
       __syncwarp();
-      if (lane < kChunks) hopper::mbar_arrive_rank(&sm.ds_ready[buf], lane);
+      if constexpr (kOne) {
+        if (lane == 0) hopper::mbar_arrive(&sm.ds_ready[buf]);
+      } else {
+        if (lane < kChunks)
+          hopper::mbar_arrive_rank(&sm.ds_ready[buf], lane);
+      }
       // The tile two ahead goes into the stage of the one before this, once
       // this CTA's math warps are done with it. The loader is xt == 0,
       // tested afresh: at 5 chunks ptxas spilled the flag (8 bytes).
@@ -865,7 +906,7 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
     // phase B by q rows. Every inner loop runs on register tiles in which
     // each word read from shared memory feeds 8 FMAs (shared memory gives
     // 32 words a clock, the FMA units take 128).
-    hopper::reg_alloc<kMathRegs>();
+    hopper::reg_alloc<kMathR>();
     const int half = warp / 4;
     const int w4 = warp % 4;
     // Phase A, the dK/dV cluster's with Q and dO as the stationary tiles (a
@@ -969,7 +1010,11 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
         // so the other warps only arrive at the named barrier and go on. Its
         // id alternates by tile, and no warp runs two tiles ahead of the
         // signalling one (its phase B waits for the next tile's exchange).
-        if (warp == kt % kMathWarps) {
+        // At one CTA each warp arrives (CTA scope) for its own partials.
+        if constexpr (kOne) {
+          __syncwarp();
+          if (lane == 0) hopper::mbar_arrive(&sm.parts_ready[buf]);
+        } else if (warp == kt % kMathWarps) {
           hopper::named_bar_sync(1 + buf, 32 * kMathWarps);
           if (lane < kChunks)
             hopper::mbar_arrive_rank(&sm.parts_ready[buf], lane);
@@ -983,7 +1028,10 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
         const int t = kt - 1;
         const int s = t % kStages;
         const int buf = t & 1;
-        hopper::mbar_wait_cluster(&sm.ds_ready[buf], (t >> 1) & 1);
+        if constexpr (kOne)
+          hopper::mbar_wait(&sm.ds_ready[buf], (t >> 1) & 1);
+        else
+          hopper::mbar_wait_cluster(&sm.ds_ready[buf], (t >> 1) & 1);
         const float* Dm = sm.ds[buf] + qg * kBN;
         // 16-byte column dg + 16m of a row: box dg / 8 + 2m, column dg % 8.
         const float* Kt = sm.k[s][0] + (dg >> 3) * kBN * kBox + 4 * (dg & 7);
@@ -1014,7 +1062,12 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
         }
         __syncwarp();
         if (lane == 0) hopper::mbar_arrive(&sm.empty[s]);
-        if (lane < kChunks) hopper::mbar_signal_rank(&sm.ds_free[buf], lane);
+        if constexpr (kOne) {
+          if (lane == 0) hopper::mbar_arrive(&sm.ds_free[buf]);
+        } else {
+          if (lane < kChunks)
+            hopper::mbar_signal_rank(&sm.ds_free[buf], lane);
+        }
       }
     }
 
@@ -1031,7 +1084,7 @@ __device__ __forceinline__ void dq_cluster(const CUtensorMap& tq,
     }
   }
   // No CTA leaves while a peer may still touch its shared memory.
-  hopper::cluster_sync();
+  if constexpr (!kOne) hopper::cluster_sync();
 }
 
 // f32 at D = 1024: clusters of 8 CTAs, the largest portable cluster.
@@ -1087,6 +1140,17 @@ flash_bwd_dq_f32_d256_cluster_kernel(const __grid_constant__ CUtensorMap tq,
                                      const __grid_constant__ CUtensorMap tdo,
                                      const flash::BwdParams p) {
   dq_cluster<2>(tq, tk, tv, tdo, p);
+}
+
+// f32 at D = 128: clusters of 1 CTA, which holds all of D. Its exchange owns
+// all 64 q rows in four full row slots of 16 and sums no peer's partials.
+__global__ void __cluster_dims__(1, 1, 1) __launch_bounds__(kThreads, 1)
+flash_bwd_dq_f32_d128_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                     const __grid_constant__ CUtensorMap tk,
+                                     const __grid_constant__ CUtensorMap tv,
+                                     const __grid_constant__ CUtensorMap tdo,
+                                     const flash::BwdParams p) {
+  dq_cluster<1>(tq, tk, tv, tdo, p);
 }
 
 }  // namespace f32c
@@ -1455,25 +1519,25 @@ flash_bwd_dq_bf16_d384_cluster_kernel(const __grid_constant__ CUtensorMap tq,
 }  // namespace bf16c
 
 // ---------------------------------------------------------------------------
-// Generic variant: every dtype and head_dim (a multiple of 128) but bf16
-// D = 128, D = 256, 384, 512, 640 and 1024, which the kernels above serve.
+// Generic variant: every dtype and head_dim (a multiple of 128) above 512
+// but 640 and 1024; the kernels above serve those.
 // The same function on the CUDA cores: one block of 128 threads per (b, h, 16
 // q rows, chunk of D), walking the visible 32-row KV tiles, with Q, dO, K, V
 // as f32 tiles in dynamic shared memory (102 KB at DC = 256).
-// D = 128 runs in one chunk (DC = D); above 512, D is cut into chunks of
-// DC = 256 or 128 columns (flash::gen_chunk; the chunked instances): each block
-// writes one chunk of dQ, and the contractions over D (S = Q K^T and dP = dO
-// V^T) are summed over the chunks staged one at a time, in the order that
-// ends with the block's own chunk, so K's columns for dQ are the ones left in
-// shared memory. The f32 instances of 256- and 128-column chunks serve only
-// D768, 1280, ... and D896, 1152, ... (f32 D640 and 1024 are the cluster
-// kernels'), and so do the bf16 ones (bf16 D640 and 1024 are the cluster
-// kernels'). With more than one chunk Q and dO are reloaded per chunk and
-// every block recomputes the scores (D / DC times their work; right and slow
-// first). Each thread computes 4 entries of dS (q row tid / 8, KV columns tid
-// % 8 + 8i; rounded to q's dtype) and holds an eighth of its row's dQ chunk
-// as interleaved float4s in f32 registers for the whole KV loop. Bound
-// by shared-memory reads, not by the FMA rate; simple first.
+// D is cut into chunks of DC = 256 or 128 columns (flash::gen_chunk; the
+// chunked instances): each block writes one chunk of dQ, and the
+// contractions over D (S = Q K^T and dP = dO V^T) are summed over the chunks
+// staged one at a time, in the order that ends with the block's own chunk, so
+// K's columns for dQ are the ones left in shared memory. The f32 instances
+// of 256- and 128-column chunks serve only D768, 1280, ... and D896, 1152,
+// ... (f32 D640 and 1024 are the cluster kernels'), and so do the bf16 ones
+// (bf16 D640 and 1024 are the cluster kernels'). With more than one chunk Q
+// and dO are reloaded per chunk and every block recomputes the scores (D /
+// DC times their work; right and slow first). Each thread computes 4
+// entries of dS (q row tid / 8, KV columns tid % 8 + 8i; rounded to q's
+// dtype) and holds an eighth of its row's dQ chunk as interleaved float4s in
+// f32 registers for the whole KV loop. Bound by shared-memory reads, not by
+// the FMA rate; simple first.
 // ---------------------------------------------------------------------------
 
 constexpr int kGBQ = 16;  // q rows per block, 8 threads per row
@@ -1601,13 +1665,6 @@ __device__ __forceinline__ void flash_bwd_dq_generic_body(
   }
 }
 
-// One block per (q tile, b * h): f32 D = kD, in one chunk.
-template <typename T, int DC>
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_generic_kernel(const flash::BwdParams p) {
-  flash_bwd_dq_generic_body<T, DC, false>(p);
-}
-
 // One block per (q tile, b * h, chunk of D): D above 4 kD.
 template <typename T, int DC>
 __global__ void __launch_bounds__(128, 1)
@@ -1615,14 +1672,11 @@ flash_bwd_dq_generic_chunked_kernel(const flash::BwdParams p) {
   flash_bwd_dq_generic_body<T, DC, true>(p);
 }
 
-template <typename T, int DC, bool kChunked>
+template <typename T, int DC>
 int launch_generic(const flash::BwdParams& p, int D, int B, cudaStream_t st) {
   constexpr int smem = gen_smem_bytes<DC>();
-  void (*kernel)(const flash::BwdParams);
-  if constexpr (kChunked)
-    kernel = flash_bwd_dq_generic_chunked_kernel<T, DC>;
-  else
-    kernel = flash_bwd_dq_generic_kernel<T, DC>;
+  void (*kernel)(const flash::BwdParams) =
+      flash_bwd_dq_generic_chunked_kernel<T, DC>;
   const cudaError_t err = flash::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((p.Sq + kGBQ - 1) / kGBQ, B * p.H, D / DC);
@@ -1631,24 +1685,24 @@ int launch_generic(const flash::BwdParams& p, int D, int B, cudaStream_t st) {
 }
 
 // Picks the generic instance by D (a multiple of kD, checked by the caller)
-// and dtype: D itself for f32 at kD (the other D up to 4 kD are the wgmma
-// and cluster kernels'), above 4 kD a chunk of flash::gen_chunk(D) columns
-// (D = 5 kD and 8 kD are the cluster kernels').
+// and dtype: above 4 kD a chunk of flash::gen_chunk(D) columns (D = 5 kD and
+// 8 kD are the cluster kernels'). No generic instance takes D up to 4 kD (the
+// wgmma and cluster kernels'): cudaErrorInvalidValue.
 int launch_generic_d(const flash::BwdParams& p, int D, int dtype, int B,
                      cudaStream_t st) {
   if (D > 4 * kD) {
     const bool wide = flash::gen_chunk(D) == 2 * kD;
     if (dtype == 1)
-      return wide ? launch_generic<bf16, 2 * kD, true>(p, D, B, st)
-                  : launch_generic<bf16, kD, true>(p, D, B, st);
-    return wide ? launch_generic<float, 2 * kD, true>(p, D, B, st)
-                : launch_generic<float, kD, true>(p, D, B, st);
+      return wide ? launch_generic<bf16, 2 * kD>(p, D, B, st)
+                  : launch_generic<bf16, kD>(p, D, B, st);
+    return wide ? launch_generic<float, 2 * kD>(p, D, B, st)
+                : launch_generic<float, kD>(p, D, B, st);
   }
-  return launch_generic<float, kD, false>(p, D, B, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// f32 at D = kChunks kD (2, 3, 4, 5 or 8): one cluster of kChunks CTAs per
-// 64 q rows, on `kernel`, the instance of that size. A launch the card
+// f32 at D = kChunks kD (1, 2, 3, 4, 5 or 8): one cluster of kChunks CTAs
+// per 64 q rows, on `kernel`, the instance of that size. A launch the card
 // refuses (no room for a cluster) returns its error. The shared-memory opt-in
 // is set at every launch, as for the generic variants.
 template <int kChunks, typename Kernel>
@@ -1735,6 +1789,12 @@ extern "C" int ray_flash_bwd_dq_f32_d256_max_clusters(int* clusters) {
                              f32c::kThreads, f32c::kSmemBytes, clusters);
 }
 
+// The same for the f32 D = 128 kernel (clusters of 1).
+extern "C" int ray_flash_bwd_dq_f32_d128_max_clusters(int* clusters) {
+  return flash::max_clusters(f32c::flash_bwd_dq_f32_d128_cluster_kernel, 1,
+                             f32c::kThreads, f32c::kSmemBytes, clusters);
+}
+
 // The same for the bf16 D = 640 kernel (clusters of 5).
 extern "C" int ray_flash_bwd_dq_bf16_max_clusters(int* clusters) {
   return flash::max_clusters(bf16c::flash_bwd_dq_bf16_cluster_kernel, 5,
@@ -1764,9 +1824,9 @@ extern "C" int ray_flash_bwd_dq_bf16_d384_max_clusters(int* clusters) {
 // bytes, as TMA and the 16-byte loads require); lse and delta [B, H, Sq] f32
 // and dq [B, H, Sq, D] dense, in the inputs' dtype. D is a multiple of 128;
 // dtype: 0 = float32, 1 = bfloat16. bf16 at D = 128 and 256 runs a wgmma
-// kernel, f32 at D = 256 a cluster kernel of 2 CTAs, D = 384 one of 3, D =
-// 512 one of 4, D = 640 one of 5 and D = 1024 one of 8 (f32 or bf16), every
-// other case the generic variant.
+// kernel, f32 at D = 128 a cluster kernel of 1 CTA, at D = 256 one of 2 CTAs,
+// D = 384 one of 3, D = 512 one of 4, D = 640 one of 5 and D = 1024 one of 8
+// (f32 or bf16), every other case (from D = 768 up) the generic variant.
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
 // shape or layout the kernels do not take).
 extern "C" int ray_flash_bwd_dq(
@@ -1787,6 +1847,9 @@ extern "C" int ray_flash_bwd_dq(
         static_cast<const float*>(delta), dq, nullptr,
         q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
         o_sb, o_sh, o_ss, H,    KVH,  Sq,   Skv,  scale, causal};
+    if (dtype == 0 && D == kD)
+      return launch_cluster<1>(f32c::flash_bwd_dq_f32_d128_cluster_kernel, p,
+                               B, st);
     if (dtype == 0 && D == 2 * kD)
       return launch_cluster<2>(f32c::flash_bwd_dq_f32_d256_cluster_kernel, p,
                                B, st);

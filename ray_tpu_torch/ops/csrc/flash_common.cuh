@@ -151,7 +151,7 @@ __device__ __forceinline__ void mma_t(float (&acc)[64], uint32_t a_base,
 }
 
 // ---------------------------------------------------------------------------
-// The generic variants (f32 at any multiple of 128, bf16 from 768 up):
+// The generic variants (the f32 forward at 128, f32 and bf16 from 768 up):
 // scalar FMAs on the CUDA cores over f32 tiles in dynamic shared memory.
 // Inputs are read 4 elements at a time (16 bytes of f32, 8 of
 // bf16: the wrappers' layout check keeps rows 16-byte aligned) and widened
@@ -159,7 +159,7 @@ __device__ __forceinline__ void mma_t(float (&acc)[64], uint32_t a_base,
 // round them.
 // ---------------------------------------------------------------------------
 
-// The chunk of D a generic variant tiles by above 4 kD (D itself up to 4 kD
+// The chunk of D a generic variant tiles by above 4 kD (the f32 forward at kD
 // runs in one chunk): 2 kD where it divides D, else kD. Chunks stay narrow
 // enough that the chunked instances, which hold the chunk's accumulators
 // and the chunk loop's state, fit in registers with no spill.

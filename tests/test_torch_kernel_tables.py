@@ -25,8 +25,10 @@ SOURCES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # A cluster kernel: its cluster size, then its name at the start of a line.
 KERNEL = re.compile(r"__cluster_dims__\((\d+), 1, 1\)[^\n]*\n(\w+)\(")
 # A generic instance in launch_generic_d: its element type, the columns of
-# its chunk and whether it is the chunked kernel.
-GENERIC = re.compile(r"launch_generic<(\w+), ([\w *]+), (true|false)>\(")
+# its chunk and whether it is the chunked kernel (the backward sources,
+# which have no one-chunk instance, name no flag).
+GENERIC = re.compile(
+    r"launch_generic<(\w+), ([\w *]+)(?:, (true|false))?>\(")
 # A max-clusters entry: its name, the kernel it asks about and the size.
 ENTRY = re.compile(r'extern "C" int (ray_\w+_max_clusters)\(int\* clusters\)'
                    r"\s*\{\s*return flash::max_clusters\(\s*(?:\w+::)*(\w+),"
@@ -101,8 +103,8 @@ def test_cluster_instances_counts_the_cluster_kernels():
 
 
 def _generic_instances(name: str) -> set:
-    """The distinct ``launch_generic<T, DC, chunked>`` instantiations in
-    ``launch_generic_d`` of one source."""
+    """The distinct ``launch_generic<T, DC[, chunked]>`` instantiations
+    in ``launch_generic_d`` of one source."""
     text = (CSRC / f"{name}.cu").read_text()
     start = text.index("int launch_generic_d(")
     return set(GENERIC.findall(text[start:text.index("\n}\n", start)]))
@@ -145,4 +147,15 @@ def test_kernel_kind_at_d256(kernel, variant, kind):
     forward and dQ last) and bf16 the wgmma kernels of all three: every
     instance at D256 is a wgmma or cluster kernel, and these are the kinds
     under which the parity runs count their launches."""
+    assert chip_smoke.kernel_kind(kernel, variant) == kind
+
+
+@pytest.mark.parametrize("kernel, variant, kind", [
+    ("flash_fwd", "f32_d128", "generic"),
+    ("flash_bwd_dkv", "f32_d128", "cluster"),
+    ("flash_bwd_dq", "f32_d128", "cluster")])
+def test_kernel_kind_at_d128(kernel, variant, kind):
+    """At f32 D128 the dK/dV and dQ run cluster kernels of 1 CTA and the
+    forward its generic instance: the kinds under which the f32 D128
+    parity run counts its launches."""
     assert chip_smoke.kernel_kind(kernel, variant) == kind
